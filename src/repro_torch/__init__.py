@@ -1,0 +1,13 @@
+"""PyTorch/CUDA port of the (alpha, k)-minimal sorting system.
+
+The JAX package ``repro`` is the reference; this package mirrors its
+layout module for module and imports nothing of it.  Its entry points
+run on the CUDA device unless the caller passes ``device="cpu"``; there
+every kernel runs as its plain PyTorch version.
+
+    from repro_torch import cluster
+    (keys, _), report = cluster.sort(x, algorithm="smms")
+"""
+from . import cluster, core, data, kernels
+
+__all__ = ["cluster", "core", "data", "kernels"]

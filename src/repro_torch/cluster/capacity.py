@@ -1,0 +1,81 @@
+"""Static receive capacities from theorem bounds + retry-on-overflow.
+
+A copy of ``src/repro/cluster/capacity.py`` (the port imports nothing
+of the reference package).  The reference's retry loop also emits an
+observability event per retry; the port has no observability layer yet,
+so that call is left out.
+
+The exchange's receive tile is sized from the algorithm's workload
+theorem (Theorem 1 for SMMS); an adversarial initial placement can
+still overflow one (source, destination) pair, which the exchange
+detects as dropped objects.  The recovery re-runs the deterministic
+body with a geometrically larger factor.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Iterator, Tuple
+
+__all__ = ["CapacityPolicy", "CapacityOverflowError", "run_with_capacity"]
+
+
+class CapacityOverflowError(RuntimeError):
+    """Raised when the retry schedule is exhausted and objects still drop."""
+
+
+@dataclasses.dataclass(frozen=True)
+class CapacityPolicy:
+    """Receive-capacity schedule: theorem-derived base, geometric growth.
+
+    base_factor -- capacity as a multiple of m = n/t (the perfectly
+    balanced share).
+    """
+
+    base_factor: float
+    slack: float = 1.05
+    growth: float = 2.0
+    max_retries: int = 3
+
+    def factors(self) -> Iterator[float]:
+        f = self.base_factor * self.slack
+        for _ in range(self.max_retries + 1):
+            yield f
+            f *= self.growth
+
+    @property
+    def first_factor(self) -> float:
+        return self.base_factor * self.slack
+
+    @classmethod
+    def fixed(cls, factor: float, **kw) -> "CapacityPolicy":
+        """A caller-chosen factor: no slack and no silent growth."""
+        kw.setdefault("slack", 1.0)
+        kw.setdefault("max_retries", 0)
+        return cls(base_factor=float(factor), **kw)
+
+    @classmethod
+    def smms(cls, n: int, t: int, r: int, **kw) -> "CapacityPolicy":
+        """Theorem 1: round-3 receive total <= (1 + 2/r + t^2/n) m."""
+        return cls(base_factor=1.0 + 2.0 / r + t**2 / n, **kw)
+
+
+def run_with_capacity(attempt: Callable[[float], Tuple[object, int]],
+                      policy: CapacityPolicy) -> Tuple[object, float, int]:
+    """Run ``attempt(cap_factor) -> (result, dropped)`` until nothing drops.
+
+    Returns ``(result, cap_factor_used, attempts)``.  Raises
+    :class:`CapacityOverflowError` when the schedule is exhausted with
+    drops remaining (the last result is attached as ``.last_result``).
+    """
+    attempts = 0
+    result, dropped, factor = None, 0, policy.first_factor
+    for factor in policy.factors():
+        attempts += 1
+        result, dropped = attempt(factor)
+        if int(dropped) == 0:
+            return result, factor, attempts
+    err = CapacityOverflowError(
+        f"{int(dropped)} objects still dropped after {attempts} attempts "
+        f"(last cap_factor={factor:.3f})")
+    err.last_result = result
+    raise err

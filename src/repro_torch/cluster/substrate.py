@@ -1,0 +1,46 @@
+"""Execution substrate of the port: t machines as a batch axis.
+
+Counterpart of ``src/repro/cluster/substrate.py``.  The reference runs
+a per-device body under ``vmap`` (``VmapSubstrate``, :201) or
+``shard_map``; the port's bodies are written batched over the machines
+already, so :class:`BatchedSubstrate` hands the body the machine-major
+tensors and a fresh :class:`CollectiveTape` and returns both.  There is
+no compiled program to cache, so :func:`default_pool` -- what the front
+door resolves ``substrate=None`` to -- makes a substrate per call.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+from .collectives import CollectiveTape
+
+__all__ = ["BatchedSubstrate", "default_pool"]
+
+
+class BatchedSubstrate:
+    """t machines on one device, each tensor's leading axis the machine."""
+
+    def __init__(self, t: int):
+        if t < 1:
+            raise ValueError(f"substrate needs t >= 1 machines, got {t}")
+        self.t = int(t)
+
+    def run(self, shard_fn: Callable, *args):
+        """Run ``shard_fn(*args, tape=tape)``; return ``(outputs, tape)``.
+
+        Every argument carries the machine axis first (``(t, m)``).
+        """
+        for a in args:
+            if a.shape[0] != self.t:
+                raise ValueError(f"operand with leading dim {a.shape[0]} on "
+                                 f"a {self.t}-machine substrate")
+        tape = CollectiveTape()
+        return shard_fn(*args, tape=tape), tape
+
+    def __repr__(self) -> str:
+        return f"BatchedSubstrate(t={self.t})"
+
+
+def default_pool() -> Callable[[int], BatchedSubstrate]:
+    """The provider behind ``substrate=None``: t -> a BatchedSubstrate."""
+    return BatchedSubstrate

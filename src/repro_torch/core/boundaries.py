@@ -1,0 +1,190 @@
+"""Algorithm 1 -- global bucket boundaries for SMMS (paper §3.1.1).
+
+Counterpart of ``src/repro/core/boundaries.py``: per machine i, s+1
+equi-depth samples lam[i, 0..s] of its sorted m objects; out come t+1
+global boundaries b[0..t] such that every bucket [b_k, b_{k+1}) has an
+estimated m objects.
+
+* :func:`equidepth_samples` -- the samples, picked as the reference
+  picks them (index arithmetic in float32, as JAX runs with x64 off).
+* :func:`boundaries` -- the reference's vectorised Algorithm 1
+  (``boundaries_jax``): invert the summed piecewise-linear CDF.  Written
+  with ``jnp.interp``'s own formula and ``jnp.linspace``'s as XLA
+  evaluates them, in float32, summing the machines' CDFs in machine
+  order: bitwise equal to the reference's boundaries for t <= 12 (see
+  :func:`boundaries` for larger t).
+* :func:`boundaries_oracle` -- the paper's priority-queue sweep, a
+  numpy copy of the reference's oracle, for the tests.
+
+Round 2 is replicated on every machine in the reference; every machine
+computes the same boundaries from the same gathered samples, so the
+port computes them once and shares the (t+1,) result.
+"""
+from __future__ import annotations
+
+import heapq
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from ..kernels.bitonic import ftz
+
+__all__ = ["equidepth_samples", "boundaries", "boundaries_oracle"]
+
+
+def equidepth_samples(sorted_local: torch.Tensor, s: int) -> torch.Tensor:
+    """The s+1 equi-depth samples of each machine's sorted m objects.
+
+    sorted_local: (..., m).  lam_0 = o_1 and lam_j = o_{ceil(j*m/s)}
+    (1-indexed), per paper §3.1; ``j*m/s`` is computed in float32 as
+    the reference computes it.
+    """
+    m = sorted_local.shape[-1]
+    j = torch.arange(1, s + 1, dtype=torch.int32, device=sorted_local.device)
+    q = (j * m).to(torch.float32) / torch.tensor(float(s), dtype=torch.float32)
+    idx = torch.ceil(q).to(torch.int64) - 1
+    return torch.cat([sorted_local[..., :1],
+                      sorted_local.index_select(-1, idx)], dim=-1)
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 ``a * b + c``.
+
+    XLA contracts the reference's ``fp + q * df`` into a fused
+    multiply-add on the CPU; torch rounds twice.  The product of two
+    float32 values is exact in float64; the float64 sum is rounded to
+    odd (a TwoSum error term decides), and rounding that to float32
+    gives the fused result exactly (53 >= 2 * 24 + 2 bits).
+    """
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    bp = s - cd
+    err = (p - bp) + (cd - (s - bp))
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.full_like(s, float("inf")),
+                         torch.full_like(s, float("-inf")))
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.float()
+
+
+def _interp(x, xp, fp, left=None, right=None):
+    """``jnp.interp(x, xp, fp, left, right)``, operation for operation.
+
+    xp: (..., K) rows of sorted knots with fp of the same shape (or
+    (K,) shared); x: (..., q).  float32 throughout, with the update
+    fused as XLA fuses it (:func:`_fma`).
+    """
+    k = xp.shape[-1]
+    fp = fp.expand(xp.shape)
+    idx = torch.searchsorted(ftz(xp).contiguous(), ftz(x).contiguous(),
+                             right=True)
+    i = torch.clamp(idx, 1, k - 1)
+    fp_i, fp_im1 = fp.gather(-1, i), fp.gather(-1, i - 1)
+    xp_i, xp_im1 = xp.gather(-1, i), xp.gather(-1, i - 1)
+    df = fp_i - fp_im1
+    dx = xp_i - xp_im1
+    delta = x - xp_im1
+    eps = float(np.spacing(np.finfo(np.float32).eps))
+    dx0 = torch.abs(dx) <= eps
+    q = delta / torch.where(dx0, torch.ones_like(dx), dx)
+    f = torch.where(dx0, fp_im1, _fma(q, df, fp_im1))
+    left_v = fp[..., :1] if left is None else torch.full_like(f, left)
+    right_v = fp[..., -1:] if right is None else torch.full_like(f, right)
+    f = torch.where(x < xp[..., :1], left_v, f)
+    f = torch.where(x > xp[..., -1:], right_v, f)
+    return f
+
+
+def _linspace(stop: float, num: int, device) -> torch.Tensor:
+    """``jnp.linspace(0.0, stop, num, dtype=float32)`` as XLA computes it.
+
+    JAX writes ``start * (1 - step) + stop * step`` with ``step = iota /
+    (num - 1)``; with start 0 XLA evaluates ``(stop * (1 / (num - 1))) *
+    iota``, each product rounded to float32 (checked against the
+    reference for many (stop, num)), then appends the stop itself.
+    """
+    div = num - 1
+    recip = torch.tensor(1.0, dtype=torch.float32) / float(div)
+    stop_t = torch.tensor(stop, dtype=torch.float32)
+    out = (stop_t * recip).to(device) * torch.arange(
+        div, dtype=torch.float32, device=device)
+    return torch.cat([out, stop_t.to(device)[None]])
+
+
+def boundaries(lam: torch.Tensor, m: int, s: int) -> torch.Tensor:
+    """Vectorised Algorithm 1.  lam: (t, s+1) -> (t+1,) boundaries.
+
+    F_i interpolates (lam[i, :], [0, m/s, ..., m]), 0 left of lam[i, 0]
+    and m right of lam[i, s]; F = sum_i F_i is piecewise linear with
+    knots at every sample, and b_k = F^{-1}(k m) is an interp in
+    (F(knots), knots) space.
+    """
+    lam = lam.to(torch.float32)
+    t = lam.shape[0]
+    cgrid = _linspace(float(m), s + 1, lam.device)            # (s+1,)
+    flat = lam.reshape(-1)
+    knots = flat[torch.sort(ftz(flat), stable=True).indices]  # (t*(s+1),)
+    per_machine = _interp(knots.expand(t, -1), lam, cgrid,
+                          left=0.0, right=float(m))           # (t, K)
+    # Summed in machine order.  XLA's CPU reduction keeps that order for
+    # the small t the parity tests run; for larger t it vectorises the
+    # sum across machines (eight lanes, or blocks of 32 rows), so the
+    # reference's own boundaries move by a few float32 ulps with the
+    # host's codegen, and the port matches them only that closely.
+    f_at = per_machine[0]
+    for i in range(1, t):
+        f_at = f_at + per_machine[i]
+    targets = torch.arange(1, t, dtype=torch.float32, device=lam.device) * m
+    interior = _interp(targets, f_at, knots)
+    return torch.cat([knots[:1], interior, knots[-1:]])
+
+
+def boundaries_oracle(lam: np.ndarray, m: int, s: int) -> np.ndarray:
+    """Paper Algorithm 1 via an explicit heap sweep.  lam: (t, s+1)."""
+    lam = np.asarray(lam, dtype=np.float64)
+    t = lam.shape[0]
+    width = lam[:, 1:] - lam[:, :-1]
+    mu = np.where(width > 0, (m / s) / np.maximum(width, 1e-300), 0.0)
+    mu = np.concatenate([mu, np.zeros((t, 1))], axis=1)  # mu[:, s] = 0
+
+    heap: list[Tuple[float, int, float]] = []
+    nxt = np.zeros(t, dtype=np.int64)       # next[i]: next sample index to push
+    pastpdf = np.zeros(t)                   # pdf contribution to retire
+    for i in range(t):
+        heapq.heappush(heap, (float(lam[i, 0]), i, float(mu[i, 0])))
+        nxt[i] = 1
+
+    out = [float(np.min(lam[:, 0]))]        # b_0 = global min sample
+    pdf = 0.0
+    pre = 0.0
+    cur = 0.0
+    flag = False
+    while heap:
+        lam_v, i, mu_v = heapq.heappop(heap)
+        if not flag:
+            # first pop: initialize the sweep origin, no mass before it
+            pre = lam_v
+            flag = True
+        else:
+            gain = (lam_v - pre) * pdf
+            while cur + gain >= m and len(out) < t:
+                # emit a boundary where the running estimated density hits m
+                b = (m - cur) / pdf + pre if pdf > 0 else lam_v
+                out.append(float(b))
+                gain -= m - cur
+                pre = b
+                cur = 0.0
+            cur += gain
+            pre = lam_v
+        pdf = pdf - pastpdf[i] + mu_v
+        pastpdf[i] = mu_v
+        if nxt[i] <= s:
+            heapq.heappush(heap, (float(lam[i, nxt[i]]), i, float(mu[i, nxt[i]])))
+            nxt[i] += 1
+    last = float(np.max(lam[:, -1]))
+    while len(out) < t:
+        out.append(last)
+    out.append(last)  # b_t = global max sample
+    return np.asarray(out)

@@ -1,0 +1,125 @@
+"""The Round-3 shuffle, flat static exchange, batched over the machines.
+
+Counterpart of the flat static path of ``src/repro/core/exchange.py``.
+Every machine cuts its locally sorted row at the t-1 interior
+boundaries, packs the t contiguous segments into a (t, C) tile
+sentinel-padded to the capacity C that Theorem 1 sizes, exchanges the
+tiles all-to-all and merges the t landed sorted rows.  Here all t
+machines do each step at once: rows, tiles and landed buffers carry the
+machine axis first.
+
+Dropped objects (a segment longer than C) are counted, not hidden: the
+caller's capacity-retry loop re-runs with a larger factor.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from ..cluster.collectives import CollectiveTape
+from ..kernels import ops
+
+__all__ = ["PAD", "partition_sorted", "build_send_buffer", "static_exchange",
+           "flat_receive_capacity", "ExchangeResult",
+           "exchange_sorted_segments"]
+
+# Sentinel key for padded slots.  Keys must be finite floats or ints
+# strictly below it; sorts push pads to the end.
+PAD = math.inf
+
+
+def partition_sorted(x_sorted: torch.Tensor, interior: torch.Tensor,
+                     valid_len: Optional[int] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Split each machine's sorted row into t contiguous segments.
+
+    x_sorted: (t, n) rows sorted ascending; interior: (t-1,) boundaries
+    b_1..b_{t-1}.  Element e goes to bucket k iff b_k <= e < b_{k+1}.
+    ``valid_len=m`` declares the rows padded past m real keys with the
+    sort sentinel; cuts are clamped to m.  Returns (starts, lens), each
+    (t, t) int32.
+    """
+    t = x_sorted.shape[0]
+    m = valid_len if valid_len is not None else x_sorted.shape[1]
+    cuts = ops.searchsorted(x_sorted, interior, side="left",
+                            valid_len=valid_len)                # (t, t-1)
+    zeros = torch.zeros((t, 1), dtype=cuts.dtype, device=cuts.device)
+    full = torch.full((t, 1), m, dtype=cuts.dtype, device=cuts.device)
+    starts = torch.cat([zeros, cuts], dim=1)
+    ends = torch.cat([cuts, full], dim=1)
+    return starts, ends - starts
+
+
+def build_send_buffer(x_sorted: torch.Tensor, starts: torch.Tensor,
+                      lens: torch.Tensor, cap_per_pair: int,
+                      valid_len: Optional[int] = None):
+    """Pack each machine's t segments into a (t, C) tile, sentinel-padded.
+
+    x_sorted: (t, n); starts/lens: (t, t).  Returns (keys_buf (t, t, C),
+    dropped (t,)) where dropped counts each machine's objects beyond
+    the per-pair capacity.
+    """
+    t = starts.shape[0]
+    m = valid_len if valid_len is not None else x_sorted.shape[1]
+    cols = torch.arange(cap_per_pair, dtype=torch.int32,
+                        device=x_sorted.device)
+    idx = starts[:, :, None] + cols                           # (t, t, C)
+    valid = cols < lens[:, :, None]
+    safe = torch.clamp(idx, 0, m - 1).long().reshape(t, -1)
+    gathered = torch.gather(x_sorted, 1, safe).reshape(idx.shape)
+    keys = torch.where(valid, gathered, torch.full_like(gathered, PAD))
+    dropped = torch.clamp_min(lens - cap_per_pair, 0).sum(dim=1)
+    return keys, dropped
+
+
+def static_exchange(keys_buf: torch.Tensor, tape: CollectiveTape,
+                    sent: torch.Tensor) -> torch.Tensor:
+    """Dense all-to-all of the (t, t, C) tiles: tile [i, k] lands on k.
+
+    Recorded with ``sent`` (each machine's off-machine objects) and the
+    PAD-aware received count.
+    """
+    return tape.all_to_all(keys_buf, sent=sent, pad=PAD)
+
+
+def flat_receive_capacity(m: int, t: int, cap_factor: float) -> int:
+    """Receive-buffer slots of the flat exchange: t * ceil-per-pair."""
+    return int(-(-int(cap_factor * m) // t) * t)
+
+
+class ExchangeResult(NamedTuple):
+    keys: torch.Tensor      # (t, capacity) sorted ascending, pads last
+    values: Optional[torch.Tensor]
+    count: torch.Tensor     # (t,) valid objects received per machine
+    sent: torch.Tensor      # (t,) objects sent to other machines
+    dropped: torch.Tensor   # global dropped count (scalar)
+
+
+def exchange_sorted_segments(x_sorted: torch.Tensor, interior: torch.Tensor,
+                             *, t: int, cap_factor: float,
+                             valid_len: Optional[int] = None,
+                             tape: Optional[CollectiveTape] = None
+                             ) -> ExchangeResult:
+    """Round-3 shuffle: deliver bucket k of every machine to machine k.
+
+    x_sorted: (t, n) locally sorted rows (``valid_len`` real keys each
+    when pre-padded); interior: (t-1,) boundaries.  Each machine's
+    capacity is ``flat_receive_capacity(m, t, cap_factor)``; every
+    sender's tile row lands sorted, so the landed rows are merged (the
+    reference's ``merge=True``) rather than sorted.
+    """
+    tape = tape if tape is not None else CollectiveTape()
+    m = valid_len if valid_len is not None else x_sorted.shape[1]
+    cap_pair = flat_receive_capacity(m, t, cap_factor) // t
+    starts, lens = partition_sorted(x_sorted, interior, valid_len=valid_len)
+    me = torch.arange(t, device=lens.device)
+    sent = m - lens[me, me]                      # objects leaving each machine
+    keys_buf, local_drop = build_send_buffer(x_sorted, starts, lens, cap_pair,
+                                             valid_len=valid_len)
+    recv2d = static_exchange(keys_buf, tape, sent)          # (t, t, C)
+    count = (recv2d.reshape(t, -1) < PAD).sum(dim=1).to(torch.int32)
+    dropped = tape.psum(local_drop).to(torch.int32)
+    merged = ops.merge_sorted_rows(recv2d)      # pads (= inf) land last
+    return ExchangeResult(merged, None, count, sent, dropped)

@@ -1,0 +1,81 @@
+// Shared pieces of the port's comparison kernels (sort, search, merge).
+//
+// Comparison semantics.  The JAX reference runs on XLA, which compares
+// floats with denormals flushed to zero: every denormal of either sign
+// equals +-0.0, and -0.0 equals +0.0.  The card does not flush unless
+// told to (and these sources are built without -ftz and without
+// --use_fast_math), so every comparison here goes through cmp_key(),
+// which folds a denormal to the zero of its sign in the bits domain.
+// The data itself is only ever moved, never rewritten: a sort or merge
+// returns a permutation of its input.
+//
+// Swap rule.  A compare-exchange swaps only when gt(a, b) differs from
+// the direction bit, as the reference's _compare_exchange does
+// (src/repro/kernels/bitonic.py:70-86).  An unordered pair (a NaN) is
+// never swapped, so no value is lost or duplicated.  fminf/fmaxf would
+// break both properties.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace repro {
+
+__device__ __forceinline__ float cmp_key(float v) {
+  const uint32_t u = __float_as_uint(v);
+  return (u & 0x7f800000u) == 0u ? __uint_as_float(u & 0x80000000u) : v;
+}
+
+__device__ __forceinline__ int cmp_key(int v) { return v; }
+
+template <typename T>
+__device__ __forceinline__ bool gt(T a, T b) {
+  return cmp_key(a) > cmp_key(b);
+}
+
+// Compare-exchange of x[i] and x[i + d]; desc flips the direction.
+template <typename T>
+__device__ __forceinline__ void compare_exchange(T* x, long long i,
+                                                 long long d, bool desc) {
+  const T a = x[i];
+  const T b = x[i + d];
+  if (gt(a, b) != desc) {
+    x[i] = b;
+    x[i + d] = a;
+  }
+}
+
+// Lower index of pair q of a substage at distance d (within a row or
+// an aligned block): pairs (p, p + d) with bit log2(d) of p clear.
+__device__ __forceinline__ long long pair_low(long long q, long long d) {
+  return (q / d) * (2 * d) + (q % d);
+}
+
+// One substage at distance d >= tile over global memory, one thread per
+// pair.  Rows of length n (a power of two) lie back to back.  With
+// sort_dirs the direction of stage k is bit k+1 of the position in the
+// row, as in the reference's _directions(); without it every pair is
+// ascending (the merge cascades).
+template <typename T>
+__global__ void global_substage(T* x, long long total_pairs, long long n,
+                                long long d, int k, bool sort_dirs) {
+  const long long q = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (q >= total_pairs) return;
+  const long long half = n / 2;
+  const long long row = q / half;
+  const long long p = pair_low(q % half, d);
+  const bool desc = sort_dirs && (((p >> (k + 1)) & 1) != 0);
+  compare_exchange(x + row * n, p, d, desc);
+}
+
+inline int log2_exact(long long v) {
+  int l = 0;
+  while ((1LL << l) < v) ++l;
+  return l;
+}
+
+}  // namespace repro
+
+extern "C" const char* error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -1,0 +1,4 @@
+"""Synthetic inputs, numpy copies of ``repro.data`` (counterpart)."""
+from .synthetic import lidar_like, uniform_keys, zipf_keys, zipf_tables
+
+__all__ = ["uniform_keys", "lidar_like", "zipf_tables", "zipf_keys"]

@@ -1,0 +1,232 @@
+"""Bitonic sort and merge networks: the Round-1 sort and the in-tile
+receive merge of SMMS.
+
+Counterpart of ``src/repro/kernels/bitonic.py``.  Two kernels, each with
+its plain PyTorch version beside it:
+
+* :func:`bitonic_sort` -- ascending sort of each row of (rows, n);
+  CUDA source ``csrc/bitonic_sort.cu``.
+* :func:`merge_sorted_rows` -- merge of t sorted rows into one sorted
+  row, per batch entry; CUDA source ``csrc/merge_rows.cu``.
+
+The plain versions (:func:`bitonic_sort_plain`,
+:func:`merge_sorted_rows_plain`, built on :func:`sort_network_block` and
+:func:`merge_network_block`) run the reference's network substage by
+substage in torch ops.  The CPU runs them; a CUDA tensor launches the
+kernel, which performs the same compare-exchanges, so the two agree
+bitwise.  Which one runs is decided by the tensor's device alone.
+
+Comparisons fold denormals to zero in the bits domain (:func:`ftz`), as
+XLA's comparator does on the reference's CPU and TPU; the data is only
+moved, so every output is a permutation of its input.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import cuda
+
+__all__ = [
+    "bitonic_sort",
+    "bitonic_sort_plain",
+    "merge_sorted_rows",
+    "merge_sorted_rows_plain",
+    "sort_network_block",
+    "merge_network_block",
+    "sort_sentinel",
+    "ftz",
+    "MERGE_TILE_LANES",
+]
+
+KEY_DTYPES = (torch.float32, torch.int32)
+_SUFFIX = {torch.float32: "f32", torch.int32: "i32"}
+
+# The reference's soft per-block lane target for its hierarchical merge
+# (src/repro/kernels/bitonic.py:294), kept at its value until the gate
+# constants are re-sized for the H100.  It groups levels into blocks in
+# the reference only; which merge runs is decided by MAX_KERNEL_LANES
+# (ops.py), and the CUDA kernel tiles by its own kTile.
+MERGE_TILE_LANES = 1 << 12
+
+
+def sort_sentinel(dtype: torch.dtype):
+    """The value that sorts last for ``dtype``: +inf (floats), max (ints)."""
+    if dtype.is_floating_point:
+        return math.inf
+    return torch.iinfo(dtype).max
+
+
+def ftz(x: torch.Tensor) -> torch.Tensor:
+    """Comparison key: denormals folded to the zero of their sign.
+
+    Done on the bits (an exponent field of 0 keeps only the sign bit),
+    because arithmetic such as ``x + 0.0`` does not flush on the CPU.
+    Integer keys are returned as they are.
+    """
+    if x.dtype != torch.float32:
+        return x
+    bits = x.view(torch.int32)
+    sign = bits & torch.iinfo(torch.int32).min
+    return torch.where((bits & 0x7F800000) == 0, sign, bits).view(torch.float32)
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
+def _compare_exchange(x: torch.Tensor, d: int,
+                      descending_runs: torch.Tensor) -> torch.Tensor:
+    """One substage: exchange partners at distance d (swap rule)."""
+    rows, n = x.shape
+    xr = x.reshape(rows, n // (2 * d), 2, d)
+    a = xr[:, :, 0, :]
+    b = xr[:, :, 1, :]
+    swap = (ftz(a) > ftz(b)) != descending_runs[None, :, None]
+    lo = torch.where(swap, b, a)
+    hi = torch.where(swap, a, b)
+    return torch.stack([lo, hi], dim=2).reshape(rows, n)
+
+
+def _directions(n: int, d: int, k: int, device) -> torch.Tensor:
+    """Per partner-group descending bit for stage k, distance d."""
+    group = torch.arange(n // (2 * d), device=device) * (2 * d)
+    return ((group >> (k + 1)) & 1) == 1
+
+
+def sort_network_block(x: torch.Tensor) -> torch.Tensor:
+    """Full bitonic sort of each row of x: (rows, n), n a power of 2.
+
+    The plain version of the ``bitonic_sort`` kernel.
+    """
+    rows, n = x.shape
+    logn = int(math.log2(n))
+    assert 1 << logn == n, "n must be a power of 2"
+    for k in range(logn):
+        for j in range(k, -1, -1):
+            d = 1 << j
+            x = _compare_exchange(x, d, _directions(n, d, k, x.device))
+    return x
+
+
+def merge_network_block(x: torch.Tensor, run: int) -> torch.Tensor:
+    """Merge rows of x whose length-``run`` chunks are each sorted.
+
+    x: (rows, n); n and run powers of 2, run divides n.  The plain
+    version of the ``merge_sorted_rows`` kernel.
+    """
+    rows, n = x.shape
+    lvl = run
+    while lvl < n:
+        xr = x.reshape(rows, n // (2 * lvl), 2, lvl)
+        a = xr[:, :, 0, :]
+        b = xr[:, :, 1, :].flip(-1)             # reverse -> bitonic sequence
+        y = torch.cat([a, b], dim=-1).reshape(rows, n)
+        d = lvl
+        while d >= 1:
+            y = _compare_exchange(
+                y, d, torch.zeros(n // (2 * d), dtype=torch.bool,
+                                  device=x.device))
+            d //= 2
+        x = y
+        lvl *= 2
+    return x
+
+
+def _check_kernel_operand(name: str, x: torch.Tensor) -> None:
+    cuda.check_cuda_tensor(name, x, KEY_DTYPES)
+
+
+def _pad_row(x: torch.Tensor) -> torch.Tensor:
+    """(rows, n) -> (rows, pow2 >= 2), padded with the sort sentinel."""
+    n = x.shape[-1]
+    np2 = max(2, _next_pow2(n))
+    if np2 == n:
+        return x
+    return torch.nn.functional.pad(x, (0, np2 - n),
+                                   value=sort_sentinel(x.dtype))
+
+
+def bitonic_sort_plain(x: torch.Tensor) -> torch.Tensor:
+    """The plain version of :func:`bitonic_sort`, on any device."""
+    return sort_network_block(_pad_row(x))[:, :x.shape[-1]]
+
+
+def bitonic_sort(x: torch.Tensor) -> torch.Tensor:
+    """Row-wise ascending sort.  x: (rows, n), any n >= 1.
+
+    n is padded to a power of two (at least 2) with the sort sentinel
+    and the padding stripped after.  A CUDA tensor runs the kernel
+    (float32 or int32; anything else raises); a CPU tensor runs
+    :func:`bitonic_sort_plain`.
+    """
+    if not x.is_cuda:
+        return bitonic_sort_plain(x)
+    _check_kernel_operand("bitonic_sort", x)
+    out = _pad_row(x).clone(memory_format=torch.contiguous_format)
+    cuda.launch("bitonic_sort", f"bitonic_sort_{_SUFFIX[x.dtype]}",
+                out.data_ptr(), out.shape[0], out.shape[1])
+    return out[:, :x.shape[-1]]
+
+
+def _pad_sorted_rows(x: torch.Tensor, sentinel) -> torch.Tensor:
+    """Pad (..., t, c) sorted rows to (..., pow2, pow2); rows stay sorted."""
+    t, c = x.shape[-2:]
+    tp2 = max(1, _next_pow2(t))
+    cp2 = max(2, _next_pow2(c))
+    return torch.nn.functional.pad(x, (0, cp2 - c, 0, tp2 - t), value=sentinel)
+
+
+def _pad_iota_unique(t: int, c: int, tp2: int, cp2: int,
+                     device=None) -> torch.Tensor:
+    """Flat-index channel for (t, c) rows padded to (tp2, cp2).
+
+    Real slots carry their row-major flat index in [0, t*c); pad slots
+    carry unique ids >= t*c, ascending along each row, so (key, id)
+    pairs stay strictly increasing per row.
+    """
+    row = torch.arange(tp2, dtype=torch.int32, device=device)[:, None]
+    col = torch.arange(cp2, dtype=torch.int32, device=device)[None, :]
+    real = (row < t) & (col < c)
+    flatpos = row * cp2 + col
+    return torch.where(real, row * c + col, t * c + flatpos)
+
+
+def _padded_runs(x: torch.Tensor):
+    """(t, c) or (batch, t, c) sorted rows -> ((batch, tp2*cp2) padded
+    rows of sorted length-cp2 runs, cp2, t*c)."""
+    xb = x[None] if x.dim() == 2 else x
+    batch, t, c = xb.shape
+    xp = _pad_sorted_rows(xb, sort_sentinel(x.dtype))
+    tp2, cp2 = xp.shape[-2:]
+    return xp.reshape(batch, tp2 * cp2), cp2, t * c
+
+
+def merge_sorted_rows_plain(x: torch.Tensor) -> torch.Tensor:
+    """The plain version of :func:`merge_sorted_rows`, on any device."""
+    flat, run, n = _padded_runs(x)
+    merged = merge_network_block(flat, run)[:, :n]
+    return merged[0] if x.dim() == 2 else merged
+
+
+def merge_sorted_rows(x: torch.Tensor) -> torch.Tensor:
+    """Merge t sorted rows into one sorted vector, per batch entry.
+
+    x: (t, c) or (batch, t, c), rows ascending.  Returns (t*c,) or
+    (batch, t*c), ascending.  Rows are padded to (pow2, pow2) with the
+    sort sentinel and merged by the reference's log2(t) pairwise
+    bitonic-merge levels (``_merge_levels`` groups levels into row-group
+    blocks, which does not change the compare-exchanges).  A CUDA tensor
+    runs the kernel, a CPU tensor :func:`merge_sorted_rows_plain`.
+    """
+    if not x.is_cuda:
+        return merge_sorted_rows_plain(x)
+    _check_kernel_operand("merge_sorted_rows", x)
+    flat, run, n = _padded_runs(x)
+    out = flat.clone(memory_format=torch.contiguous_format)
+    batch, total = out.shape
+    cuda.launch("merge_rows", f"merge_rows_{_SUFFIX[out.dtype]}",
+                out.data_ptr(), batch, total, run)
+    merged = out[:, :n]
+    return merged[0] if x.dim() == 2 else merged

@@ -1,0 +1,181 @@
+"""Build, load and launch the port's hand-written CUDA kernels.
+
+Every TPU kernel on the port's path has a CUDA C++ counterpart under
+``repro_torch/csrc/``.  Each source is compiled on its own by ``nvcc``
+for ``sm_90a`` into a shared library with a plain C interface and
+loaded with ``ctypes`` (no PyTorch headers, so a build takes seconds).
+Libraries are built at first use into ``build/repro_torch_kernels/`` at
+the root of the checkout, under a name that carries a digest of the
+source, the shared header and the flags, so an edited source is rebuilt
+and a stale library is never loaded.  :func:`build_all` starts one
+``nvcc`` per source, all at once.
+
+Every C entry point launches on the stream it is given (the wrapper
+passes ``torch.cuda.current_stream()``), allocates nothing and returns
+``cudaGetLastError()``; :func:`launch` raises when that is not 0 and
+only then counts the launch in :data:`LAUNCHES`.
+
+Nothing here runs at import time: this module is imported on machines
+with no ``nvcc`` and no card, where only the plain versions run.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+import time
+from typing import Dict, Iterable, Optional
+
+__all__ = ["SOURCES", "LAUNCHES", "BUILD_LOG", "reset_launches",
+           "build_all", "library", "launch", "check_cuda_tensor"]
+
+CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
+    "repro_torch_kernels"
+
+# kernel name -> source file under csrc/
+SOURCES = {
+    "bitonic_sort": "bitonic_sort.cu",
+    "searchsorted": "searchsorted.cu",
+    "merge_rows": "merge_rows.cu",
+    "merge_ranks": "merge_ranks.cu",
+}
+
+# No --use_fast_math and no -ftz: the kernels fold denormals themselves,
+# in the bits domain, before every comparison (see csrc/network.cuh).
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# C entry point -> its argument types, the stream last; every
+# entry point returns an int (cudaError_t).
+_P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+SIGNATURES = {
+    "bitonic_sort_f32": [_P, _I64, _I64, _P],
+    "bitonic_sort_i32": [_P, _I64, _I64, _P],
+    "searchsorted_f32": [_P, _P, _P, _I64, _I64, _I64, _I32, _I32, _P],
+    "searchsorted_i32": [_P, _P, _P, _I64, _I64, _I64, _I32, _I32, _P],
+    "merge_rows_f32": [_P, _I64, _I64, _I64, _P],
+    "merge_rows_i32": [_P, _I64, _I64, _I64, _P],
+    "merge_ranks_f32": [_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P],
+    "merge_ranks_i32": [_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P],
+}
+
+# kernel name -> launches made through launch(); the counts the chip
+# smoke run reads to show the main path went through each kernel.
+LAUNCHES: collections.Counter = collections.Counter()
+# kernel name -> {"seconds": build time, "ptxas": nvcc's -Xptxas -v}
+BUILD_LOG: Dict[str, dict] = {}
+
+_LOCK = threading.Lock()
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def reset_launches() -> None:
+    LAUNCHES.clear()
+
+
+def _nvcc() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+                 shutil.which("nvcc") or "",
+                 "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.isfile(cand) and os.access(cand, os.X_OK):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH): "
+                       "the port's CUDA kernels are built from source")
+
+
+def _lib_path(name: str) -> pathlib.Path:
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    h.update((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
+    """Compile the named kernels (default: all) that are not built yet.
+
+    One ``nvcc`` per source, all started together; waits for every one
+    and raises with the compiler's output if any fails.  Returns
+    :data:`BUILD_LOG`.
+    """
+    names = list(SOURCES) if names is None else list(names)
+    with _LOCK:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        procs = {}
+        for name in names:
+            out = _lib_path(name)
+            if out.exists():
+                continue
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                   str(CSRC / SOURCES[name])]
+            procs[name] = (subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), tmp, out, time.perf_counter())
+        failed = []
+        for name, (proc, tmp, out, t0) in procs.items():
+            log, _ = proc.communicate()
+            BUILD_LOG[name] = {"seconds": time.perf_counter() - t0,
+                               "ptxas": log}
+            if proc.returncode != 0:
+                failed.append(f"--- {name} (exit {proc.returncode})\n{log}")
+            else:
+                os.replace(tmp, out)
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return BUILD_LOG
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of one kernel, built first if needed."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    build_all([name])
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(_lib_path(name)))
+            for fn, argtypes in SIGNATURES.items():
+                if hasattr(lib, fn):
+                    getattr(lib, fn).argtypes = argtypes
+                    getattr(lib, fn).restype = ctypes.c_int
+            lib.error_string.argtypes = [ctypes.c_int]
+            lib.error_string.restype = ctypes.c_char_p
+            _LIBS[name] = lib
+    return lib
+
+
+def launch(name: str, fn: str, *args) -> None:
+    """Call C entry point ``fn`` of kernel ``name`` on the current stream.
+
+    ``args`` are the entry point's arguments before the stream:
+    tensors' ``data_ptr()`` and Python ints.  Raises if the launch
+    reports a CUDA error; counts the launch otherwise.
+    """
+    import torch
+
+    lib = library(name)
+    stream = torch.cuda.current_stream().cuda_stream
+    rc = getattr(lib, fn)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn}: CUDA error {rc} "
+                           f"({lib.error_string(rc).decode()})")
+    LAUNCHES[name] += 1
+
+
+def check_cuda_tensor(name: str, x, dtypes) -> None:
+    """Raise unless ``x`` is a contiguous CUDA tensor of an allowed dtype."""
+    if not x.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {x.device}")
+    if x.dtype not in dtypes:
+        raise TypeError(f"{name}: the CUDA kernel takes {sorted(map(str, dtypes))}, "
+                        f"got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")

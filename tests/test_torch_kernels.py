@@ -1,0 +1,288 @@
+"""The port's kernels (plain versions on the CPU) against the reference's.
+
+Each kernel of ``repro_torch.kernels`` runs here as its plain PyTorch
+version and is held bitwise against the JAX function it ports -- the
+Pallas kernel in interpret mode and, through ``repro.kernels.ops``, the
+jnp reference backend -- on the same seeded numpy inputs.  Tests marked
+``cuda`` hold each CUDA kernel against its plain version on the card
+and skip where there is none.
+
+One stated difference: XLA's CPU flushes denormal *outputs* of the
+reference's bitonic network to zero of the same sign (its selects run
+under flush-to-zero), while the port only moves data, so its output is
+a permutation of its input.  Comparisons agree (both fold denormals to
+zero), so positions agree: the denormal test holds ``ftz(port)``
+against the reference bitwise and checks the port's permutation.
+"""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro.kernels import bitonic as jbitonic
+from repro.kernels import bucketize as jbucketize
+from repro.kernels import fused as jfused
+from repro.kernels import ops as jops
+from repro_torch.kernels import bitonic, bucketize, cuda, fused, ops, ref
+
+
+def bits(a) -> np.ndarray:
+    a = np.asarray(a.cpu() if isinstance(a, torch.Tensor) else a)
+    return a.view(np.int32) if a.dtype == np.float32 else a
+
+
+def assert_bitwise(got, want):
+    np.testing.assert_array_equal(bits(got), bits(want))
+
+
+def keys_f32(rng, shape, case):
+    """Float keys: gaussian, heavy duplicates, all equal, +-inf mixed in."""
+    x = rng.normal(size=shape).astype(np.float32)
+    if case == "dups":
+        x = rng.choice(np.float32([-1.5, 0.0, 2.25]), size=shape)
+    elif case == "equal":
+        x = np.full(shape, 3.75, np.float32)
+    elif case == "inf":
+        flat = x.reshape(-1)
+        flat[rng.integers(0, flat.size, max(1, flat.size // 8))] = np.inf
+        flat[rng.integers(0, flat.size, max(1, flat.size // 8))] = -np.inf
+    return x
+
+
+# ---------------------------------------------------------------------------
+# bitonic_sort
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("case", ["normal", "dups", "equal", "inf"])
+@pytest.mark.parametrize("n", [1, 5, 64, 300])
+def test_bitonic_sort_matches_reference(rng, case, n):
+    x = keys_f32(rng, (3, n), case)
+    got = bitonic.bitonic_sort(torch.from_numpy(x))
+    assert_bitwise(got, jbitonic.bitonic_sort(jnp.asarray(x), block_rows=1))
+    assert_bitwise(got, jnp.sort(jnp.asarray(x), axis=-1))
+    assert_bitwise(ref.sort_ref(torch.from_numpy(x)), got)
+
+
+@pytest.mark.parametrize("n", [7, 100])
+def test_bitonic_sort_int32_matches_reference(rng, n):
+    x = rng.integers(-20, 20, (2, n)).astype(np.int32)
+    x[0, 0] = np.iinfo(np.int32).max
+    x[1, -1] = np.iinfo(np.int32).min
+    got = bitonic.bitonic_sort(torch.from_numpy(x))
+    assert_bitwise(got, jbitonic.bitonic_sort(jnp.asarray(x), block_rows=1))
+
+
+def test_bitonic_sort_denormals_and_signed_zeros(rng):
+    x = rng.normal(size=(2, 37)).astype(np.float32)
+    x[0, :8] = np.float32([1e-40, 0.0, -1e-40, -0.0, 2e-39, -3e-39, 5e-41,
+                           -0.0])
+    x[1, :4] = np.float32([np.inf, -np.inf, -0.0, 7e-41])
+    got = bitonic.bitonic_sort(torch.from_numpy(x))
+    want = jbitonic.bitonic_sort(jnp.asarray(x), block_rows=1)
+    assert_bitwise(bitonic.ftz(got), want)
+    # the port moves data only: each row is a permutation of its input
+    np.testing.assert_array_equal(np.sort(bits(got), axis=1),
+                                  np.sort(bits(x), axis=1))
+
+
+@pytest.mark.parametrize("n", [5, 256])
+def test_ops_sort_matches_both_reference_backends(rng, n):
+    x = keys_f32(rng, (4, n), "normal")
+    ops.reset_dispatch_counts()
+    got = ops.sort(torch.from_numpy(x))
+    for backend in ("pallas", "reference"):
+        assert_bitwise(got, jops.sort(jnp.asarray(x), backend=backend))
+    padded = ops.sort(ops.pad_pow2(torch.from_numpy(x)), prepadded=True)
+    assert_bitwise(padded[:, :n], got)
+    assert ops.DISPATCH_COUNTS[("sort", "plain")] == 2
+
+
+# ---------------------------------------------------------------------------
+# searchsorted
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("side", ["left", "right"])
+@pytest.mark.parametrize("n,q", [(1, 4), (9, 33), (300, 7)])
+def test_searchsorted_matches_reference(rng, side, n, q):
+    arr = np.sort(rng.integers(-5, 5, n)).astype(np.float32)   # duplicates
+    queries = rng.integers(-7, 7, q).astype(np.float32)
+    queries[0] = np.inf
+    got = bucketize.searchsorted(torch.from_numpy(arr)[None],
+                                 torch.from_numpy(queries)[None], side=side)
+    want = jbucketize.searchsorted(jnp.asarray(arr), jnp.asarray(queries),
+                                   side=side)
+    assert got.dtype == torch.int32
+    assert_bitwise(got[0], want)
+    assert_bitwise(ref.searchsorted_ref(torch.from_numpy(arr),
+                                        torch.from_numpy(queries), side), want)
+
+
+@pytest.mark.parametrize("side", ["left", "right"])
+def test_ops_searchsorted_valid_len_batched(rng, side):
+    t, m = 4, 45
+    rows = np.sort(rng.integers(0, 9, (t, m)).astype(np.float32), axis=1)
+    bounds = np.float32([-1.0, 3.0, 3.0, 8.0, 20.0])         # duplicate bound
+    padded = ops.pad_pow2(torch.from_numpy(rows))
+    assert padded.shape == (t, 64)
+    got = ops.searchsorted(padded, torch.from_numpy(bounds), side=side,
+                           valid_len=m)
+    assert got.shape == (t, len(bounds)) and got.dtype == torch.int32
+    for i in range(t):
+        jpad = jops.pad_pow2(jnp.asarray(rows[i]))
+        for backend in ("pallas", "reference"):
+            want = jops.searchsorted(jpad, jnp.asarray(bounds), side=side,
+                                     backend=backend, valid_len=m)
+            assert_bitwise(got[i], want)
+
+
+def test_searchsorted_denormal_queries_fold_to_zero():
+    arr = torch.tensor([[0.0, 1.0]])
+    q = torch.tensor([[1e-40, -1e-40]])
+    want = jbucketize.searchsorted(jnp.asarray([0.0, 1.0], jnp.float32),
+                                   jnp.asarray([1e-40, -1e-40], jnp.float32))
+    assert_bitwise(bucketize.searchsorted(arr, q)[0], want)
+    assert bucketize.searchsorted(arr, q).tolist() == [[0, 0]]
+
+
+# ---------------------------------------------------------------------------
+# merge_sorted_rows (in-tile bitonic merge)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("t,c", [(1, 9), (2, 5), (3, 16), (8, 37)])
+@pytest.mark.parametrize("case", ["normal", "dups", "inf"])
+def test_merge_sorted_rows_matches_reference(rng, t, c, case):
+    x = np.sort(keys_f32(rng, (t, c), case), axis=1)
+    got = bitonic.merge_sorted_rows(torch.from_numpy(x))
+    assert_bitwise(got, jbitonic.merge_sorted_rows(jnp.asarray(x)))
+    for backend in ("pallas", "reference"):
+        assert_bitwise(ops.merge_sorted_rows(torch.from_numpy(x)),
+                       jops.merge_sorted_rows(jnp.asarray(x),
+                                              backend=backend))
+
+
+def test_merge_sorted_rows_batched_equals_per_machine(rng):
+    x = np.sort(keys_f32(rng, (3, 4, 21), "dups"), axis=-1)
+    got = bitonic.merge_sorted_rows(torch.from_numpy(x))
+    assert got.shape == (3, 84)
+    for b in range(3):
+        assert_bitwise(got[b], jbitonic.merge_sorted_rows(jnp.asarray(x[b])))
+
+
+# ---------------------------------------------------------------------------
+# merge_ranks (rank merge past one tile)
+# ---------------------------------------------------------------------------
+
+def _ranked_rows(rng, t, c, dtype):
+    if dtype == "int32":
+        k = np.sort(rng.integers(-4, 4, (t, c)).astype(np.int32), axis=1)
+    else:
+        k = np.sort(keys_f32(rng, (t, c), "dups"), axis=1)
+    kp = np.array(jbitonic._pad_sorted_rows(jnp.asarray(k),
+                                              jbitonic.sort_sentinel(k.dtype)))
+    tp2, cp2 = kp.shape
+    ip = np.array(jbitonic._pad_iota_unique(t, c, tp2, cp2))
+    return kp, ip
+
+
+@pytest.mark.parametrize("dtype", ["int32", "float32"])
+@pytest.mark.parametrize("bound_block", [None, 2])
+@pytest.mark.parametrize("t,c", [(2, 5), (4, 16), (3, 33)])
+def test_merge_ranks_matches_reference(rng, dtype, bound_block, t, c):
+    kp, ip = _ranked_rows(rng, t, c, dtype)
+    got = fused.merge_ranks(torch.from_numpy(kp)[None],
+                            torch.from_numpy(ip)[None],
+                            bound_block=bound_block)
+    want = jfused.merge_ranks(jnp.asarray(kp), jnp.asarray(ip),
+                              bound_block=bound_block)
+    assert got.dtype == torch.int32
+    assert_bitwise(got[0], want)
+    # the ranks are a permutation of the merged positions
+    np.testing.assert_array_equal(np.sort(bits(got).reshape(-1)),
+                                  np.arange(kp.size))
+
+
+def test_rank_merge_scatter_matches_reference(rng):
+    x = np.sort(keys_f32(rng, (2, 6, 40), "dups"), axis=-1)
+    got = ops._rank_merge(torch.from_numpy(x))
+    for b in range(2):
+        merged, _ = jops._rank_merge(jnp.asarray(x[b]))
+        assert_bitwise(got[b], merged)
+
+
+# ---------------------------------------------------------------------------
+# The gate and the dispatch rule
+# ---------------------------------------------------------------------------
+
+def test_kernel_eligible_gate():
+    f = torch.zeros
+    assert ops.kernel_eligible("sort", f(4, ops.MAX_KERNEL_LANES))
+    assert not ops.kernel_eligible("sort", f(4, ops.MAX_KERNEL_LANES + 1))
+    assert not ops.kernel_eligible("sort", f(4, 8, dtype=torch.float64))
+    assert ops.kernel_eligible("merge_sorted_rows", f(64, 64, 2152))
+    assert not ops._merge_fits_one_tile(64, 2152)
+    assert ops._merge_fits_one_tile(8, 1077)
+    assert not ops.kernel_eligible("merge_sorted_rows", f(1024, 128))
+    assert ops.sort_kernel_choice(f(64, 65536)) == "bitonic"
+
+
+def test_ops_raise_outside_the_gate():
+    with pytest.raises(ValueError, match="gate"):
+        ops.sort(torch.zeros(2, ops.MAX_KERNEL_LANES * 2))
+    with pytest.raises(ValueError, match="gate"):
+        ops.sort(torch.zeros(2, 8, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="prepadded"):
+        ops.sort(torch.zeros(2, 6), prepadded=True)
+
+
+def test_kernel_build_is_not_touched_on_the_cpu(rng):
+    x = torch.from_numpy(keys_f32(rng, (2, 50), "normal"))
+    cuda.reset_launches()
+    ops.sort(x)
+    assert not cuda.LAUNCHES
+
+
+# ---------------------------------------------------------------------------
+# On the card: each CUDA kernel against its plain version
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; run on the card with "
+                    "`python -m pytest -m cuda tests/test_torch_*.py`")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [5, 4096, 65536])
+def test_cuda_bitonic_sort_equals_plain(card, rng, n):
+    x = torch.from_numpy(keys_f32(rng, (8, n), "inf"))
+    x[0, :4] = torch.tensor([1e-40, -0.0, 0.0, -3e-39])
+    assert_bitwise(bitonic.bitonic_sort(x.to(card)), bitonic.bitonic_sort(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side", ["left", "right"])
+def test_cuda_searchsorted_equals_plain(card, rng, side):
+    arr = torch.from_numpy(np.sort(rng.integers(0, 50, (16, 4096)), axis=1)
+                           .astype(np.float32))
+    q = torch.from_numpy(rng.integers(-1, 52, (16, 15)).astype(np.float32))
+    assert_bitwise(bucketize.searchsorted(arr.to(card), q.to(card), side),
+                   bucketize.searchsorted(arr, q, side))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,c", [(8, 1077), (16, 4096)])
+def test_cuda_merges_equal_plain(card, rng, t, c):
+    x = torch.from_numpy(np.sort(keys_f32(rng, (2, t, c), "dups"), axis=-1))
+    assert_bitwise(ops.merge_sorted_rows(x.to(card)),
+                   ops.merge_sorted_rows(x))
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_rejects_what_the_gate_rejects(card):
+    with pytest.raises(ValueError, match="gate"):
+        ops.sort(torch.zeros(2, ops.MAX_KERNEL_LANES * 2, device=card))
+    with pytest.raises(TypeError):
+        bitonic.bitonic_sort(torch.zeros(2, 8, dtype=torch.float64,
+                                         device=card))

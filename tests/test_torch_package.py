@@ -1,0 +1,81 @@
+"""The port as a package: what it imports, where it runs, what it refuses."""
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch import cluster
+from repro_torch.kernels import ops
+
+
+def test_port_imports_neither_jax_nor_the_reference():
+    code = textwrap.dedent("""
+        import sys
+        import repro_torch
+        import repro_torch.cluster, repro_torch.core, repro_torch.data
+        import repro_torch.kernels.ops, repro_torch.kernels.ref
+        import repro_torch.kernels.cuda, repro_torch.cluster.api
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.")
+                     or m == "repro" or m.startswith("repro."))
+        print(",".join(bad))
+    """)
+    src = str(__import__("pathlib").Path(repro_torch.__file__).parents[1])
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True, env={"PYTHONPATH": src},
+                         timeout=120)
+    assert out.stdout.strip() == ""
+
+
+def test_front_door_defaults_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = np.ones((2, 8), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cluster.sort(x)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cluster.sort(x, device="cuda")
+    (keys, _), _ = cluster.sort(x, device="cpu")
+    assert keys.device.type == "cpu"
+
+
+@pytest.mark.parametrize("kw, item", [({"algorithm": "terasort"}, "item 4"),
+                                      ({"exchange": "staged"}, "item 6"),
+                                      ({"values": np.ones((2, 8))}, "item 3")])
+def test_unported_options_name_their_roadmap_item(kw, item):
+    with pytest.raises(NotImplementedError, match=item):
+        cluster.sort(np.ones((2, 8), np.float32), device="cpu", **kw)
+
+
+def test_front_door_rejects_a_flat_array():
+    with pytest.raises(ValueError, match=r"\(t, m\)"):
+        cluster.sort(np.ones(8, np.float32), device="cpu")
+
+
+def test_rows_past_the_gate_raise_instead_of_falling_back():
+    """m = 2^17 keys per machine is past MAX_KERNEL_LANES: the port
+    raises on either device rather than use a library sort."""
+    x = torch.zeros(2, 2 * ops.MAX_KERNEL_LANES)
+    with pytest.raises(ValueError, match="gate"):
+        cluster.sort(x, device="cpu")
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; run on the card with "
+                    "`python -m pytest -m cuda tests/test_torch_*.py`")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_cuda_tensor_past_the_gate_raises(card):
+    with pytest.raises(ValueError, match="gate"):
+        ops.sort(torch.zeros(2, 2 * ops.MAX_KERNEL_LANES, device=card))
+    with pytest.raises(ValueError, match="gate"):
+        ops.sort(torch.zeros(2, 8, dtype=torch.bfloat16, device=card))
+    with pytest.raises(ValueError, match="gate"):
+        cluster.sort(torch.zeros(2, 2 * ops.MAX_KERNEL_LANES, device=card))
