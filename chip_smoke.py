@@ -2,26 +2,43 @@
 
     python3 chip_smoke.py
 
-Drives ``repro_torch.cluster.sort(x, algorithm="smms")`` -- SMMS with the
-flat static exchange, keys only -- at t = 64 machines x m = 65,536 float32
-keys (n = 4,194,304) and at t = 8 x m = 4,096, after building the four
-hand-written CUDA kernels of that path from ``src/repro_torch/csrc`` and
-holding each against its plain PyTorch version on the card.  Phases, in
-order; any failure raises and the script exits non-zero without printing
-a result:
+Drives the port's two front doors on the card after building the six
+hand-written CUDA kernels of their paths from ``src/repro_torch/csrc``
+and holding each against its plain PyTorch version there:
+
+* ``repro_torch.cluster.sort(x, algorithm="smms")`` -- SMMS with the flat
+  static exchange -- at t = 64 machines x m = 65,536 float32 keys
+  (n = 4,194,304), keys only and with a 96-byte int32 payload per key
+  (a 100-byte record, the sort benchmark's record size), and at
+  t = 8 x m = 4,096;
+* ``repro_torch.cluster.join(...)`` -- StatJoin (paper §4.3) on the
+  paper's §5.2 Zipf tables (2^17 x 2^17, theta 0.5) and scalar-skew
+  tables (2^20 rows, a hot key 2048 x 2048), repartition on the
+  scalar-skew tables and broadcast on Zipf tables of 2^14 x 2^17 rows,
+  all at t = 64.
+
+Phases, in order; any failure raises and the script exits non-zero
+without printing a result:
 
   1. device     the card's name and power limit (fails without a card)
   2. build      one nvcc per kernel source, all at once; -Xptxas -v
   3. kernels    each kernel vs its plain version, bitwise, at the main
-                path's shapes and at edge cases
+                path's shapes and at edge cases; the pair sort and the
+                searches also at every operand the four joins hand them
   4. main path  t=64 x 65,536: uniform, LIDAR-like, Zipf and an
-                adversarial placement; keys, workload, alpha, bounds and
-                capacity attempts checked on the host
-  5. small      t=8 x 4,096 (the in-tile merge), every report field equal
-                to the same call on the CPU
-  6. launches   every kernel launched during phases 4-5
+                adversarial placement, keys only and with the payload;
+                keys, payload, workload, alpha, bounds and capacity
+                attempts checked on the host; then the four joins, each
+                held against a host numpy join
+  5. small      t=8 x 4,096 (the in-tile merges) with and without values,
+                and each join on small tables: outputs and every report
+                field equal to the same call on the CPU
+  6. launches   per path of phases 4-5 (each run's counts set to 0 just
+                before it, read just after): each path launched exactly
+                the kernels of PATH_KERNELS, and every kernel ran
   7. times      per kernel: CUDA-event time, plain version, one PyTorch
-                library call, bound; the end-to-end sort and peak memory
+                library call, bound; the end-to-end sorts and StatJoin,
+                and peak memory
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists the kernels, and the one before that the card's name and power
@@ -29,6 +46,8 @@ limit.
 """
 from __future__ import annotations
 
+import collections
+import importlib
 import json
 import math
 import pathlib
@@ -43,31 +62,45 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import cluster  # noqa: E402
-from repro_torch.core import flat_receive_capacity  # noqa: E402
-from repro_torch.data import lidar_like, uniform_keys, zipf_keys  # noqa: E402
+from repro_torch.core import MASKED_KEY, flat_receive_capacity  # noqa: E402
+from repro_torch.data import (scalar_skew_tables, uniform_keys,  # noqa: E402
+                              zipf_keys, zipf_tables)
 from repro_torch.kernels import bitonic, bucketize, cuda, fused, ops  # noqa: E402
+from repro_torch.workloads import (JOIN_T, JOINS, M, M_SMALL,  # noqa: E402
+                                   PAYLOAD_COLS, T, T_SMALL, make_payload,
+                                   sort_inputs)
 
-T, M = 64, 65536            # the main path: n = 4,194,304 keys
-T_SMALL, M_SMALL = 8, 4096  # the in-tile bitonic merge
+# the module, not the function of the same name repro_torch.core exports
+statjoin_mod = importlib.import_module("repro_torch.core.statjoin")
+
 SEED = 0
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
 FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 
-KERNELS = {
-    "bitonic_sort": dict(
-        source="src/repro_torch/csrc/bitonic_sort.cu",
-        replaces="src/repro/kernels/bitonic.py:224"),
-    "searchsorted": dict(
-        source="src/repro_torch/csrc/searchsorted.cu",
-        replaces="src/repro/kernels/bucketize.py:145"),
-    "merge_rows": dict(
-        source="src/repro_torch/csrc/merge_rows.cu",
-        replaces="src/repro/kernels/bitonic.py:313"),
-    "merge_ranks": dict(
-        source="src/repro_torch/csrc/merge_ranks.cu",
-        replaces="src/repro/kernels/fused.py:286"),
+# path -> the kernels one run of it launches, and no others
+PATH_KERNELS = {
+    "sort": {"bitonic_sort", "searchsorted", "merge_ranks"},
+    "sort_payload": {"bitonic_sort_kv", "searchsorted", "merge_ranks"},
+    **{name: {"bitonic_sort_kv", "searchsorted"} for name in JOINS},
+    "small_sort": {"bitonic_sort", "searchsorted", "merge_rows"},
+    "small_sort_values": {"bitonic_sort_kv", "searchsorted",
+                          "merge_rows_kv"},
+    "small_joins": {"bitonic_sort_kv", "searchsorted"},
 }
+# path -> kernel -> launches, summed over the path's runs
+PATH_LAUNCHES = {path: collections.Counter() for path in PATH_KERNELS}
+
+
+def on_path(path: str, fn):
+    """One run of ``path``: the launch counts are set to 0 just before
+    it and added to the path's counts just after."""
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    PATH_LAUNCHES[path].update(cuda.LAUNCHES)
+    return out
 
 
 def check(cond: bool, what: str) -> None:
@@ -75,14 +108,19 @@ def check(cond: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
-    a, b = a.cpu(), b.cpu()
+def same_bits(a, b) -> bool:
+    if isinstance(a, tuple):
+        return all(same_bits(x, y) for x, y in zip(a, b))
+    if a.device != b.device:
+        a, b = a.cpu(), b.cpu()
     if a.dtype == torch.float32:
         a, b = a.view(torch.int32), b.view(torch.int32)
     return a.shape == b.shape and torch.equal(a, b)
 
 
-def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
+def max_abs_err(a, b) -> float:
+    if isinstance(a, tuple):
+        return max(max_abs_err(x, y) for x, y in zip(a, b))
     if same_bits(a, b):
         return 0.0
     a, b = a.cpu().double(), b.cpu().double()
@@ -92,19 +130,28 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a[both] - b[both]).abs().max())
 
 
-def event_ms(fn, reps: int, warm: int = 2) -> float:
-    """Mean time of one call on the card, by CUDA events."""
+def timed_ms(fn, reps: int, warm: int = 2) -> tuple:
+    """(card ms, host ms) of one call: the CUDA-event time of ``reps``
+    calls in a row, and the host clock's time to issue them, each over
+    ``reps``.  Where the two are close the card waited on the host."""
     for _ in range(warm):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
+    t0 = time.perf_counter()
     for _ in range(reps):
         fn()
+    host = time.perf_counter() - t0
     stop.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+    return start.elapsed_time(stop) / reps, host * 1e3 / reps
+
+
+def event_ms(fn, reps: int, warm: int = 2) -> float:
+    """Mean time of one call on the card, by CUDA events."""
+    return timed_ms(fn, reps, warm)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -179,7 +226,7 @@ def phase_kernels(rng) -> dict:
     def compare(name, label, kernel_out, plain_out):
         ok = same_bits(kernel_out, plain_out)
         err = max_abs_err(kernel_out, plain_out)
-        print(f"[kernels] {name:13s} {label:44s} bitwise={ok}")
+        print(f"[kernels] {name:15s} {label:44s} bitwise={ok}")
         check(ok, f"{name} {label}: kernel differs from its plain version "
                   f"(max abs err {err})")
         errs[name] = max(errs.get(name, 0.0), err)
@@ -196,6 +243,35 @@ def phase_kernels(rng) -> dict:
     xi = xi.to(dev)
     compare("bitonic_sort", "(4, 5000) int32",
             bitonic.bitonic_sort(xi), bitonic.bitonic_sort_plain(xi))
+
+    # bitonic_sort_kv: the payload sort's (64, 65536) f32 with its iota,
+    # a join's int32 T side with a MASKED_KEY tail, and edge rows
+    iota = torch.arange(M, dtype=torch.int32, device=dev).repeat(T, 1)
+    compare("bitonic_sort_kv", f"({T}, {M}) f32 + iota, the payload sort",
+            bitonic.bitonic_sort_kv(x, iota),
+            bitonic.bitonic_sort_kv_plain(x, iota))
+    tk = torch.from_numpy(rng.integers(1 << 20, 1 << 21, (T, 52049))
+                          .astype(np.int32))
+    tk[:, 50000:] = MASKED_KEY
+    tk = tk.to(dev)
+    tiota = torch.arange(52049, dtype=torch.int32, device=dev).repeat(T, 1)
+    compare("bitonic_sort_kv", f"({T}, 52049) int32 + iota, MASKED_KEY tail",
+            bitonic.bitonic_sort_kv(tk, tiota),
+            bitonic.bitonic_sort_kv_plain(tk, tiota))
+    for rows, n in [(6, 1000), (4, 65536), (5, 3)]:
+        e = _edge_rows(rng, rows, n).to(dev)
+        ev = torch.from_numpy(rng.integers(0, 3, (rows, n))
+                              .astype(np.int32)).to(dev)
+        compare("bitonic_sort_kv", f"({rows}, {n}) edge rows, tied values",
+                bitonic.bitonic_sort_kv(e, ev),
+                bitonic.bitonic_sort_kv_plain(e, ev))
+    mk = torch.from_numpy(rng.integers(-5, 5, (4, 5000)).astype(np.int32))
+    mk[:, ::3] = MASKED_KEY
+    mk = mk.to(dev)
+    mv = torch.arange(5000, dtype=torch.int32, device=dev).repeat(4, 1)
+    compare("bitonic_sort_kv", "(4, 5000) int32 ties and MASKED_KEY",
+            bitonic.bitonic_sort_kv(mk, mv),
+            bitonic.bitonic_sort_kv_plain(mk, mv))
 
     # searchsorted: 63 boundaries into each sorted (65536,) row
     rows = torch.sort(torch.from_numpy(
@@ -220,6 +296,18 @@ def phase_kernels(rng) -> dict:
     compare("searchsorted", "dups/inf/denormal rows and queries",
             bucketize.searchsorted(es, eq),
             bucketize.searchsorted_plain(es, eq))
+    # a join's int32 operands: sorted T rows with a MASKED_KEY tail, S
+    # keys that hit, miss and equal MASKED_KEY
+    tr = torch.sort(torch.from_numpy(rng.integers(0, 300, (8, 3001))
+                                     .astype(np.int32)), dim=1).values
+    tr[:, 2500:] = MASKED_KEY
+    sq = torch.from_numpy(rng.integers(-5, 305, (8, 2000)).astype(np.int32))
+    sq[:, ::9] = MASKED_KEY
+    tr, sq = tr.to(dev), sq.to(dev)
+    for side in ("left", "right"):
+        compare("searchsorted", f"(8, 3001) int32, MASKED_KEY tail, {side}",
+                bucketize.searchsorted(tr, sq, side),
+                bucketize.searchsorted_plain(tr, sq, side))
 
     # merge_sorted_rows (in tile): the small configuration's receive rows
     cap = flat_receive_capacity(M_SMALL, T_SMALL,
@@ -241,6 +329,20 @@ def phase_kernels(rng) -> dict:
             bitonic.merge_sorted_rows(big),
             bitonic.merge_sorted_rows_plain(big))
 
+    # merge_rows_kv (the argsort merge): the same three shapes
+    for label, rows in [(f"({T_SMALL}, {T_SMALL}, {cap}) receive rows", r),
+                        ("(1, 8, 300) dups/equal/inf/denormals", e),
+                        ("(2, 16, 4096): global flip and cascade", big)]:
+        compare("merge_rows_kv", label, bitonic.merge_sorted_rows_argsort(rows),
+                bitonic.merge_sorted_rows_argsort_plain(rows))
+    ei = torch.sort(torch.from_numpy(rng.integers(-3, 3, (2, 8, 777))
+                                     .astype(np.int32)), dim=-1).values
+    ei[..., -100:] = MASKED_KEY
+    ei = ei.to(dev)
+    compare("merge_rows_kv", "(2, 8, 777) int32 ties and MASKED_KEY",
+            bitonic.merge_sorted_rows_argsort(ei),
+            bitonic.merge_sorted_rows_argsort_plain(ei))
+
     # merge_ranks: the main path's (64, 64, 4096), blocked and not
     kp, ip, _ = _main_rank_operands(rng, dev)
     for bb in (ops.RANK_MERGE_BOUND_BLOCK, None):
@@ -253,8 +355,50 @@ def phase_kernels(rng) -> dict:
         compare("merge_ranks", f"(1, 8, 512) edge rows, bound_block={bb}",
                 fused.merge_ranks(ke, ie, bb),
                 fused.merge_ranks_plain(ke, ie, bb))
+
+    join_operands(compare)
     torch.cuda.synchronize()
     return errs
+
+
+def join_operands(compare) -> None:
+    """The pair sort and the searches at the joins' own operands.
+
+    Each join of :data:`JOINS` runs once with its two kernel wrappers
+    tapped: every call runs the kernel, then the plain version on the
+    same card tensors, and the two are held bitwise equal.  So every
+    shape and dtype the main path's joins hand a kernel is checked: the
+    int32 T sides with MASKED_KEY tails, the S keys searched into them,
+    and the int32 ``cum`` rows searched by every output slot.  These
+    runs are not main-path runs: the counts are reset before each of
+    those.
+    """
+    sort_kv, search = bitonic.bitonic_sort_kv, bucketize.searchsorted
+    for name, (algorithm, make) in JOINS.items():
+        def tapped_sort_kv(keys, values):
+            out = sort_kv(keys, values)
+            compare("bitonic_sort_kv", f"{name}: {tuple(keys.shape)} "
+                    f"{str(keys.dtype)[6:]} + iota",
+                    out, bitonic.bitonic_sort_kv_plain(keys, values))
+            return out
+
+        def tapped_search(rows, queries, side="left"):
+            out = search(rows, queries, side)
+            compare("searchsorted", f"{name}: {tuple(rows.shape)} x "
+                    f"{queries.shape[1]} {str(rows.dtype)[6:]}, {side}",
+                    out, bucketize.searchsorted_plain(rows, queries, side))
+            return out
+
+        s, t = make()
+        bitonic.bitonic_sort_kv = tapped_sort_kv
+        bucketize.searchsorted = tapped_search
+        try:
+            cluster.join(s, np.arange(len(s), dtype=np.int32),
+                         t, np.arange(len(t), dtype=np.int32),
+                         algorithm=algorithm, t_machines=JOIN_T,
+                         device=DEVICE)
+        finally:
+            bitonic.bitonic_sort_kv, bucketize.searchsorted = sort_kv, search
 
 
 def _main_rank_operands(rng, dev):
@@ -272,28 +416,6 @@ def _main_rank_operands(rng, dev):
 # ---------------------------------------------------------------------------
 # 4-5. the main path
 # ---------------------------------------------------------------------------
-
-def adversarial_shards(t: int, m: int, hot: int, seed: int) -> np.ndarray:
-    """Machine i aims a hot block at machine i+1, the rest dealt evenly.
-
-    The keys are a uniform sample, so Algorithm 1's boundaries fall near
-    the global quantiles; machine i holds ``hot`` keys from the middle of
-    quantile slice i+1 plus m - hot keys dealt at random.  Pair
-    (i, i+1) then carries ~hot + (m - hot)/t keys: past the first
-    Theorem-1 tile (C = 2152 at t=64, m=65,536) but within the doubled
-    one (4303), so exactly one capacity retry is needed.  The reference's
-    whole-shard placement (tests/test_capacity_retry.py) would overflow
-    every tile of the retry schedule at this size.
-    """
-    rng = np.random.default_rng(seed)
-    keys = np.sort(uniform_keys(t * m, seed=seed)).reshape(t, m)
-    lo = (m - hot) // 2
-    hot_blocks = keys[:, lo:lo + hot]
-    rest = np.concatenate([keys[:, :lo], keys[:, lo + hot:]], axis=1)
-    rest = rng.permutation(rest.reshape(-1)).reshape(t, m - hot)
-    shards = np.concatenate([np.roll(hot_blocks, -1, axis=0), rest], axis=1)
-    return np.ascontiguousarray(shards, dtype=np.float32)
-
 
 def check_run(name: str, x: np.ndarray, keys: torch.Tensor, rep,
               attempts: int, theorem1: bool = True) -> None:
@@ -319,22 +441,12 @@ def check_run(name: str, x: np.ndarray, keys: torch.Tensor, rep,
 
 
 def phase_main(smi: str) -> dict:
-    # (keys, expected capacity attempts, Theorem 1 applies).  The Zipf
-    # keys take 37 values: Theorem 1 assumes distinct keys, a heavy
-    # hitter's bucket receives ~3.7 m here, and its hottest pair (3942
-    # keys at seed 0) needs the doubled tile -- one retry.
-    inputs = {
-        "uniform": (uniform_keys(T * M, seed=SEED).reshape(T, M), 1, True),
-        "lidar_like": (lidar_like(T * M, seed=SEED).reshape(T, M), 1, True),
-        "zipf": (zipf_keys(T * M, seed=SEED).reshape(T, M), 2, False),
-        "adversarial": (adversarial_shards(T, M, 2800, SEED), 2, True),
-    }
     out = {}
-    for name, (x, attempts, theorem1) in inputs.items():
+    for name, (x, attempts, theorem1) in sort_inputs(SEED).items():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        (keys, _), rep = cluster.sort(x, algorithm="smms", device=DEVICE)
-        torch.cuda.synchronize()
+        (keys, _), rep = on_path("sort", lambda: cluster.sort(
+            x, algorithm="smms", device=DEVICE))
         wall = time.perf_counter() - t0
         check(keys.device.type == DEVICE, f"{name}: result not on the card")
         check_run(name, x, keys, rep, attempts, theorem1)
@@ -351,10 +463,166 @@ def phase_main(smi: str) -> dict:
     return out
 
 
+def phase_payload(smi: str) -> dict:
+    """SMMS with the 100-byte records: keys as for phase 4, and the
+    payload in the keys' stable order, row for row."""
+    out = {}
+    for i, (name, (x, attempts, theorem1)) in enumerate(
+            sort_inputs(SEED).items()):
+        payload = make_payload(T, M, SEED + i, device=DEVICE)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        (keys, vals), rep = on_path("sort_payload", lambda: cluster.sort(
+            x, algorithm="smms", values=payload, device=DEVICE))
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        check_run(f"payload {name}", x, keys, rep, attempts, theorem1)
+        n = T * M
+        check(vals.device.type == DEVICE and vals.shape == (n, PAYLOAD_COLS),
+              f"payload {name}: values of shape {tuple(vals.shape)}")
+        order = np.argsort(x.reshape(-1), kind="stable")
+        check(np.array_equal(vals[:, 0].cpu().numpy(), order),
+              f"payload {name}: column 0 != np.argsort(x, stable)")
+        rows = payload.reshape(n, PAYLOAD_COLS)[torch.from_numpy(order)
+                                                .to(DEVICE)]
+        check(torch.equal(vals, rows),
+              f"payload {name}: records differ from the input's rows in "
+              f"stable key order")
+        out[name] = {"first_call_s": wall, "k_workload": rep.k_workload,
+                     "k_network": rep.k_network,
+                     "capacity_attempts": rep.capacity_attempts,
+                     "max_memory_allocated_bytes": peak}
+        print(f"[main] t={T} m={M} payload {name:11s} ok: 100-byte records, "
+              f"k_workload={rep.k_workload:.4f} attempts="
+              f"{rep.capacity_attempts} first call {wall * 1e3:.1f} ms, peak "
+              f"memory {peak / 2**20:.1f} MiB ({smi})")
+        del keys, vals, rows, payload
+    return out
+
+
+def host_pairs(s, t) -> np.ndarray:
+    """The equi-join of key columns s and t as row-id pairs, each coded
+    s_row << 32 | t_row (int64, unsorted): a plain numpy join."""
+    st = np.argsort(t, kind="stable")
+    lo = np.searchsorted(t[st], s, side="left")
+    cnt = np.searchsorted(t[st], s, side="right") - lo
+    si = np.repeat(np.arange(len(s), dtype=np.int64), cnt)
+    ti = st[np.repeat(lo - np.cumsum(cnt) + cnt, cnt)
+            + np.arange(int(cnt.sum()))]
+    return si << 32 | ti
+
+
+def check_join(name: str, out, rep, want_codes: np.ndarray) -> None:
+    w = len(want_codes)
+    count = out.count.cpu().numpy()
+    check(np.array_equal(count, rep.workload),
+          f"{name}: per-machine counts != the report's workload")
+    check(np.array_equal(out.valid.sum(1).cpu().numpy(), count),
+          f"{name}: valid slots != counts")
+    check(int(out.dropped.max()) == 0, f"{name}: results dropped")
+    check(int(count.sum()) == w, f"{name}: {int(count.sum())} results, the "
+                                 f"host join has {w}")
+    got = torch.sort(out.s_rows[out.valid].long() << 32
+                     | out.t_rows[out.valid].long()).values
+    want = torch.sort(torch.from_numpy(want_codes).to(got.device)).values
+    check(torch.equal(got, want),
+          f"{name}: (s_row, t_row) pairs differ from the host join")
+
+
+def phase_joins(smi: str) -> dict:
+    out = {}
+    for name, (algorithm, make) in JOINS.items():
+        s, t = make()
+        s_rows = np.arange(len(s), dtype=np.int32)
+        t_rows = np.arange(len(t), dtype=np.int32)
+        want = host_pairs(s, t)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res, rep = on_path(name, lambda: cluster.join(
+            s, s_rows, t, t_rows, algorithm=algorithm, t_machines=JOIN_T,
+            device=DEVICE))
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        check(res.s_rows.device.type == DEVICE,
+              f"{name}: result not on the card")
+        check_join(name, res, rep, want)
+        if algorithm == "statjoin":
+            check(max(rep.workload) <= rep.theoretical_workload_bound,
+                  f"{name}: a machine above 2W/t (Theorem 6)")
+        out[name] = {"W": len(want), "capacity": int(res.s_rows.shape[1]),
+                     "alpha": rep.alpha, "k_workload": rep.k_workload,
+                     "k_network": rep.k_network,
+                     "max_workload": int(max(rep.workload)),
+                     "first_call_s": wall,
+                     "max_memory_allocated_bytes": peak}
+        print(f"[main] {name:24s} ok: t={JOIN_T} W={len(want)} slots/machine="
+              f"{res.s_rows.shape[1]} alpha={rep.alpha} k_workload="
+              f"{rep.k_workload:.4f} max machine {max(rep.workload)} first "
+              f"call {wall * 1e3:.1f} ms, peak memory {peak / 2**20:.1f} "
+              f"MiB ({smi})")
+        del res
+    return out
+
+
+def _same_report(label: str, rep, rep_cpu) -> None:
+    for field in ("algorithm", "n_in", "n_out", "alpha", "k_workload",
+                  "k_network"):
+        check(getattr(rep, field) == getattr(rep_cpu, field),
+              f"{label}: {field} differs from the CPU run")
+    for field in ("cap_factor", "capacity_attempts",
+                  "theoretical_workload_bound"):
+        check(getattr(rep, field, None) == getattr(rep_cpu, field, None),
+              f"{label}: {field} differs from the CPU run")
+    check(np.array_equal(rep.workload, rep_cpu.workload),
+          f"{label}: workload differs from the CPU run")
+    for a, b in zip(rep.phases, rep_cpu.phases):
+        check(a.name == b.name and np.array_equal(a.sent, b.sent)
+              and np.array_equal(a.received, b.received),
+              f"{label}: phase {a.name} differs from the CPU run")
+
+
+def phase_small_values_and_joins() -> None:
+    x = zipf_keys(T_SMALL * M_SMALL, seed=SEED + 2).reshape(T_SMALL, M_SMALL)
+    v = np.random.default_rng(SEED).integers(
+        0, 1 << 30, (T_SMALL, M_SMALL, 3)).astype(np.int32)
+    (keys, vals), rep = on_path("small_sort_values", lambda: cluster.sort(
+        x, algorithm="smms", values=v, device=DEVICE))
+    (keys_cpu, vals_cpu), rep_cpu = cluster.sort(x, algorithm="smms",
+                                                 values=v, device="cpu")
+    check(same_bits(keys, keys_cpu) and same_bits(vals, vals_cpu),
+          "small values: card keys or values != CPU")
+    _same_report("small values", rep, rep_cpu)
+    print(f"[small] t={T_SMALL} m={M_SMALL} with (t, m, 3) values: keys, "
+          f"values and every report field equal to the CPU run, bitwise")
+    tables = {"zipf": zipf_tables(6000, 5000, theta=0.3, seed=1, domain=50),
+              "scalar_skew": scalar_skew_tables(4096, 300, 200, seed=2)}
+    for kind, (s, t) in tables.items():
+        s_rows = np.arange(len(s), dtype=np.int32)
+        t_rows = np.arange(len(t), dtype=np.int32) + 100_000
+        for algorithm in cluster.JOIN_ALGORITHMS:
+            res, rep = on_path("small_joins", lambda: cluster.join(
+                s, s_rows, t, t_rows, algorithm=algorithm,
+                t_machines=T_SMALL, device=DEVICE))
+            res_cpu, rep_cpu = cluster.join(s, s_rows, t, t_rows,
+                                            algorithm=algorithm,
+                                            t_machines=T_SMALL, device="cpu")
+            label = f"small {algorithm} {kind}"
+            for field in res._fields:
+                check(same_bits(getattr(res, field), getattr(res_cpu, field)),
+                      f"{label}: {field} differs from the CPU run")
+            _same_report(label, rep, rep_cpu)
+        print(f"[small] t={T_SMALL} {kind} tables: every output and report "
+              f"field of {', '.join(cluster.JOIN_ALGORITHMS)} equal to the "
+              f"CPU run, bitwise")
+
+
 def phase_small() -> None:
     x = uniform_keys(T_SMALL * M_SMALL, seed=SEED + 1).reshape(T_SMALL,
                                                                 M_SMALL)
-    (keys, _), rep = cluster.sort(x, algorithm="smms", device=DEVICE)
+    (keys, _), rep = on_path("small_sort", lambda: cluster.sort(
+        x, algorithm="smms", device=DEVICE))
     (keys_cpu, _), rep_cpu = cluster.sort(x, algorithm="smms", device="cpu")
     check_run("small", x, keys, rep, 1)
     check(same_bits(keys, keys_cpu), "small: card keys != CPU keys")
@@ -384,16 +652,18 @@ def phase_times(rng, smi: str) -> dict:
     dev = torch.device(DEVICE)
     res = {}
 
-    def record(name, ms, plain_ms, library_ms, nbytes, nops):
+    def record(name, kernel, plain_ms, library_ms, nbytes, nops):
+        ms, host_ms = kernel
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = nops / FP32_OPS_PER_S * 1e3
-        res[name] = {"ms": ms, "plain_ms": plain_ms,
+        res[name] = {"ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
                      "library_ms": library_ms,
                      "bound_ms": max(bytes_ms, ops_ms),
                      "bound_by": "bytes" if bytes_ms >= ops_ms
                      else "operations",
                      "bytes": nbytes, "ops": nops}
-        print(f"[times] {name:13s} kernel {ms:.4f} ms | plain {plain_ms:.4f} "
+        print(f"[times] {name:15s} kernel {ms:.4f} ms (host issues a call "
+              f"in {host_ms:.4f} ms) | plain {plain_ms:.4f} "
               f"ms | library {library_ms:.4f} ms | bound "
               f"{max(bytes_ms, ops_ms):.5f} ms "
               f"({res[name]['bound_by']}) ({smi})")
@@ -402,10 +672,21 @@ def phase_times(rng, smi: str) -> dict:
     # sort needs log2 m compares per key, not the network's log2(m)^2 / 2
     x = torch.from_numpy(uniform_keys(T * M, seed=SEED).reshape(T, M)).to(dev)
     record("bitonic_sort",
-           event_ms(lambda: bitonic.bitonic_sort(x), 20),
+           timed_ms(lambda: bitonic.bitonic_sort(x), 20),
            event_ms(lambda: bitonic.bitonic_sort_plain(x), 3, warm=1),
            event_ms(lambda: torch.sort(x, dim=-1), 20),
            2 * x.numel() * 4, x.numel() * int(math.log2(M)))
+
+    # bitonic_sort_kv at (64, 65536): f32 keys and the int32 iota in,
+    # keys and the order out; a comparison sort needs log2 m compares a
+    # key.  The yardstick is one stable torch.sort, values and indices.
+    iota = torch.arange(M, dtype=torch.int32, device=dev).repeat(T, 1)
+    record("bitonic_sort_kv",
+           timed_ms(lambda: bitonic.bitonic_sort_kv(x, iota), 20),
+           event_ms(lambda: bitonic.bitonic_sort_kv_plain(x, iota), 3,
+                    warm=1),
+           event_ms(lambda: torch.sort(x, dim=-1, stable=True), 20),
+           4 * x.numel() * 4, x.numel() * int(math.log2(M)))
 
     # searchsorted: 63 queries into each of 64 sorted rows; a binary
     # search must read only its probes, not the rows
@@ -414,7 +695,7 @@ def phase_times(rng, smi: str) -> dict:
     steps = math.ceil(math.log2(M + 1))
     probes = T * (T - 1) * steps
     record("searchsorted",
-           event_ms(lambda: bucketize.searchsorted(xs, q), 200),
+           timed_ms(lambda: bucketize.searchsorted(xs, q), 200),
            event_ms(lambda: bucketize.searchsorted_plain(xs, q), 10),
            event_ms(lambda: torch.searchsorted(xs, q, out_int32=True), 200),
            q.numel() * 4 * 2 + probes * 4, probes)
@@ -426,10 +707,19 @@ def phase_times(rng, smi: str) -> dict:
     r = torch.sort(torch.rand((T_SMALL, T_SMALL, cap), device=dev),
                    dim=-1).values
     record("merge_rows",
-           event_ms(lambda: bitonic.merge_sorted_rows(r), 200),
+           timed_ms(lambda: bitonic.merge_sorted_rows(r), 200),
            event_ms(lambda: bitonic.merge_sorted_rows_plain(r), 10),
            event_ms(lambda: torch.sort(r.reshape(T_SMALL, -1), dim=-1), 200),
            2 * r.numel() * 4, r.numel() * math.ceil(math.log2(T_SMALL)))
+
+    # merge_rows_kv (the argsort merge) at the same receive buffers:
+    # keys in; keys and the int32 order out
+    record("merge_rows_kv",
+           timed_ms(lambda: bitonic.merge_sorted_rows_argsort(r), 200),
+           event_ms(lambda: bitonic.merge_sorted_rows_argsort_plain(r), 10),
+           event_ms(lambda: torch.sort(r.reshape(T_SMALL, -1), dim=-1,
+                                       stable=True), 200),
+           3 * r.numel() * 4, r.numel() * math.ceil(math.log2(T_SMALL)))
 
     # merge_ranks at the main path's (64, 64, 4096), bound block 2048:
     # keys and ids in, positions out; merging t sorted rows needs at most
@@ -438,7 +728,7 @@ def phase_times(rng, smi: str) -> dict:
     bb = ops.RANK_MERGE_BOUND_BLOCK
     flat = recv.reshape(T, -1)
     record("merge_ranks",
-           event_ms(lambda: fused.merge_ranks(kp, ip, bb), 5, warm=1),
+           timed_ms(lambda: fused.merge_ranks(kp, ip, bb), 5, warm=1),
            event_ms(lambda: fused.merge_ranks_plain(kp, ip, bb), 1, warm=0),
            event_ms(lambda: torch.sort(flat, dim=-1), 20),
            (kp.numel() + ip.numel() + kp.numel()) * 4,
@@ -461,7 +751,76 @@ def phase_times(rng, smi: str) -> dict:
           f"{np.median(walls):.2f} ms of {len(walls)} (host clock + "
           f"synchronize), peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB ({smi})")
+
+    # the sort with the 100-byte records: the payload lives on the card,
+    # the keys come from the host as above
+    payload = make_payload(T, M, SEED, device=DEVICE)
+    res["sort_payload_e2e"] = e2e(
+        f"cluster.sort t={T} m={M} uniform, {PAYLOAD_COLS} x int32 payload",
+        lambda: cluster.sort(xn, algorithm="smms", values=payload,
+                             device=DEVICE), smi)
+    del payload
+
+    # StatJoin on the Zipf tables, host planning and routing included
+    s, t = JOINS["statjoin_zipf"][1]()
+    rows_s = np.arange(len(s), dtype=np.int32)
+    rows_t = np.arange(len(t), dtype=np.int32)
+    res["statjoin_zipf_e2e"] = e2e(
+        f"cluster.join statjoin t={JOIN_T} Zipf 2^17 x 2^17",
+        lambda: cluster.join(s, rows_s, t, rows_t, algorithm="statjoin",
+                             t_machines=JOIN_T, device=DEVICE), smi)
+
+    # the host side of StatJoin alone, on the scalar-skew tables
+    s, t = JOINS["statjoin_scalar_skew"][1]()
+    t0 = time.perf_counter()
+    stats = statjoin_mod.collect_statistics(s, t)
+    t1 = time.perf_counter()
+    plan = statjoin_mod.plan_statjoin(stats, JOIN_T)
+    t2 = time.perf_counter()
+    for keys, side in ((s, "s"), (t, "t")):
+        statjoin_mod._routing_tensors(keys, plan, JOIN_T, side)
+    t3 = time.perf_counter()
+    res["statjoin_scalar_skew_host"] = {
+        "rectangles": len(plan), "statistics_ms": (t1 - t0) * 1e3,
+        "plan_ms": (t2 - t1) * 1e3, "routing_ms": (t3 - t2) * 1e3}
+    print(f"[times] StatJoin host side, scalar skew 2^20, t={JOIN_T}: "
+          f"{len(plan)} rectangles; statistics {(t1 - t0) * 1e3:.1f} ms, "
+          f"plan {(t2 - t1) * 1e3:.1f} ms, routing (both sides) "
+          f"{(t3 - t2) * 1e3:.1f} ms (host clock)")
     return res
+
+
+def e2e(label: str, fn, smi: str, reps: int = 5) -> dict:
+    """Median host-clock time of ``fn`` ending in a synchronize."""
+    walls = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[times] {label}: median {np.median(walls):.2f} ms of {reps} "
+          f"(host clock + synchronize), peak memory {peak / 2**20:.1f} MiB "
+          f"({smi})")
+    return {"ms": walls, "median_ms": float(np.median(walls)),
+            "max_memory_allocated_bytes": peak}
+
+
+def phase_launches() -> dict:
+    """Every path launched exactly its kernels; kernel -> path -> count."""
+    by_kernel = {name: {} for name in cuda.KERNELS}
+    for path, want in PATH_KERNELS.items():
+        got = {k: n for k, n in PATH_LAUNCHES[path].items() if n > 0}
+        print(f"[launches] {path:24s} {got}")
+        check(set(got) == want, f"path {path} launched {sorted(got)}, "
+                                f"expected {sorted(want)}")
+        for k, n in got.items():
+            by_kernel[k][path] = n
+    for name, paths in by_kernel.items():
+        check(paths, f"kernel {name} was not launched on the main path")
+    return by_kernel
 
 
 def main() -> None:
@@ -470,25 +829,28 @@ def main() -> None:
     rng = np.random.default_rng(SEED)
     errs = phase_kernels(rng)
 
-    cuda.reset_launches()
     main_runs = phase_main(smi)
+    payload_runs = phase_payload(smi)
+    join_runs = phase_joins(smi)
     phase_small()
-    torch.cuda.synchronize()
-    launches = dict(cuda.LAUNCHES)
-    print(f"[launches] phases 4-5: {launches}")
-    for name in KERNELS:
-        check(launches.get(name, 0) > 0,
-              f"kernel {name} was not launched on the main path")
+    phase_small_values_and_joins()
+    launches = phase_launches()
 
     times = phase_times(rng, smi)
-    kernels = [{"name": name, "route": "cuda", **KERNELS[name],
-                "launches": launches[name], "max_abs_err": errs[name],
+    kernels = [{"name": name, "route": "cuda",
+                "source": f"src/repro_torch/csrc/{cuda.SOURCES[k.library]}",
+                "replaces": k.replaces,
+                "launches": sum(launches[name].values()),
+                "launches_by_path": launches[name],
+                "max_abs_err": errs[name],
                 "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
                 "bound_ms": times[name]["bound_ms"],
                 "bound_by": times[name]["bound_by"],
                 "library_ms": times[name]["library_ms"]}
-               for name in KERNELS]
-    print(json.dumps({"build": build, "main": main_runs, "times": times}))
+               for name, k in cuda.KERNELS.items()]
+    print(json.dumps({"build": build, "main": main_runs,
+                      "payload": payload_runs, "joins": join_runs,
+                      "times": times}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

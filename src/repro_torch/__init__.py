@@ -6,7 +6,9 @@ run on the CUDA device unless the caller passes ``device="cpu"``; there
 every kernel runs as its plain PyTorch version.
 
     from repro_torch import cluster
-    (keys, _), report = cluster.sort(x, algorithm="smms")
+    (keys, values), report = cluster.sort(x, algorithm="smms", values=v)
+    out, report = cluster.join(sk, sr, tk, tr, algorithm="statjoin",
+                               t_machines=8)
 """
 from . import cluster, core, data, kernels
 

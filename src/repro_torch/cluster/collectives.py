@@ -7,11 +7,16 @@ first, and a collective is a tensor operation on that axis.
 
 * ``all_gather``  -- every machine receives the same (t, c) array, which
   is the machine-major operand itself: the broadcast is free and the
-  result is shared.  sent = c per machine, received = t * c.
+  result is shared.  sent = c per machine (or the caller's ``count``),
+  received = the sum of what was sent.
 * ``all_to_all``  -- the (t_src, t_dst, C) send tiles become the
   (t_dst, t_src, C) landed tiles: a transpose of the first two axes.
   sent is the caller's off-machine count; received counts the landed
   slots below ``pad`` (sentinel-aware), per machine.
+
+Either takes ``track=False`` for a payload that rides along an
+exchange already counted (the paper counts objects: a key and its
+payload are one object).
 * ``psum``        -- a sum over the machine axis; O(1) control scalars
   are not counted.
 
@@ -65,21 +70,31 @@ class CollectiveTape:
         self._entries.append((torch.as_tensor(sent, dtype=torch.float32),
                               torch.as_tensor(received, dtype=torch.float32)))
 
-    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (t, c), machine i's contribution in row i.  Returns the
-        gathered (t, c) array every machine sees (the operand itself)."""
-        t, c = x.shape[:2]
-        self.record(sent=torch.full((t,), c), received=torch.full((t,), t * c))
+    def all_gather(self, x: torch.Tensor, *, count=None,
+                   track: bool = True) -> torch.Tensor:
+        """x: (t, c, ...), machine i's contribution in row i.  Returns the
+        gathered array every machine sees (the operand itself).
+
+        ``count`` (scalar or (t,)) overrides each machine's sent count,
+        c by default; every machine receives the sum over machines.
+        """
+        if track:
+            t, c = x.shape[:2]
+            sent = torch.as_tensor(c if count is None else count)
+            sent = sent.expand(t) if sent.dim() == 0 else sent
+            self.record(sent=sent, received=sent.sum().expand(t))
         return x
 
-    def all_to_all(self, x: torch.Tensor, *, sent=None,
-                   pad=None) -> torch.Tensor:
+    def all_to_all(self, x: torch.Tensor, *, sent=None, pad=None,
+                   track: bool = True) -> torch.Tensor:
         """x: (t_src, t_dst, ...) send tiles; returns (t_dst, t_src, ...).
 
         ``sent`` defaults to every element of a machine's tile; ``pad``
         makes the received count sentinel-aware.
         """
         out = x.transpose(0, 1).contiguous()
+        if not track:
+            return out
         t = x.shape[0]
         per_machine = int(np.prod(x.shape[1:]))
         s = sent if sent is not None else torch.full((t,), per_machine)

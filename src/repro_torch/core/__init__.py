@@ -1,15 +1,25 @@
-"""SMMS on the port (counterpart of ``repro.core``): (alpha, k)
-accounting, Algorithm 1, the flat Round-3 exchange and the SMMS body."""
+"""SMMS and the deterministic joins on the port (counterpart of
+``repro.core``): (alpha, k) accounting, Algorithm 1, the flat Round-3
+exchange, the SMMS body, the local equi-join, StatJoin and its two
+baselines."""
 from .alpha_k import (AlphaKReport, PhaseStats, report_fields, smms_k_bound,
-                      smms_workload_bound)
+                      smms_workload_bound, statjoin_workload_bound)
 from .boundaries import boundaries, boundaries_oracle, equidepth_samples
+from .broadcastjoin import broadcast_join
 from .exchange import (PAD, ExchangeResult, exchange_sorted_segments,
                        flat_receive_capacity, partition_sorted)
+from .localjoin import MASKED_KEY, JoinOutput, local_equijoin
+from .repartition import repartition_join
 from .smms import SortResult, default_cap_factor, smms_shard, smms_sort
+from .statjoin import (JoinStatistics, Rectangle, StatJoinPlan,
+                       collect_statistics, plan_statjoin, statjoin)
 
 __all__ = ["AlphaKReport", "PhaseStats", "report_fields", "smms_k_bound",
-           "smms_workload_bound", "boundaries", "boundaries_oracle",
-           "equidepth_samples", "PAD", "ExchangeResult",
+           "smms_workload_bound", "statjoin_workload_bound", "boundaries",
+           "boundaries_oracle", "equidepth_samples", "PAD", "ExchangeResult",
            "exchange_sorted_segments", "flat_receive_capacity",
            "partition_sorted", "SortResult", "default_cap_factor",
-           "smms_shard", "smms_sort"]
+           "smms_shard", "smms_sort", "MASKED_KEY", "JoinOutput",
+           "local_equijoin", "JoinStatistics", "Rectangle", "StatJoinPlan",
+           "collect_statistics", "plan_statjoin", "statjoin",
+           "repartition_join", "broadcast_join"]

@@ -16,7 +16,8 @@ from typing import Dict, List
 import numpy as np
 
 __all__ = ["PhaseStats", "AlphaKReport", "smms_k_bound",
-           "smms_workload_bound", "report_fields"]
+           "smms_workload_bound", "statjoin_workload_bound",
+           "report_fields"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,20 +102,32 @@ def smms_workload_bound(n: int, t: int, r: int) -> float:
     return (1.0 + 2.0 / r + t**2 / n) * m
 
 
+def statjoin_workload_bound(w_total: int, t: int) -> float:
+    """Theorem 6: join-result workload per machine <= 2 W / t."""
+    return 2.0 * w_total / t
+
+
 def report_fields(report) -> dict:
     """A report's comparable fields as plain Python / numpy values.
 
     Reads only attributes, so it takes the reference's reports too:
-    alpha, workload, k_workload, k_network, each phase's name, sent and
-    received, cap_factor and capacity_attempts.
+    algorithm, n_in, n_out, alpha, workload, k_workload, k_network, each
+    phase's name, sent and received, and cap_factor and
+    capacity_attempts (None where the run has no capacity loop, as
+    StatJoin and repartition have none).
     """
+    cap_factor = getattr(report, "cap_factor", None)
+    attempts = getattr(report, "capacity_attempts", None)
     return {
+        "algorithm": report.algorithm,
+        "n_in": int(report.n_in),
+        "n_out": int(report.n_out),
         "alpha": int(report.alpha),
         "workload": np.asarray(report.workload),
         "k_workload": float(report.k_workload),
         "k_network": float(report.k_network),
         "phases": [(p.name, np.asarray(p.sent), np.asarray(p.received))
                    for p in report.phases],
-        "cap_factor": float(report.cap_factor),
-        "capacity_attempts": int(report.capacity_attempts),
+        "cap_factor": None if cap_factor is None else float(cap_factor),
+        "capacity_attempts": None if attempts is None else int(attempts),
     }

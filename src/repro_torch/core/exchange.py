@@ -4,9 +4,11 @@ Counterpart of the flat static path of ``src/repro/core/exchange.py``.
 Every machine cuts its locally sorted row at the t-1 interior
 boundaries, packs the t contiguous segments into a (t, C) tile
 sentinel-padded to the capacity C that Theorem 1 sizes, exchanges the
-tiles all-to-all and merges the t landed sorted rows.  Here all t
-machines do each step at once: rows, tiles and landed buffers carry the
-machine axis first.
+tiles all-to-all and merges the t landed sorted rows.  Values, when
+present, ride in a second tile (zeros in the pad slots) through an
+untracked all-to-all and come out of the merge in the keys' stable
+order.  Here all t machines do each step at once: rows, tiles and
+landed buffers carry the machine axis first.
 
 Dropped objects (a segment longer than C) are counted, not hidden: the
 caller's capacity-retry loop re-runs with a larger factor.
@@ -54,12 +56,14 @@ def partition_sorted(x_sorted: torch.Tensor, interior: torch.Tensor,
 
 def build_send_buffer(x_sorted: torch.Tensor, starts: torch.Tensor,
                       lens: torch.Tensor, cap_per_pair: int,
+                      values: Optional[torch.Tensor] = None,
                       valid_len: Optional[int] = None):
     """Pack each machine's t segments into a (t, C) tile, sentinel-padded.
 
-    x_sorted: (t, n); starts/lens: (t, t).  Returns (keys_buf (t, t, C),
-    dropped (t,)) where dropped counts each machine's objects beyond
-    the per-pair capacity.
+    x_sorted: (t, n); starts/lens: (t, t); values: (t, n, ...) or None.
+    Returns (keys_buf (t, t, C), values_buf (t, t, C, ...) with zeros in
+    the pad slots or None, dropped (t,)) where dropped counts each
+    machine's objects beyond the per-pair capacity.
     """
     t = starts.shape[0]
     m = valid_len if valid_len is not None else x_sorted.shape[1]
@@ -70,18 +74,30 @@ def build_send_buffer(x_sorted: torch.Tensor, starts: torch.Tensor,
     safe = torch.clamp(idx, 0, m - 1).long().reshape(t, -1)
     gathered = torch.gather(x_sorted, 1, safe).reshape(idx.shape)
     keys = torch.where(valid, gathered, torch.full_like(gathered, PAD))
+    vals = None
+    if values is not None:
+        rows = torch.arange(t, device=values.device)[:, None]
+        vals = values[rows, safe].reshape(idx.shape + values.shape[2:])
+        pads = ~valid.reshape(valid.shape + (1,) * (values.dim() - 2))
+        vals.masked_fill_(pads, 0)      # in place: the tile is the big one
     dropped = torch.clamp_min(lens - cap_per_pair, 0).sum(dim=1)
-    return keys, dropped
+    return keys, vals, dropped
 
 
 def static_exchange(keys_buf: torch.Tensor, tape: CollectiveTape,
-                    sent: torch.Tensor) -> torch.Tensor:
+                    sent: torch.Tensor,
+                    values_buf: Optional[torch.Tensor] = None):
     """Dense all-to-all of the (t, t, C) tiles: tile [i, k] lands on k.
 
     Recorded with ``sent`` (each machine's off-machine objects) and the
-    PAD-aware received count.
+    PAD-aware received count; the values tiles ride along untracked.
+    Returns (landed keys, landed values or None).
     """
-    return tape.all_to_all(keys_buf, sent=sent, pad=PAD)
+    recv_k = tape.all_to_all(keys_buf, sent=sent, pad=PAD)
+    recv_v = None
+    if values_buf is not None:
+        recv_v = tape.all_to_all(values_buf, track=False)
+    return recv_k, recv_v
 
 
 def flat_receive_capacity(m: int, t: int, cap_factor: float) -> int:
@@ -99,16 +115,19 @@ class ExchangeResult(NamedTuple):
 
 def exchange_sorted_segments(x_sorted: torch.Tensor, interior: torch.Tensor,
                              *, t: int, cap_factor: float,
+                             values: Optional[torch.Tensor] = None,
                              valid_len: Optional[int] = None,
                              tape: Optional[CollectiveTape] = None
                              ) -> ExchangeResult:
     """Round-3 shuffle: deliver bucket k of every machine to machine k.
 
     x_sorted: (t, n) locally sorted rows (``valid_len`` real keys each
-    when pre-padded); interior: (t-1,) boundaries.  Each machine's
-    capacity is ``flat_receive_capacity(m, t, cap_factor)``; every
-    sender's tile row lands sorted, so the landed rows are merged (the
-    reference's ``merge=True``) rather than sorted.
+    when pre-padded); values: (t, n, ...) aligned with them, or None;
+    interior: (t-1,) boundaries.  Each machine's capacity is
+    ``flat_receive_capacity(m, t, cap_factor)``; every sender's tile row
+    lands sorted, so the landed rows are merged (the reference's
+    ``merge=True``) rather than sorted -- with values, by the stable
+    argsort merge.
     """
     tape = tape if tape is not None else CollectiveTape()
     m = valid_len if valid_len is not None else x_sorted.shape[1]
@@ -116,10 +135,15 @@ def exchange_sorted_segments(x_sorted: torch.Tensor, interior: torch.Tensor,
     starts, lens = partition_sorted(x_sorted, interior, valid_len=valid_len)
     me = torch.arange(t, device=lens.device)
     sent = m - lens[me, me]                      # objects leaving each machine
-    keys_buf, local_drop = build_send_buffer(x_sorted, starts, lens, cap_pair,
-                                             valid_len=valid_len)
-    recv2d = static_exchange(keys_buf, tape, sent)          # (t, t, C)
+    keys_buf, vals_buf, local_drop = build_send_buffer(
+        x_sorted, starts, lens, cap_pair, values, valid_len=valid_len)
+    recv2d, recv_v2d = static_exchange(keys_buf, tape, sent,
+                                       vals_buf)            # (t, t, C)
     count = (recv2d.reshape(t, -1) < PAD).sum(dim=1).to(torch.int32)
     dropped = tape.psum(local_drop).to(torch.int32)
-    merged = ops.merge_sorted_rows(recv2d)      # pads (= inf) land last
-    return ExchangeResult(merged, None, count, sent, dropped)
+    # pads (= inf) land last
+    if recv_v2d is None:
+        return ExchangeResult(ops.merge_sorted_rows(recv2d), None, count,
+                              sent, dropped)
+    merged, merged_v = ops.merge_sorted_rows_kv(recv2d, recv_v2d)
+    return ExchangeResult(merged, merged_v, count, sent, dropped)

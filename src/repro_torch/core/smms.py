@@ -1,17 +1,18 @@
-"""SMMS -- Sort-Map-Merge Sort (paper §3.1), keys only, on one card.
+"""SMMS -- Sort-Map-Merge Sort (paper §3.1), on one card.
 
 Counterpart of ``src/repro/core/smms.py`` (``smms_shard`` :111,
 ``smms_sort`` :201).  Three rounds, written batched over the t machines:
 
-  Round 1   local sort (the bitonic kernel) and s+1 = r*t+1 equi-depth
-            samples per machine, all-gathered.
+  Round 1   local sort (the bitonic kernel; with values the (key, iota)
+            pair-sort kernel and one gather of the values) and
+            s+1 = r*t+1 equi-depth samples per machine, all-gathered.
   Round 2   Algorithm 1 on the gathered samples (every machine would
             compute the same boundaries; the port computes them once).
   Round 3   cut each sorted row at the boundaries (the searchsorted
             kernel), pack the (t, C) tiles sized by Theorem 1, exchange
             them all-to-all and merge the landed sorted rows (the
             bitonic merge kernel, or the rank-merge kernel past one
-            tile).
+            tile; with values their argsort variants).
 
 The capacity-retry loop re-runs the body with a doubled factor while
 objects drop; it reads the dropped count back to the host once per
@@ -51,8 +52,10 @@ def default_cap_factor(n: int, t: int, r: int, slack: float = 1.05) -> float:
 
 def smms_shard(x: torch.Tensor, *, t: int, r: int = 2,
                cap_factor: Optional[float] = None,
+               values: Optional[torch.Tensor] = None,
                tape: Optional[CollectiveTape] = None) -> SortResult:
-    """The SMMS body for all t machines.  x: (t, m), row i machine i's keys."""
+    """The SMMS body for all t machines.  x: (t, m), row i machine i's
+    keys; values: (t, m, ...) their payload, or None."""
     m = x.shape[1]
     n = m * t
     s = r * t
@@ -63,7 +66,12 @@ def smms_shard(x: torch.Tensor, *, t: int, r: int = 2,
 
     # Round 1: pad once, sort the padded rows, sample the m real keys.
     with tape.phase("round1->2 samples"):
-        xs = ops.sort(ops.pad_pow2(x), prepadded=True)     # (t, np2)
+        if values is not None:
+            xs, values = ops.sort_kv(ops.pad_pow2(x),
+                                     ops.pad_pow2(values, fill=0, axis=1),
+                                     prepadded=True)
+        else:
+            xs = ops.sort(ops.pad_pow2(x), prepadded=True)  # (t, np2)
         lam = equidepth_samples(xs[:, :m], s)               # (t, s+1)
         lam_all = tape.all_gather(lam)                      # (t, s+1)
 
@@ -74,16 +82,19 @@ def smms_shard(x: torch.Tensor, *, t: int, r: int = 2,
     # Round 3: cut, exchange, merge.
     with tape.phase("round3 shuffle"):
         ex = exchange_sorted_segments(xs, b[1:-1], t=t, cap_factor=cap_factor,
-                                      valid_len=m, tape=tape)
-    return SortResult(ex.keys, None, ex.count, ex.sent, ex.dropped, b)
+                                      values=values, valid_len=m, tape=tape)
+    return SortResult(ex.keys, ex.values, ex.count, ex.sent, ex.dropped, b)
 
 
 def smms_sort(x: torch.Tensor, r: int = 2, cap_factor: Optional[float] = None,
-              policy: Optional[CapacityPolicy] = None):
+              policy: Optional[CapacityPolicy] = None,
+              values: Optional[torch.Tensor] = None):
     """Sort x of shape (t, m) across t machines, on x's device.
 
-    Returns ``((sorted_keys, None), report)``: the n sorted keys as a
-    tensor on x's device, and the AlphaKReport with
+    Returns ``((sorted_keys, sorted_values), report)``: the n sorted
+    keys as a tensor on x's device, machine 0's first, with ``values``
+    ((t, m, ...) or None) in the keys' stable order beside them, and
+    the AlphaKReport with
     ``exchange_topology``, ``theoretical_workload_bound``, ``cap_factor``
     and ``capacity_attempts``.  An explicit ``cap_factor`` pins the
     capacity (no retry); otherwise Theorem 1 sizes it and the policy
@@ -98,7 +109,8 @@ def smms_sort(x: torch.Tensor, r: int = 2, cap_factor: Optional[float] = None,
 
     def attempt(factor):
         res, tape = substrate.run(
-            functools.partial(smms_shard, t=t, r=r, cap_factor=float(factor)),
+            functools.partial(smms_shard, t=t, r=r, cap_factor=float(factor),
+                              values=values),
             x)
         return (res, tape), int(res.dropped)    # the one host read per attempt
 
@@ -108,6 +120,7 @@ def smms_sort(x: torch.Tensor, r: int = 2, cap_factor: Optional[float] = None,
     valid = (torch.arange(res.keys.shape[1], device=res.keys.device)[None, :]
              < res.count[:, None].long())
     flat = res.keys[valid]                 # machine 0's keys first, then 1...
+    vals = None if res.values is None else res.values[valid]
 
     report = tape.report(algorithm=f"SMMS(r={r})", t=t, n_in=n, n_out=n,
                          workload=counts.numpy())
@@ -119,4 +132,4 @@ def smms_sort(x: torch.Tensor, r: int = 2, cap_factor: Optional[float] = None,
     # the Algorithm-1 boundaries the run used, so a caller can recount
     # the workload (the reference keeps them in its SortResult only)
     report.boundaries = res.boundaries.cpu().numpy()
-    return (flat, None), report
+    return (flat, vals), report

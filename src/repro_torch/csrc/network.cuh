@@ -33,6 +33,18 @@ __device__ __forceinline__ bool gt(T a, T b) {
   return cmp_key(a) > cmp_key(b);
 }
 
+template <typename T>
+__device__ __forceinline__ bool eq(T a, T b) {
+  return cmp_key(a) == cmp_key(b);
+}
+
+// Lexicographic (key, value) order: pair a sorts after pair b, as the
+// reference's _compare_exchange_kv decides it (bitonic.py:89-102).
+template <typename T>
+__device__ __forceinline__ bool gt_kv(T ka, int va, T kb, int vb) {
+  return gt(ka, kb) || (eq(ka, kb) && va > vb);
+}
+
 // Compare-exchange of x[i] and x[i + d]; desc flips the direction.
 template <typename T>
 __device__ __forceinline__ void compare_exchange(T* x, long long i,
@@ -45,6 +57,32 @@ __device__ __forceinline__ void compare_exchange(T* x, long long i,
   }
 }
 
+// The same on (key, value) pairs: both channels move together.
+template <typename T>
+__device__ __forceinline__ void compare_exchange_kv(T* k, int* v, long long i,
+                                                    long long d, bool desc) {
+  const T ka = k[i], kb = k[i + d];
+  const int va = v[i], vb = v[i + d];
+  if (gt_kv(ka, va, kb, vb) != desc) {
+    k[i] = kb;
+    k[i + d] = ka;
+    v[i] = vb;
+    v[i + d] = va;
+  }
+}
+
+// One compare-exchange on keys alone (KV false; v is unused) or on
+// (key, value) pairs.
+template <typename T, bool KV>
+__device__ __forceinline__ void compare_exchange_any(T* k, int* v,
+                                                     long long i, long long d,
+                                                     bool desc) {
+  if constexpr (KV)
+    compare_exchange_kv(k, v, i, d, desc);
+  else
+    compare_exchange(k, i, d, desc);
+}
+
 // Lower index of pair q of a substage at distance d (within a row or
 // an aligned block): pairs (p, p + d) with bit log2(d) of p clear.
 __device__ __forceinline__ long long pair_low(long long q, long long d) {
@@ -55,17 +93,19 @@ __device__ __forceinline__ long long pair_low(long long q, long long d) {
 // pair.  Rows of length n (a power of two) lie back to back.  With
 // sort_dirs the direction of stage k is bit k+1 of the position in the
 // row, as in the reference's _directions(); without it every pair is
-// ascending (the merge cascades).
-template <typename T>
-__global__ void global_substage(T* x, long long total_pairs, long long n,
-                                long long d, int k, bool sort_dirs) {
+// ascending (the merge cascades).  With KV the int32 value channel v,
+// laid out as x, moves with the keys.
+template <typename T, bool KV>
+__global__ void global_substage(T* x, int* v, long long total_pairs,
+                                long long n, long long d, int k,
+                                bool sort_dirs) {
   const long long q = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (q >= total_pairs) return;
   const long long half = n / 2;
   const long long row = q / half;
   const long long p = pair_low(q % half, d);
   const bool desc = sort_dirs && (((p >> (k + 1)) & 1) != 0);
-  compare_exchange(x + row * n, p, d, desc);
+  compare_exchange_any<T, KV>(x + row * n, KV ? v + row * n : v, p, d, desc);
 }
 
 inline int log2_exact(long long v) {

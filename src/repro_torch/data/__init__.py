@@ -1,4 +1,6 @@
 """Synthetic inputs, numpy copies of ``repro.data`` (counterpart)."""
-from .synthetic import lidar_like, uniform_keys, zipf_keys, zipf_tables
+from .synthetic import (lidar_like, scalar_skew_tables, uniform_keys,
+                        zipf_keys, zipf_tables)
 
-__all__ = ["uniform_keys", "lidar_like", "zipf_tables", "zipf_keys"]
+__all__ = ["uniform_keys", "lidar_like", "zipf_tables", "zipf_keys",
+           "scalar_skew_tables"]

@@ -6,7 +6,8 @@
 * Zipf tables, and :func:`zipf_keys` -- skewed float keys with heavy
   hitters and duplicate Algorithm-1 boundaries, drawn as the
   reference's kernel-parity tests draw them
-  (``tests/test_cluster_kernel_parity.py:23``).
+  (``tests/test_cluster_kernel_parity.py:23``);
+* scalar-skew join tables (paper §5.2, after DeWitt et al.).
 
 The same seed gives the same arrays as the reference's generators.
 """
@@ -16,7 +17,8 @@ from typing import Tuple
 
 import numpy as np
 
-__all__ = ["uniform_keys", "lidar_like", "zipf_tables", "zipf_keys"]
+__all__ = ["uniform_keys", "lidar_like", "zipf_tables", "zipf_keys",
+           "scalar_skew_tables"]
 
 
 def uniform_keys(n: int, seed: int = 0, lo: float = 1.0,
@@ -63,3 +65,17 @@ def zipf_keys(n: int, seed: int = 0, theta: float = 0.7,
     """Skewed float32 sort keys: many ties and heavy hitters."""
     s, _ = zipf_tables(n, 1, theta=theta, seed=seed, domain=domain)
     return s.astype(np.float32)
+
+
+def scalar_skew_tables(n: int, m_hot: int, n_hot: int, seed: int = 0
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+    """Scalar-skew data (DeWitt et al. [7]): each table has n tuples,
+    domain [n, 2n); hot key k0 = n occurs m_hot times in S, n_hot in T."""
+    rng = np.random.default_rng(seed)
+    s = rng.integers(n, 2 * n, size=n)
+    t = rng.integers(n + 1, 2 * n, size=n)  # keep k0 exclusive to hot rows
+    s[:m_hot] = n
+    t[:n_hot] = n
+    rng.shuffle(s)
+    rng.shuffle(t)
+    return s.astype(np.int32), t.astype(np.int32)

@@ -5,9 +5,11 @@ CUDA sources live in ``repro_torch/csrc/`` and are built at first use
 (:mod:`repro_torch.kernels.cuda`); a CPU tensor never needs them.
 """
 from . import cuda, ops, ref
-from .bitonic import bitonic_sort, merge_sorted_rows, sort_sentinel
+from .bitonic import (bitonic_sort, bitonic_sort_kv, merge_sorted_rows,
+                      merge_sorted_rows_argsort, sort_sentinel)
 from .bucketize import searchsorted
 from .fused import merge_ranks
 
-__all__ = ["cuda", "ops", "ref", "bitonic_sort", "merge_sorted_rows",
-           "sort_sentinel", "searchsorted", "merge_ranks"]
+__all__ = ["cuda", "ops", "ref", "bitonic_sort", "bitonic_sort_kv",
+           "merge_sorted_rows", "merge_sorted_rows_argsort", "sort_sentinel",
+           "searchsorted", "merge_ranks"]

@@ -1,18 +1,24 @@
 """Bitonic sort and merge networks: the Round-1 sort and the in-tile
 receive merge of SMMS.
 
-Counterpart of ``src/repro/kernels/bitonic.py``.  Two kernels, each with
-its plain PyTorch version beside it:
+Counterpart of ``src/repro/kernels/bitonic.py``.  Four kernels, each
+with its plain PyTorch version beside it:
 
 * :func:`bitonic_sort` -- ascending sort of each row of (rows, n);
   CUDA source ``csrc/bitonic_sort.cu``.
+* :func:`bitonic_sort_kv` -- lexicographic (key, int32 value) sort of
+  each row; fed ``arange(n)`` values it is the stable argsort.  Same
+  source.
 * :func:`merge_sorted_rows` -- merge of t sorted rows into one sorted
   row, per batch entry; CUDA source ``csrc/merge_rows.cu``.
+* :func:`merge_sorted_rows_argsort` -- the same merge carrying each
+  element's flat index, which yields the stable flat argsort.  Same
+  source.
 
-The plain versions (:func:`bitonic_sort_plain`,
-:func:`merge_sorted_rows_plain`, built on :func:`sort_network_block` and
-:func:`merge_network_block`) run the reference's network substage by
-substage in torch ops.  The CPU runs them; a CUDA tensor launches the
+The plain versions (``*_plain``, built on :func:`sort_network_block`,
+:func:`sort_network_block_kv`, :func:`merge_network_block` and
+:func:`merge_network_block_kv`) run the reference's network substage
+by substage in torch ops.  The CPU runs them; a CUDA tensor launches the
 kernel, which performs the same compare-exchanges, so the two agree
 bitwise.  Which one runs is decided by the tensor's device alone.
 
@@ -31,10 +37,16 @@ from . import cuda
 __all__ = [
     "bitonic_sort",
     "bitonic_sort_plain",
+    "bitonic_sort_kv",
+    "bitonic_sort_kv_plain",
     "merge_sorted_rows",
     "merge_sorted_rows_plain",
+    "merge_sorted_rows_argsort",
+    "merge_sorted_rows_argsort_plain",
     "sort_network_block",
+    "sort_network_block_kv",
     "merge_network_block",
+    "merge_network_block_kv",
     "sort_sentinel",
     "ftz",
     "MERGE_TILE_LANES",
@@ -89,6 +101,23 @@ def _compare_exchange(x: torch.Tensor, d: int,
     return torch.stack([lo, hi], dim=2).reshape(rows, n)
 
 
+def _compare_exchange_kv(k: torch.Tensor, v: torch.Tensor, d: int,
+                         descending_runs: torch.Tensor):
+    """Lexicographic (key, value) compare-exchange at distance d."""
+    rows, n = k.shape
+    kr = k.reshape(rows, n // (2 * d), 2, d)
+    vr = v.reshape(rows, n // (2 * d), 2, d)
+    ka, kb = kr[:, :, 0, :], kr[:, :, 1, :]
+    va, vb = vr[:, :, 0, :], vr[:, :, 1, :]
+    fa, fb = ftz(ka), ftz(kb)
+    gt = (fa > fb) | ((fa == fb) & (va > vb))   # pair a sorts after pair b
+    swap = gt != descending_runs[None, :, None]
+    klo, khi = torch.where(swap, kb, ka), torch.where(swap, ka, kb)
+    vlo, vhi = torch.where(swap, vb, va), torch.where(swap, va, vb)
+    return (torch.stack([klo, khi], dim=2).reshape(rows, n),
+            torch.stack([vlo, vhi], dim=2).reshape(rows, n))
+
+
 def _directions(n: int, d: int, k: int, device) -> torch.Tensor:
     """Per partner-group descending bit for stage k, distance d."""
     group = torch.arange(n // (2 * d), device=device) * (2 * d)
@@ -108,6 +137,23 @@ def sort_network_block(x: torch.Tensor) -> torch.Tensor:
             d = 1 << j
             x = _compare_exchange(x, d, _directions(n, d, k, x.device))
     return x
+
+
+def sort_network_block_kv(keys: torch.Tensor, vals: torch.Tensor):
+    """Lexicographic (key, value) bitonic sort of each row.
+
+    keys/vals: (rows, n), n a power of 2.  The plain version of the
+    ``bitonic_sort_kv`` kernel.
+    """
+    rows, n = keys.shape
+    logn = int(math.log2(n))
+    assert 1 << logn == n, "n must be a power of 2"
+    for k in range(logn):
+        for j in range(k, -1, -1):
+            d = 1 << j
+            keys, vals = _compare_exchange_kv(
+                keys, vals, d, _directions(n, d, k, keys.device))
+    return keys, vals
 
 
 def merge_network_block(x: torch.Tensor, run: int) -> torch.Tensor:
@@ -132,6 +178,32 @@ def merge_network_block(x: torch.Tensor, run: int) -> torch.Tensor:
         x = y
         lvl *= 2
     return x
+
+
+def merge_network_block_kv(keys: torch.Tensor, vals: torch.Tensor,
+                           run: int):
+    """:func:`merge_network_block` on (key, value) pairs, lexicographic.
+
+    The plain version of the argsort merge (the reference's
+    ``_merge_kv_kernel``).
+    """
+    rows, n = keys.shape
+    lvl = run
+    while lvl < n:
+        kr = keys.reshape(rows, n // (2 * lvl), 2, lvl)
+        vr = vals.reshape(rows, n // (2 * lvl), 2, lvl)
+        keys = torch.cat([kr[:, :, 0, :], kr[:, :, 1, :].flip(-1)],
+                         dim=-1).reshape(rows, n)
+        vals = torch.cat([vr[:, :, 0, :], vr[:, :, 1, :].flip(-1)],
+                         dim=-1).reshape(rows, n)
+        d = lvl
+        while d >= 1:
+            keys, vals = _compare_exchange_kv(
+                keys, vals, d, torch.zeros(n // (2 * d), dtype=torch.bool,
+                                           device=keys.device))
+            d //= 2
+        lvl *= 2
+    return keys, vals
 
 
 def _check_kernel_operand(name: str, x: torch.Tensor) -> None:
@@ -168,6 +240,38 @@ def bitonic_sort(x: torch.Tensor) -> torch.Tensor:
     cuda.launch("bitonic_sort", f"bitonic_sort_{_SUFFIX[x.dtype]}",
                 out.data_ptr(), out.shape[0], out.shape[1])
     return out[:, :x.shape[-1]]
+
+
+def bitonic_sort_kv_plain(keys: torch.Tensor, values: torch.Tensor):
+    """The plain version of :func:`bitonic_sort_kv`, on any device."""
+    n = keys.shape[-1]
+    ks, vs = sort_network_block_kv(_pad_row(keys), _pad_row(values))
+    return ks[:, :n], vs[:, :n]
+
+
+def bitonic_sort_kv(keys: torch.Tensor, values: torch.Tensor):
+    """Row-wise (key, value) pair sort, values breaking key ties.
+
+    keys/values: (rows, n), the same shape; values int32.  Sorting
+    (keys, arange(n)) yields the stable argsort in the value channel.
+    Rows are padded to a power of two with the sort sentinel in both
+    channels (the value sentinel is int32 max), as the reference pads
+    them.  A CUDA tensor runs the kernel (float32 or int32 keys); a CPU
+    tensor runs :func:`bitonic_sort_kv_plain`.
+    """
+    if keys.shape != values.shape:
+        raise ValueError(f"bitonic_sort_kv: keys {tuple(keys.shape)} and "
+                         f"values {tuple(values.shape)} differ in shape")
+    if not keys.is_cuda:
+        return bitonic_sort_kv_plain(keys, values)
+    _check_kernel_operand("bitonic_sort_kv", keys)
+    cuda.check_cuda_tensor("bitonic_sort_kv", values, (torch.int32,))
+    n = keys.shape[-1]
+    ks = _pad_row(keys).clone(memory_format=torch.contiguous_format)
+    vs = _pad_row(values).clone(memory_format=torch.contiguous_format)
+    cuda.launch("bitonic_sort_kv", f"bitonic_sort_kv_{_SUFFIX[keys.dtype]}",
+                ks.data_ptr(), vs.data_ptr(), ks.shape[0], ks.shape[1])
+    return ks[:, :n], vs[:, :n]
 
 
 def _pad_sorted_rows(x: torch.Tensor, sentinel) -> torch.Tensor:
@@ -230,3 +334,43 @@ def merge_sorted_rows(x: torch.Tensor) -> torch.Tensor:
                 out.data_ptr(), batch, total, run)
     merged = out[:, :n]
     return merged[0] if x.dim() == 2 else merged
+
+
+def _padded_runs_kv(x: torch.Tensor):
+    """As :func:`_padded_runs`, with the ``_pad_iota_unique`` id rows."""
+    flat, run, n = _padded_runs(x)
+    t, c = x.shape[-2:]
+    tp2 = flat.shape[1] // run
+    ids = _pad_iota_unique(t, c, tp2, run, device=x.device)
+    return flat, ids.reshape(1, -1).expand(flat.shape[0], -1), run, n
+
+
+def merge_sorted_rows_argsort_plain(x: torch.Tensor):
+    """The plain version of :func:`merge_sorted_rows_argsort`."""
+    flat, ids, run, n = _padded_runs_kv(x)
+    merged, order = merge_network_block_kv(flat, ids, run)
+    merged, order = merged[:, :n], order[:, :n]
+    return (merged[0], order[0]) if x.dim() == 2 else (merged, order)
+
+
+def merge_sorted_rows_argsort(x: torch.Tensor):
+    """Merge t sorted rows carrying the stable permutation.
+
+    x: (t, c) or (batch, t, c), rows ascending.  Returns (merged, order):
+    (t*c,) or (batch, t*c) each, ``order`` int32 indices into each batch
+    entry's ``x.reshape(-1)`` -- bitwise a stable flat argsort (ties
+    resolve by buffer position).  The ids are ``_pad_iota_unique``, so
+    every (key, id) pair is distinct.  A CUDA tensor runs the kernel, a
+    CPU tensor :func:`merge_sorted_rows_argsort_plain`.
+    """
+    if not x.is_cuda:
+        return merge_sorted_rows_argsort_plain(x)
+    _check_kernel_operand("merge_sorted_rows_argsort", x)
+    flat, ids, run, n = _padded_runs_kv(x)
+    keys = flat.clone(memory_format=torch.contiguous_format)
+    order = ids.clone(memory_format=torch.contiguous_format)
+    batch, total = keys.shape
+    cuda.launch("merge_rows_kv", f"merge_rows_kv_{_SUFFIX[keys.dtype]}",
+                keys.data_ptr(), order.data_ptr(), batch, total, run)
+    merged, order = keys[:, :n], order[:, :n]
+    return (merged[0], order[0]) if x.dim() == 2 else (merged, order)

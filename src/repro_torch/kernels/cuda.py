@@ -29,21 +29,41 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, NamedTuple, Optional
 
-__all__ = ["SOURCES", "LAUNCHES", "BUILD_LOG", "reset_launches",
-           "build_all", "library", "launch", "check_cuda_tensor"]
+__all__ = ["SOURCES", "Kernel", "KERNELS", "LAUNCHES", "BUILD_LOG",
+           "reset_launches", "build_all", "library", "launch",
+           "check_cuda_tensor"]
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
 
-# kernel name -> source file under csrc/
+# library name -> source file under csrc/
 SOURCES = {
     "bitonic_sort": "bitonic_sort.cu",
     "searchsorted": "searchsorted.cu",
     "merge_rows": "merge_rows.cu",
     "merge_ranks": "merge_ranks.cu",
+}
+
+
+class Kernel(NamedTuple):
+    library: str    # the key of SOURCES that holds the kernel
+    replaces: str   # the TPU kernel it ports: the reference's pallas_call
+
+
+# kernel name -> where it lives and what it ports.  The pair sort and
+# the argsort merge share their keys-only twins' sources (and networks).
+KERNELS = {
+    "bitonic_sort": Kernel("bitonic_sort", "src/repro/kernels/bitonic.py:224"),
+    "bitonic_sort_kv": Kernel("bitonic_sort",
+                              "src/repro/kernels/bitonic.py:254"),
+    "searchsorted": Kernel("searchsorted",
+                           "src/repro/kernels/bucketize.py:145"),
+    "merge_rows": Kernel("merge_rows", "src/repro/kernels/bitonic.py:313"),
+    "merge_rows_kv": Kernel("merge_rows", "src/repro/kernels/bitonic.py:321"),
+    "merge_ranks": Kernel("merge_ranks", "src/repro/kernels/fused.py:286"),
 }
 
 # No --use_fast_math and no -ftz: the kernels fold denormals themselves,
@@ -59,8 +79,12 @@ SIGNATURES = {
     "bitonic_sort_i32": [_P, _I64, _I64, _P],
     "searchsorted_f32": [_P, _P, _P, _I64, _I64, _I64, _I32, _I32, _P],
     "searchsorted_i32": [_P, _P, _P, _I64, _I64, _I64, _I32, _I32, _P],
+    "bitonic_sort_kv_f32": [_P, _P, _I64, _I64, _P],
+    "bitonic_sort_kv_i32": [_P, _P, _I64, _I64, _P],
     "merge_rows_f32": [_P, _I64, _I64, _I64, _P],
     "merge_rows_i32": [_P, _I64, _I64, _I64, _P],
+    "merge_rows_kv_f32": [_P, _P, _I64, _I64, _I64, _P],
+    "merge_rows_kv_i32": [_P, _P, _I64, _I64, _I64, _P],
     "merge_ranks_f32": [_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P],
     "merge_ranks_i32": [_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P],
 }
@@ -155,13 +179,14 @@ def library(name: str) -> ctypes.CDLL:
 def launch(name: str, fn: str, *args) -> None:
     """Call C entry point ``fn`` of kernel ``name`` on the current stream.
 
-    ``args`` are the entry point's arguments before the stream:
-    tensors' ``data_ptr()`` and Python ints.  Raises if the launch
-    reports a CUDA error; counts the launch otherwise.
+    ``name`` is a key of :data:`KERNELS`; ``args`` are the entry
+    point's arguments before the stream: tensors' ``data_ptr()`` and
+    Python ints.  Raises if the launch reports a CUDA error; counts the
+    launch under ``name`` otherwise.
     """
     import torch
 
-    lib = library(name)
+    lib = library(KERNELS[name].library)
     stream = torch.cuda.current_stream().cuda_stream
     rc = getattr(lib, fn)(*args, stream)
     if rc != 0:

@@ -1,10 +1,11 @@
 """Kernel dispatch for the port: the single entry the cluster code calls.
 
-Counterpart of ``src/repro/kernels/ops.py`` for the keys-only SMMS path
-(``sort``, ``searchsorted``, ``merge_sorted_rows``).  The reference
-picks between a Pallas backend and a jnp backend and falls back to jnp
-for operands a kernel cannot take.  The port has no backend switch and
-no fallback:
+Counterpart of ``src/repro/kernels/ops.py`` for SMMS with and without
+values and for the local equi-join (``sort``, ``sort_kv``,
+``searchsorted``, ``merge_sorted_rows``, ``merge_sorted_rows_kv``).
+The reference picks between a Pallas backend and a jnp backend and
+falls back to jnp for operands a kernel cannot take.  The port has no
+backend switch and no fallback:
 
 * which implementation runs is decided by the operand's device alone --
   a CUDA tensor launches the hand-written kernel, a CPU tensor runs the
@@ -30,7 +31,8 @@ import torch
 from . import bitonic, bucketize, fused
 
 __all__ = [
-    "sort", "searchsorted", "merge_sorted_rows", "pad_pow2",
+    "sort", "sort_kv", "searchsorted", "merge_sorted_rows",
+    "merge_sorted_rows_kv", "pad_pow2",
     "kernel_eligible", "sort_kernel_choice", "reset_dispatch_counts",
     "DISPATCH_COUNTS", "MAX_KERNEL_LANES", "RANK_MERGE_BOUND_BLOCK",
     "MERGE_TILE_LANES",
@@ -69,37 +71,47 @@ def _lanes_ok(n: int) -> bool:
     return 1 <= _next_pow2(n) <= MAX_KERNEL_LANES
 
 
-def pad_pow2(x: torch.Tensor, fill=None) -> torch.Tensor:
-    """Pad the last (per-machine) axis to the next power of two (min 2).
+def pad_pow2(x: torch.Tensor, fill=None, axis: int = -1) -> torch.Tensor:
+    """Pad the per-machine axis to the next power of two (min 2).
 
-    ``fill`` defaults to the dtype's sort sentinel, which sorts last:
-    a round pads once, then calls ``sort(..., prepadded=True)`` and
-    ``searchsorted(..., valid_len=m)`` over the padded rows.
+    ``axis`` is the last one for keys; a values array (t, m, ...) pads
+    axis 1.  ``fill`` defaults to the dtype's sort sentinel, which
+    sorts last: a round pads once, then calls ``sort(...,
+    prepadded=True)`` and ``searchsorted(..., valid_len=m)`` over the
+    padded rows.
     """
-    n = x.shape[-1]
+    axis = axis % x.dim()
+    n = x.shape[axis]
     np2 = max(2, _next_pow2(n))
     if np2 == n:
         return x
     if fill is None:
         fill = bitonic.sort_sentinel(x.dtype)
-    return torch.nn.functional.pad(x, (0, np2 - n), value=fill)
+    widths = [0, 0] * (x.dim() - 1 - axis) + [0, np2 - n]
+    return torch.nn.functional.pad(x, widths, value=fill)
 
 
 def kernel_eligible(op: str, x: torch.Tensor, y=None) -> bool:
     """Would the kernels take these operands?  Shape/dtype gate only.
 
-    ``y`` is the second operand where the op has one (searchsorted
-    queries).
+    ``y`` is the second operand where the op has one (sort_kv values,
+    searchsorted queries, merge payload).
     """
     if op == "sort":
         return x.dim() in (1, 2) and _key_dtype_ok(x) and _lanes_ok(x.shape[-1])
+    if op == "sort_kv":
+        return (x.dim() in (1, 2) and _key_dtype_ok(x)
+                and _lanes_ok(x.shape[-1])
+                and (y is None or y.shape[:x.dim()] == x.shape))
     if op == "searchsorted":
         return (x.dim() in (1, 2) and y is not None and y.dim() in (1, 2)
                 and y.dim() <= x.dim() and x.shape[-1] > 0
                 and y.shape[-1] > 0 and _key_dtype_ok(x)
                 and x.dtype == y.dtype and _lanes_ok(x.shape[-1]))
-    if op == "merge_sorted_rows":
+    if op in ("merge_sorted_rows", "merge_sorted_rows_kv"):
         if x.dim() not in (2, 3) or not _key_dtype_ok(x):
+            return False
+        if y is not None and y.shape[:x.dim()] != x.shape:
             return False
         t, c = x.shape[-2:]
         tp2, cp2 = _next_pow2(t), _next_pow2(max(2, c))
@@ -147,6 +159,40 @@ def sort(x: torch.Tensor, *, prepadded: bool = False) -> torch.Tensor:
     return out[0] if x.dim() == 1 else out
 
 
+def _take_rows(values: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+    """values (rows, n, ...) gathered along axis 1 by order (rows, n')."""
+    rows = torch.arange(order.shape[0], device=order.device)[:, None]
+    return values[rows, order.long()]
+
+
+def sort_kv(keys: torch.Tensor, values: torch.Tensor, *,
+            prepadded: bool = False):
+    """Stable sort of (keys, values) by key: returns (sorted, permuted).
+
+    keys: (n,) or (rows, n); values: leading dims those of keys, extra
+    trailing dims ride along.  Realizes the stable argsort as the
+    reference's kernel path does: the pair sort of (key, arange(n))
+    (``bitonic.bitonic_sort_kv``), then one gather of the values, so key
+    ties keep input order bitwise.  ``prepadded=True``: both operands
+    were padded to the same power of two (keys with their sort
+    sentinel); outputs stay padded, pads last.
+    """
+    if prepadded and (keys.shape[-1] != max(2, _next_pow2(keys.shape[-1]))
+                      or values.shape[:keys.dim()] != keys.shape):
+        raise ValueError("prepadded=True requires both operands padded to "
+                         "the same power-of-two length (use ops.pad_pow2)")
+    _require("sort_kv", keys, values)
+    _tick("sort_kv", keys)
+    k2 = keys[None] if keys.dim() == 1 else keys
+    v2 = values[None] if keys.dim() == 1 else values
+    rows, n = k2.shape
+    iota = torch.arange(n, dtype=torch.int32, device=keys.device)
+    ks, order = bitonic.bitonic_sort_kv(k2.contiguous(),
+                                        iota.repeat(rows, 1))
+    vs = _take_rows(v2, order)
+    return (ks[0], vs[0]) if keys.dim() == 1 else (ks, vs)
+
+
 def searchsorted(sorted_arr: torch.Tensor, queries: torch.Tensor, *,
                  side: str = "left",
                  valid_len: Optional[int] = None) -> torch.Tensor:
@@ -176,14 +222,16 @@ def _merge_fits_one_tile(t: int, c: int) -> bool:
     return _lanes_ok(_next_pow2(t) * _next_pow2(max(2, c)))
 
 
-def _rank_merge(keys: torch.Tensor) -> torch.Tensor:
+def _rank_merge(keys: torch.Tensor, with_order: bool = False):
     """Scale-out merge: global (key, flat-id) ranks, then a scatter.
 
     keys: (batch, t, c) sorted rows.  Every element's final position is
     its rank in the lexicographic (key, id) order (``fused.merge_ranks``,
     bound rows blocked past ``RANK_MERGE_BOUND_BLOCK``); the scatter
-    places the keys.  The positions are a permutation, so the scatter is
-    deterministic.  Returns (batch, t*c).
+    places the keys and, with ``with_order``, the flat ids, which are
+    then the stable flat argsort.  The positions are a permutation, so
+    the scatter is deterministic.  Returns (merged (batch, t*c), order
+    (batch, t*c) int32 or None).
     """
     batch, t, c = keys.shape
     kp = bitonic._pad_sorted_rows(keys, bitonic.sort_sentinel(keys.dtype))
@@ -195,8 +243,14 @@ def _rank_merge(keys: torch.Tensor) -> torch.Tensor:
     pos = fused.merge_ranks(kp.contiguous(), ip, bound_block=bound_block)
     merged = torch.empty((batch, tp2 * cp2), dtype=keys.dtype,
                          device=keys.device)
-    merged.scatter_(1, pos.reshape(batch, -1).long(), kp.reshape(batch, -1))
-    return merged[:, :t * c]
+    pos = pos.reshape(batch, -1).long()
+    merged.scatter_(1, pos, kp.reshape(batch, -1))
+    if not with_order:
+        return merged[:, :t * c], None
+    order = torch.empty((batch, tp2 * cp2), dtype=torch.int32,
+                        device=keys.device)
+    order.scatter_(1, pos, ip.reshape(batch, -1))
+    return merged[:, :t * c], order[:, :t * c]
 
 
 def merge_sorted_rows(x: torch.Tensor) -> torch.Tensor:
@@ -211,5 +265,28 @@ def merge_sorted_rows(x: torch.Tensor) -> torch.Tensor:
     if _merge_fits_one_tile(*x.shape[-2:]):
         return bitonic.merge_sorted_rows(x)
     xb = x[None] if x.dim() == 2 else x
-    merged = _rank_merge(xb)
+    merged, _ = _rank_merge(xb)
     return merged[0] if x.dim() == 2 else merged
+
+
+def merge_sorted_rows_kv(keys: torch.Tensor, values: torch.Tensor):
+    """Merge sorted rows carrying payload.
+
+    keys: (t, c) or (batch, t, c); values: the same leading dims, extra
+    trailing dims ride along.  Returns (merged keys (t*c,) or
+    (batch, t*c), values (t*c, ...) or (batch, t*c, ...)): the stable
+    flat argsort (ties keep buffer order), from the in-tile argsort
+    merge while the padded t*c fits ``MAX_KERNEL_LANES`` and from the
+    rank merge's order channel beyond, as in the reference.
+    """
+    _require("merge_sorted_rows_kv", keys, values)
+    _tick("merge_sorted_rows_kv", keys)
+    kb = keys[None] if keys.dim() == 2 else keys
+    vb = values[None] if keys.dim() == 2 else values
+    batch, t, c = kb.shape
+    if _merge_fits_one_tile(t, c):
+        merged, order = bitonic.merge_sorted_rows_argsort(kb.contiguous())
+    else:
+        merged, order = _rank_merge(kb, with_order=True)
+    vs = _take_rows(vb.reshape(batch, t * c, *vb.shape[3:]), order)
+    return (merged[0], vs[0]) if keys.dim() == 2 else (merged, vs)

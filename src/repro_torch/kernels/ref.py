@@ -10,13 +10,34 @@ import torch
 
 from .bitonic import ftz
 
-__all__ = ["sort_ref", "searchsorted_ref"]
+__all__ = ["sort_ref", "sort_kv_ref", "merge_sorted_rows_kv_ref",
+           "searchsorted_ref"]
 
 
 def sort_ref(x: torch.Tensor) -> torch.Tensor:
     """Row-wise ascending sort, as ``jnp.sort`` orders it. x: (..., n)."""
     order = torch.sort(ftz(x), dim=-1, stable=True).indices
     return torch.gather(x, -1, order)
+
+
+def _stable_take(keys: torch.Tensor, values: torch.Tensor):
+    """keys (rows, n), values (rows, n, ...) in stable key order."""
+    order = torch.sort(ftz(keys), dim=-1, stable=True).indices
+    rows = torch.arange(keys.shape[0])[:, None]
+    return keys[rows, order], values[rows, order]
+
+
+def sort_kv_ref(keys: torch.Tensor, values: torch.Tensor):
+    """Stable sort of each row of keys (rows, n), values riding along."""
+    return _stable_take(keys, values)
+
+
+def merge_sorted_rows_kv_ref(keys: torch.Tensor, values: torch.Tensor):
+    """keys (batch, t, c), values (batch, t, c, ...) -> each batch
+    entry's flat rows in stable key order."""
+    batch, t, c = keys.shape
+    return _stable_take(keys.reshape(batch, t * c),
+                        values.reshape(batch, t * c, *values.shape[3:]))
 
 
 def searchsorted_ref(sorted_arr: torch.Tensor, queries: torch.Tensor,

@@ -1,0 +1,106 @@
+"""Where the time of one port call goes, on the card.
+
+    PYTHONPATH=src python3 -m repro_torch.profile_port \
+        [--paths sort,sort_payload,statjoin_zipf] [--reps 3]
+
+For each path of :data:`PATHS`: builds the kernels, warms up with two
+calls, then runs ``--reps`` calls under ``torch.profiler`` and prints
+the host wall time per call, the device time per call summed over every
+CUDA kernel and copy, the device's busy share of the wall time, and the
+top device consumers by name.  Needs a CUDA device.
+
+The paths are the front doors at the sizes ``chip_smoke.py`` drives:
+``sort`` is SMMS on t = 64 x 65,536 uniform float32 keys handed over as
+numpy, ``sort_payload`` the same with a (64, 65536, 24) int32 payload
+made on the card (100-byte records), and the joins
+(:data:`repro_torch.workloads.JOINS`) run the paper's §5.2 tables at
+t = 64, host planning and routing included.
+"""
+from __future__ import annotations
+
+import argparse
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import cluster
+from repro_torch.data import uniform_keys
+from repro_torch.kernels import cuda
+from repro_torch.workloads import JOIN_T, JOINS, M, T, make_payload
+
+__all__ = ["PATHS"]
+
+
+def _sort_call(payload: bool):
+    x = uniform_keys(T * M, seed=0).reshape(T, M)
+    v = make_payload(T, M, 0) if payload else None
+    return lambda: cluster.sort(x, values=v)
+
+
+def _join_call(name: str):
+    algorithm, make = JOINS[name]
+    s, t = make()
+    s_rows = np.arange(len(s), dtype=np.int32)
+    t_rows = np.arange(len(t), dtype=np.int32)
+    return lambda: cluster.join(s, s_rows, t, t_rows, algorithm=algorithm,
+                                t_machines=JOIN_T)
+
+
+PATHS = {"sort": lambda: _sort_call(False),
+         "sort_payload": lambda: _sort_call(True),
+         **{name: (lambda n=name: _join_call(n)) for name in JOINS}}
+
+
+def profile(name: str, reps: int, top: int, smi: str) -> None:
+    call = PATHS[name]()
+    for _ in range(2):
+        call()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3 / reps
+    print(f"== {name} on {smi}: {reps} profiled calls: host wall "
+          f"{wall_ms:.2f} ms/call, device busy {device_ms:.2f} ms/call "
+          f"({100 * device_ms / wall_ms:.1f}% of wall)")
+    print(f"{'device ms/call':>14} {'calls/call':>10}  name")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
+        print(f"{e.self_device_time_total / 1e3 / reps:14.4f} "
+              f"{e.count / reps:10.1f}  {e.key[:100]}")
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--paths", default="sort",
+                    help=f"comma-separated, of {', '.join(PATHS)}")
+    ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--top", type=int, default=25)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_port: no CUDA device")
+    names = args.paths.split(",")
+    unknown = [n for n in names if n not in PATHS]
+    if unknown:
+        raise SystemExit(f"profile_port: unknown paths {unknown}; "
+                         f"choose from {list(PATHS)}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60,
+                         check=True).stdout.strip().splitlines()[0]
+    cuda.build_all()
+    for name in names:
+        profile(name, args.reps, args.top, smi)
+        torch.cuda.empty_cache()
+
+
+if __name__ == "__main__":
+    main()

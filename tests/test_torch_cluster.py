@@ -3,7 +3,7 @@
 The same seeded numpy inputs go through ``repro.cluster.sort(...,
 algorithm="smms")`` (with the Pallas kernels in interpret mode and with
 the jnp reference backend) and ``repro_torch.cluster.sort(...,
-device="cpu")`` (the kernels' plain versions).  Keys and every
+device="cpu")`` (the kernels' plain versions).  Keys, values and every
 AlphaKReport field must agree bitwise.  Template:
 tests/test_cluster_kernel_parity.py.
 """
@@ -197,3 +197,66 @@ def test_smms_takes_the_rank_merge_past_one_tile():
     assert cap_pair > ops.RANK_MERGE_BOUND_BLOCK
     assert ops.DISPATCH_COUNTS[("merge_sorted_rows", "plain")] == 1
     assert int(rep.workload.sum()) == t * m
+
+
+# ---------------------------------------------------------------------------
+# SMMS with values
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kernel_backend, trailing", [("pallas", ()),
+                                                      ("reference", (3,))])
+@pytest.mark.parametrize("gen", ["uniform", "zipf", "adversarial"])
+@pytest.mark.parametrize("t,m", [(4, 192), (8, 200)])
+def test_smms_with_values_matches_reference(rng, t, m, gen, trailing,
+                                            kernel_backend):
+    """Both value shapes and both reference backends (the reference's
+    backends agree bitwise with each other, tests/test_cluster_kernel_
+    parity.py), each value shape against one of them to keep the Pallas
+    interpret-mode compiles few."""
+    x = _inputs(gen, t, m, rng)
+    v = rng.integers(-1000, 1000, (t, m) + trailing).astype(np.int32)
+    (want, want_v), want_rep = jcluster.sort(
+        jnp.asarray(x), algorithm="smms", values=jnp.asarray(v),
+        kernel_backend=kernel_backend)
+    (got, got_v), rep = cluster.sort(x, algorithm="smms", values=v,
+                                     device="cpu")
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  np.asarray(want).view(np.int32))
+    assert got_v.shape == (t * m,) + trailing
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
+    order = np.argsort(x.reshape(-1), kind="stable")
+    np.testing.assert_array_equal(got_v.numpy(),
+                                  v.reshape((t * m,) + trailing)[order])
+    assert_reports_equal(rep, want_rep)
+    if gen == "adversarial":
+        assert rep.capacity_attempts >= 2
+
+
+def test_smms_with_values_through_the_rank_merge():
+    """t = 4, m = 32768: the receive merge is the rank merge, whose
+    scattered order channel carries the values."""
+    t, m = 4, 32768
+    x = zipf_keys(t * m, seed=3).reshape(t, m)
+    v = np.arange(t * m, dtype=np.int32).reshape(t, m)
+    ops.reset_dispatch_counts()
+    (keys, vals), rep = cluster.sort(x, values=v, device="cpu")
+    order = np.argsort(x.reshape(-1), kind="stable")
+    np.testing.assert_array_equal(vals.numpy(), order)
+    np.testing.assert_array_equal(keys.numpy(), x.reshape(-1)[order])
+    cap_pair = flat_receive_capacity(m, t, rep.cap_factor) // t
+    assert not ops._merge_fits_one_tile(t, cap_pair)
+    assert ops.DISPATCH_COUNTS[("merge_sorted_rows_kv", "plain")] == \
+        rep.capacity_attempts
+
+
+def test_smms_at_sixteen_machines_matches_reference():
+    """Past t = 12 the boundaries agree with the reference's to rtol
+    1e-6 only (ROADMAP C5); end to end, keys and every report field are
+    still bitwise the reference's at t = 16, m = 128."""
+    t, m = 16, 128
+    x = uniform_keys(t * m, seed=t).reshape(t, m)
+    (want, _), want_rep = jcluster.sort(jnp.asarray(x), algorithm="smms")
+    (got, _), rep = cluster.sort(x, algorithm="smms", device="cpu")
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  np.asarray(want).view(np.int32))
+    assert_reports_equal(rep, want_rep)

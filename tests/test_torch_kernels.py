@@ -203,10 +203,164 @@ def test_merge_ranks_matches_reference(rng, dtype, bound_block, t, c):
 
 def test_rank_merge_scatter_matches_reference(rng):
     x = np.sort(keys_f32(rng, (2, 6, 40), "dups"), axis=-1)
-    got = ops._rank_merge(torch.from_numpy(x))
+    got, _ = ops._rank_merge(torch.from_numpy(x))
     for b in range(2):
         merged, _ = jops._rank_merge(jnp.asarray(x[b]))
         assert_bitwise(got[b], merged)
+
+
+# ---------------------------------------------------------------------------
+# bitonic_sort_kv (the pair sort; fed arange, the stable argsort)
+# ---------------------------------------------------------------------------
+
+DENORMALS = np.float32([1e-40, 0.0, -1e-40, -0.0, 2e-39, -3e-39, 5e-41,
+                        -0.0])
+
+
+def kv_keys(rng, shape, dtype, case):
+    if dtype == "int32":
+        x = rng.integers(-4, 4, shape).astype(np.int32)
+        if case == "masked":
+            x.reshape(-1)[::3] = np.iinfo(np.int32).max      # MASKED_KEY
+        return x
+    if case == "denormals":
+        return rng.choice(np.concatenate([DENORMALS, [1.5, -2.0]]),
+                          size=shape).astype(np.float32)
+    return keys_f32(rng, shape, case)
+
+
+@pytest.mark.parametrize("dtype, case", [
+    ("float32", "normal"), ("float32", "dups"), ("float32", "equal"),
+    ("float32", "inf"), ("float32", "denormals"), ("int32", "ties"),
+    ("int32", "masked")])
+@pytest.mark.parametrize("n", [1, 5, 64, 300])
+def test_bitonic_sort_kv_matches_reference(rng, dtype, case, n):
+    """The stable argsort: keys and the order channel bitwise equal to
+    the Pallas pair sort and to a stable jnp.argsort."""
+    k = kv_keys(rng, (3, n), dtype, case)
+    iota = np.tile(np.arange(n, dtype=np.int32), (3, 1))
+    gk, gv = bitonic.bitonic_sort_kv(torch.from_numpy(k),
+                                     torch.from_numpy(iota))
+    wk, wv = jbitonic.bitonic_sort_kv(jnp.asarray(k), jnp.asarray(iota),
+                                      block_rows=1)
+    assert gv.dtype == torch.int32
+    assert_bitwise(gk, wk)
+    assert_bitwise(gv, wv)
+    assert_bitwise(gv, jnp.argsort(jnp.asarray(k), axis=-1, stable=True))
+    rk, rv = ref.sort_kv_ref(torch.from_numpy(k), torch.from_numpy(iota))
+    assert_bitwise(rk, gk)
+    assert_bitwise(rv, gv)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int32"])
+def test_bitonic_sort_kv_with_tied_values_matches_reference(rng, dtype):
+    """Arbitrary values: equal (key, value) pairs, the pad sentinel in
+    both channels, and a row that is not a power of two."""
+    k = kv_keys(rng, (4, 77), dtype, "dups" if dtype == "float32" else "ties")
+    v = rng.integers(0, 3, (4, 77)).astype(np.int32)
+    v[0, :5] = np.iinfo(np.int32).max
+    gk, gv = bitonic.bitonic_sort_kv(torch.from_numpy(k), torch.from_numpy(v))
+    wk, wv = jbitonic.bitonic_sort_kv(jnp.asarray(k), jnp.asarray(v),
+                                      block_rows=1)
+    assert_bitwise(gk, wk)
+    assert_bitwise(gv, wv)
+
+
+@pytest.mark.parametrize("trailing", [(), (3,)])
+@pytest.mark.parametrize("n", [5, 256])
+def test_ops_sort_kv_matches_both_reference_backends(rng, n, trailing):
+    k = keys_f32(rng, (4, n), "dups")
+    v = rng.normal(size=(4, n) + trailing).astype(np.float32)
+    ops.reset_dispatch_counts()
+    gk, gv = ops.sort_kv(torch.from_numpy(k), torch.from_numpy(v))
+    assert gv.shape == (4, n) + trailing
+    for i in range(4):
+        for backend in ("pallas", "reference"):
+            wk, wv = jops.sort_kv(jnp.asarray(k[i]), jnp.asarray(v[i]),
+                                  backend=backend)
+            assert_bitwise(gk[i], wk)
+            assert_bitwise(gv[i], wv)
+    pk = ops.pad_pow2(torch.from_numpy(k))
+    pv = ops.pad_pow2(torch.from_numpy(v), fill=0, axis=1)
+    sk, sv = ops.sort_kv(pk, pv, prepadded=True)
+    assert_bitwise(sk[:, :n], gk)
+    assert_bitwise(sv[:, :n], gv)
+    k1, v1 = ops.sort_kv(torch.from_numpy(k[0]), torch.from_numpy(v[0]))
+    assert_bitwise(k1, gk[0])
+    assert_bitwise(v1, gv[0])
+    assert ops.DISPATCH_COUNTS[("sort_kv", "plain")] == 3
+
+
+# ---------------------------------------------------------------------------
+# The argsort merge and the rank merge's order channel
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("t,c", [(1, 9), (2, 5), (3, 16), (8, 37)])
+@pytest.mark.parametrize("case", ["dups", "inf", "denormals", "int32"])
+def test_merge_sorted_rows_argsort_matches_reference(rng, t, c, case):
+    k = (kv_keys(rng, (t, c), "int32", "masked") if case == "int32"
+         else kv_keys(rng, (t, c), "float32", case))
+    x = np.sort(k, axis=1)
+    gm, go = bitonic.merge_sorted_rows_argsort(torch.from_numpy(x))
+    wm, wo = jbitonic.merge_sorted_rows_argsort(jnp.asarray(x))
+    assert go.dtype == torch.int32
+    assert_bitwise(gm, wm)
+    assert_bitwise(go, wo)
+    assert_bitwise(go, jnp.argsort(jnp.asarray(x).reshape(-1), stable=True))
+
+
+def test_merge_sorted_rows_argsort_batched_equals_per_machine(rng):
+    x = np.sort(keys_f32(rng, (3, 4, 21), "dups"), axis=-1)
+    gm, go = bitonic.merge_sorted_rows_argsort(torch.from_numpy(x))
+    assert gm.shape == go.shape == (3, 84)
+    for b in range(3):
+        wm, wo = jbitonic.merge_sorted_rows_argsort(jnp.asarray(x[b]))
+        assert_bitwise(gm[b], wm)
+        assert_bitwise(go[b], wo)
+
+
+@pytest.mark.parametrize("t,c", [(2, 5), (6, 40), (3, 70)])
+def test_rank_merge_order_channel_matches_reference(rng, t, c):
+    x = np.sort(keys_f32(rng, (2, t, c), "dups"), axis=-1)
+    gm, go = ops._rank_merge(torch.from_numpy(x), with_order=True)
+    for b in range(2):
+        wm, wo = jops._rank_merge(jnp.asarray(x[b]))
+        assert_bitwise(gm[b], wm)
+        assert_bitwise(go[b], wo)
+    assert ops._rank_merge(torch.from_numpy(x))[1] is None
+
+
+@pytest.mark.parametrize("t,c", [(3, 16), (8, 37)])
+def test_ops_merge_sorted_rows_kv_matches_both_reference_backends(rng, t, c):
+    x = np.sort(keys_f32(rng, (t, c), "dups"), axis=1)
+    v = rng.integers(-9, 9, (t, c, 2)).astype(np.int32)
+    ops.reset_dispatch_counts()
+    gm, gv = ops.merge_sorted_rows_kv(torch.from_numpy(x),
+                                      torch.from_numpy(v))
+    assert gv.shape == (t * c, 2)
+    for backend in ("pallas", "reference"):
+        wm, wv = jops.merge_sorted_rows_kv(jnp.asarray(x), jnp.asarray(v),
+                                           backend=backend)
+        assert_bitwise(gm, wm)
+        assert_bitwise(gv, wv)
+    rm, rv = ref.merge_sorted_rows_kv_ref(torch.from_numpy(x)[None],
+                                          torch.from_numpy(v)[None])
+    assert_bitwise(rm[0], gm)
+    assert_bitwise(rv[0], gv)
+    assert ops.DISPATCH_COUNTS[("merge_sorted_rows_kv", "plain")] == 1
+
+
+def test_ops_merge_sorted_rows_kv_takes_the_rank_merge_past_one_tile(rng):
+    """3 rows of 20,000 pad to 4 x 32,768 slots, past MAX_KERNEL_LANES:
+    the order comes from the rank merge's scatter."""
+    t, c = 3, 20000
+    assert not ops._merge_fits_one_tile(t, c)
+    x = np.sort(rng.integers(0, 50, (1, t, c)).astype(np.float32), axis=-1)
+    v = torch.arange(t * c, dtype=torch.int32).reshape(1, t, c)
+    gm, gv = ops.merge_sorted_rows_kv(torch.from_numpy(x), v)
+    want = np.argsort(x.reshape(-1), kind="stable")
+    np.testing.assert_array_equal(gv[0].numpy(), want)
+    np.testing.assert_array_equal(gm[0].numpy(), x.reshape(-1)[want])
 
 
 # ---------------------------------------------------------------------------
@@ -223,6 +377,13 @@ def test_kernel_eligible_gate():
     assert ops._merge_fits_one_tile(8, 1077)
     assert not ops.kernel_eligible("merge_sorted_rows", f(1024, 128))
     assert ops.sort_kernel_choice(f(64, 65536)) == "bitonic"
+    assert ops.kernel_eligible("sort_kv", f(4, 8), f(4, 8, 24))
+    assert not ops.kernel_eligible("sort_kv", f(4, 8), f(4, 7))
+    assert not ops.kernel_eligible("sort_kv", f(4, ops.MAX_KERNEL_LANES + 1))
+    assert ops.kernel_eligible("merge_sorted_rows_kv", f(64, 64, 2152),
+                               f(64, 64, 2152, 24))
+    assert not ops.kernel_eligible("merge_sorted_rows_kv", f(8, 16),
+                                   f(8, 15))
 
 
 def test_ops_raise_outside_the_gate():
@@ -232,6 +393,14 @@ def test_ops_raise_outside_the_gate():
         ops.sort(torch.zeros(2, 8, dtype=torch.bfloat16))
     with pytest.raises(ValueError, match="prepadded"):
         ops.sort(torch.zeros(2, 6), prepadded=True)
+    with pytest.raises(ValueError, match="gate"):
+        ops.sort_kv(torch.zeros(2, 8, dtype=torch.float64),
+                    torch.zeros(2, 8))
+    with pytest.raises(ValueError, match="prepadded"):
+        ops.sort_kv(torch.zeros(2, 6), torch.zeros(2, 6), prepadded=True)
+    with pytest.raises(ValueError, match="gate"):
+        ops.merge_sorted_rows_kv(torch.zeros(2, 3, dtype=torch.int64),
+                                 torch.zeros(2, 3))
 
 
 def test_kernel_build_is_not_touched_on_the_cpu(rng):
@@ -277,6 +446,35 @@ def test_cuda_merges_equal_plain(card, rng, t, c):
     x = torch.from_numpy(np.sort(keys_f32(rng, (2, t, c), "dups"), axis=-1))
     assert_bitwise(ops.merge_sorted_rows(x.to(card)),
                    ops.merge_sorted_rows(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [5, 4096, 65536])
+def test_cuda_bitonic_sort_kv_equals_plain(card, rng, n):
+    k = torch.from_numpy(keys_f32(rng, (8, n), "dups"))
+    k[0, :4] = torch.tensor([1e-40, -0.0, 0.0, -3e-39])
+    v = torch.arange(n, dtype=torch.int32).repeat(8, 1)
+    gk, gv = bitonic.bitonic_sort_kv(k.to(card), v.to(card))
+    wk, wv = bitonic.bitonic_sort_kv(k, v)
+    assert_bitwise(gk, wk)
+    assert_bitwise(gv, wv)
+    ki = torch.from_numpy(kv_keys(rng, (3, n), "int32", "masked"))
+    vi = torch.from_numpy(rng.integers(0, 3, (3, n)).astype(np.int32))
+    gk, gv = bitonic.bitonic_sort_kv(ki.to(card), vi.to(card))
+    wk, wv = bitonic.bitonic_sort_kv(ki, vi)
+    assert_bitwise(gk, wk)
+    assert_bitwise(gv, wv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,c", [(8, 1077), (16, 4096)])
+def test_cuda_argsort_merges_equal_plain(card, rng, t, c):
+    x = torch.from_numpy(np.sort(keys_f32(rng, (2, t, c), "dups"), axis=-1))
+    v = torch.arange(t * c, dtype=torch.int32).reshape(1, t, c).repeat(2, 1, 1)
+    gm, gv = ops.merge_sorted_rows_kv(x.to(card), v.to(card))
+    wm, wv = ops.merge_sorted_rows_kv(x, v)
+    assert_bitwise(gm, wm)
+    assert_bitwise(gv, wv)
 
 
 @pytest.mark.cuda

@@ -19,6 +19,7 @@ def test_port_imports_neither_jax_nor_the_reference():
         import repro_torch.cluster, repro_torch.core, repro_torch.data
         import repro_torch.kernels.ops, repro_torch.kernels.ref
         import repro_torch.kernels.cuda, repro_torch.cluster.api
+        import repro_torch.profile_port, repro_torch.workloads
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "repro" or m.startswith("repro."))
@@ -42,12 +43,39 @@ def test_front_door_defaults_to_the_card(monkeypatch):
     assert keys.device.type == "cpu"
 
 
-@pytest.mark.parametrize("kw, item", [({"algorithm": "terasort"}, "item 4"),
-                                      ({"exchange": "staged"}, "item 6"),
-                                      ({"values": np.ones((2, 8))}, "item 3")])
-def test_unported_options_name_their_roadmap_item(kw, item):
+def _tables():
+    keys = np.arange(8, dtype=np.int32) % 3
+    rows = np.arange(8, dtype=np.int32)
+    return keys, rows, keys, rows
+
+
+@pytest.mark.parametrize("entry, kw, item", [
+    ("sort", {"algorithm": "terasort"}, "item 4"),
+    ("sort", {"exchange": "staged"}, "item 6"),
+    ("join", {"algorithm": "randjoin"}, "item 5"),
+    ("join", {"algorithm": "auto"}, "item 9"),
+])
+def test_unported_options_name_their_roadmap_item(entry, kw, item):
     with pytest.raises(NotImplementedError, match=item):
-        cluster.sort(np.ones((2, 8), np.float32), device="cpu", **kw)
+        if entry == "sort":
+            cluster.sort(np.ones((2, 8), np.float32), device="cpu", **kw)
+        else:
+            cluster.join(*_tables(), t_machines=2, device="cpu", **kw)
+
+
+def test_join_defaults_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cluster.join(*_tables(), t_machines=2)
+    out, _ = cluster.join(*_tables(), t_machines=2, device="cpu")
+    assert out.s_rows.device.type == "cpu"
+    assert int(out.count.sum()) == 3 * 3 + 3 * 3 + 2 * 2
+
+
+def test_values_must_align_with_the_keys():
+    with pytest.raises(ValueError, match="align"):
+        cluster.sort(np.ones((2, 8), np.float32), values=np.ones((2, 7)),
+                     device="cpu")
 
 
 def test_front_door_rejects_a_flat_array():
@@ -61,6 +89,19 @@ def test_rows_past_the_gate_raise_instead_of_falling_back():
     x = torch.zeros(2, 2 * ops.MAX_KERNEL_LANES)
     with pytest.raises(ValueError, match="gate"):
         cluster.sort(x, device="cpu")
+    with pytest.raises(ValueError, match="gate"):
+        cluster.sort(x, values=torch.zeros(x.shape), device="cpu")
+
+
+def test_broadcast_small_side_past_the_gate_raises():
+    """T as the small side is pair-sorted whole on every machine: past
+    2^16 rows the port raises where the reference falls back to jnp."""
+    n = ops.MAX_KERNEL_LANES + 1
+    keys = np.zeros(n, np.int32)
+    with pytest.raises(ValueError, match="gate"):
+        cluster.join(keys[:2], keys[:2], keys, keys, algorithm="broadcast",
+                     small_side="t", t_machines=2, out_capacity=8,
+                     device="cpu")
 
 
 @pytest.fixture
@@ -79,3 +120,6 @@ def test_cuda_tensor_past_the_gate_raises(card):
         ops.sort(torch.zeros(2, 8, dtype=torch.bfloat16, device=card))
     with pytest.raises(ValueError, match="gate"):
         cluster.sort(torch.zeros(2, 2 * ops.MAX_KERNEL_LANES, device=card))
+    with pytest.raises(ValueError, match="gate"):
+        ops.sort_kv(torch.zeros(2, 2 * ops.MAX_KERNEL_LANES, device=card),
+                    torch.zeros(2, 2 * ops.MAX_KERNEL_LANES, device=card))
