@@ -2,18 +2,20 @@
 
     python3 chip_smoke.py
 
-Drives the port's two front doors on the card after building the six
+Drives the port's two front doors on the card after building the eight
 hand-written CUDA kernels of their paths from ``src/repro_torch/csrc``
 and holding each against its plain PyTorch version there:
 
 * ``repro_torch.cluster.sort(x, algorithm="smms")`` -- SMMS with the flat
-  static exchange -- at t = 64 machines x m = 65,536 float32 keys
-  (n = 4,194,304), keys only and with a 96-byte int32 payload per key
-  (a 100-byte record, the sort benchmark's record size), and at
-  t = 8 x m = 4,096;
+  static exchange -- and ``algorithm="terasort"`` -- Terasort with
+  Algorithm S (paper §3.2), the baseline SMMS is measured against -- at
+  t = 64 machines x m = 65,536 float32 keys (n = 4,194,304), keys only
+  and with a 96-byte int32 payload per key (a 100-byte record, the sort
+  benchmark's record size), and at t = 8 x m = 4,096;
 * ``repro_torch.cluster.join(...)`` -- StatJoin (paper §4.3) on the
   paper's §5.2 Zipf tables (2^17 x 2^17, theta 0.5) and scalar-skew
-  tables (2^20 rows, a hot key 2048 x 2048), repartition on the
+  tables (2^20 rows, a hot key 2048 x 2048), RandJoin (§4.2) on the same
+  Zipf tables and on scalar-skew tables of 2^17 rows, repartition on the
   scalar-skew tables and broadcast on Zipf tables of 2^14 x 2^17 rows,
   all at t = 64.
 
@@ -23,22 +25,24 @@ without printing a result:
   1. device     the card's name and power limit (fails without a card)
   2. build      one nvcc per kernel source, all at once; -Xptxas -v
   3. kernels    each kernel vs its plain version, bitwise, at the main
-                path's shapes and at edge cases; the pair sort and the
-                searches also at every operand the four joins hand them
+                path's shapes and at edge cases; the fused sort, the
+                pair sort and the searches also at every operand the six
+                joins hand them
   4. main path  t=64 x 65,536: uniform, LIDAR-like, Zipf and an
-                adversarial placement, keys only and with the payload;
-                keys, payload, workload, alpha, bounds and capacity
-                attempts checked on the host; then the four joins, each
-                held against a host numpy join
-  5. small      t=8 x 4,096 (the in-tile merges) with and without values,
-                and each join on small tables: outputs and every report
-                field equal to the same call on the CPU
+                adversarial placement, keys only and with the payload,
+                by SMMS and by Terasort; keys, payload, workload, alpha,
+                bounds and capacity attempts checked on the host; then
+                the six joins, each held against a host numpy join
+  5. small      t=8 x 4,096 (the in-tile merges) with and without values
+                by both sorts, and each join on small tables: outputs and
+                every report field equal to the same call on the CPU
+                (RandJoin and Terasort on the same draws)
   6. launches   per path of phases 4-5 (each run's counts set to 0 just
                 before it, read just after): each path launched exactly
                 the kernels of PATH_KERNELS, and every kernel ran
   7. times      per kernel: CUDA-event time, plain version, one PyTorch
-                library call, bound; the end-to-end sorts and StatJoin,
-                and peak memory
+                library call, bound; the end-to-end sorts, StatJoin and
+                RandJoin, and peak memory
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists the kernels, and the one before that the card's name and power
@@ -62,12 +66,14 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import cluster  # noqa: E402
-from repro_torch.core import MASKED_KEY, flat_receive_capacity  # noqa: E402
-from repro_torch.data import (scalar_skew_tables, uniform_keys,  # noqa: E402
-                              zipf_keys, zipf_tables)
+from repro_torch.core import (MASKED_KEY, choose_ab,  # noqa: E402
+                              draw_assignments, flat_receive_capacity)
+from repro_torch.data import (lidar_like, scalar_skew_tables,  # noqa: E402
+                              uniform_keys, zipf_keys, zipf_tables)
 from repro_torch.kernels import bitonic, bucketize, cuda, fused, ops  # noqa: E402
 from repro_torch.workloads import (JOIN_T, JOINS, M, M_SMALL,  # noqa: E402
-                                   PAYLOAD_COLS, T, T_SMALL, make_payload,
+                                   PAYLOAD_COLS, T, T_SMALL,
+                                   TERASORT_ATTEMPTS, make_payload,
                                    sort_inputs)
 
 # the module, not the function of the same name repro_torch.core exports
@@ -75,18 +81,29 @@ statjoin_mod = importlib.import_module("repro_torch.core.statjoin")
 
 SEED = 0
 DEVICE = "cuda"
+DETERMINISTIC_JOINS = ("statjoin", "repartition", "broadcast")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
 FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 
+# sort algorithm -> the name of its keys-only path (+ "_payload")
+PATHS = {"smms": "sort", "terasort": "terasort"}
 # path -> the kernels one run of it launches, and no others
+LOCAL_JOIN = {"bitonic_sort_kv", "searchsorted"}
 PATH_KERNELS = {
     "sort": {"bitonic_sort", "searchsorted", "merge_ranks"},
     "sort_payload": {"bitonic_sort_kv", "searchsorted", "merge_ranks"},
-    **{name: {"bitonic_sort_kv", "searchsorted"} for name in JOINS},
+    "terasort": {"sort_partition", "merge_ranks"},
+    "terasort_payload": {"sort_partition_kv", "merge_ranks"},
+    **{name: LOCAL_JOIN | ({"sort_partition_kv"}
+                           if cfg.algorithm == "randjoin" else set())
+       for name, cfg in JOINS.items()},
     "small_sort": {"bitonic_sort", "searchsorted", "merge_rows"},
     "small_sort_values": {"bitonic_sort_kv", "searchsorted",
                           "merge_rows_kv"},
-    "small_joins": {"bitonic_sort_kv", "searchsorted"},
+    "small_terasort": {"sort_partition", "merge_rows"},
+    "small_terasort_values": {"sort_partition_kv", "merge_rows_kv"},
+    "small_joins": LOCAL_JOIN,
+    "small_randjoin": LOCAL_JOIN | {"sort_partition_kv"},
 }
 # path -> kernel -> launches, summed over the path's runs
 PATH_LAUNCHES = {path: collections.Counter() for path in PATH_KERNELS}
@@ -356,25 +373,61 @@ def phase_kernels(rng) -> dict:
                 fused.merge_ranks(ke, ie, bb),
                 fused.merge_ranks_plain(ke, ie, bb))
 
+    partition_operands(compare, rng, dev, x)
     join_operands(compare)
     torch.cuda.synchronize()
     return errs
 
 
-def join_operands(compare) -> None:
-    """The pair sort and the searches at the joins' own operands.
+def partition_operands(compare, rng, dev, x) -> None:
+    """The fused sort-and-partition, keys and pairs, at Terasort's Round 3
+    (64, 65536) f32 with 63 boundaries, RandJoin's routing (64, 2048)
+    int32 with 7, and edge rows."""
+    def both(label, keys, queries):
+        compare("sort_partition", label, fused.sort_partition(keys, queries),
+                fused.sort_partition_plain(keys, queries))
+        compare("sort_partition_kv", label,
+                fused.sort_partition_kv(keys, queries),
+                fused.sort_partition_kv_plain(keys, queries))
 
-    Each join of :data:`JOINS` runs once with its two kernel wrappers
+    q = bitonic.bitonic_sort_plain(x)[:, ::M // T][:, 1:]
+    both(f"({T}, {M}) f32 x {T - 1} queries, Round 3",
+         x, q[:1].expand(T, T - 1).contiguous())
+    a = torch.from_numpy(rng.integers(0, 8, (T, 2048)).astype(np.int32))
+    both(f"({T}, 2048) int32 x 7 queries, the routing", a.to(dev),
+         torch.arange(1, 8, dtype=torch.int32, device=dev)
+         .expand(T, 7).contiguous())
+    for rows, m in [(4, 7), (4, 100), (4, 8193)]:
+        e = _edge_rows(rng, rows, m)
+        qe = torch.sort(e[:, rng.permutation(m)[:5]], dim=1).values
+        qe[:, -1] = math.inf                              # the sentinel
+        qe[3, 0] = 1e-40                                  # a denormal query
+        both(f"({rows}, {m}) edge rows, a query = the sentinel", e.to(dev),
+             qe.to(dev))
+    imax = np.iinfo(np.int32).max
+    ei = torch.from_numpy(rng.integers(-3, 3, (4, 8193)).astype(np.int32))
+    ei[:, ::5] = imax
+    qi = torch.tensor([[-3, 0, 0, 2, imax]], dtype=torch.int32).expand(4, 5)
+    both("(4, 8193) int32, INT32_MAX keys and query", ei.to(dev),
+         qi.contiguous().to(dev))
+
+
+def join_operands(compare) -> None:
+    """The fused pair sort, the pair sort and the searches at the joins'
+    own operands.
+
+    Each join of :data:`JOINS` runs once with its kernel wrappers
     tapped: every call runs the kernel, then the plain version on the
     same card tensors, and the two are held bitwise equal.  So every
-    shape and dtype the main path's joins hand a kernel is checked: the
-    int32 T sides with MASKED_KEY tails, the S keys searched into them,
-    and the int32 ``cum`` rows searched by every output slot.  These
-    runs are not main-path runs: the counts are reset before each of
-    those.
+    shape and dtype the main path's joins hand a kernel is checked:
+    RandJoin's int32 draws sorted with their order, the int32 T sides
+    with MASKED_KEY tails, the S keys searched into them, and the int32
+    ``cum`` rows searched by every output slot.  These runs are not
+    main-path runs: the counts are reset before each of those.
     """
     sort_kv, search = bitonic.bitonic_sort_kv, bucketize.searchsorted
-    for name, (algorithm, make) in JOINS.items():
+    fused_kv = fused.sort_partition_kv
+    for name, cfg in JOINS.items():
         def tapped_sort_kv(keys, values):
             out = sort_kv(keys, values)
             compare("bitonic_sort_kv", f"{name}: {tuple(keys.shape)} "
@@ -389,16 +442,25 @@ def join_operands(compare) -> None:
                     out, bucketize.searchsorted_plain(rows, queries, side))
             return out
 
-        s, t = make()
+        def tapped_fused_kv(keys, queries):
+            out = fused_kv(keys, queries)
+            compare("sort_partition_kv", f"{name}: {tuple(keys.shape)} "
+                    f"{str(keys.dtype)[6:]} x {queries.shape[1]}", out,
+                    fused.sort_partition_kv_plain(keys, queries))
+            return out
+
+        s, t = cfg.tables()
         bitonic.bitonic_sort_kv = tapped_sort_kv
         bucketize.searchsorted = tapped_search
+        fused.sort_partition_kv = tapped_fused_kv
         try:
             cluster.join(s, np.arange(len(s), dtype=np.int32),
                          t, np.arange(len(t), dtype=np.int32),
-                         algorithm=algorithm, t_machines=JOIN_T,
-                         device=DEVICE)
+                         algorithm=cfg.algorithm, t_machines=JOIN_T,
+                         seed=SEED, device=DEVICE, **cfg.options)
         finally:
             bitonic.bitonic_sort_kv, bucketize.searchsorted = sort_kv, search
+            fused.sort_partition_kv = fused_kv
 
 
 def _main_rank_operands(rng, dev):
@@ -418,7 +480,10 @@ def _main_rank_operands(rng, dev):
 # ---------------------------------------------------------------------------
 
 def check_run(name: str, x: np.ndarray, keys: torch.Tensor, rep,
-              attempts: int, theorem1: bool = True) -> None:
+              attempts: int, theorem: bool = True) -> None:
+    """Keys, workload, alpha, capacity attempts and, where ``theorem``
+    (the sort's workload theorem, 1 for SMMS or 3 for Terasort, which
+    assume distinct keys) applies, the maximum workload."""
     t, m = x.shape
     n = t * m
     got = keys.cpu().numpy()
@@ -432,69 +497,84 @@ def check_run(name: str, x: np.ndarray, keys: torch.Tensor, rep,
           f"{name}: workload {rep.workload} != host recount {recount}")
     check(int(np.sum(rep.workload)) == n, f"{name}: sum(workload) != n")
     check(rep.alpha == 3, f"{name}: alpha {rep.alpha} != 3")
-    if theorem1:
+    if theorem:
         check(max(rep.workload) <= rep.theoretical_workload_bound,
-              f"{name}: max workload above Theorem 1")
+              f"{name}: max workload above the workload theorem's bound")
     check(rep.capacity_attempts == attempts,
           f"{name}: {rep.capacity_attempts} capacity attempts, want "
           f"{attempts}")
 
 
-def phase_main(smi: str) -> dict:
+def _expected(algorithm: str, name: str, attempts: int) -> int:
+    """The capacity attempts predicted for a sort of input ``name``."""
+    return attempts if algorithm == "smms" else TERASORT_ATTEMPTS[name]
+
+
+def phase_main(smi: str, algorithm: str) -> dict:
+    """The sort at t=64 x 65,536 on the four inputs, keys only: keys,
+    workload, alpha, the workload theorem's bound (Theorem 1, or 3 for
+    Terasort) where keys are distinct, the predicted attempts."""
     out = {}
-    for name, (x, attempts, theorem1) in sort_inputs(SEED).items():
+    for name, (x, attempts, theorem) in sort_inputs(SEED).items():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        (keys, _), rep = on_path("sort", lambda: cluster.sort(
-            x, algorithm="smms", device=DEVICE))
+        (keys, _), rep = on_path(PATHS[algorithm], lambda: cluster.sort(
+            x, algorithm=algorithm, seed=SEED, device=DEVICE))
         wall = time.perf_counter() - t0
         check(keys.device.type == DEVICE, f"{name}: result not on the card")
-        check_run(name, x, keys, rep, attempts, theorem1)
+        check_run(f"{algorithm} {name}", x, keys, rep,
+                  _expected(algorithm, name, attempts), theorem)
         out[name] = {"first_call_s": wall,
                      "k_workload": rep.k_workload,
                      "k_network": rep.k_network,
                      "max_workload": int(max(rep.workload)),
                      "bound": rep.theoretical_workload_bound,
                      "capacity_attempts": rep.capacity_attempts}
-        print(f"[main] t={T} m={M} {name:11s} ok: k_workload="
-              f"{rep.k_workload:.4f} k_network={rep.k_network:.4f} "
-              f"attempts={rep.capacity_attempts} first call "
-              f"{wall * 1e3:.1f} ms ({smi})")
+        print(f"[main] {algorithm} t={T} m={M} {name:11s} ok: k_workload="
+              f"{rep.k_workload:.4f} k_network={rep.k_network:.4f} max "
+              f"machine {max(rep.workload)} (bound "
+              f"{rep.theoretical_workload_bound:.0f}) attempts="
+              f"{rep.capacity_attempts} first call {wall * 1e3:.1f} ms "
+              f"({smi})")
     return out
 
 
-def phase_payload(smi: str) -> dict:
-    """SMMS with the 100-byte records: keys as for phase 4, and the
+def phase_payload(smi: str, algorithm: str) -> dict:
+    """The sort with the 100-byte records: keys as for phase 4, and the
     payload in the keys' stable order, row for row."""
     out = {}
-    for i, (name, (x, attempts, theorem1)) in enumerate(
+    for i, (name, (x, attempts, theorem)) in enumerate(
             sort_inputs(SEED).items()):
         payload = make_payload(T, M, SEED + i, device=DEVICE)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        (keys, vals), rep = on_path("sort_payload", lambda: cluster.sort(
-            x, algorithm="smms", values=payload, device=DEVICE))
+        (keys, vals), rep = on_path(
+            PATHS[algorithm] + "_payload", lambda: cluster.sort(
+                x, algorithm=algorithm, seed=SEED, values=payload,
+                device=DEVICE))
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
-        check_run(f"payload {name}", x, keys, rep, attempts, theorem1)
+        label = f"{algorithm} payload {name}"
+        check_run(label, x, keys, rep, _expected(algorithm, name, attempts),
+                  theorem)
         n = T * M
         check(vals.device.type == DEVICE and vals.shape == (n, PAYLOAD_COLS),
-              f"payload {name}: values of shape {tuple(vals.shape)}")
+              f"{label}: values of shape {tuple(vals.shape)}")
         order = np.argsort(x.reshape(-1), kind="stable")
         check(np.array_equal(vals[:, 0].cpu().numpy(), order),
-              f"payload {name}: column 0 != np.argsort(x, stable)")
+              f"{label}: column 0 != np.argsort(x, stable)")
         rows = payload.reshape(n, PAYLOAD_COLS)[torch.from_numpy(order)
                                                 .to(DEVICE)]
         check(torch.equal(vals, rows),
-              f"payload {name}: records differ from the input's rows in "
-              f"stable key order")
+              f"{label}: records differ from the input's rows in stable "
+              f"key order")
         out[name] = {"first_call_s": wall, "k_workload": rep.k_workload,
                      "k_network": rep.k_network,
                      "capacity_attempts": rep.capacity_attempts,
                      "max_memory_allocated_bytes": peak}
-        print(f"[main] t={T} m={M} payload {name:11s} ok: 100-byte records, "
-              f"k_workload={rep.k_workload:.4f} attempts="
+        print(f"[main] {algorithm} t={T} m={M} payload {name:11s} ok: "
+              f"100-byte records, k_workload={rep.k_workload:.4f} attempts="
               f"{rep.capacity_attempts} first call {wall * 1e3:.1f} ms, peak "
               f"memory {peak / 2**20:.1f} MiB ({smi})")
         del keys, vals, rows, payload
@@ -532,8 +612,8 @@ def check_join(name: str, out, rep, want_codes: np.ndarray) -> None:
 
 def phase_joins(smi: str) -> dict:
     out = {}
-    for name, (algorithm, make) in JOINS.items():
-        s, t = make()
+    for name, cfg in JOINS.items():
+        s, t = cfg.tables()
         s_rows = np.arange(len(s), dtype=np.int32)
         t_rows = np.arange(len(t), dtype=np.int32)
         want = host_pairs(s, t)
@@ -541,14 +621,14 @@ def phase_joins(smi: str) -> dict:
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         res, rep = on_path(name, lambda: cluster.join(
-            s, s_rows, t, t_rows, algorithm=algorithm, t_machines=JOIN_T,
-            device=DEVICE))
+            s, s_rows, t, t_rows, algorithm=cfg.algorithm, t_machines=JOIN_T,
+            seed=SEED, device=DEVICE, **cfg.options))
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
         check(res.s_rows.device.type == DEVICE,
               f"{name}: result not on the card")
         check_join(name, res, rep, want)
-        if algorithm == "statjoin":
+        if cfg.algorithm == "statjoin":
             check(max(rep.workload) <= rep.theoretical_workload_bound,
                   f"{name}: a machine above 2W/t (Theorem 6)")
         out[name] = {"W": len(want), "capacity": int(res.s_rows.shape[1]),
@@ -557,6 +637,20 @@ def phase_joins(smi: str) -> dict:
                      "max_workload": int(max(rep.workload)),
                      "first_call_s": wall,
                      "max_memory_allocated_bytes": peak}
+        if cfg.algorithm == "randjoin":
+            check(rep.alpha == 1, f"{name}: alpha {rep.alpha} != 1")
+            # StatJoin on the same tables, beside it (not a path run)
+            _, st_rep = cluster.join(s, s_rows, t, t_rows,
+                                     algorithm="statjoin", t_machines=JOIN_T,
+                                     device=DEVICE)
+            out[name].update(capacity_attempts=rep.capacity_attempts,
+                             statjoin_k_workload=st_rep.k_workload,
+                             statjoin_k_network=st_rep.k_network)
+            print(f"[main] {name:24s} k_workload {rep.k_workload:.4f} "
+                  f"against StatJoin's {st_rep.k_workload:.4f} on the same "
+                  f"tables; k_network {rep.k_network:.4f} against "
+                  f"{st_rep.k_network:.4f}; {rep.algorithm}, capacity "
+                  f"attempts {rep.capacity_attempts}")
         print(f"[main] {name:24s} ok: t={JOIN_T} W={len(want)} slots/machine="
               f"{res.s_rows.shape[1]} alpha={rep.alpha} k_workload="
               f"{rep.k_workload:.4f} max machine {max(rep.workload)} first "
@@ -601,7 +695,7 @@ def phase_small_values_and_joins() -> None:
     for kind, (s, t) in tables.items():
         s_rows = np.arange(len(s), dtype=np.int32)
         t_rows = np.arange(len(t), dtype=np.int32) + 100_000
-        for algorithm in cluster.JOIN_ALGORITHMS:
+        for algorithm in DETERMINISTIC_JOINS:
             res, rep = on_path("small_joins", lambda: cluster.join(
                 s, s_rows, t, t_rows, algorithm=algorithm,
                 t_machines=T_SMALL, device=DEVICE))
@@ -614,8 +708,60 @@ def phase_small_values_and_joins() -> None:
                       f"{label}: {field} differs from the CPU run")
             _same_report(label, rep, rep_cpu)
         print(f"[small] t={T_SMALL} {kind} tables: every output and report "
-              f"field of {', '.join(cluster.JOIN_ALGORITHMS)} equal to the "
+              f"field of {', '.join(DETERMINISTIC_JOINS)} equal to the "
               f"CPU run, bitwise")
+        for t_machines in (4, 8):
+            a, b = choose_ab(t_machines, len(s), len(t))
+            draws = draw_assignments(t_machines, -(-len(s) // t_machines),
+                                     -(-len(t) // t_machines), a, b, SEED,
+                                     "cpu")
+            kw = dict(algorithm="randjoin", t_machines=t_machines,
+                      assignments=draws)
+            res, rep = on_path("small_randjoin", lambda: cluster.join(
+                s, s_rows, t, t_rows, device=DEVICE, **kw))
+            res_cpu, rep_cpu = cluster.join(s, s_rows, t, t_rows,
+                                            device="cpu", **kw)
+            label = f"small randjoin t={t_machines} {kind}"
+            for field in res._fields:
+                check(same_bits(getattr(res, field), getattr(res_cpu, field)),
+                      f"{label}: {field} differs from the CPU run")
+            _same_report(label, rep, rep_cpu)
+        print(f"[small] RandJoin at t=4 and 8 on the {kind} tables: every "
+              f"output and report field equal to the CPU run on the same "
+              f"draws, bitwise")
+
+
+def phase_small_terasort() -> None:
+    """Terasort at t=8 x 4,096 (C = 2,817: the in-tile merges), keys
+    only and with values: keys, values, boundaries and every report
+    field equal to the CPU run on the same draws."""
+    x = lidar_like(T_SMALL * M_SMALL, seed=SEED + 3).reshape(T_SMALL,
+                                                              M_SMALL)
+    u = torch.rand((T_SMALL, M_SMALL),
+                   generator=torch.Generator().manual_seed(SEED))
+    v = np.random.default_rng(SEED + 3).integers(
+        0, 1 << 30, (T_SMALL, M_SMALL, 3)).astype(np.int32)
+    for path, values in (("small_terasort", None),
+                         ("small_terasort_values", v)):
+        (keys, vals), rep = on_path(path, lambda: cluster.sort(
+            x, algorithm="terasort", values=values, uniforms=u,
+            device=DEVICE))
+        (keys_cpu, vals_cpu), rep_cpu = cluster.sort(
+            x, algorithm="terasort", values=values, uniforms=u, device="cpu")
+        check_run(path, x, keys, rep, 1)
+        check(same_bits(keys, keys_cpu), f"{path}: card keys != CPU keys")
+        if values is not None:
+            check(same_bits(vals, vals_cpu),
+                  f"{path}: card values != CPU values")
+        check(np.array_equal(rep.boundaries.view(np.int32),
+                             rep_cpu.boundaries.view(np.int32)),
+              f"{path}: card boundaries != CPU boundaries")
+        check(rep.exchange_topology == rep_cpu.exchange_topology,
+              f"{path}: exchange_topology differs from the CPU run")
+        _same_report(path, rep, rep_cpu)
+    print(f"[small] terasort t={T_SMALL} m={M_SMALL} with and without (t, m, "
+          f"3) values: keys, values, boundaries and every report field "
+          f"equal to the CPU run on the same draws, bitwise")
 
 
 def phase_small() -> None:
@@ -700,6 +846,51 @@ def phase_times(rng, smi: str) -> dict:
            event_ms(lambda: torch.searchsorted(xs, q, out_int32=True), 200),
            q.numel() * 4 * 2 + probes * 4, probes)
 
+    # sort_partition at Terasort's Round 3: (64, 65536) f32 and the 63
+    # boundaries every machine shares.  Keys in; sorted keys and cuts
+    # out; log2 m compares a key to sort and ceil(log2(m+1)) a query to
+    # search.  The yardstick: torch.sort, then torch.searchsorted.
+    bq = xs[:1, ::M // T][:, 1:].expand(T, T - 1).contiguous()
+    search_ops = bq.numel() * steps
+    record("sort_partition",
+           timed_ms(lambda: fused.sort_partition(x, bq), 20),
+           event_ms(lambda: fused.sort_partition_plain(x, bq), 3, warm=1),
+           event_ms(lambda: torch.searchsorted(
+               torch.sort(x, dim=-1).values, bq, out_int32=True), 20),
+           2 * x.numel() * 4 + bq.numel() * 8,
+           x.numel() * int(math.log2(M)) + search_ops)
+
+    # sort_partition_kv at the same shape (Terasort Round 3 with the
+    # payload): keys in; keys, the int32 order and the cuts out.  The
+    # yardstick: a stable torch.sort, values and indices, then
+    # torch.searchsorted.
+    def sort_then_search():
+        ks = torch.sort(x, dim=-1, stable=True)
+        return ks.indices, torch.searchsorted(ks.values, bq, out_int32=True)
+
+    record("sort_partition_kv",
+           timed_ms(lambda: fused.sort_partition_kv(x, bq), 20),
+           event_ms(lambda: fused.sort_partition_kv_plain(x, bq), 3, warm=1),
+           event_ms(sort_then_search, 20),
+           3 * x.numel() * 4 + bq.numel() * 8,
+           x.numel() * int(math.log2(M)) + search_ops)
+
+    # and at RandJoin's routing: (64, 2048) int32 draws, 7 boundaries
+    a = torch.randint(0, 8, (T, 2048), dtype=torch.int32, device=dev)
+    aq = torch.arange(1, 8, dtype=torch.int32, device=dev).expand(T, 7) \
+        .contiguous()
+
+    def routing_yardstick():
+        ks = torch.sort(a, dim=-1, stable=True)
+        return ks.indices, torch.searchsorted(ks.values, aq, out_int32=True)
+
+    record("sort_partition_kv@routing",
+           timed_ms(lambda: fused.sort_partition_kv(a, aq), 200),
+           event_ms(lambda: fused.sort_partition_kv_plain(a, aq), 10),
+           event_ms(routing_yardstick, 200),
+           3 * a.numel() * 4 + aq.numel() * 8,
+           a.numel() * 11 + aq.numel() * 12)
+
     # merge_rows at the small configuration's receive buffers
     cap = flat_receive_capacity(M_SMALL, T_SMALL, cluster.CapacityPolicy.smms(
         T_SMALL * M_SMALL, T_SMALL, 2).first_factor) // T_SMALL
@@ -761,8 +952,35 @@ def phase_times(rng, smi: str) -> dict:
                              device=DEVICE), smi)
     del payload
 
+    # Terasort, keys only and with the records, the draws made on the
+    # card from the seed as a user's call makes them
+    res["terasort_e2e"] = e2e(
+        f"cluster.sort terasort t={T} m={M} uniform",
+        lambda: cluster.sort(xn, algorithm="terasort", seed=SEED,
+                             device=DEVICE), smi)
+    payload = make_payload(T, M, SEED, device=DEVICE)
+    res["terasort_payload_e2e"] = e2e(
+        f"cluster.sort terasort t={T} m={M} uniform, {PAYLOAD_COLS} x int32 "
+        f"payload",
+        lambda: cluster.sort(xn, algorithm="terasort", seed=SEED,
+                             values=payload, device=DEVICE), smi)
+    del payload
+
+    # RandJoin on both tables, the default capacity's host statistics
+    # included
+    for name in ("randjoin_zipf", "randjoin_scalar_skew"):
+        cfg = JOINS[name]
+        s, t = cfg.tables()
+        rows_s = np.arange(len(s), dtype=np.int32)
+        rows_t = np.arange(len(t), dtype=np.int32)
+        res[f"{name}_e2e"] = e2e(
+            f"cluster.join {name} t={JOIN_T}",
+            lambda: cluster.join(s, rows_s, t, rows_t, algorithm="randjoin",
+                                 t_machines=JOIN_T, seed=SEED, device=DEVICE,
+                                 **cfg.options), smi)
+
     # StatJoin on the Zipf tables, host planning and routing included
-    s, t = JOINS["statjoin_zipf"][1]()
+    s, t = JOINS["statjoin_zipf"].tables()
     rows_s = np.arange(len(s), dtype=np.int32)
     rows_t = np.arange(len(t), dtype=np.int32)
     res["statjoin_zipf_e2e"] = e2e(
@@ -771,7 +989,7 @@ def phase_times(rng, smi: str) -> dict:
                              t_machines=JOIN_T, device=DEVICE), smi)
 
     # the host side of StatJoin alone, on the scalar-skew tables
-    s, t = JOINS["statjoin_scalar_skew"][1]()
+    s, t = JOINS["statjoin_scalar_skew"].tables()
     t0 = time.perf_counter()
     stats = statjoin_mod.collect_statistics(s, t)
     t1 = time.perf_counter()
@@ -829,11 +1047,14 @@ def main() -> None:
     rng = np.random.default_rng(SEED)
     errs = phase_kernels(rng)
 
-    main_runs = phase_main(smi)
-    payload_runs = phase_payload(smi)
+    main_runs = phase_main(smi, "smms")
+    payload_runs = phase_payload(smi, "smms")
+    terasort_runs = phase_main(smi, "terasort")
+    terasort_payload_runs = phase_payload(smi, "terasort")
     join_runs = phase_joins(smi)
     phase_small()
     phase_small_values_and_joins()
+    phase_small_terasort()
     launches = phase_launches()
 
     times = phase_times(rng, smi)
@@ -849,8 +1070,9 @@ def main() -> None:
                 "library_ms": times[name]["library_ms"]}
                for name, k in cuda.KERNELS.items()]
     print(json.dumps({"build": build, "main": main_runs,
-                      "payload": payload_runs, "joins": join_runs,
-                      "times": times}))
+                      "payload": payload_runs, "terasort": terasort_runs,
+                      "terasort_payload": terasort_payload_runs,
+                      "joins": join_runs, "times": times}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,15 +2,22 @@
 
     from repro_torch import cluster
     (keys, values), report = cluster.sort(x, algorithm="smms", values=v)
+    (keys, _), report = cluster.sort(x, algorithm="terasort", seed=0)
     out, report = cluster.join(sk, sr, tk, tr, algorithm="statjoin",
                                t_machines=8)
 
 Counterpart of ``src/repro/cluster/api.py`` (``sort`` :86, ``join``
-:195): SMMS with the flat exchange, with or without values, and the
-deterministic joins -- StatJoin (the paper's §4.3) and its baselines,
-repartition and broadcast.  The other algorithms, topologies and the
-planner are later slices of the port and raise ``NotImplementedError``
-naming the ROADMAP item that brings them.
+:195): SMMS and Terasort with the flat exchange, with or without
+values, and the joins -- StatJoin (the paper's §4.3), RandJoin (§4.2)
+and the baselines, repartition and broadcast.  The staged exchange and
+the planner (``"auto"``) are later slices of the port and raise
+``NotImplementedError`` naming the ROADMAP item that brings them.
+
+Terasort and RandJoin draw random numbers: from ``seed`` by a
+``torch.Generator`` on the run's device, or the caller's own draws
+(``uniforms=`` for Terasort's Algorithm S, ``assignments=`` for
+RandJoin), which is how the tests hand the port the reference's
+``jax.random`` draws.
 
 The run happens on the card unless the caller asks otherwise:
 ``device=None`` means ``"cuda"``, and raises when no card is present --
@@ -19,7 +26,7 @@ plain versions (what the tests do).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,8 +36,8 @@ from .capacity import CapacityPolicy, run_with_capacity
 __all__ = ["sort", "join", "SORT_ALGORITHMS", "JOIN_ALGORITHMS",
            "resolve_device"]
 
-SORT_ALGORITHMS = ("smms",)
-JOIN_ALGORITHMS = ("statjoin", "repartition", "broadcast")
+SORT_ALGORITHMS = ("smms", "terasort")
+JOIN_ALGORITHMS = ("statjoin", "randjoin", "repartition", "broadcast")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -43,21 +50,32 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def sort(x, *, algorithm: str = "smms", r: int = 2,
+def _as_tensor(a) -> torch.Tensor:
+    """A tensor of ``a``; a numpy array (or a read-only view of one) is
+    copied first."""
+    return a if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a))
+
+
+def sort(x, *, algorithm: str = "smms", r: int = 2, seed: int = 0,
          cap_factor: Optional[float] = None, policy=None, values=None,
-         exchange: str = "flat", device=None):
+         exchange: str = "flat", uniforms=None, device=None):
     """Distributed sort of x: (t, m), one row per machine.
 
     x: a numpy array or a tensor; values: None, or (t, m, ...) payload
-    aligned with x.  Returns ``((keys, values), report)``: the n sorted
-    keys as a tensor on the run's device, the values in the keys'
-    stable order (or None), and the AlphaKReport, as the reference's
-    front door returns them.
+    aligned with x.  ``r`` is SMMS's sampling ratio; ``seed`` and
+    ``uniforms`` ((t, m) float32, one draw per object) are Terasort's
+    Algorithm-S draws.  Returns ``((keys, values), report)``: the n
+    sorted keys as a tensor on the run's device, the values in the
+    keys' stable order (or None), and the AlphaKReport, as the
+    reference's front door returns them.
     """
-    if algorithm != "smms":
+    if algorithm == "auto":
         raise NotImplementedError(
-            f"algorithm={algorithm!r} is not ported yet (Terasort is "
-            f"ROADMAP queue A item 4); the port runs 'smms'")
+            "algorithm='auto' is not ported yet (the planner is ROADMAP "
+            "queue A item 9)")
+    if algorithm not in SORT_ALGORITHMS:
+        raise ValueError(f"unknown sort algorithm {algorithm!r}; "
+                         f"expected one of {SORT_ALGORITHMS}")
     if exchange != "flat":
         raise NotImplementedError(
             f"exchange={exchange!r} is not ported yet (the staged exchange "
@@ -72,32 +90,40 @@ def sort(x, *, algorithm: str = "smms", r: int = 2,
     dev = resolve_device(device)
     xt = torch.as_tensor(x).to(dev).contiguous()
     vt = None if values is None else torch.as_tensor(values).to(dev)
+    if algorithm == "terasort":
+        from ..core.terasort import terasort_sort
+        ut = None if uniforms is None else _as_tensor(uniforms).to(dev)
+        return terasort_sort(xt, seed=seed, cap_factor=cap_factor,
+                             policy=policy, values=vt, uniforms=ut)
     from ..core.smms import smms_sort
     return smms_sort(xt, r=r, cap_factor=cap_factor, policy=policy,
                      values=vt)
 
 
 def join(s_keys, s_rows, t_keys, t_rows, *, algorithm: str = "statjoin",
-         t_machines: int, out_capacity: Optional[int] = None,
-         out_cap_factor: float = 1.05, stats=None,
-         small_side: Optional[str] = None, device=None):
+         t_machines: int, out_capacity: Optional[int] = None, seed: int = 0,
+         in_cap_factor: float = 4.0, out_cap_factor: float = 1.05,
+         ab: Optional[Tuple[int, int]] = None, stats=None,
+         small_side: Optional[str] = None, assignments=None, device=None):
     """Distributed equi-join of S and T.  Returns (JoinOutput, report).
 
     Keys and row ids are host arrays (int32 keys below MASKED_KEY);
-    planning and routing run on the host in numpy, as in the reference,
-    and the local joins on ``device``, all t machines at once.
+    StatJoin's planning and routing, and the baselines' hashing and
+    dealing, run on the host in numpy, as in the reference, and the
+    local joins on ``device``, all t machines at once.  RandJoin routes
+    on the card.
 
     ``out_capacity`` defaults, from exact statistics (W result pairs),
     to W + 64 for repartition -- which can pin the whole result on one
     machine, the imbalance it exists to show -- and to
-    max(64, ceil(2 out_cap_factor W / t)) for broadcast, which retries
-    with doubled capacity up to three times when results drop.
-    StatJoin sizes its own by Theorem 6.
+    max(64, ceil(2 out_cap_factor W / t)) for RandJoin and broadcast,
+    which retry with doubled capacity up to three times when results
+    drop (RandJoin's route capacities, ``in_cap_factor`` times each
+    machine's fair share of a line, grow with it).  StatJoin sizes its
+    own by Theorem 6.  RandJoin's machine matrix is ``ab=(a, b)`` or
+    the §4.2.1 choice; its draws come from ``seed``, or are
+    ``assignments=(rows, columns)``, (t, ms) and (t, mt) int32.
     """
-    if algorithm == "randjoin":
-        raise NotImplementedError(
-            "algorithm='randjoin' is not ported yet (ROADMAP queue A item 5 "
-            "with trap C3: its routing draws from jax.random)")
     if algorithm == "auto":
         raise NotImplementedError(
             "algorithm='auto' is not ported yet (the planner is ROADMAP "
@@ -127,6 +153,28 @@ def join(s_keys, s_rows, t_keys, t_rows, *, algorithm: str = "statjoin",
         from ..core.repartition import repartition_join
         return repartition_join(s_keys, s_rows, t_keys, t_rows, t_machines,
                                 out_capacity, device=dev)
+    if algorithm == "randjoin":
+        from ..core.randjoin import choose_ab, randjoin
+        a, b = ab if ab is not None else choose_ab(
+            t_machines, int(np.shape(s_keys)[0]), int(np.shape(t_keys)[0]))
+
+        def attempt_randjoin(cap):
+            out, rep = randjoin(s_keys, s_rows, t_keys, t_rows, t_machines,
+                                int(cap), seed=seed,
+                                in_cap_factor=in_cap_factor
+                                * (cap / out_capacity),
+                                ab=(a, b), assignments=assignments,
+                                device=dev)
+            return (out, rep), int(out.dropped.max())
+
+        if not defaulted_capacity:
+            return attempt_randjoin(out_capacity)[0]
+        (out, rep), factor, attempts = run_with_capacity(
+            attempt_randjoin, CapacityPolicy.fixed(out_capacity,
+                                                   max_retries=3))
+        rep.cap_factor = factor
+        rep.capacity_attempts = attempts
+        return out, rep
 
     from ..core.broadcastjoin import broadcast_join
 

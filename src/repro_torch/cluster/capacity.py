@@ -6,7 +6,7 @@ observability event per retry; the port has no observability layer yet,
 so that call is left out.
 
 The exchange's receive tile is sized from the algorithm's workload
-theorem (Theorem 1 for SMMS); an adversarial initial placement can
+theorem (Theorem 1 for SMMS, Theorem 3 for Terasort); an adversarial initial placement can
 still overflow one (source, destination) pair, which the exchange
 detects as dropped objects.  The recovery re-runs the deterministic
 body with a geometrically larger factor.
@@ -57,6 +57,17 @@ class CapacityPolicy:
     def smms(cls, n: int, t: int, r: int, **kw) -> "CapacityPolicy":
         """Theorem 1: round-3 receive total <= (1 + 2/r + t^2/n) m."""
         return cls(base_factor=1.0 + 2.0 / r + t**2 / n, **kw)
+
+    @classmethod
+    def terasort(cls, n: int, t: int, **kw) -> "CapacityPolicy":
+        """Theorem 3: |S_i| <= 5m + 1 w.p. >= 1 - 1/n."""
+        m = max(1, n // t)
+        return cls(base_factor=5.0 + 1.0 / m, **kw)
+
+    @classmethod
+    def randjoin(cls, **kw) -> "CapacityPolicy":
+        """Cor. 3: per-machine output < 2 MN/t w.p. >= 1 - 1.2e-9."""
+        return cls(base_factor=2.0, **kw)
 
 
 def run_with_capacity(attempt: Callable[[float], Tuple[object, int]],

@@ -20,6 +20,17 @@ payload are one object).
 * ``psum``        -- a sum over the machine axis; O(1) control scalars
   are not counted.
 
+Each also runs on one axis of an (a, b) machine grid, the counterpart
+of the reference's named sub-axes (RandJoin's machine matrix): with
+``grid=(a, b)`` machine i*b + j sits at (i, j), and ``axis=0`` works
+within each column (the members (*, j)), ``axis=1`` within each row
+(the members (i, *)).  A grid ``all_to_all`` takes (t, n_axis, ...)
+tiles and lands tile k of (i, j) on the line's k-th member; a grid
+``all_gather`` returns (t, n_axis, ...): every member sees its line's
+operands, its received count the sum of the line's counts, as
+``lax.psum`` over the axis gives it; a grid ``psum`` sums over the
+line.
+
 Phases are declared with ``tape.phase(name)``; alpha is the number of
 declared phases, and a phase with no traffic still counts.  Counts are
 recorded as (t,) float32 tensors, as the reference records float32
@@ -28,7 +39,7 @@ scalars per device, and read back to the host once, in :meth:`phases`.
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +48,16 @@ import torch
 # core modules import this one at load time.
 
 __all__ = ["CollectiveTape"]
+
+
+def _line_sum(x: torch.Tensor, grid: Optional[Tuple[int, int]],
+              axis: int) -> torch.Tensor:
+    """(t,) per-machine values -> (t,) sums over each machine's line of
+    the (a, b) grid along ``axis`` (over all t machines without one)."""
+    if grid is None:
+        return x.sum().expand(x.shape[0])
+    xr = x.reshape(grid)
+    return xr.sum(dim=axis, keepdim=True).expand(grid).reshape(-1)
 
 
 class CollectiveTape:
@@ -71,28 +92,49 @@ class CollectiveTape:
                               torch.as_tensor(received, dtype=torch.float32)))
 
     def all_gather(self, x: torch.Tensor, *, count=None,
-                   track: bool = True) -> torch.Tensor:
+                   track: bool = True, grid: Optional[Tuple[int, int]] = None,
+                   axis: int = 0) -> torch.Tensor:
         """x: (t, c, ...), machine i's contribution in row i.  Returns the
-        gathered array every machine sees (the operand itself).
+        gathered array every machine sees (the operand itself); on a
+        ``grid``, (t, n_axis, c, ...), each machine's line's operands.
 
         ``count`` (scalar or (t,)) overrides each machine's sent count,
-        c by default; every machine receives the sum over machines.
+        c by default; every machine receives the sum over its line (all
+        machines without a grid).
         """
+        t, c = x.shape[:2]
         if track:
-            t, c = x.shape[:2]
             sent = torch.as_tensor(c if count is None else count)
             sent = sent.expand(t) if sent.dim() == 0 else sent
-            self.record(sent=sent, received=sent.sum().expand(t))
-        return x
+            self.record(sent=sent, received=_line_sum(sent, grid, axis))
+        if grid is None:
+            return x
+        a, b = grid
+        xr = x.reshape(a, b, *x.shape[1:])
+        if axis == 0:                 # (i, j) sees (*, j): column j
+            out = xr.transpose(0, 1).unsqueeze(0).expand(a, b, a,
+                                                         *x.shape[1:])
+        else:                         # (i, j) sees (i, *): row i
+            out = xr.unsqueeze(1).expand(a, b, b, *x.shape[1:])
+        return out.reshape(t, grid[axis], *x.shape[1:])
 
     def all_to_all(self, x: torch.Tensor, *, sent=None, pad=None,
-                   track: bool = True) -> torch.Tensor:
+                   track: bool = True, grid: Optional[Tuple[int, int]] = None,
+                   axis: int = 0) -> torch.Tensor:
         """x: (t_src, t_dst, ...) send tiles; returns (t_dst, t_src, ...).
 
-        ``sent`` defaults to every element of a machine's tile; ``pad``
-        makes the received count sentinel-aware.
+        On a ``grid``, x is (t, n_axis, ...): tile k of each machine
+        goes to the k-th member of its line, and lands at the sender's
+        place in the line.  ``sent`` defaults to every element of a
+        machine's tile; ``pad`` makes the received count sentinel-aware.
         """
-        out = x.transpose(0, 1).contiguous()
+        if grid is None:
+            out = x.transpose(0, 1).contiguous()
+        else:
+            a, b = grid
+            xr = x.reshape(a, b, *x.shape[1:])      # [i, j, k, ...]
+            out = xr.transpose(0, 2) if axis == 0 else xr.transpose(1, 2)
+            out = out.contiguous().reshape(x.shape)
         if not track:
             return out
         t = x.shape[0]
@@ -103,10 +145,15 @@ class CollectiveTape:
         self.record(sent=s, received=r)
         return out
 
-    def psum(self, x: torch.Tensor) -> torch.Tensor:
+    def psum(self, x: torch.Tensor, *,
+             grid: Optional[Tuple[int, int]] = None,
+             axis: int = 0) -> torch.Tensor:
         """x: (t,) per-machine values -> their sum, which every machine
-        sees.  A control scalar: not counted."""
-        return x.sum()
+        sees; on a ``grid``, (t,) sums over each machine's line.  A
+        control scalar: not counted."""
+        if grid is None:
+            return x.sum()
+        return _line_sum(x, grid, axis)
 
     def phases(self, t: int):
         """Merge the records into one PhaseStats per declared phase."""

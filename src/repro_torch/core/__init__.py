@@ -1,18 +1,22 @@
-"""SMMS and the deterministic joins on the port (counterpart of
-``repro.core``): (alpha, k) accounting, Algorithm 1, the flat Round-3
-exchange, the SMMS body, the local equi-join, StatJoin and its two
-baselines."""
+"""SMMS, Terasort and the joins on the port (counterpart of
+``repro.core``): (alpha, k) accounting, Algorithm 1, Algorithm S, the
+flat Round-3 exchange, the SMMS and Terasort bodies, the local
+equi-join, StatJoin, RandJoin and the two baselines."""
 from .alpha_k import (AlphaKReport, PhaseStats, report_fields, smms_k_bound,
-                      smms_workload_bound, statjoin_workload_bound)
+                      smms_workload_bound, statjoin_workload_bound,
+                      terasort_workload_bound)
 from .boundaries import boundaries, boundaries_oracle, equidepth_samples
 from .broadcastjoin import broadcast_join
 from .exchange import (PAD, ExchangeResult, exchange_sorted_segments,
                        flat_receive_capacity, partition_sorted)
 from .localjoin import MASKED_KEY, JoinOutput, local_equijoin
+from .randjoin import choose_ab, draw_assignments, randjoin
 from .repartition import repartition_join
+from .sampling import algorithm_s, draw_uniforms, terasort_sample_count
 from .smms import SortResult, default_cap_factor, smms_shard, smms_sort
 from .statjoin import (JoinStatistics, Rectangle, StatJoinPlan,
                        collect_statistics, plan_statjoin, statjoin)
+from .terasort import terasort_shard, terasort_sort
 
 __all__ = ["AlphaKReport", "PhaseStats", "report_fields", "smms_k_bound",
            "smms_workload_bound", "statjoin_workload_bound", "boundaries",
@@ -22,4 +26,7 @@ __all__ = ["AlphaKReport", "PhaseStats", "report_fields", "smms_k_bound",
            "smms_shard", "smms_sort", "MASKED_KEY", "JoinOutput",
            "local_equijoin", "JoinStatistics", "Rectangle", "StatJoinPlan",
            "collect_statistics", "plan_statjoin", "statjoin",
-           "repartition_join", "broadcast_join"]
+           "repartition_join", "broadcast_join", "terasort_workload_bound",
+           "algorithm_s", "draw_uniforms", "terasort_sample_count",
+           "terasort_shard", "terasort_sort", "choose_ab",
+           "draw_assignments", "randjoin"]

@@ -16,8 +16,8 @@ from typing import Dict, List
 import numpy as np
 
 __all__ = ["PhaseStats", "AlphaKReport", "smms_k_bound",
-           "smms_workload_bound", "statjoin_workload_bound",
-           "report_fields"]
+           "smms_workload_bound", "terasort_workload_bound",
+           "statjoin_workload_bound", "report_fields"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,6 +100,11 @@ def smms_workload_bound(n: int, t: int, r: int) -> float:
     """Theorem 1: round-3 workload <= (1 + 2/r + t^2/n) * m objects."""
     m = n / t
     return (1.0 + 2.0 / r + t**2 / n) * m
+
+
+def terasort_workload_bound(n: int, t: int) -> float:
+    """Theorem 3: |S_i| <= 5m + 1 with probability >= 1 - 1/n."""
+    return 5.0 * (n / t) + 1.0
 
 
 def statjoin_workload_bound(w_total: int, t: int) -> float:

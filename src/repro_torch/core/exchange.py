@@ -2,12 +2,13 @@
 
 Counterpart of the flat static path of ``src/repro/core/exchange.py``.
 Every machine cuts its locally sorted row at the t-1 interior
-boundaries, packs the t contiguous segments into a (t, C) tile
-sentinel-padded to the capacity C that Theorem 1 sizes, exchanges the
-tiles all-to-all and merges the t landed sorted rows.  Values, when
-present, ride in a second tile (zeros in the pad slots) through an
-untracked all-to-all and come out of the merge in the keys' stable
-order.  Here all t machines do each step at once: rows, tiles and
+boundaries (or, with ``sort_input``, sorts and cuts it in one kernel,
+as Terasort's Round 3 does), packs the t contiguous segments into a
+(t, C) tile sentinel-padded to the capacity C that the sort's workload
+theorem sizes, exchanges the tiles all-to-all and merges the t landed
+sorted rows.  Values, when present, ride in a second tile (zeros in the
+pad slots) through an untracked all-to-all and come out of the merge in
+the keys' stable order.  Here all t machines do each step at once: rows, tiles and
 landed buffers carry the machine axis first.
 
 Dropped objects (a segment longer than C) are counted, not hidden: the
@@ -43,15 +44,10 @@ def partition_sorted(x_sorted: torch.Tensor, interior: torch.Tensor,
     sort sentinel; cuts are clamped to m.  Returns (starts, lens), each
     (t, t) int32.
     """
-    t = x_sorted.shape[0]
     m = valid_len if valid_len is not None else x_sorted.shape[1]
     cuts = ops.searchsorted(x_sorted, interior, side="left",
                             valid_len=valid_len)                # (t, t-1)
-    zeros = torch.zeros((t, 1), dtype=cuts.dtype, device=cuts.device)
-    full = torch.full((t, 1), m, dtype=cuts.dtype, device=cuts.device)
-    starts = torch.cat([zeros, cuts], dim=1)
-    ends = torch.cat([cuts, full], dim=1)
-    return starts, ends - starts
+    return ops.segments(cuts, m)
 
 
 def build_send_buffer(x_sorted: torch.Tensor, starts: torch.Tensor,
@@ -86,17 +82,22 @@ def build_send_buffer(x_sorted: torch.Tensor, starts: torch.Tensor,
 
 def static_exchange(keys_buf: torch.Tensor, tape: CollectiveTape,
                     sent: torch.Tensor,
-                    values_buf: Optional[torch.Tensor] = None):
+                    values_buf: Optional[torch.Tensor] = None,
+                    grid: Optional[Tuple[int, int]] = None, axis: int = 0):
     """Dense all-to-all of the (t, t, C) tiles: tile [i, k] lands on k.
 
     Recorded with ``sent`` (each machine's off-machine objects) and the
     PAD-aware received count; the values tiles ride along untracked.
+    On a ``grid`` the tiles are (t, n_axis, C) and land within each
+    line of the grid along ``axis`` (``CollectiveTape.all_to_all``).
     Returns (landed keys, landed values or None).
     """
-    recv_k = tape.all_to_all(keys_buf, sent=sent, pad=PAD)
+    recv_k = tape.all_to_all(keys_buf, sent=sent, pad=PAD, grid=grid,
+                             axis=axis)
     recv_v = None
     if values_buf is not None:
-        recv_v = tape.all_to_all(values_buf, track=False)
+        recv_v = tape.all_to_all(values_buf, track=False, grid=grid,
+                                 axis=axis)
     return recv_k, recv_v
 
 
@@ -117,22 +118,36 @@ def exchange_sorted_segments(x_sorted: torch.Tensor, interior: torch.Tensor,
                              *, t: int, cap_factor: float,
                              values: Optional[torch.Tensor] = None,
                              valid_len: Optional[int] = None,
+                             sort_input: bool = False,
                              tape: Optional[CollectiveTape] = None
                              ) -> ExchangeResult:
     """Round-3 shuffle: deliver bucket k of every machine to machine k.
 
     x_sorted: (t, n) locally sorted rows (``valid_len`` real keys each
     when pre-padded); values: (t, n, ...) aligned with them, or None;
-    interior: (t-1,) boundaries.  Each machine's capacity is
+    interior: (t-1,) boundaries.  ``sort_input=True`` takes unsorted,
+    unpadded rows and sorts and cuts them in one kernel
+    (``ops.sort_partition[_kv]``), as Terasort's Round 3 does; it
+    cannot be combined with ``valid_len``.  Each machine's capacity is
     ``flat_receive_capacity(m, t, cap_factor)``; every sender's tile row
     lands sorted, so the landed rows are merged (the reference's
     ``merge=True``) rather than sorted -- with values, by the stable
     argsort merge.
     """
+    if sort_input and valid_len is not None:
+        raise ValueError("sort_input=True takes unpadded input; "
+                         "valid_len cannot be combined with it")
     tape = tape if tape is not None else CollectiveTape()
     m = valid_len if valid_len is not None else x_sorted.shape[1]
     cap_pair = flat_receive_capacity(m, t, cap_factor) // t
-    starts, lens = partition_sorted(x_sorted, interior, valid_len=valid_len)
+    if sort_input and values is not None:
+        x_sorted, values, starts, lens = ops.sort_partition_kv(
+            x_sorted, values, interior)
+    elif sort_input:
+        x_sorted, starts, lens = ops.sort_partition(x_sorted, interior)
+    else:
+        starts, lens = partition_sorted(x_sorted, interior,
+                                        valid_len=valid_len)
     me = torch.arange(t, device=lens.device)
     sent = m - lens[me, me]                      # objects leaving each machine
     keys_buf, vals_buf, local_drop = build_send_buffer(

@@ -33,7 +33,8 @@ from .alpha_k import smms_workload_bound
 from .boundaries import boundaries, equidepth_samples
 from .exchange import exchange_sorted_segments
 
-__all__ = ["smms_shard", "smms_sort", "SortResult", "default_cap_factor"]
+__all__ = ["smms_shard", "smms_sort", "SortResult", "default_cap_factor",
+           "received_objects"]
 
 
 class SortResult(NamedTuple):
@@ -43,6 +44,14 @@ class SortResult(NamedTuple):
     sent: torch.Tensor        # (t,) keys each machine shipped in Round 3
     dropped: torch.Tensor     # global overflow count (0 == success)
     boundaries: torch.Tensor  # (t+1,) the Algorithm-1 boundaries
+
+
+def received_objects(res: SortResult):
+    """The sort's output: every machine's valid keys, machine 0's first,
+    and their values (or None)."""
+    valid = (torch.arange(res.keys.shape[1], device=res.keys.device)[None, :]
+             < res.count[:, None].long())
+    return res.keys[valid], None if res.values is None else res.values[valid]
 
 
 def default_cap_factor(n: int, t: int, r: int, slack: float = 1.05) -> float:
@@ -115,15 +124,9 @@ def smms_sort(x: torch.Tensor, r: int = 2, cap_factor: Optional[float] = None,
         return (res, tape), int(res.dropped)    # the one host read per attempt
 
     (res, tape), factor, attempts = run_with_capacity(attempt, policy)
-
-    counts = res.count.cpu()
-    valid = (torch.arange(res.keys.shape[1], device=res.keys.device)[None, :]
-             < res.count[:, None].long())
-    flat = res.keys[valid]                 # machine 0's keys first, then 1...
-    vals = None if res.values is None else res.values[valid]
-
+    flat, vals = received_objects(res)
     report = tape.report(algorithm=f"SMMS(r={r})", t=t, n_in=n, n_out=n,
-                         workload=counts.numpy())
+                         workload=res.count.cpu().numpy())
     report.exchange_topology = "flat"
     report.theoretical_workload_bound = smms_workload_bound(n, t, r)
     report.total_dropped = 0

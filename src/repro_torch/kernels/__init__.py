@@ -8,8 +8,9 @@ from . import cuda, ops, ref
 from .bitonic import (bitonic_sort, bitonic_sort_kv, merge_sorted_rows,
                       merge_sorted_rows_argsort, sort_sentinel)
 from .bucketize import searchsorted
-from .fused import merge_ranks
+from .fused import merge_ranks, sort_partition, sort_partition_kv
 
 __all__ = ["cuda", "ops", "ref", "bitonic_sort", "bitonic_sort_kv",
            "merge_sorted_rows", "merge_sorted_rows_argsort", "sort_sentinel",
-           "searchsorted", "merge_ranks"]
+           "searchsorted", "merge_ranks", "sort_partition",
+           "sort_partition_kv"]

@@ -45,6 +45,7 @@ SOURCES = {
     "searchsorted": "searchsorted.cu",
     "merge_rows": "merge_rows.cu",
     "merge_ranks": "merge_ranks.cu",
+    "sort_partition": "sort_partition.cu",
 }
 
 
@@ -53,8 +54,9 @@ class Kernel(NamedTuple):
     replaces: str   # the TPU kernel it ports: the reference's pallas_call
 
 
-# kernel name -> where it lives and what it ports.  The pair sort and
-# the argsort merge share their keys-only twins' sources (and networks).
+# kernel name -> where it lives and what it ports.  The pair sort, the
+# argsort merge and the fused pair sort share their keys-only twins'
+# sources (and networks).
 KERNELS = {
     "bitonic_sort": Kernel("bitonic_sort", "src/repro/kernels/bitonic.py:224"),
     "bitonic_sort_kv": Kernel("bitonic_sort",
@@ -64,6 +66,10 @@ KERNELS = {
     "merge_rows": Kernel("merge_rows", "src/repro/kernels/bitonic.py:313"),
     "merge_rows_kv": Kernel("merge_rows", "src/repro/kernels/bitonic.py:321"),
     "merge_ranks": Kernel("merge_ranks", "src/repro/kernels/fused.py:286"),
+    "sort_partition": Kernel("sort_partition",
+                             "src/repro/kernels/fused.py:87"),
+    "sort_partition_kv": Kernel("sort_partition",
+                                "src/repro/kernels/fused.py:118"),
 }
 
 # No --use_fast_math and no -ftz: the kernels fold denormals themselves,
@@ -87,6 +93,10 @@ SIGNATURES = {
     "merge_rows_kv_i32": [_P, _P, _I64, _I64, _I64, _P],
     "merge_ranks_f32": [_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P],
     "merge_ranks_i32": [_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P],
+    "sort_partition_f32": [_P, _P, _P, _I64, _I64, _I64, _I64, _P],
+    "sort_partition_i32": [_P, _P, _P, _I64, _I64, _I64, _I64, _P],
+    "sort_partition_kv_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
+    "sort_partition_kv_i32": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
 }
 
 # kernel name -> launches made through launch(); the counts the chip

@@ -1,13 +1,22 @@
-"""Rank merge: the Round-3 receive merge past one tile.
+"""Fused kernels: the sort-and-partition of Terasort's Round 3 and
+RandJoin's routing, and the rank merge past one tile.
 
-Counterpart of the rank-merge half of ``src/repro/kernels/fused.py``
-(``merge_ranks`` with ``_bin_search_pairs_block`` and
-``_bin_search_pairs_bounded``).  The kernel is ``csrc/merge_ranks.cu``;
-:func:`merge_ranks_plain` is its plain version, the same lexicographic
-binary searches in torch ops, summed over the bound rows.  A CUDA
-tensor launches the kernel, a CPU tensor runs the plain version.
-``fused.sort_partition[_kv]`` are not on this slice's path and are not
-ported yet.
+Counterpart of ``src/repro/kernels/fused.py``.  Three kernels, each
+with its plain PyTorch version beside it:
+
+* :func:`sort_partition` -- sort each row and left-search the row's
+  queries over the sorted row in one pass; CUDA source
+  ``csrc/sort_partition.cu``.
+* :func:`sort_partition_kv` -- the (key, iota) pair sort (the stable
+  argsort) with the same search.  Same source.
+* :func:`merge_ranks` -- every element's rank in the lexicographic
+  (key, flat id) order of t sorted rows (``_bin_search_pairs_block``
+  and ``_bin_search_pairs_bounded``, summed over the bound rows);
+  CUDA source ``csrc/merge_ranks.cu``.
+
+The plain versions run the networks of ``bitonic.py`` and the searches
+of ``bucketize.py`` in torch ops.  A CUDA tensor launches the kernel, a
+CPU tensor runs the plain version.
 """
 from __future__ import annotations
 
@@ -17,9 +26,97 @@ from typing import Optional
 import torch
 
 from . import cuda
-from .bitonic import KEY_DTYPES, _SUFFIX, ftz, sort_sentinel
+from .bitonic import (KEY_DTYPES, _SUFFIX, _pad_row, ftz,
+                      sort_network_block, sort_network_block_kv,
+                      sort_sentinel)
+from .bucketize import _bin_search_block
 
-__all__ = ["merge_ranks", "merge_ranks_plain"]
+__all__ = ["sort_partition", "sort_partition_plain", "sort_partition_kv",
+           "sort_partition_kv_plain", "merge_ranks", "merge_ranks_plain"]
+
+
+def _check_queries(keys: torch.Tensor, queries: torch.Tensor) -> None:
+    if queries.dim() != 2 or queries.shape[0] != keys.shape[0]:
+        raise ValueError(f"sort_partition: {keys.shape[0]} key rows need "
+                         f"one query row each, got {tuple(queries.shape)}")
+
+
+def _iota_rows(rows: int, m: int, device) -> torch.Tensor:
+    """(rows, pow2 >= 2) arange(m) padded with int32 max, as the
+    reference pads it (src/repro/kernels/fused.py:111-112)."""
+    iota = torch.arange(m, dtype=torch.int32, device=device)
+    return _pad_row(iota.repeat(rows, 1))
+
+
+def sort_partition_plain(x: torch.Tensor, queries: torch.Tensor):
+    """The plain version of :func:`sort_partition`, on any device."""
+    _check_queries(x, queries)
+    m = x.shape[-1]
+    xs = sort_network_block(_pad_row(x))
+    return xs[:, :m], _bin_search_block(queries, xs, m, "left")
+
+
+def sort_partition(x: torch.Tensor, queries: torch.Tensor):
+    """Sort each row and left-search its queries over the sorted row.
+
+    x: (rows, m) keys; queries: (rows, nq) ascending, one row per key
+    row, of x's dtype.  Returns (xs (rows, m) ascending, cuts (rows, nq)
+    int32) with ``cuts[r, i]`` the count of ``xs[r]`` comparing below
+    ``queries[r, i]`` (denormals fold to zero): the sort and
+    ``searchsorted(side="left")`` in one pass.  Rows are padded to a
+    power of two with the sort sentinel, as the reference pads them.  A
+    CUDA tensor runs the kernel, a CPU tensor
+    :func:`sort_partition_plain`.
+    """
+    if not x.is_cuda:
+        return sort_partition_plain(x, queries)
+    _check_queries(x, queries)
+    cuda.check_cuda_tensor("sort_partition", x, KEY_DTYPES)
+    cuda.check_cuda_tensor("sort_partition", queries, (x.dtype,))
+    rows, m = x.shape
+    xs = _pad_row(x).clone(memory_format=torch.contiguous_format)
+    cuts = torch.empty((rows, queries.shape[1]), dtype=torch.int32,
+                       device=x.device)
+    cuda.launch("sort_partition", f"sort_partition_{_SUFFIX[x.dtype]}",
+                xs.data_ptr(), queries.data_ptr(), cuts.data_ptr(), rows,
+                xs.shape[1], m, queries.shape[1])
+    return xs[:, :m], cuts
+
+
+def sort_partition_kv_plain(keys: torch.Tensor, queries: torch.Tensor):
+    """The plain version of :func:`sort_partition_kv`, on any device."""
+    _check_queries(keys, queries)
+    rows, m = keys.shape
+    ks, order = sort_network_block_kv(_pad_row(keys),
+                                      _iota_rows(rows, m, keys.device))
+    return ks[:, :m], order[:, :m], _bin_search_block(queries, ks, m, "left")
+
+
+def sort_partition_kv(keys: torch.Tensor, queries: torch.Tensor):
+    """Stable pair sort of each row and the same search as
+    :func:`sort_partition`.
+
+    keys: (rows, m); queries: (rows, nq).  Returns (keys sorted (rows,
+    m), order (rows, m) int32, cuts (rows, nq) int32): ``order`` is the
+    stable argsort, from the lexicographic (key, arange(m)) network.  A
+    CUDA tensor runs the kernel, a CPU tensor
+    :func:`sort_partition_kv_plain`.
+    """
+    if not keys.is_cuda:
+        return sort_partition_kv_plain(keys, queries)
+    _check_queries(keys, queries)
+    cuda.check_cuda_tensor("sort_partition_kv", keys, KEY_DTYPES)
+    cuda.check_cuda_tensor("sort_partition_kv", queries, (keys.dtype,))
+    rows, m = keys.shape
+    ks = _pad_row(keys).clone(memory_format=torch.contiguous_format)
+    order = _iota_rows(rows, m, keys.device).contiguous()
+    cuts = torch.empty((rows, queries.shape[1]), dtype=torch.int32,
+                       device=keys.device)
+    cuda.launch("sort_partition_kv",
+                f"sort_partition_kv_{_SUFFIX[keys.dtype]}", ks.data_ptr(),
+                order.data_ptr(), queries.data_ptr(), cuts.data_ptr(), rows,
+                ks.shape[1], m, queries.shape[1])
+    return ks[:, :m], order[:, :m], cuts
 
 
 def _steps(n: int) -> int:

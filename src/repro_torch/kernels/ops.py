@@ -1,8 +1,9 @@
 """Kernel dispatch for the port: the single entry the cluster code calls.
 
 Counterpart of ``src/repro/kernels/ops.py`` for SMMS with and without
-values and for the local equi-join (``sort``, ``sort_kv``,
-``searchsorted``, ``merge_sorted_rows``, ``merge_sorted_rows_kv``).
+values, Terasort, RandJoin's routing and the local equi-join
+(``sort``, ``sort_kv``, ``searchsorted``, ``sort_partition``,
+``sort_partition_kv``, ``merge_sorted_rows``, ``merge_sorted_rows_kv``).
 The reference picks between a Pallas backend and a jnp backend and
 falls back to jnp for operands a kernel cannot take.  The port has no
 backend switch and no fallback:
@@ -31,7 +32,8 @@ import torch
 from . import bitonic, bucketize, fused
 
 __all__ = [
-    "sort", "sort_kv", "searchsorted", "merge_sorted_rows",
+    "sort", "sort_kv", "searchsorted", "sort_partition",
+    "sort_partition_kv", "segments", "merge_sorted_rows",
     "merge_sorted_rows_kv", "pad_pow2",
     "kernel_eligible", "sort_kernel_choice", "reset_dispatch_counts",
     "DISPATCH_COUNTS", "MAX_KERNEL_LANES", "RANK_MERGE_BOUND_BLOCK",
@@ -108,6 +110,12 @@ def kernel_eligible(op: str, x: torch.Tensor, y=None) -> bool:
                 and y.dim() <= x.dim() and x.shape[-1] > 0
                 and y.shape[-1] > 0 and _key_dtype_ok(x)
                 and x.dtype == y.dtype and _lanes_ok(x.shape[-1]))
+    if op in ("sort_partition", "sort_partition_kv"):
+        return (x.dim() in (1, 2) and _key_dtype_ok(x)
+                and _lanes_ok(x.shape[-1]) and y is not None
+                and y.dim() in (1, 2) and y.dim() <= x.dim()
+                and y.shape[-1] > 0 and x.dtype == y.dtype
+                and _lanes_ok(y.shape[-1]))
     if op in ("merge_sorted_rows", "merge_sorted_rows_kv"):
         if x.dim() not in (2, 3) or not _key_dtype_ok(x):
             return False
@@ -216,6 +224,81 @@ def searchsorted(sorted_arr: torch.Tensor, queries: torch.Tensor, *,
     if valid_len is not None:
         ids = torch.clamp_max(ids, int(valid_len))
     return ids[0] if sorted_arr.dim() == 1 else ids
+
+
+def segments(cuts: torch.Tensor, m: int):
+    """(rows, nq) cuts of rows of m keys -> their nq + 1 contiguous
+    segments as (starts, lens), each (rows, nq + 1) int32."""
+    zeros = torch.zeros(cuts.shape[:-1] + (1,), dtype=torch.int32,
+                        device=cuts.device)
+    full = torch.full_like(zeros, m)
+    starts = torch.cat([zeros, cuts], dim=-1)
+    return starts, torch.cat([cuts, full], dim=-1) - starts
+
+
+def _query_rows(x2: torch.Tensor, interior: torch.Tensor) -> torch.Tensor:
+    """The interior boundaries as one contiguous query row per key row."""
+    return interior.expand(x2.shape[0], interior.shape[-1]).contiguous()
+
+
+def sort_partition(x: torch.Tensor, interior: torch.Tensor):
+    """Fused local sort and contiguous-destination partition.
+
+    x: (m,) or (rows, m) unsorted keys; interior: (nq,) ascending
+    boundaries shared by every row, or (rows, nq).  Returns
+    ``(xs, starts, lens)``: the sorted rows and each row's nq+1
+    segments, ``starts``/``lens`` (rows, nq+1) int32 -- bitwise ``sort``
+    then ``searchsorted(side="left")``, in one kernel
+    (``fused.sort_partition``).  With no boundaries (t = 1) it sorts,
+    as the reference does.
+    """
+    x2 = x[None] if x.dim() == 1 else x
+    m = x2.shape[-1]
+    if interior.shape[-1] == 0:          # t == 1: sort only
+        xs = sort(x2)
+        cuts = torch.zeros((x2.shape[0], 0), dtype=torch.int32,
+                           device=x.device)
+    else:
+        _require("sort_partition", x, interior)
+        _tick("sort_partition", x)
+        xs, cuts = fused.sort_partition(x2.contiguous(),
+                                        _query_rows(x2, interior))
+    starts, lens = segments(cuts, m)
+    if x.dim() == 1:
+        return xs[0], starts[0], lens[0]
+    return xs, starts, lens
+
+
+def sort_partition_kv(keys: torch.Tensor, values: torch.Tensor,
+                      interior: torch.Tensor):
+    """Payload-carrying :func:`sort_partition`, stable.
+
+    keys: (m,) or (rows, m); values: leading dims those of keys, extra
+    trailing dims ride along; interior as for :func:`sort_partition`.
+    Returns ``(keys_sorted, values_permuted, starts, lens)``: the
+    stable argsort from the fused (key, iota) pair sort
+    (``fused.sort_partition_kv``) and one gather of the values.
+    """
+    if values.shape[:keys.dim()] != keys.shape:
+        raise ValueError(f"sort_partition_kv: values {tuple(values.shape)} "
+                         f"do not align with keys {tuple(keys.shape)}")
+    k2 = keys[None] if keys.dim() == 1 else keys
+    v2 = values[None] if keys.dim() == 1 else values
+    m = k2.shape[-1]
+    if interior.shape[-1] == 0:          # t == 1: sort only
+        ks, vs = sort_kv(k2, v2)
+        cuts = torch.zeros((k2.shape[0], 0), dtype=torch.int32,
+                           device=keys.device)
+    else:
+        _require("sort_partition_kv", keys, interior)
+        _tick("sort_partition_kv", keys)
+        ks, order, cuts = fused.sort_partition_kv(k2.contiguous(),
+                                                  _query_rows(k2, interior))
+        vs = _take_rows(v2, order)
+    starts, lens = segments(cuts, m)
+    if keys.dim() == 1:
+        return ks[0], vs[0], starts[0], lens[0]
+    return ks, vs, starts, lens
 
 
 def _merge_fits_one_tile(t: int, c: int) -> bool:

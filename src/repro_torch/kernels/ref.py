@@ -11,7 +11,7 @@ import torch
 from .bitonic import ftz
 
 __all__ = ["sort_ref", "sort_kv_ref", "merge_sorted_rows_kv_ref",
-           "searchsorted_ref"]
+           "searchsorted_ref", "sort_partition_ref", "sort_partition_kv_ref"]
 
 
 def sort_ref(x: torch.Tensor) -> torch.Tensor:
@@ -46,3 +46,18 @@ def searchsorted_ref(sorted_arr: torch.Tensor, queries: torch.Tensor,
     return torch.searchsorted(ftz(sorted_arr).contiguous(),
                               ftz(queries).contiguous(), side=side,
                               out_int32=True)
+
+
+def sort_partition_ref(x: torch.Tensor, queries: torch.Tensor):
+    """x (rows, m), queries (rows, nq) -> (sorted rows, left cuts)."""
+    xs = sort_ref(x)
+    return xs, searchsorted_ref(xs, queries, side="left")
+
+
+def sort_partition_kv_ref(keys: torch.Tensor, queries: torch.Tensor):
+    """keys (rows, m), queries (rows, nq) -> (sorted keys, the stable
+    argsort (int32), left cuts)."""
+    order = torch.sort(ftz(keys), dim=-1, stable=True).indices
+    ks = torch.gather(keys, -1, order)
+    return (ks, order.to(torch.int32),
+            searchsorted_ref(ks, queries, side="left"))

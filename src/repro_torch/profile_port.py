@@ -1,7 +1,7 @@
 """Where the time of one port call goes, on the card.
 
     PYTHONPATH=src python3 -m repro_torch.profile_port \
-        [--paths sort,sort_payload,statjoin_zipf] [--reps 3]
+        [--paths sort,terasort,statjoin_zipf,randjoin_zipf] [--reps 3]
 
 For each path of :data:`PATHS`: builds the kernels, warms up with two
 calls, then runs ``--reps`` calls under ``torch.profiler`` and prints
@@ -12,9 +12,11 @@ top device consumers by name.  Needs a CUDA device.
 The paths are the front doors at the sizes ``chip_smoke.py`` drives:
 ``sort`` is SMMS on t = 64 x 65,536 uniform float32 keys handed over as
 numpy, ``sort_payload`` the same with a (64, 65536, 24) int32 payload
-made on the card (100-byte records), and the joins
-(:data:`repro_torch.workloads.JOINS`) run the paper's §5.2 tables at
-t = 64, host planning and routing included.
+made on the card (100-byte records), ``terasort`` and
+``terasort_payload`` the same two by Terasort (its draws made on the
+card from the seed), and the joins (:data:`repro_torch.workloads.JOINS`)
+run the paper's §5.2 tables at t = 64, host planning and routing
+included.
 """
 from __future__ import annotations
 
@@ -33,23 +35,26 @@ from repro_torch.workloads import JOIN_T, JOINS, M, T, make_payload
 __all__ = ["PATHS"]
 
 
-def _sort_call(payload: bool):
+def _sort_call(payload: bool, algorithm: str = "smms"):
     x = uniform_keys(T * M, seed=0).reshape(T, M)
     v = make_payload(T, M, 0) if payload else None
-    return lambda: cluster.sort(x, values=v)
+    return lambda: cluster.sort(x, algorithm=algorithm, values=v)
 
 
 def _join_call(name: str):
-    algorithm, make = JOINS[name]
-    s, t = make()
+    cfg = JOINS[name]
+    s, t = cfg.tables()
     s_rows = np.arange(len(s), dtype=np.int32)
     t_rows = np.arange(len(t), dtype=np.int32)
-    return lambda: cluster.join(s, s_rows, t, t_rows, algorithm=algorithm,
-                                t_machines=JOIN_T)
+    return lambda: cluster.join(s, s_rows, t, t_rows,
+                                algorithm=cfg.algorithm, t_machines=JOIN_T,
+                                **cfg.options)
 
 
 PATHS = {"sort": lambda: _sort_call(False),
          "sort_payload": lambda: _sort_call(True),
+         "terasort": lambda: _sort_call(False, "terasort"),
+         "terasort_payload": lambda: _sort_call(True, "terasort"),
          **{name: (lambda n=name: _join_call(n)) for name in JOINS}}
 
 

@@ -2,16 +2,19 @@
 
 One table for both ``chip_smoke.py`` and :mod:`repro_torch.profile_port`:
 
-* the sort: t = 64 machines x m = 65,536 float32 keys (n = 4,194,304),
+* the sorts: t = 64 machines x m = 65,536 float32 keys (n = 4,194,304),
   the widest row the kernels' gate admits, on four inputs
   (:func:`sort_inputs`), keys only and with a (t, m, 24) int32 payload
   (:func:`make_payload`: with the 4-byte key a 100-byte record, the sort
-  benchmark's record size); and the small t = 8 x m = 4,096 whose
-  receive rows fit one merge tile;
+  benchmark's record size), by SMMS and by Terasort
+  (:data:`TERASORT_ATTEMPTS`); and the small t = 8 x m = 4,096 whose
+  receive rows fit one merge tile for both;
 * the joins (:data:`JOINS`): the paper's §5.2 Zipf and scalar-skew
-  tables at t = 64.
+  tables at t = 64, by StatJoin, RandJoin and the two baselines.
 """
 from __future__ import annotations
+
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -20,28 +23,56 @@ from .data import (lidar_like, scalar_skew_tables, uniform_keys, zipf_keys,
                    zipf_tables)
 
 __all__ = ["T", "M", "T_SMALL", "M_SMALL", "JOIN_T", "PAYLOAD_COLS",
-           "JOINS", "sort_inputs", "adversarial_shards", "make_payload"]
+           "JoinConfig", "JOINS", "TERASORT_ATTEMPTS", "sort_inputs",
+           "adversarial_shards", "make_payload"]
 
 T, M = 64, 65536            # the main sort: n = 4,194,304 keys
 T_SMALL, M_SMALL = 8, 4096  # receive rows that fit one merge tile
 JOIN_T = 64
 PAYLOAD_COLS = 24           # 4-byte key + 24 x 4-byte payload = 100 bytes
 
-# name -> (algorithm, the two key columns); the paper's §5.2 inputs
+
+class JoinConfig(NamedTuple):
+    algorithm: str
+    tables: Callable        # () -> (S key column, T key column)
+    options: dict           # further keyword arguments of cluster.join
+
+
+# name -> the join and its tables; the paper's §5.2 inputs.  RandJoin
+# runs on an 8 x 8 machine matrix with route tiles twice each machine's
+# fair share of a line (in_cap_factor 2.0, the reference core's default;
+# its front door's 4.0 would gather 65,536 rows a side a machine, and a
+# capacity retry 131,072, past the 2^16-lane gate).  On scalar skew it
+# takes 2^17-row tables, not StatJoin's 2^20: at 2^20 each machine's
+# gathered S side is 262,144 slots, past the same gate.
 JOINS = {
-    "statjoin_zipf": ("statjoin", lambda: zipf_tables(
-        1 << 17, 1 << 17, theta=0.5, seed=3)),
-    "statjoin_scalar_skew": ("statjoin", lambda: scalar_skew_tables(
-        1 << 20, 2048, 2048, seed=7)),
-    "repartition_scalar_skew": ("repartition", lambda: scalar_skew_tables(
-        1 << 20, 2048, 2048, seed=7)),
-    "broadcast_zipf": ("broadcast", lambda: zipf_tables(
-        1 << 14, 1 << 17, theta=0.5, seed=3)),
+    "statjoin_zipf": JoinConfig("statjoin", lambda: zipf_tables(
+        1 << 17, 1 << 17, theta=0.5, seed=3), {}),
+    "statjoin_scalar_skew": JoinConfig("statjoin", lambda: scalar_skew_tables(
+        1 << 20, 2048, 2048, seed=7), {}),
+    "randjoin_zipf": JoinConfig("randjoin", lambda: zipf_tables(
+        1 << 17, 1 << 17, theta=0.5, seed=3), {"in_cap_factor": 2.0}),
+    "randjoin_scalar_skew": JoinConfig("randjoin", lambda: scalar_skew_tables(
+        1 << 17, 2048, 2048, seed=7), {"in_cap_factor": 2.0}),
+    "repartition_scalar_skew": JoinConfig(
+        "repartition", lambda: scalar_skew_tables(1 << 20, 2048, 2048,
+                                                  seed=7), {}),
+    "broadcast_zipf": JoinConfig("broadcast", lambda: zipf_tables(
+        1 << 14, 1 << 17, theta=0.5, seed=3), {}),
 }
+
+# Terasort's capacity attempts on each of sort_inputs(), predicted
+# before the first run at t=64 x 65,536: Theorem 3's first tile,
+# C = ceil(5.5 m / t) = 5,633 slots a pair, holds every pair of them --
+# the hot block's pair carries ~2,800 + 985 keys, and Zipf's hottest
+# value ~3,900 keys from each sender.
+TERASORT_ATTEMPTS = {"uniform": 1, "lidar_like": 1, "zipf": 1,
+                     "adversarial": 1}
 
 
 def sort_inputs(seed: int) -> dict:
-    """name -> ((T, M) float32 keys, capacity attempts, Theorem 1 holds).
+    """name -> ((T, M) float32 keys, SMMS's capacity attempts, Theorem 1
+    holds).
 
     The Zipf keys take 37 values: Theorem 1 assumes distinct keys, a
     heavy hitter's bucket receives ~3.7 m here, and its hottest pair

@@ -364,6 +364,183 @@ def test_ops_merge_sorted_rows_kv_takes_the_rank_merge_past_one_tile(rng):
 
 
 # ---------------------------------------------------------------------------
+# The fused sort-and-partition, keys and pairs
+# ---------------------------------------------------------------------------
+
+def partition_keys(rng, shape, dtype, case):
+    """Keys for the fused sort: heavy duplicates, presorted, reversed,
+    all equal or with data infs; int32 from a small domain."""
+    if dtype == "int32":
+        x = rng.integers(0, max(2, shape[-1] // 8), shape).astype(np.int32)
+    else:
+        x = rng.normal(size=shape).astype(np.float32)
+        x[..., : shape[-1] // 4] = x[..., :1]             # heavy duplicates
+        if case == "inf":
+            x[..., -3:] = np.inf
+    if case == "sorted":
+        x = np.sort(x, axis=-1)
+    elif case == "reversed":
+        x = np.ascontiguousarray(np.sort(x, axis=-1)[..., ::-1])
+    elif case == "equal":
+        x[:] = x[..., :1]
+    return x
+
+
+def interior_of(rng, x, t):
+    """t-1 ascending boundaries drawn from a row's own keys."""
+    return np.sort(rng.choice(x[0], t - 1)).astype(x.dtype)
+
+
+@pytest.mark.parametrize("case", ["dups", "sorted", "reversed", "equal",
+                                  "inf"])
+@pytest.mark.parametrize("dtype", ["float32", "int32"])
+@pytest.mark.parametrize("m,t", [(192, 4), (1024, 8), (100, 6), (7, 3)])
+def test_sort_partition_matches_reference(rng, m, t, dtype, case):
+    """Sorted rows and cuts bitwise equal to the Pallas kernel, row by
+    row, and to the unfused jnp chain; ``ops`` to both backends."""
+    x = partition_keys(rng, (2, m), dtype, case)
+    bounds = interior_of(rng, x, t)
+    q = torch.from_numpy(np.tile(bounds, (2, 1)))
+    xs, cuts = fused.sort_partition(torch.from_numpy(x), q)
+    assert cuts.dtype == torch.int32
+    ops.reset_dispatch_counts()
+    oxs, starts, lens = ops.sort_partition(torch.from_numpy(x),
+                                           torch.from_numpy(bounds))
+    assert ops.DISPATCH_COUNTS[("sort_partition", "plain")] == 1
+    assert_bitwise(oxs, xs)
+    for r in range(2):
+        wxs, wcuts = jfused.sort_partition(jnp.asarray(x[r]),
+                                           jnp.asarray(bounds))
+        assert_bitwise(xs[r], wxs)
+        assert_bitwise(cuts[r], wcuts)
+        for backend in ("pallas", "reference"):
+            want = jops.sort_partition(jnp.asarray(x[r]), jnp.asarray(bounds),
+                                       backend=backend)
+            for got, w in zip((oxs[r], starts[r], lens[r]), want):
+                assert_bitwise(got, w)
+    rxs, rcuts = ref.sort_partition_ref(torch.from_numpy(x), q)
+    assert_bitwise(rxs, xs)
+    assert_bitwise(rcuts, cuts)
+
+
+@pytest.mark.parametrize("case", ["dups", "reversed", "inf"])
+@pytest.mark.parametrize("dtype", ["float32", "int32"])
+@pytest.mark.parametrize("m,t", [(192, 4), (1024, 8), (100, 6), (7, 3)])
+def test_sort_partition_kv_matches_reference(rng, m, t, dtype, case):
+    """Keys, the stable order and the cuts bitwise equal to the Pallas
+    kernel; ``ops`` with trailing values to both backends."""
+    k = partition_keys(rng, (2, m), dtype, case)
+    bounds = interior_of(rng, k, t)
+    q = torch.from_numpy(np.tile(bounds, (2, 1)))
+    ks, order, cuts = fused.sort_partition_kv(torch.from_numpy(k), q)
+    assert order.dtype == cuts.dtype == torch.int32
+    v = rng.integers(0, 1 << 30, (2, m, 3)).astype(np.int32)
+    oks, ovs, starts, lens = ops.sort_partition_kv(
+        torch.from_numpy(k), torch.from_numpy(v), torch.from_numpy(bounds))
+    assert_bitwise(oks, ks)
+    for r in range(2):
+        want = jfused.sort_partition_kv(jnp.asarray(k[r]), jnp.asarray(bounds))
+        for got, w in zip((ks[r], order[r], cuts[r]), want):
+            assert_bitwise(got, w)
+        for backend in ("pallas", "reference"):
+            want = jops.sort_partition_kv(jnp.asarray(k[r]), jnp.asarray(v[r]),
+                                          jnp.asarray(bounds), backend=backend)
+            for got, w in zip((oks[r], ovs[r], starts[r], lens[r]), want):
+                assert_bitwise(got, w)
+    for got, w in zip((ks, order, cuts),
+                      ref.sort_partition_kv_ref(torch.from_numpy(k), q)):
+        assert_bitwise(got, w)
+
+
+@pytest.mark.parametrize("m,t", [(192, 4), (333, 7)])
+def test_sort_partition_kv_is_the_stable_argsort(rng, m, t):
+    k = rng.integers(0, 9, (3, m)).astype(np.int32)
+    bounds = np.sort(rng.integers(0, 9, t - 1)).astype(np.int32)
+    v = np.tile(np.arange(m, dtype=np.int32), (3, 1))
+    ks, vs, starts, lens = ops.sort_partition_kv(
+        torch.from_numpy(k), torch.from_numpy(v), torch.from_numpy(bounds))
+    np.testing.assert_array_equal(vs.numpy(),
+                                  np.argsort(k, axis=1, kind="stable"))
+    np.testing.assert_array_equal(lens.sum(1).numpy(), [m] * 3)
+    np.testing.assert_array_equal(
+        starts[:, 1:].numpy(),
+        [np.searchsorted(row, bounds, side="left") for row in ks.numpy()])
+
+
+def test_sort_partition_empty_interior():
+    """t = 1: no boundaries -- it sorts, one segment, and no fused
+    kernel runs (as in the reference)."""
+    x = torch.tensor([[3.0, 1.0, 2.0]])
+    ops.reset_dispatch_counts()
+    xs, starts, lens = ops.sort_partition(x, torch.zeros(0))
+    np.testing.assert_array_equal(xs.numpy(), [[1.0, 2.0, 3.0]])
+    assert starts.tolist() == [[0]] and lens.tolist() == [[3]]
+    ks, vs, starts, lens = ops.sort_partition_kv(
+        x[0], torch.tensor([7, 8, 9]), torch.zeros(0))
+    assert vs.tolist() == [8, 9, 7] and lens.tolist() == [3]
+    assert ("sort_partition", "plain") not in ops.DISPATCH_COUNTS
+    assert ops.DISPATCH_COUNTS[("sort", "plain")] == 1
+    assert ops.DISPATCH_COUNTS[("sort_kv", "plain")] == 1
+
+
+def test_sort_partition_edge_keys_and_queries_match_reference(rng):
+    """+-0 and denormals (compared flushed), queries equal to a key,
+    to the sentinel and to -inf; int32 with INT32_MAX keys and query."""
+    x = rng.normal(size=(2, 37)).astype(np.float32)
+    x[0, :8] = DENORMALS[:8]
+    x[1, :5] = np.float32([np.inf, -np.inf, -0.0, 7e-41, 0.0])
+    bounds = np.float32([-np.inf, -1e-40, 0.0, x[1, 10], np.inf])
+    q = torch.from_numpy(np.tile(bounds, (2, 1)))
+    xs, cuts = fused.sort_partition(torch.from_numpy(x), q)
+    ks, order, kcuts = fused.sort_partition_kv(torch.from_numpy(x), q)
+    for r in range(2):
+        wxs, wcuts = jfused.sort_partition(jnp.asarray(x[r]),
+                                           jnp.asarray(bounds))
+        assert_bitwise(bitonic.ftz(xs[r]), wxs)   # XLA flushes its outputs
+        assert_bitwise(cuts[r], wcuts)
+        wks, worder, wkcuts = jfused.sort_partition_kv(jnp.asarray(x[r]),
+                                                       jnp.asarray(bounds))
+        assert_bitwise(ks[r], wks)
+        assert_bitwise(order[r], worder)
+        assert_bitwise(kcuts[r], wkcuts)
+    imax = np.iinfo(np.int32).max
+    xi = rng.integers(-5, 5, (2, 50)).astype(np.int32)
+    xi[:, ::4] = imax
+    bi = np.int32([-5, 0, 0, 4, imax])
+    qi = torch.from_numpy(np.tile(bi, (2, 1)))
+    xs, cuts = fused.sort_partition(torch.from_numpy(xi), qi)
+    ks, order, kcuts = fused.sort_partition_kv(torch.from_numpy(xi), qi)
+    for r in range(2):
+        assert_bitwise(cuts[r], jfused.sort_partition(
+            jnp.asarray(xi[r]), jnp.asarray(bi))[1])
+        for got, w in zip((ks[r], order[r], kcuts[r]),
+                          jfused.sort_partition_kv(jnp.asarray(xi[r]),
+                                                   jnp.asarray(bi))):
+            assert_bitwise(got, w)
+    assert cuts[0, -1] == (xi[0] < imax).sum()
+
+
+def test_sort_partition_gate():
+    f = torch.zeros
+    assert ops.kernel_eligible("sort_partition", f(4, ops.MAX_KERNEL_LANES),
+                               f(3))
+    assert ops.kernel_eligible("sort_partition_kv", f(4, 8), f(4, 3))
+    assert not ops.kernel_eligible("sort_partition",
+                                   f(4, ops.MAX_KERNEL_LANES + 1), f(3))
+    assert not ops.kernel_eligible("sort_partition", f(4, 8),
+                                   f(3, dtype=torch.int32))
+    assert not ops.kernel_eligible("sort_partition", f(4, 8), f(0))
+    with pytest.raises(ValueError, match="gate"):
+        ops.sort_partition(f(2, 8, dtype=torch.float64),
+                           f(1, dtype=torch.float64))
+    with pytest.raises(ValueError, match="gate"):
+        ops.sort_partition_kv(f(2, 2 * ops.MAX_KERNEL_LANES), f(2, 2 * ops.MAX_KERNEL_LANES),
+                              f(1))
+    with pytest.raises(ValueError, match="align"):
+        ops.sort_partition_kv(f(2, 8), f(2, 7), f(1))
+
+
+# ---------------------------------------------------------------------------
 # The gate and the dispatch rule
 # ---------------------------------------------------------------------------
 
@@ -484,3 +661,26 @@ def test_cuda_kernel_rejects_what_the_gate_rejects(card):
     with pytest.raises(TypeError):
         bitonic.bitonic_sort(torch.zeros(2, 8, dtype=torch.float64,
                                          device=card))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,nq", [(7, 2), (100, 5), (2048, 7), (8193, 63),
+                                  (65536, 63)])
+def test_cuda_sort_partition_equals_plain(card, rng, m, nq):
+    """The fused kernels against their plain versions, f32 and int32: one
+    tile and many, m not a power of two, a query equal to the sentinel."""
+    x = torch.from_numpy(partition_keys(rng, (4, m), "float32", "inf"))
+    x[0, :4] = torch.tensor([1e-40, -0.0, 0.0, -3e-39])
+    q = torch.sort(x[:, torch.randperm(m)[:nq]], dim=1).values
+    q[:, -1] = np.inf
+    xi = torch.from_numpy(partition_keys(rng, (4, m), "int32", "dups"))
+    xi[1, ::5] = np.iinfo(np.int32).max
+    qi = torch.sort(xi[:, torch.randperm(m)[:nq]], dim=1).values
+    qi[:, -1] = np.iinfo(np.int32).max
+    for keys, queries in ((x, q), (xi, qi)):
+        got = fused.sort_partition(keys.to(card), queries.to(card))
+        for g, w in zip(got, fused.sort_partition_plain(keys, queries)):
+            assert_bitwise(g, w)
+        got = fused.sort_partition_kv(keys.to(card), queries.to(card))
+        for g, w in zip(got, fused.sort_partition_kv_plain(keys, queries)):
+            assert_bitwise(g, w)

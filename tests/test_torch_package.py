@@ -50,9 +50,9 @@ def _tables():
 
 
 @pytest.mark.parametrize("entry, kw, item", [
-    ("sort", {"algorithm": "terasort"}, "item 4"),
+    ("sort", {"algorithm": "auto"}, "item 9"),
     ("sort", {"exchange": "staged"}, "item 6"),
-    ("join", {"algorithm": "randjoin"}, "item 5"),
+    ("sort", {"algorithm": "terasort", "exchange": "staged"}, "item 6"),
     ("join", {"algorithm": "auto"}, "item 9"),
 ])
 def test_unported_options_name_their_roadmap_item(entry, kw, item):
