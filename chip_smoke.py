@@ -2,16 +2,19 @@
 
     python3 chip_smoke.py
 
-Drives the port's two front doors on the card after building the eight
-hand-written CUDA kernels of their paths from ``src/repro_torch/csrc``
-and holding each against its plain PyTorch version there:
+Drives the port's two front doors on the card after building the nine
+hand-written CUDA kernels of their paths from six sources in
+``src/repro_torch/csrc`` and holding each against its plain PyTorch
+version there:
 
 * ``repro_torch.cluster.sort(x, algorithm="smms")`` -- SMMS with the flat
   static exchange -- and ``algorithm="terasort"`` -- Terasort with
   Algorithm S (paper §3.2), the baseline SMMS is measured against -- at
   t = 64 machines x m = 65,536 float32 keys (n = 4,194,304), keys only
   and with a 96-byte int32 payload per key (a 100-byte record, the sort
-  benchmark's record size), and at t = 8 x m = 4,096;
+  benchmark's record size), and at t = 8 x m = 4,096; each by both sort
+  kernel families (the bitonic network and the LSD radix sort,
+  ``ops.force_sort_kernel`` where the cost model would pick the other);
 * ``repro_torch.cluster.join(...)`` -- StatJoin (paper §4.3) on the
   paper's §5.2 Zipf tables (2^17 x 2^17, theta 0.5) and scalar-skew
   tables (2^20 rows, a hot key 2048 x 2048), RandJoin (§4.2) on the same
@@ -25,24 +28,29 @@ without printing a result:
   1. device     the card's name and power limit (fails without a card)
   2. build      one nvcc per kernel source, all at once; -Xptxas -v
   3. kernels    each kernel vs its plain version, bitwise, at the main
-                path's shapes and at edge cases; the fused sort, the
-                pair sort and the searches also at every operand the six
-                joins hand them
+                path's shapes and at edge cases (the radix sort also on
+                every class of float and int bits, at widths 1 to
+                65,536, and against a stable torch.sort of its canonical
+                bits); the fused sort, the pair sort and the searches
+                also at every operand the six joins hand them
   4. main path  t=64 x 65,536: uniform, LIDAR-like, Zipf and an
                 adversarial placement, keys only and with the payload,
-                by SMMS and by Terasort; keys, payload, workload, alpha,
-                bounds and capacity attempts checked on the host; then
-                the six joins, each held against a host numpy join
+                by SMMS and by Terasort, each by both kernel families;
+                keys, payload, workload, alpha, bounds and capacity
+                attempts checked on the host, and each radix run equal
+                to its bitonic twin; then the six joins, each held
+                against a host numpy join
   5. small      t=8 x 4,096 (the in-tile merges) with and without values
-                by both sorts, and each join on small tables: outputs and
-                every report field equal to the same call on the CPU
-                (RandJoin and Terasort on the same draws)
+                by both sorts and both families, and each join on small
+                tables: outputs and every report field equal to the same
+                call on the CPU (RandJoin and Terasort on the same draws)
   6. launches   per path of phases 4-5 (each run's counts set to 0 just
                 before it, read just after): each path launched exactly
                 the kernels of PATH_KERNELS, and every kernel ran
   7. times      per kernel: CUDA-event time, plain version, one PyTorch
-                library call, bound; the end-to-end sorts, StatJoin and
-                RandJoin, and peak memory
+                library call, bound; the bitonic/radix crossover at
+                (64, 2^k), k = 10..16; the end-to-end sorts by both
+                families, StatJoin and RandJoin, and peak memory
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists the kernels, and the one before that the card's name and power
@@ -58,6 +66,7 @@ import pathlib
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -70,7 +79,8 @@ from repro_torch.core import (MASKED_KEY, choose_ab,  # noqa: E402
                               draw_assignments, flat_receive_capacity)
 from repro_torch.data import (lidar_like, scalar_skew_tables,  # noqa: E402
                               uniform_keys, zipf_keys, zipf_tables)
-from repro_torch.kernels import bitonic, bucketize, cuda, fused, ops  # noqa: E402
+from repro_torch.kernels import (bitonic, bucketize, cuda, fused,  # noqa: E402
+                                 ops, radix)
 from repro_torch.workloads import (JOIN_T, JOINS, M, M_SMALL,  # noqa: E402
                                    PAYLOAD_COLS, T, T_SMALL,
                                    TERASORT_ATTEMPTS, make_payload,
@@ -85,15 +95,28 @@ DETERMINISTIC_JOINS = ("statjoin", "repartition", "broadcast")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
 FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 
-# sort algorithm -> the name of its keys-only path (+ "_payload")
+# sort algorithm -> the name of its keys-only path (+ "_payload", and
+# + "_radix" for the radix family's twin)
 PATHS = {"smms": "sort", "terasort": "terasort"}
-# path -> the kernels one run of it launches, and no others
+FAMILIES = ("bitonic", "radix")
+# the radix family sorts, then searches (no fused radix+search, as in
+# the reference): its t = 64 paths launch the reference's smms_radix /
+# terasort_radix budget of a radix sort, a search and a merge
+RADIX_MAIN = {"radix_sort", "searchsorted", "merge_ranks"}
+# path -> the kernels one run of it launches, and no others.  A join's
+# entry is the bitonic family's set until the kernels phase has seen the
+# widths its sorts get (join_kernels): the cost model may pick radix
+# for some of them.
 LOCAL_JOIN = {"bitonic_sort_kv", "searchsorted"}
 PATH_KERNELS = {
     "sort": {"bitonic_sort", "searchsorted", "merge_ranks"},
     "sort_payload": {"bitonic_sort_kv", "searchsorted", "merge_ranks"},
     "terasort": {"sort_partition", "merge_ranks"},
     "terasort_payload": {"sort_partition_kv", "merge_ranks"},
+    "sort_radix": RADIX_MAIN,
+    "sort_payload_radix": RADIX_MAIN,
+    "terasort_radix": RADIX_MAIN,
+    "terasort_payload_radix": RADIX_MAIN,
     **{name: LOCAL_JOIN | ({"sort_partition_kv"}
                            if cfg.algorithm == "randjoin" else set())
        for name, cfg in JOINS.items()},
@@ -104,6 +127,12 @@ PATH_KERNELS = {
     "small_terasort_values": {"sort_partition_kv", "merge_rows_kv"},
     "small_joins": LOCAL_JOIN,
     "small_randjoin": LOCAL_JOIN | {"sort_partition_kv"},
+    "small_sort_radix": {"radix_sort", "searchsorted", "merge_rows"},
+    "small_sort_values_radix": {"radix_sort", "searchsorted",
+                                "merge_rows_kv"},
+    "small_terasort_radix": {"radix_sort", "searchsorted", "merge_rows"},
+    "small_terasort_values_radix": {"radix_sort", "searchsorted",
+                                    "merge_rows_kv"},
 }
 # path -> kernel -> launches, summed over the path's runs
 PATH_LAUNCHES = {path: collections.Counter() for path in PATH_KERNELS}
@@ -118,6 +147,24 @@ def on_path(path: str, fn):
     torch.cuda.synchronize()
     PATH_LAUNCHES[path].update(cuda.LAUNCHES)
     return out
+
+
+def path_name(algorithm: str, payload: bool, family: str) -> str:
+    return (PATHS[algorithm] + ("_payload" if payload else "")
+            + ("_radix" if family == "radix" else ""))
+
+
+def cost_model_family(width: int) -> str:
+    """The family the cost model picks on the card for rows of ``width``."""
+    return ops.sort_kernel_choice(torch.empty((1, width), device=DEVICE))
+
+
+def forced_family(family: str, width: int) -> Optional[str]:
+    """What to force so that rows of ``width`` sort by ``family``: None
+    (the cost model) where the model picks it, so a family the model
+    picks is driven exactly as a user's call drives it; else
+    ``family``."""
+    return None if cost_model_family(width) == family else family
 
 
 def check(cond: bool, what: str) -> None:
@@ -374,6 +421,7 @@ def phase_kernels(rng) -> dict:
                 fused.merge_ranks_plain(ke, ie, bb))
 
     partition_operands(compare, rng, dev, x)
+    radix_operands(compare, rng, dev, x)
     join_operands(compare)
     torch.cuda.synchronize()
     return errs
@@ -412,9 +460,90 @@ def partition_operands(compare, rng, dev, x) -> None:
          qi.contiguous().to(dev))
 
 
+def _radix_rows(rng, dtype, n: int) -> np.ndarray:
+    """One row of each class of bits that breaks radix sorts (the
+    classes of tests/test_radix.py's adversarial_keys)."""
+    if dtype == np.int32:
+        ext = rng.integers(-2**31, 2**31, n, dtype=np.int64).astype(np.int32)
+        ext[rng.integers(0, n, max(1, n // 8))] = np.iinfo(np.int32).min
+        ext[rng.integers(0, n, max(1, n // 8))] = np.iinfo(np.int32).max
+        return np.stack([
+            ext,                                             # extremes
+            rng.choice(np.int32([-7, -1, 0, 3]), size=n),    # duplicates
+            np.full(n, np.int32(-42)),                       # all equal
+            np.sort(rng.integers(-1000, 1000, n).astype(np.int32)),
+            np.sort(rng.integers(-1000, 1000, n).astype(np.int32))[::-1],
+            (rng.integers(0, 16, n) - 8).astype(np.int32),   # one digit
+            rng.integers(-8, 8, n).astype(np.int32) << 28,   # high digit
+            rng.integers(-5, 5, n).astype(np.int32)])
+    few = max(1, n // 8)
+    inf = rng.normal(size=n).astype(np.float32)
+    inf[rng.integers(0, n, few)] = np.inf
+    inf[rng.integers(0, n, few)] = -np.inf
+    nan = rng.normal(size=n).astype(np.float32)
+    nan.view(np.uint32)[rng.integers(0, n, few)] = 0x7fc00001    # payloads
+    nan.view(np.uint32)[rng.integers(0, n, few)] = 0xffc00123
+    nan[rng.integers(0, n, few)] = -0.0
+    nan[rng.integers(0, n, few)] = 0.0
+    tiny = np.float32([1e-40, -0.0, 0.0, -1e-40, 2e-39, -3e-39, 5e-41, 1.5])
+    return np.stack([
+        rng.normal(size=n).astype(np.float32),
+        rng.choice(np.float32([-1.5, 0.0, 2.25]), size=n),      # duplicates
+        np.full(n, np.float32(-3.75)),                          # all equal
+        np.sort(rng.normal(size=n)).astype(np.float32),         # presorted
+        np.sort(rng.normal(size=n))[::-1].astype(np.float32),   # reversed
+        inf, nan,
+        tiny[rng.integers(0, len(tiny), n)],                    # denormals
+        rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+        .view(np.float32)])                                     # bit soup
+
+
+def radix_operands(compare, rng, dev, x) -> None:
+    """The radix sort at the main path's (64, 65536), float32 and int32,
+    and on every class of bits at widths 1, 7, 257 and 65,535 (no
+    padding): sorted bits and order bitwise against the plain version,
+    and the order against a stable torch.sort of the canonical bits."""
+    def both(label, keys):
+        got = radix.radix_sort(keys)
+        compare("radix_sort", label, got, radix.radix_sort_plain(keys))
+        canon = radix.sort_ready_bits(keys).long() & 0xFFFFFFFF
+        check(torch.equal(got[1].long(),
+                          torch.sort(canon, dim=1, stable=True).indices),
+              f"radix_sort {label}: order is not the stable argsort of the "
+              f"canonical bits")
+
+    both(f"({T}, {M}) f32, the main path", x)
+    both(f"({T}, {M}) int32", torch.from_numpy(rng.integers(
+        -2**31, 2**31, (T, M), dtype=np.int64).astype(np.int32)).to(dev))
+    for n in (1, 7, 257, 65535):
+        both(f"(9, {n}) f32: every class of bits",
+             torch.from_numpy(_radix_rows(rng, np.float32, n)).to(dev))
+        both(f"(8, {n}) int32: every class of bits",
+             torch.from_numpy(_radix_rows(rng, np.int32, n)).to(dev))
+    print("[kernels] radix_sort      every order above equal to a stable "
+          "torch.sort of the canonical bits")
+
+
+def join_kernels(name: str, sorts) -> set:
+    """The kernels a join launches: its local join's searches and, for
+    each sort it dispatches (op, row width), the kernels of the family
+    the cost model picks at that width."""
+    want = {"searchsorted"}
+    for op, width in sorts:
+        radix_family = cost_model_family(width) == "radix"
+        if op == "sort_kv":
+            want.add("radix_sort" if radix_family else "bitonic_sort_kv")
+        else:                       # sort_partition_kv: RandJoin's routing
+            want |= ({"radix_sort", "searchsorted"} if radix_family
+                     else {"sort_partition_kv"})
+    print(f"[kernels] {name}: sorts (op, width) {sorted(set(sorts))} -> "
+          f"launches {sorted(want)}")
+    return want
+
+
 def join_operands(compare) -> None:
-    """The fused pair sort, the pair sort and the searches at the joins'
-    own operands.
+    """The fused pair sort, the pair sort, the radix sort and the
+    searches at the joins' own operands.
 
     Each join of :data:`JOINS` runs once with its kernel wrappers
     tapped: every call runs the kernel, then the plain version on the
@@ -422,12 +551,32 @@ def join_operands(compare) -> None:
     shape and dtype the main path's joins hand a kernel is checked:
     RandJoin's int32 draws sorted with their order, the int32 T sides
     with MASKED_KEY tails, the S keys searched into them, and the int32
-    ``cum`` rows searched by every output slot.  These runs are not
-    main-path runs: the counts are reset before each of those.
+    ``cum`` rows searched by every output slot.  The widths each join's
+    sorts get set its entry of :data:`PATH_KERNELS` (:func:`join_kernels`).
+    These runs are not main-path runs: the counts are reset before each
+    of those.
     """
     sort_kv, search = bitonic.bitonic_sort_kv, bucketize.searchsorted
-    fused_kv = fused.sort_partition_kv
+    fused_kv, radix_sort = fused.sort_partition_kv, radix.radix_sort
+    ops_sort_kv, ops_partition_kv = ops.sort_kv, ops.sort_partition_kv
     for name, cfg in JOINS.items():
+        sorts = []
+
+        def tapped_ops_sort_kv(keys, values, **kw):
+            sorts.append(("sort_kv", keys.shape[-1]))
+            return ops_sort_kv(keys, values, **kw)
+
+        def tapped_ops_partition_kv(keys, values, interior):
+            sorts.append(("sort_partition_kv", keys.shape[-1]))
+            return ops_partition_kv(keys, values, interior)
+
+        def tapped_radix(keys):
+            out = radix_sort(keys)
+            compare("radix_sort", f"{name}: {tuple(keys.shape)} "
+                    f"{str(keys.dtype)[6:]}", out,
+                    radix.radix_sort_plain(keys))
+            return out
+
         def tapped_sort_kv(keys, values):
             out = sort_kv(keys, values)
             compare("bitonic_sort_kv", f"{name}: {tuple(keys.shape)} "
@@ -453,6 +602,9 @@ def join_operands(compare) -> None:
         bitonic.bitonic_sort_kv = tapped_sort_kv
         bucketize.searchsorted = tapped_search
         fused.sort_partition_kv = tapped_fused_kv
+        radix.radix_sort = tapped_radix
+        ops.sort_kv, ops.sort_partition_kv = (tapped_ops_sort_kv,
+                                              tapped_ops_partition_kv)
         try:
             cluster.join(s, np.arange(len(s), dtype=np.int32),
                          t, np.arange(len(t), dtype=np.int32),
@@ -460,7 +612,10 @@ def join_operands(compare) -> None:
                          seed=SEED, device=DEVICE, **cfg.options)
         finally:
             bitonic.bitonic_sort_kv, bucketize.searchsorted = sort_kv, search
-            fused.sort_partition_kv = fused_kv
+            fused.sort_partition_kv, radix.radix_sort = fused_kv, radix_sort
+            ops.sort_kv, ops.sort_partition_kv = (ops_sort_kv,
+                                                  ops_partition_kv)
+        PATH_KERNELS[name] = join_kernels(name, sorts)
 
 
 def _main_rank_operands(rng, dev):
@@ -510,75 +665,111 @@ def _expected(algorithm: str, name: str, attempts: int) -> int:
     return attempts if algorithm == "smms" else TERASORT_ATTEMPTS[name]
 
 
-def phase_main(smi: str, algorithm: str) -> dict:
-    """The sort at t=64 x 65,536 on the four inputs, keys only: keys,
-    workload, alpha, the workload theorem's bound (Theorem 1, or 3 for
-    Terasort) where keys are distinct, the predicted attempts."""
-    out = {}
-    for name, (x, attempts, theorem) in sort_inputs(SEED).items():
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        (keys, _), rep = on_path(PATHS[algorithm], lambda: cluster.sort(
-            x, algorithm=algorithm, seed=SEED, device=DEVICE))
-        wall = time.perf_counter() - t0
-        check(keys.device.type == DEVICE, f"{name}: result not on the card")
-        check_run(f"{algorithm} {name}", x, keys, rep,
-                  _expected(algorithm, name, attempts), theorem)
-        out[name] = {"first_call_s": wall,
-                     "k_workload": rep.k_workload,
-                     "k_network": rep.k_network,
-                     "max_workload": int(max(rep.workload)),
-                     "bound": rep.theoretical_workload_bound,
-                     "capacity_attempts": rep.capacity_attempts}
-        print(f"[main] {algorithm} t={T} m={M} {name:11s} ok: k_workload="
-              f"{rep.k_workload:.4f} k_network={rep.k_network:.4f} max "
-              f"machine {max(rep.workload)} (bound "
-              f"{rep.theoretical_workload_bound:.0f}) attempts="
-              f"{rep.capacity_attempts} first call {wall * 1e3:.1f} ms "
-              f"({smi})")
-    return out
+def phase_main(smi: str, algorithm: str, family: str = "bitonic",
+               twins: Optional[dict] = None) -> tuple:
+    """The sort at t=64 x 65,536 on the four inputs, keys only, by one
+    kernel family: keys, workload, alpha, the workload theorem's bound
+    (Theorem 1, or 3 for Terasort) where keys are distinct, the
+    predicted attempts; with ``twins`` (the other family's outputs),
+    keys and every report field equal to them.  Returns (numbers,
+    outputs)."""
+    out, kept = {}, {}
+    path = path_name(algorithm, False, family)
+    forced = forced_family(family, M)
+    tag = family + ("" if forced is None else " (forced)")
+    with ops.force_sort_kernel(forced):
+        for name, (x, attempts, theorem) in sort_inputs(SEED).items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (keys, _), rep = on_path(path, lambda: cluster.sort(
+                x, algorithm=algorithm, seed=SEED, device=DEVICE))
+            wall = time.perf_counter() - t0
+            check(keys.device.type == DEVICE,
+                  f"{name}: result not on the card")
+            label = f"{path} {name}"
+            check_run(label, x, keys, rep,
+                      _expected(algorithm, name, attempts), theorem)
+            if twins is not None:
+                check(same_bits(keys, twins[name][0]),
+                      f"{label}: keys differ from the other family's")
+                _same_report(label, rep, twins[name][1])
+            else:
+                kept[name] = (keys, rep)
+            out[name] = {"first_call_s": wall,
+                         "k_workload": rep.k_workload,
+                         "k_network": rep.k_network,
+                         "max_workload": int(max(rep.workload)),
+                         "bound": rep.theoretical_workload_bound,
+                         "capacity_attempts": rep.capacity_attempts}
+            print(f"[main] {algorithm} {tag}"
+                  f" t={T} m={M} {name:11s} ok: k_workload="
+                  f"{rep.k_workload:.4f} k_network={rep.k_network:.4f} max "
+                  f"machine {max(rep.workload)} (bound "
+                  f"{rep.theoretical_workload_bound:.0f}) attempts="
+                  f"{rep.capacity_attempts} first call {wall * 1e3:.1f} ms"
+                  f"{'' if twins is None else ', equal to its twin'} "
+                  f"({smi})")
+    return out, kept
 
 
-def phase_payload(smi: str, algorithm: str) -> dict:
-    """The sort with the 100-byte records: keys as for phase 4, and the
-    payload in the keys' stable order, row for row."""
-    out = {}
-    for i, (name, (x, attempts, theorem)) in enumerate(
-            sort_inputs(SEED).items()):
-        payload = make_payload(T, M, SEED + i, device=DEVICE)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        (keys, vals), rep = on_path(
-            PATHS[algorithm] + "_payload", lambda: cluster.sort(
+def phase_payload(smi: str, algorithm: str, family: str = "bitonic",
+                  twins: Optional[dict] = None) -> tuple:
+    """The sort with the 100-byte records, by one kernel family: keys as
+    for phase 4, and the payload in the keys' stable order, row for row;
+    with ``twins``, keys, records and every report field equal to the
+    other family's.  Returns (numbers, outputs)."""
+    out, kept = {}, {}
+    path = path_name(algorithm, True, family)
+    forced = forced_family(family, M)
+    tag = family + ("" if forced is None else " (forced)")
+    with ops.force_sort_kernel(forced):
+        for i, (name, (x, attempts, theorem)) in enumerate(
+                sort_inputs(SEED).items()):
+            payload = make_payload(T, M, SEED + i, device=DEVICE)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            (keys, vals), rep = on_path(path, lambda: cluster.sort(
                 x, algorithm=algorithm, seed=SEED, values=payload,
                 device=DEVICE))
-        wall = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated()
-        label = f"{algorithm} payload {name}"
-        check_run(label, x, keys, rep, _expected(algorithm, name, attempts),
-                  theorem)
-        n = T * M
-        check(vals.device.type == DEVICE and vals.shape == (n, PAYLOAD_COLS),
-              f"{label}: values of shape {tuple(vals.shape)}")
-        order = np.argsort(x.reshape(-1), kind="stable")
-        check(np.array_equal(vals[:, 0].cpu().numpy(), order),
-              f"{label}: column 0 != np.argsort(x, stable)")
-        rows = payload.reshape(n, PAYLOAD_COLS)[torch.from_numpy(order)
-                                                .to(DEVICE)]
-        check(torch.equal(vals, rows),
-              f"{label}: records differ from the input's rows in stable "
-              f"key order")
-        out[name] = {"first_call_s": wall, "k_workload": rep.k_workload,
-                     "k_network": rep.k_network,
-                     "capacity_attempts": rep.capacity_attempts,
-                     "max_memory_allocated_bytes": peak}
-        print(f"[main] {algorithm} t={T} m={M} payload {name:11s} ok: "
-              f"100-byte records, k_workload={rep.k_workload:.4f} attempts="
-              f"{rep.capacity_attempts} first call {wall * 1e3:.1f} ms, peak "
-              f"memory {peak / 2**20:.1f} MiB ({smi})")
-        del keys, vals, rows, payload
-    return out
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            label = f"{path} {name}"
+            check_run(label, x, keys, rep,
+                      _expected(algorithm, name, attempts), theorem)
+            n = T * M
+            check(vals.device.type == DEVICE
+                  and vals.shape == (n, PAYLOAD_COLS),
+                  f"{label}: values of shape {tuple(vals.shape)}")
+            order = np.argsort(x.reshape(-1), kind="stable")
+            check(np.array_equal(vals[:, 0].cpu().numpy(), order),
+                  f"{label}: column 0 != np.argsort(x, stable)")
+            rows = payload.reshape(n, PAYLOAD_COLS)[torch.from_numpy(order)
+                                                    .to(DEVICE)]
+            check(torch.equal(vals, rows),
+                  f"{label}: records differ from the input's rows in stable "
+                  f"key order")
+            if twins is not None:
+                check(same_bits(keys, twins[name][0])
+                      and torch.equal(vals.cpu(), twins[name][1]),
+                      f"{label}: keys or records differ from the other "
+                      f"family's")
+                _same_report(label, rep, twins[name][2])
+            else:           # the records wait on the host, not in the peak
+                kept[name] = (keys, vals.cpu(), rep)
+            out[name] = {"first_call_s": wall, "k_workload": rep.k_workload,
+                         "k_network": rep.k_network,
+                         "capacity_attempts": rep.capacity_attempts,
+                         "max_memory_allocated_bytes": peak}
+            print(f"[main] {algorithm} {tag}"
+                  f" t={T} m={M} payload {name:11s} ok: 100-byte records, "
+                  f"k_workload={rep.k_workload:.4f} attempts="
+                  f"{rep.capacity_attempts} first call {wall * 1e3:.1f} ms, "
+                  f"peak memory {peak / 2**20:.1f} MiB"
+                  f"{'' if twins is None else ', equal to its twin'} "
+                  f"({smi})")
+            del rows, payload
+    return out, kept
 
 
 def host_pairs(s, t) -> np.ndarray:
@@ -681,8 +872,9 @@ def phase_small_values_and_joins() -> None:
     x = zipf_keys(T_SMALL * M_SMALL, seed=SEED + 2).reshape(T_SMALL, M_SMALL)
     v = np.random.default_rng(SEED).integers(
         0, 1 << 30, (T_SMALL, M_SMALL, 3)).astype(np.int32)
-    (keys, vals), rep = on_path("small_sort_values", lambda: cluster.sort(
-        x, algorithm="smms", values=v, device=DEVICE))
+    with ops.force_sort_kernel(forced_family("bitonic", M_SMALL)):
+        (keys, vals), rep = on_path("small_sort_values", lambda: cluster.sort(
+            x, algorithm="smms", values=v, device=DEVICE))
     (keys_cpu, vals_cpu), rep_cpu = cluster.sort(x, algorithm="smms",
                                                  values=v, device="cpu")
     check(same_bits(keys, keys_cpu) and same_bits(vals, vals_cpu),
@@ -743,9 +935,10 @@ def phase_small_terasort() -> None:
         0, 1 << 30, (T_SMALL, M_SMALL, 3)).astype(np.int32)
     for path, values in (("small_terasort", None),
                          ("small_terasort_values", v)):
-        (keys, vals), rep = on_path(path, lambda: cluster.sort(
-            x, algorithm="terasort", values=values, uniforms=u,
-            device=DEVICE))
+        with ops.force_sort_kernel(forced_family("bitonic", M_SMALL)):
+            (keys, vals), rep = on_path(path, lambda: cluster.sort(
+                x, algorithm="terasort", values=values, uniforms=u,
+                device=DEVICE))
         (keys_cpu, vals_cpu), rep_cpu = cluster.sort(
             x, algorithm="terasort", values=values, uniforms=u, device="cpu")
         check_run(path, x, keys, rep, 1)
@@ -767,8 +960,9 @@ def phase_small_terasort() -> None:
 def phase_small() -> None:
     x = uniform_keys(T_SMALL * M_SMALL, seed=SEED + 1).reshape(T_SMALL,
                                                                 M_SMALL)
-    (keys, _), rep = on_path("small_sort", lambda: cluster.sort(
-        x, algorithm="smms", device=DEVICE))
+    with ops.force_sort_kernel(forced_family("bitonic", M_SMALL)):
+        (keys, _), rep = on_path("small_sort", lambda: cluster.sort(
+            x, algorithm="smms", device=DEVICE))
     (keys_cpu, _), rep_cpu = cluster.sort(x, algorithm="smms", device="cpu")
     check_run("small", x, keys, rep, 1)
     check(same_bits(keys, keys_cpu), "small: card keys != CPU keys")
@@ -788,6 +982,43 @@ def phase_small() -> None:
               f"small: phase {a.name} differs from the CPU run")
     print(f"[small] t={T_SMALL} m={M_SMALL}: keys and every report field "
           f"equal to the CPU run (plain versions), bitwise")
+
+
+def phase_small_radix() -> None:
+    """SMMS and Terasort at t=8 x 4,096 by the radix family, keys only
+    and with values: keys, values, boundaries and every report field
+    equal to the same call on the CPU under forced radix (Terasort on
+    the same draws)."""
+    x = zipf_keys(T_SMALL * M_SMALL, seed=SEED + 4).reshape(T_SMALL, M_SMALL)
+    u = torch.rand((T_SMALL, M_SMALL),
+                   generator=torch.Generator().manual_seed(SEED + 4))
+    v = np.random.default_rng(SEED + 4).integers(
+        0, 1 << 30, (T_SMALL, M_SMALL, 3)).astype(np.int32)
+    forced = forced_family("radix", M_SMALL)
+    for algorithm, kw in (("smms", {}), ("terasort", {"uniforms": u})):
+        for values in (None, v):
+            path = ("small_" + PATHS[algorithm]
+                    + ("" if values is None else "_values") + "_radix")
+            with ops.force_sort_kernel(forced):
+                (keys, vals), rep = on_path(path, lambda: cluster.sort(
+                    x, algorithm=algorithm, values=values, device=DEVICE,
+                    **kw))
+            with ops.force_sort_kernel("radix"):
+                (keys_cpu, vals_cpu), rep_cpu = cluster.sort(
+                    x, algorithm=algorithm, values=values, device="cpu", **kw)
+            check(same_bits(keys, keys_cpu), f"{path}: card keys != CPU keys")
+            check(values is None or same_bits(vals, vals_cpu),
+                  f"{path}: card values != CPU values")
+            check(np.array_equal(rep.boundaries.view(np.int32),
+                                 rep_cpu.boundaries.view(np.int32)),
+                  f"{path}: card boundaries != CPU boundaries")
+            check(rep.exchange_topology == rep_cpu.exchange_topology,
+                  f"{path}: exchange_topology differs from the CPU run")
+            _same_report(path, rep, rep_cpu)
+    print(f"[small] smms and terasort t={T_SMALL} m={M_SMALL} (Zipf keys) by "
+          f"the radix family{'' if forced is None else ' (forced)'}, with and "
+          f"without (t, m, 3) values: keys, values, boundaries and every "
+          f"report field equal to the CPU run under forced radix, bitwise")
 
 
 # ---------------------------------------------------------------------------
@@ -891,6 +1122,16 @@ def phase_times(rng, smi: str) -> dict:
            3 * a.numel() * 4 + aq.numel() * 8,
            a.numel() * 11 + aq.numel() * 12)
 
+    # radix_sort at (64, 65536) f32: keys in; sorted keys and the int32
+    # order out (12 bytes a key); one digit count a key a pass.  The
+    # yardstick: a stable torch.sort, values and indices.
+    record("radix_sort",
+           timed_ms(lambda: radix.radix_sort(x), 20),
+           event_ms(lambda: radix.radix_sort_plain(x), 3, warm=1),
+           event_ms(lambda: torch.sort(x, dim=-1, stable=True), 20),
+           3 * x.numel() * 4,
+           x.numel() * (32 // radix.DEFAULT_RADIX_BITS))
+
     # merge_rows at the small configuration's receive buffers
     cap = flat_receive_capacity(M_SMALL, T_SMALL, cluster.CapacityPolicy.smms(
         T_SMALL * M_SMALL, T_SMALL, 2).first_factor) // T_SMALL
@@ -925,46 +1166,25 @@ def phase_times(rng, smi: str) -> dict:
            (kp.numel() + ip.numel() + kp.numel()) * 4,
            kp.numel() * math.ceil(math.log2(kp.shape[-2])))
 
-    # the end-to-end sort, host clock ending in a synchronize
+    # the end-to-end sorts by both families, in turns: SMMS and
+    # Terasort (its draws made on the card from the seed, as a user's
+    # call makes them), keys only and with the 100-byte records (the
+    # payload lives on the card, the keys come from the host)
     xn = uniform_keys(T * M, seed=SEED).reshape(T, M)
-    walls = []
-    torch.cuda.reset_peak_memory_stats()
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        cluster.sort(xn, algorithm="smms", device=DEVICE)
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    res["sort_e2e"] = {"ms": walls, "median_ms": float(np.median(walls)),
-                       "max_memory_allocated_bytes":
-                       torch.cuda.max_memory_allocated()}
-    print(f"[times] cluster.sort t={T} m={M} uniform: median "
-          f"{np.median(walls):.2f} ms of {len(walls)} (host clock + "
-          f"synchronize), peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB ({smi})")
-
-    # the sort with the 100-byte records: the payload lives on the card,
-    # the keys come from the host as above
-    payload = make_payload(T, M, SEED, device=DEVICE)
-    res["sort_payload_e2e"] = e2e(
-        f"cluster.sort t={T} m={M} uniform, {PAYLOAD_COLS} x int32 payload",
-        lambda: cluster.sort(xn, algorithm="smms", values=payload,
-                             device=DEVICE), smi)
-    del payload
-
-    # Terasort, keys only and with the records, the draws made on the
-    # card from the seed as a user's call makes them
-    res["terasort_e2e"] = e2e(
-        f"cluster.sort terasort t={T} m={M} uniform",
-        lambda: cluster.sort(xn, algorithm="terasort", seed=SEED,
-                             device=DEVICE), smi)
-    payload = make_payload(T, M, SEED, device=DEVICE)
-    res["terasort_payload_e2e"] = e2e(
-        f"cluster.sort terasort t={T} m={M} uniform, {PAYLOAD_COLS} x int32 "
-        f"payload",
-        lambda: cluster.sort(xn, algorithm="terasort", seed=SEED,
-                             values=payload, device=DEVICE), smi)
-    del payload
+    for algorithm in PATHS:
+        for with_payload in (False, True):
+            payload = (make_payload(T, M, SEED, device=DEVICE)
+                       if with_payload else None)
+            label = (f"cluster.sort {algorithm} t={T} m={M} uniform"
+                     + (f", {PAYLOAD_COLS} x int32 payload"
+                        if with_payload else ""))
+            times = e2e_families(label, lambda: cluster.sort(
+                xn, algorithm=algorithm, seed=SEED, values=payload,
+                device=DEVICE), smi)
+            for family, entry in times.items():
+                res[path_name(algorithm, with_payload, family) + "_e2e"] = \
+                    entry
+            del payload
 
     # RandJoin on both tables, the default capacity's host statistics
     # included
@@ -1008,6 +1228,88 @@ def phase_times(rng, smi: str) -> dict:
     return res
 
 
+def e2e_families(label: str, fn, smi: str, reps: int = 6) -> dict:
+    """Median host-clock time of ``fn`` ending in a synchronize, by each
+    sort family, the two in turns (bitonic, radix, radix, bitonic, ...);
+    each family forced only where the cost model would pick the other.
+    Returns family -> {"ms", "median_ms", "max_memory_allocated_bytes"}."""
+    walls = {f: [] for f in FAMILIES}
+    peaks = {f: 0 for f in FAMILIES}
+    for i in range(reps):
+        for family in (FAMILIES if i % 2 == 0 else FAMILIES[::-1]):
+            with ops.force_sort_kernel(forced_family(family, M)):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                walls[family].append((time.perf_counter() - t0) * 1e3)
+                peaks[family] = max(peaks[family],
+                                    torch.cuda.max_memory_allocated())
+    out = {}
+    for family in FAMILIES:
+        med = float(np.median(walls[family]))
+        out[family] = {"ms": walls[family], "median_ms": med,
+                       "max_memory_allocated_bytes": peaks[family]}
+        print(f"[times] {label}, {family}: median {med:.2f} ms of {reps} "
+              f"(host clock + synchronize), peak memory "
+              f"{peaks[family] / 2**20:.1f} MiB ({smi})")
+    return out
+
+
+def phase_crossover(smi: str) -> dict:
+    """The sort-family split measured on the card: ``ops.sort`` (keys
+    only) and ``ops.sort_kv`` (a (64, n) int32 value gathered through
+    the order) by each family at (64, 2^k), k = 10..16, float32 and
+    int32, CUDA-event ms and the host's issue ms; a stable torch.sort
+    beside them as the yardstick.  Prints where radix was faster on the
+    keys-only comparison and what the cost model picks there."""
+    dev = torch.device(DEVICE)
+    table = {}
+    for dtype in (torch.float32, torch.int32):
+        dname = str(dtype)[6:]
+        for k in range(10, 17):
+            n = 1 << k
+            reps = 50 if k < 14 else 20
+            x = (torch.rand((T, n), device=dev) if dtype == torch.float32
+                 else torch.randint(-2**31, 2**31 - 1, (T, n), device=dev,
+                                    dtype=torch.int32))
+            v = torch.randint(0, 1 << 30, (T, n), dtype=torch.int32,
+                              device=dev)
+            row = {}
+            for family in FAMILIES:
+                with ops.force_sort_kernel(family):
+                    row[f"{family}_sort"] = timed_ms(lambda: ops.sort(x), reps)
+                    row[f"{family}_sort_kv"] = timed_ms(
+                        lambda: ops.sort_kv(x, v), reps)
+            row["library_stable_sort_ms"] = event_ms(
+                lambda: torch.sort(x, dim=-1, stable=True), reps)
+            row["radix_faster_keys"] = (row["radix_sort"][0]
+                                        < row["bitonic_sort"][0])
+            row["radix_faster_kv"] = (row["radix_sort_kv"][0]
+                                      < row["bitonic_sort_kv"][0])
+            row["cost_model"] = ops.sort_kernel_choice(x)
+            table[f"{dname}_2^{k}"] = row
+            print(f"[times] crossover {dname} ({T}, 2^{k}): sort bitonic "
+                  f"{row['bitonic_sort'][0]:.4f} radix "
+                  f"{row['radix_sort'][0]:.4f} ms | sort_kv bitonic "
+                  f"{row['bitonic_sort_kv'][0]:.4f} radix "
+                  f"{row['radix_sort_kv'][0]:.4f} ms | host issue "
+                  f"{row['bitonic_sort'][1]:.4f} / "
+                  f"{row['radix_sort'][1]:.4f} ms | stable torch.sort "
+                  f"{row['library_stable_sort_ms']:.4f} ms | cost model: "
+                  f"{row['cost_model']} ({smi})")
+    faster = [key for key, row in table.items() if row["radix_faster_keys"]]
+    agree = all((row["cost_model"] == "radix") == row["radix_faster_keys"]
+                for row in table.values())
+    print(f"[times] crossover: radix faster (keys only) at "
+          f"{faster if faster else 'no width'}; "
+          f"RADIX_MIN_LANES={ops.RADIX_MIN_LANES} "
+          f"RADIX_PASS_SUBSTAGES={ops.RADIX_PASS_SUBSTAGES} "
+          f"{'agree' if agree else 'DISAGREE'} with this run")
+    return table
+
+
 def e2e(label: str, fn, smi: str, reps: int = 5) -> dict:
     """Median host-clock time of ``fn`` ending in a synchronize."""
     walls = []
@@ -1047,17 +1349,24 @@ def main() -> None:
     rng = np.random.default_rng(SEED)
     errs = phase_kernels(rng)
 
-    main_runs = phase_main(smi, "smms")
-    payload_runs = phase_payload(smi, "smms")
-    terasort_runs = phase_main(smi, "terasort")
-    terasort_payload_runs = phase_payload(smi, "terasort")
+    runs = {}
+    for algorithm in PATHS:
+        for phase, payload in ((phase_main, False), (phase_payload, True)):
+            key = path_name(algorithm, payload, "bitonic")
+            runs[key], twins = phase(smi, algorithm)
+            runs[key + "_radix"], _ = phase(smi, algorithm, "radix", twins)
+            del twins
+    print(f"[main] the cost model picks {cost_model_family(M)} at "
+          f"{M} lanes on this card; the other family ran forced")
     join_runs = phase_joins(smi)
     phase_small()
     phase_small_values_and_joins()
     phase_small_terasort()
+    phase_small_radix()
     launches = phase_launches()
 
     times = phase_times(rng, smi)
+    crossover = phase_crossover(smi)
     kernels = [{"name": name, "route": "cuda",
                 "source": f"src/repro_torch/csrc/{cuda.SOURCES[k.library]}",
                 "replaces": k.replaces,
@@ -1069,10 +1378,8 @@ def main() -> None:
                 "bound_by": times[name]["bound_by"],
                 "library_ms": times[name]["library_ms"]}
                for name, k in cuda.KERNELS.items()]
-    print(json.dumps({"build": build, "main": main_runs,
-                      "payload": payload_runs, "terasort": terasort_runs,
-                      "terasort_payload": terasort_payload_runs,
-                      "joins": join_runs, "times": times}))
+    print(json.dumps({"build": build, "runs": runs, "joins": join_runs,
+                      "times": times, "crossover": crossover}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

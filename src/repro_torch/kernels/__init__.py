@@ -9,8 +9,10 @@ from .bitonic import (bitonic_sort, bitonic_sort_kv, merge_sorted_rows,
                       merge_sorted_rows_argsort, sort_sentinel)
 from .bucketize import searchsorted
 from .fused import merge_ranks, sort_partition, sort_partition_kv
+from .radix import bits_to_key, key_to_bits, radix_sort, radix_sort_plain
 
 __all__ = ["cuda", "ops", "ref", "bitonic_sort", "bitonic_sort_kv",
            "merge_sorted_rows", "merge_sorted_rows_argsort", "sort_sentinel",
            "searchsorted", "merge_ranks", "sort_partition",
-           "sort_partition_kv"]
+           "sort_partition_kv", "radix_sort", "radix_sort_plain",
+           "key_to_bits", "bits_to_key"]

@@ -46,6 +46,7 @@ SOURCES = {
     "merge_rows": "merge_rows.cu",
     "merge_ranks": "merge_ranks.cu",
     "sort_partition": "sort_partition.cu",
+    "radix_sort": "radix_sort.cu",
 }
 
 
@@ -70,6 +71,7 @@ KERNELS = {
                              "src/repro/kernels/fused.py:87"),
     "sort_partition_kv": Kernel("sort_partition",
                                 "src/repro/kernels/fused.py:118"),
+    "radix_sort": Kernel("radix_sort", "src/repro/kernels/radix.py:235"),
 }
 
 # No --use_fast_math and no -ftz: the kernels fold denormals themselves,
@@ -97,6 +99,8 @@ SIGNATURES = {
     "sort_partition_i32": [_P, _P, _P, _I64, _I64, _I64, _I64, _P],
     "sort_partition_kv_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
     "sort_partition_kv_i32": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
+    "radix_sort_f32": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _P],
+    "radix_sort_i32": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _P],
 }
 
 # kernel name -> launches made through launch(); the counts the chip

@@ -16,28 +16,40 @@ backend switch and no fallback:
   rank, row width) raises on either device, so a CUDA run can never
   end up in a library sort.
 
+The sorts come in two kernel families, as in the reference: the bitonic
+network (``bitonic.py``, ``fused.py``) and the LSD radix sort
+(``radix.py``).  :func:`sort_kernel_choice` picks one: a family forced
+with :func:`force_sort_kernel` wins; otherwise a CPU operand takes
+bitonic (the reference pins bitonic under interpret mode) and a CUDA
+operand the reference's cost model with constants fitted on the H100.
+Both families give the same keys and the same stable order.
+
 All operands carry the machine axis first: a (t, m) array is t
 machines' rows, and every call handles all of them at once.
-``DISPATCH_COUNTS[(op, path)]`` counts calls per path ("cuda" or
-"plain"); the kernels' own launch counts are ``cuda.LAUNCHES``.
+``DISPATCH_COUNTS[(op, path)]`` counts calls per path: "cuda" or
+"plain" for the bitonic family and the other ops, "radix-cuda" or
+"radix-plain" for the radix family; the kernels' own launch counts are
+``cuda.LAUNCHES``.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import threading
 from typing import Optional
 
 import torch
 
-from . import bitonic, bucketize, fused
+from . import bitonic, bucketize, fused, radix
 
 __all__ = [
     "sort", "sort_kv", "searchsorted", "sort_partition",
     "sort_partition_kv", "segments", "merge_sorted_rows",
     "merge_sorted_rows_kv", "pad_pow2",
-    "kernel_eligible", "sort_kernel_choice", "reset_dispatch_counts",
-    "DISPATCH_COUNTS", "MAX_KERNEL_LANES", "RANK_MERGE_BOUND_BLOCK",
-    "MERGE_TILE_LANES",
+    "kernel_eligible", "sort_kernel_choice", "force_sort_kernel",
+    "reset_dispatch_counts", "DISPATCH_COUNTS", "MAX_KERNEL_LANES",
+    "RANK_MERGE_BOUND_BLOCK", "MERGE_TILE_LANES", "RADIX_BITS",
+    "RADIX_MIN_LANES", "RADIX_PASS_SUBSTAGES",
 ]
 
 # The reference's VMEM-sized constants (src/repro/kernels/ops.py:108,
@@ -48,6 +60,25 @@ __all__ = [
 MAX_KERNEL_LANES = 1 << 16
 RANK_MERGE_BOUND_BLOCK = 1 << 11
 MERGE_TILE_LANES = bitonic.MERGE_TILE_LANES
+
+# The sort-family split (reference ops.py:116-135): radix wins once the
+# network's log2(n)(log2(n)+1)/2 compare-exchange substages exceed
+# ceil(key_bits / RADIX_BITS) counting passes of RADIX_PASS_SUBSTAGES
+# substages each, on rows of at least RADIX_MIN_LANES.  Fitted on the
+# H100 by chip_smoke.py's crossover table (PERF.md): at (64, 2^k),
+# k = 13..16, one pass of the radix kernel took as long as about 19 or
+# more substages of the bitonic kernel (fewest at the main path's 2^16,
+# float32), and radix was slower at every width on keys only.  With 19
+# the model keeps bitonic at every width the gate admits (136 substages
+# at 2^16 against 8 x 19 = 152) and would first pick radix at 2^17;
+# radix runs where it is forced.  RADIX_MIN_LANES keeps the reference's
+# value.
+RADIX_BITS = radix.DEFAULT_RADIX_BITS
+RADIX_MIN_LANES = 1 << 13
+RADIX_PASS_SUBSTAGES = 19
+
+SORT_FAMILIES = ("bitonic", "radix")
+_FORCE_SORT_KERNEL: Optional[str] = None
 
 DISPATCH_COUNTS: collections.Counter = collections.Counter()
 _COUNTS_LOCK = threading.Lock()
@@ -60,9 +91,12 @@ def reset_dispatch_counts() -> None:
         DISPATCH_COUNTS.clear()
 
 
-def _tick(op: str, x: torch.Tensor) -> None:
+def _tick(op: str, x: torch.Tensor, family: str = "bitonic") -> None:
+    path = "cuda" if x.is_cuda else "plain"
+    if family == "radix":
+        path = "radix-" + path
     with _COUNTS_LOCK:
-        DISPATCH_COUNTS[(op, "cuda" if x.is_cuda else "plain")] += 1
+        DISPATCH_COUNTS[(op, path)] += 1
 
 
 def _key_dtype_ok(x) -> bool:
@@ -99,7 +133,9 @@ def kernel_eligible(op: str, x: torch.Tensor, y=None) -> bool:
     ``y`` is the second operand where the op has one (sort_kv values,
     searchsorted queries, merge payload).
     """
-    if op == "sort":
+    if op in ("sort", "radix"):
+        # the radix family needs no power-of-two padding, but takes the
+        # same dtypes and row widths as the bitonic sort
         return x.dim() in (1, 2) and _key_dtype_ok(x) and _lanes_ok(x.shape[-1])
     if op == "sort_kv":
         return (x.dim() in (1, 2) and _key_dtype_ok(x)
@@ -139,15 +175,52 @@ def _require(op: str, x: torch.Tensor, y=None) -> None:
 
 
 def sort_kernel_choice(x: torch.Tensor) -> str:
-    """The sort-kernel family: always ``"bitonic"`` in the port.
+    """The sort-kernel family for ``x``: ``"bitonic"`` or ``"radix"``.
 
-    The reference's cost model (src/repro/kernels/ops.py:329-358) picks
-    its LSD radix kernel past 8192 lanes on compiled TPU backends, and
-    bitonic under interpret mode; outputs are bitwise the same either
-    way.  Radix (kernels/radix.py radix_sort) is not ported yet -- see
-    ROADMAP.md queue B -- so the port pins the bitonic family.
+    A family forced with :func:`force_sort_kernel` wins.  Otherwise a
+    CPU operand takes bitonic, as the reference pins bitonic while its
+    kernels run in interpret mode (src/repro/kernels/ops.py:348-349), so
+    the CPU runs the family the reference runs there.  A CUDA operand
+    takes the reference's cost model (:329-358): radix past
+    ``RADIX_MIN_LANES`` once the bitonic network's substages over the
+    padded row exceed the radix passes' cost.  The constants are fitted
+    on the H100 (PERF.md, the crossover table).  Pure function of
+    device, shape, dtype and the constants; outputs are bitwise the
+    same either way.
     """
+    if _FORCE_SORT_KERNEL is not None:
+        return _FORCE_SORT_KERNEL
+    if not x.is_cuda or not _key_dtype_ok(x):
+        return "bitonic"
+    n = x.shape[-1]
+    if n < RADIX_MIN_LANES:
+        return "bitonic"
+    logn = max(1, max(2, _next_pow2(n)).bit_length() - 1)
+    bitonic_substages = logn * (logn + 1) // 2
+    passes = -(-radix.key_bits(x.dtype) // RADIX_BITS)
+    if bitonic_substages > passes * RADIX_PASS_SUBSTAGES:
+        return "radix"
     return "bitonic"
+
+
+@contextlib.contextmanager
+def force_sort_kernel(kind: Optional[str]):
+    """Pin :func:`sort_kernel_choice` to one family for the duration.
+
+    ``kind``: ``"radix"``, ``"bitonic"``, or None (the cost model).
+    Raises on any other family.  Used by the tests, which run the radix
+    family on the CPU, and by ``chip_smoke.py``, which drives each
+    family on the card.
+    """
+    if kind is not None and kind not in SORT_FAMILIES:
+        raise ValueError(f"unknown sort kernel family {kind!r}")
+    global _FORCE_SORT_KERNEL
+    prev = _FORCE_SORT_KERNEL
+    _FORCE_SORT_KERNEL = kind
+    try:
+        yield
+    finally:
+        _FORCE_SORT_KERNEL = prev
 
 
 def sort(x: torch.Tensor, *, prepadded: bool = False) -> torch.Tensor:
@@ -161,9 +234,13 @@ def sort(x: torch.Tensor, *, prepadded: bool = False) -> torch.Tensor:
         raise ValueError(f"prepadded=True requires a power-of-two row "
                          f"length (use ops.pad_pow2), got {x.shape[-1]}")
     _require("sort", x)
-    _tick("sort", x)
     x2 = x[None] if x.dim() == 1 else x
-    out = bitonic.bitonic_sort(x2)
+    if sort_kernel_choice(x) == "radix":
+        _tick("sort", x, "radix")
+        out, _ = radix.radix_sort(x2.contiguous())
+    else:
+        _tick("sort", x)
+        out = bitonic.bitonic_sort(x2)
     return out[0] if x.dim() == 1 else out
 
 
@@ -179,24 +256,32 @@ def sort_kv(keys: torch.Tensor, values: torch.Tensor, *,
 
     keys: (n,) or (rows, n); values: leading dims those of keys, extra
     trailing dims ride along.  Realizes the stable argsort as the
-    reference's kernel path does: the pair sort of (key, arange(n))
-    (``bitonic.bitonic_sort_kv``), then one gather of the values, so key
-    ties keep input order bitwise.  ``prepadded=True``: both operands
-    were padded to the same power of two (keys with their sort
-    sentinel); outputs stay padded, pads last.
+    reference's kernel path does, then one gather of the values, so key
+    ties keep input order bitwise: the radix family's order channel
+    (``radix.radix_sort``), or the bitonic family's pair sort of (key,
+    arange(n)) (``bitonic.bitonic_sort_kv``).  ``prepadded=True``: both
+    operands were padded to the same power of two (keys with their sort
+    sentinel); outputs stay padded, pads last (pad-slot ties resolve by
+    position).
     """
     if prepadded and (keys.shape[-1] != max(2, _next_pow2(keys.shape[-1]))
                       or values.shape[:keys.dim()] != keys.shape):
         raise ValueError("prepadded=True requires both operands padded to "
                          "the same power-of-two length (use ops.pad_pow2)")
     _require("sort_kv", keys, values)
-    _tick("sort_kv", keys)
     k2 = keys[None] if keys.dim() == 1 else keys
     v2 = values[None] if keys.dim() == 1 else values
     rows, n = k2.shape
-    iota = torch.arange(n, dtype=torch.int32, device=keys.device)
-    ks, order = bitonic.bitonic_sort_kv(k2.contiguous(),
-                                        iota.repeat(rows, 1))
+    if sort_kernel_choice(keys) == "radix":
+        # the order comes out of the counting passes: one gather carries
+        # the payload, no (key, iota) pair sort
+        _tick("sort_kv", keys, "radix")
+        ks, order = radix.radix_sort(k2.contiguous())
+    else:
+        _tick("sort_kv", keys)
+        iota = torch.arange(n, dtype=torch.int32, device=keys.device)
+        ks, order = bitonic.bitonic_sort_kv(k2.contiguous(),
+                                            iota.repeat(rows, 1))
     vs = _take_rows(v2, order)
     return (ks[0], vs[0]) if keys.dim() == 1 else (ks, vs)
 
@@ -249,8 +334,10 @@ def sort_partition(x: torch.Tensor, interior: torch.Tensor):
     ``(xs, starts, lens)``: the sorted rows and each row's nq+1
     segments, ``starts``/``lens`` (rows, nq+1) int32 -- bitwise ``sort``
     then ``searchsorted(side="left")``, in one kernel
-    (``fused.sort_partition``).  With no boundaries (t = 1) it sorts,
-    as the reference does.
+    (``fused.sort_partition``).  The radix family has no fused search,
+    as in the reference (ops.py:510-517): it sorts, then searches, two
+    kernels.  With no boundaries (t = 1) it sorts, as the reference
+    does.
     """
     x2 = x[None] if x.dim() == 1 else x
     m = x2.shape[-1]
@@ -258,6 +345,10 @@ def sort_partition(x: torch.Tensor, interior: torch.Tensor):
         xs = sort(x2)
         cuts = torch.zeros((x2.shape[0], 0), dtype=torch.int32,
                            device=x.device)
+    elif (kernel_eligible("sort_partition", x, interior)
+          and sort_kernel_choice(x) == "radix"):
+        xs = sort(x2)
+        cuts = searchsorted(xs, interior, side="left")
     else:
         _require("sort_partition", x, interior)
         _tick("sort_partition", x)
@@ -277,7 +368,8 @@ def sort_partition_kv(keys: torch.Tensor, values: torch.Tensor,
     trailing dims ride along; interior as for :func:`sort_partition`.
     Returns ``(keys_sorted, values_permuted, starts, lens)``: the
     stable argsort from the fused (key, iota) pair sort
-    (``fused.sort_partition_kv``) and one gather of the values.
+    (``fused.sort_partition_kv``) and one gather of the values; the
+    radix family sorts (:func:`sort_kv`), then searches.
     """
     if values.shape[:keys.dim()] != keys.shape:
         raise ValueError(f"sort_partition_kv: values {tuple(values.shape)} "
@@ -289,6 +381,10 @@ def sort_partition_kv(keys: torch.Tensor, values: torch.Tensor,
         ks, vs = sort_kv(k2, v2)
         cuts = torch.zeros((k2.shape[0], 0), dtype=torch.int32,
                            device=keys.device)
+    elif (kernel_eligible("sort_partition_kv", keys, interior)
+          and sort_kernel_choice(keys) == "radix"):
+        ks, vs = sort_kv(k2, v2)
+        cuts = searchsorted(ks, interior, side="left")
     else:
         _require("sort_partition_kv", keys, interior)
         _tick("sort_partition_kv", keys)

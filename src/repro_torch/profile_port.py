@@ -1,7 +1,8 @@
 """Where the time of one port call goes, on the card.
 
     PYTHONPATH=src python3 -m repro_torch.profile_port \
-        [--paths sort,terasort,statjoin_zipf,randjoin_zipf] [--reps 3]
+        [--paths sort,sort_radix,terasort,terasort_radix,randjoin_zipf] \
+        [--reps 3]
 
 For each path of :data:`PATHS`: builds the kernels, warms up with two
 calls, then runs ``--reps`` calls under ``torch.profiler`` and prints
@@ -16,7 +17,10 @@ made on the card (100-byte records), ``terasort`` and
 ``terasort_payload`` the same two by Terasort (its draws made on the
 card from the seed), and the joins (:data:`repro_torch.workloads.JOINS`)
 run the paper's §5.2 tables at t = 64, host planning and routing
-included.
+included.  The sort paths run the bitonic kernel family; each has a
+``_radix`` twin (``sort_radix``, ``sort_payload_radix``,
+``terasort_radix``, ``terasort_payload_radix``) that runs the same call
+under ``ops.force_sort_kernel("radix")``.
 """
 from __future__ import annotations
 
@@ -29,16 +33,21 @@ import torch
 
 from repro_torch import cluster
 from repro_torch.data import uniform_keys
-from repro_torch.kernels import cuda
+from repro_torch.kernels import cuda, ops
 from repro_torch.workloads import JOIN_T, JOINS, M, T, make_payload
 
 __all__ = ["PATHS"]
 
 
-def _sort_call(payload: bool, algorithm: str = "smms"):
+def _sort_call(payload: bool, algorithm: str = "smms",
+               family: str = "bitonic"):
     x = uniform_keys(T * M, seed=0).reshape(T, M)
     v = make_payload(T, M, 0) if payload else None
-    return lambda: cluster.sort(x, algorithm=algorithm, values=v)
+
+    def call():
+        with ops.force_sort_kernel(family):
+            return cluster.sort(x, algorithm=algorithm, values=v)
+    return call
 
 
 def _join_call(name: str):
@@ -51,11 +60,15 @@ def _join_call(name: str):
                                 **cfg.options)
 
 
-PATHS = {"sort": lambda: _sort_call(False),
-         "sort_payload": lambda: _sort_call(True),
-         "terasort": lambda: _sort_call(False, "terasort"),
-         "terasort_payload": lambda: _sort_call(True, "terasort"),
-         **{name: (lambda n=name: _join_call(n)) for name in JOINS}}
+PATHS = {
+    **{name + ("_radix" if family == "radix" else ""):
+       (lambda p=payload, a=algorithm, f=family: _sort_call(p, a, f))
+       for name, payload, algorithm in (
+           ("sort", False, "smms"), ("sort_payload", True, "smms"),
+           ("terasort", False, "terasort"),
+           ("terasort_payload", True, "terasort"))
+       for family in ("bitonic", "radix")},
+    **{name: (lambda n=name: _join_call(n)) for name in JOINS}}
 
 
 def profile(name: str, reps: int, top: int, smi: str) -> None:
