@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py
 
-Drives the port's two front doors on the card after building the nine
-hand-written CUDA kernels of their paths from six sources in
+Drives the port's front doors on the card after building the eleven
+hand-written CUDA kernels of their paths from seven sources in
 ``src/repro_torch/csrc`` and holding each against its plain PyTorch
 version there:
 
@@ -20,15 +20,24 @@ version there:
   tables (2^20 rows, a hot key 2048 x 2048), RandJoin (§4.2) on the same
   Zipf tables and on scalar-skew tables of 2^17 rows, repartition on the
   scalar-skew tables and broadcast on Zipf tables of 2^14 x 2^17 rows,
-  all at t = 64.
+  all at t = 64;
+* ``repro_torch.kernels.ops.bucketize_histogram`` -- SMMS's Round-3
+  planning, 4,194,304 keys into 64 buckets;
+* ``repro_torch.serve.generate`` -- greedy generation on gemma3-12b at
+  full width and depth (48 layers, bf16, random weights from a seed made
+  on the card): 4 prompts of 2048 tokens, 16 new tokens; its prefill
+  goes through the flash-attention kernel, its decode through dense
+  rows.  Matmuls run in full float32 where they are float32 (TF32 off).
 
 Phases, in order; any failure raises and the script exits non-zero
 without printing a result:
 
   1. device     the card's name and power limit (fails without a card)
   2. build      one nvcc per kernel source, all at once; -Xptxas -v
-  3. kernels    each kernel vs its plain version, bitwise, at the main
-                path's shapes and at edge cases (the radix sort also on
+  3. kernels    each kernel vs its plain version, bitwise (flash
+                attention within 1e-5 in f32, rtol 8e-3 + atol 1e-3 in
+                bf16), at the main path's shapes and at edge cases
+                (the radix sort also on
                 every class of float and int bits, at widths 1 to
                 65,536, and against a stable torch.sort of its canonical
                 bits); the fused sort, the pair sort and the searches
@@ -44,10 +53,18 @@ without printing a result:
                 by both sorts and both families, and each join on small
                 tables: outputs and every report field equal to the same
                 call on the CPU (RandJoin and Terasort on the same draws)
-  6. launches   per path of phases 4-5 (each run's counts set to 0 just
+  6. serving    bucketize_histogram through its entry point against
+                numpy; gemma3-12b's smoke config on the card against the
+                CPU (logits within 2e-3, the same tokens); generate at
+                full size: tokens, launches (flash_attention once per
+                layer), the teacher-forced steps giving generate's
+                tokens, and prefill over the prompt and the tokens so far
+                against two decode steps' logits (relative L2 <= 5e-2);
+                prefill and decode-step times, peak memory
+  7. launches   per path of phases 4-6 (each run's counts set to 0 just
                 before it, read just after): each path launched exactly
                 the kernels of PATH_KERNELS, and every kernel ran
-  7. times      per kernel: CUDA-event time, plain version, one PyTorch
+  8. times      per kernel: CUDA-event time, plain version, one PyTorch
                 library call, bound; the bitonic/radix crossover at
                 (64, 2^k), k = 10..16; the end-to-end sorts by both
                 families, StatJoin and RandJoin, and peak memory
@@ -59,6 +76,7 @@ limit.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import importlib
 import json
 import math
@@ -74,15 +92,20 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch import cluster  # noqa: E402
+from repro_torch import cluster, serve  # noqa: E402
+from repro_torch.configs import get_arch, smoke_config  # noqa: E402
 from repro_torch.core import (MASKED_KEY, choose_ab,  # noqa: E402
                               draw_assignments, flat_receive_capacity)
 from repro_torch.data import (lidar_like, scalar_skew_tables,  # noqa: E402
                               uniform_keys, zipf_keys, zipf_tables)
 from repro_torch.kernels import (bitonic, bucketize, cuda, fused,  # noqa: E402
                                  ops, radix)
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.models import model as lm  # noqa: E402
+from repro_torch.models.convert import tree_map  # noqa: E402
 from repro_torch.workloads import (JOIN_T, JOINS, M, M_SMALL,  # noqa: E402
-                                   PAYLOAD_COLS, T, T_SMALL,
+                                   PAYLOAD_COLS, SERVE_ARCH, SERVE_B,
+                                   SERVE_NEW, SERVE_PROMPT, T, T_SMALL,
                                    TERASORT_ATTEMPTS, make_payload,
                                    sort_inputs)
 
@@ -94,6 +117,29 @@ DEVICE = "cuda"
 DETERMINISTIC_JOINS = ("statjoin", "repartition", "broadcast")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
 FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12     # H100 SXM bf16 dense tensor cores
+
+# The serving path (SERVE_* in workloads.py): the decode steps whose
+# logits a prefill over the prompt and the tokens so far must reproduce,
+# and the relative L2 bound on those (B, vocab) logits.  Both paths round
+# to bf16 at every layer (the kernel's prefill keeps f32 probabilities,
+# the dense-rows decode bf16 ones, and the matmuls of one row and of 2k
+# rows sum in other orders), ~2^-9 a rounding, compounded over 48
+# residual layers: a few percent, so 5e-2.
+SERVE_CHECK_STEPS = (3, 15)
+SERVE_REL_L2 = 5e-2
+# Planted faults the bound is read against at the first check step: the
+# decode steps run with the local layers' window dropped (which the
+# bound must reject), and with the window one key too wide (read only:
+# one extra key among 1024 is finer than the bound can see; the
+# kernel-vs-plain and CPU-vs-reference checks guard the window's edge).
+SERVE_FAULTS = {"decode without the window": None,
+                "decode with the window off by one": 1025}
+# kernel vs plain tolerances (allclose rtol, atol): f32 sums in another
+# order over up to 2048 keys x 256 dims; bf16 one ulp where a rounding
+# of the f32 result tips (an ulp is at most 2^-7 of the value, so rtol
+# 8e-3; atol 1e-3 for values near 0)
+FLASH_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (8e-3, 1e-3)}
 
 # sort algorithm -> the name of its keys-only path (+ "_payload", and
 # + "_radix" for the radix family's twin)
@@ -133,6 +179,9 @@ PATH_KERNELS = {
     "small_terasort_radix": {"radix_sort", "searchsorted", "merge_rows"},
     "small_terasort_values_radix": {"radix_sort", "searchsorted",
                                     "merge_rows_kv"},
+    "bucketize": {"bucketize_histogram"},
+    "serve_gemma3_12b": {"flash_attention"},
+    "serve_gemma3_smoke": {"flash_attention"},
 }
 # path -> kernel -> launches, summed over the path's runs
 PATH_LAUNCHES = {path: collections.Counter() for path in PATH_KERNELS}
@@ -420,8 +469,22 @@ def phase_kernels(rng) -> dict:
                 fused.merge_ranks(ke, ie, bb),
                 fused.merge_ranks_plain(ke, ie, bb))
 
+    def close(name, label, kernel_out, plain_out, tol):
+        a, b = kernel_out.float(), plain_out.float()
+        rtol, atol = tol
+        ok = a.shape == b.shape and bool(torch.allclose(a, b, rtol=rtol,
+                                                        atol=atol))
+        err = max_abs_err(a, b)
+        print(f"[kernels] {name:15s} {label:44s} max abs err {err:.3g} "
+              f"(rtol {rtol:g}, atol {atol:g}) ok={ok}")
+        check(ok, f"{name} {label}: kernel differs from its plain version "
+                  f"(max abs err {err})")
+        errs[name] = max(errs.get(name, 0.0), err)
+
     partition_operands(compare, rng, dev, x)
     radix_operands(compare, rng, dev, x)
+    bucketize_operands(compare, rng, dev, x)
+    flash_operands(close, dev)
     join_operands(compare)
     torch.cuda.synchronize()
     return errs
@@ -522,6 +585,70 @@ def radix_operands(compare, rng, dev, x) -> None:
              torch.from_numpy(_radix_rows(rng, np.int32, n)).to(dev))
     print("[kernels] radix_sort      every order above equal to a stable "
           "torch.sort of the canonical bits")
+
+
+def bucketize_operands(compare, rng, dev, x) -> None:
+    """The fused bucketize + histogram, bitwise: at SMMS's shape (its n =
+    4,194,304 keys into t = 64 buckets, the keys' own equi-depth
+    boundaries), and at edge cases -- t of 1, 2, 6, 10 and 20,000 (past
+    the shared-memory histogram), duplicate boundaries, keys equal to
+    them, +-inf, NaN, +-0 and denormal keys, int32, and n a multiple of
+    no block."""
+    keys = x.reshape(-1)
+    bounds = torch.sort(keys).values[M::M]            # 63 of them
+    compare("bucketize_histogram", f"({T * M},) f32 into {T} buckets, SMMS",
+            bucketize.bucketize_histogram(keys, bounds.contiguous(), T),
+            bucketize.bucketize_histogram_plain(keys, bounds, T))
+    n = 300_001
+    e = rng.standard_normal(n).astype(np.float32)
+    special = np.float32([np.inf, -np.inf, np.nan, 0.0, -0.0, 1e-40, -1e-40])
+    e[::7] = special[rng.integers(0, len(special), len(e[::7]))]
+    ei = rng.integers(-50, 50, n).astype(np.int32)
+    ei[::13] = np.iinfo(np.int32).max
+    for t in (1, 2, 6, 10, 20000):
+        for keys_np in (e, ei):
+            finite = keys_np[np.isfinite(keys_np.astype(np.float64))]
+            b = np.sort(rng.choice(finite, t - 1))
+            if t > 3:
+                b[1] = b[2]                              # a duplicate
+            kt = torch.from_numpy(keys_np).to(dev)
+            bt = torch.from_numpy(b.astype(keys_np.dtype)).to(dev)
+            compare("bucketize_histogram",
+                    f"({n},) {keys_np.dtype} t={t}, dups/inf/NaN/denormals",
+                    bucketize.bucketize_histogram(kt, bt, t),
+                    bucketize.bucketize_histogram_plain(kt, bt, t))
+
+
+def flash_operands(close, dev) -> None:
+    """Flash attention against its plain version at gemma3-12b's prefill
+    shape (B = 4, 16 q heads over 8 kv heads, S = 2048, head_dim 256),
+    global and with its 1024-token window, in bf16 and f32; and at edge
+    shapes: S = 17, S a multiple of no tile with fewer queries than keys,
+    MQA, and a head_dim (48) that the kernel pads."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def qkv(b, hq, hkv, sq, sk, d, dtype):
+        return tuple(torch.randn(shape, generator=gen, device=dev).to(dtype)
+                     for shape in ((b, hq, sq, d), (b, hkv, sk, d),
+                                   (b, hkv, sk, d)))
+
+    cfg = get_arch(SERVE_ARCH)
+    full = (SERVE_B, cfg.n_heads, cfg.n_kv_heads, SERVE_PROMPT, SERVE_PROMPT,
+            cfg.head_dim_)
+    shapes = [(full, None), (full, cfg.sliding_window),
+              ((2, 4, 2, 17, 17, 256), None),
+              ((2, 4, 2, 1000, 1300, 128), 333),
+              ((1, 8, 1, 777, 777, 64), None),
+              ((1, 2, 2, 65, 65, 48), 16)]
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape, window in shapes:
+            q, k, v = qkv(*shape, dtype)
+            close("flash_attention",
+                  f"{shape} {str(dtype)[6:]} window={window}",
+                  fa.flash_attention(q, k, v, True, window),
+                  fa.flash_attention_plain(q, k, v, True, window),
+                  FLASH_TOL[dtype])
+            del q, k, v
 
 
 def join_kernels(name: str, sorts) -> set:
@@ -1022,17 +1149,221 @@ def phase_small_radix() -> None:
 
 
 # ---------------------------------------------------------------------------
-# 7. times
+# 6. the histogram's entry point and the serving path
+# ---------------------------------------------------------------------------
+
+def phase_bucketize(smi: str) -> dict:
+    """The fused bucketize + histogram through its entry point,
+    ``ops.bucketize_histogram``, at SMMS's Round-3 planning shape: the
+    uniform input's 4,194,304 keys into t = 64 buckets at their
+    equi-depth boundaries; ids and counts against numpy on the host."""
+    x = uniform_keys(T * M, seed=SEED)
+    b = np.sort(x)[M::M]
+    keys = torch.from_numpy(x).to(DEVICE)
+    bounds = torch.from_numpy(b).to(DEVICE)
+    ids, counts = on_path("bucketize", lambda: ops.bucketize_histogram(
+        keys, bounds, T))
+    want = np.searchsorted(b, x, side="right")
+    check(np.array_equal(ids.cpu().numpy(), want),
+          "bucketize: ids != np.searchsorted(boundaries, keys, 'right')")
+    check(np.array_equal(counts.cpu().numpy(), np.bincount(want, minlength=T)),
+          "bucketize: counts != np.bincount of the ids")
+    print(f"[main] bucketize_histogram ({T * M},) f32 into {T} buckets: ids "
+          f"and counts equal to numpy's; largest bucket "
+          f"{int(counts.max())} ({smi})")
+    return {"max_count": int(counts.max())}
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.float(), b.float()
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+
+def phase_serve(smi: str) -> dict:
+    """``serve.generate`` for gemma3-12b at full width and depth, bf16,
+    B = 4 prompts of 2048 tokens, 16 new tokens: the serving path.
+
+    Checks: the tokens' shape, type and range; the path's launches (the
+    flash-attention kernel once per layer of the one prefill, no other
+    hand kernel); the same steps teacher-forced (a prefill, then decode
+    steps fed generate's tokens) give generate's tokens; and at two
+    steps a prefill over the prompt and the tokens so far reproduces
+    that decode step's logits within SERVE_REL_L2 -- the kernel's
+    prefill against the dense-rows decode at full width, with the same
+    reading taken against planted faults (:func:`serve_faults`).  Times:
+    the prefill, a decode step, generate end to end; peak memory."""
+    cfg = get_arch(SERVE_ARCH)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, gen, DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    sizes = []
+    tree_map(lambda w: sizes.append(w.numel()), params)
+    n_params = sum(sizes)
+    print(f"[serve] {SERVE_ARCH}: {n_params / 1e9:.3f} G parameters "
+          f"(param_count {cfg.param_count() / 1e9:.3f} G) in bf16 made on the "
+          f"card in {init_s:.1f} s; {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} q / {cfg.n_kv_heads} kv heads of "
+          f"{cfg.head_dim_}, window {cfg.sliding_window}")
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (SERVE_B, SERVE_PROMPT)).astype(np.int32)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tokens = on_path("serve_gemma3_12b", lambda: serve.generate(
+        params, cfg, prompts, SERVE_NEW, device=DEVICE))
+    generate_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(tokens.shape == (SERVE_B, SERVE_NEW) and tokens.dtype == np.int32
+          and tokens.min() >= 0 and tokens.max() < cfg.vocab_size,
+          f"serve: tokens {tokens.shape} {tokens.dtype} out of shape or range")
+    launched = PATH_LAUNCHES["serve_gemma3_12b"]["flash_attention"]
+    check(launched == cfg.n_layers,
+          f"serve: {launched} flash_attention launches, want one per layer "
+          f"({cfg.n_layers})")
+
+    # the same steps, teacher-forced by generate's tokens, timed
+    dev_tokens = torch.from_numpy(tokens).to(DEVICE)
+    with torch.inference_mode():
+        cache = lm.init_cache(cfg, SERVE_B, SERVE_PROMPT + SERVE_NEW,
+                              device=DEVICE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = lm.prefill(params, cfg,
+                                   torch.from_numpy(prompts).to(DEVICE), cache)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        first = torch.argmax(logits[:, :cfg.vocab_size], -1)
+        check(torch.equal(first.cpu(), torch.from_numpy(tokens[:, 0]).long()),
+              "serve: the prefill's token differs from generate's")
+        kept, step_ms = {}, []
+        for j in range(SERVE_NEW):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = lm.decode_step(params, cfg,
+                                           dev_tokens[:, j:j + 1], cache)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if j in SERVE_CHECK_STEPS:
+                kept[j] = logits[:, :cfg.vocab_size].float()
+            if j + 1 < SERVE_NEW:
+                nxt = torch.argmax(logits[:, :cfg.vocab_size], -1)
+                check(torch.equal(nxt, dev_tokens[:, j + 1].long()),
+                      f"serve: decode step {j}'s token differs from "
+                      f"generate's")
+        del cache
+        errors, prefilled = {}, {}
+        for j, want in kept.items():
+            seq = torch.cat([torch.from_numpy(prompts).to(DEVICE),
+                             dev_tokens[:, :j + 1]], dim=1)
+            c = lm.init_cache(cfg, SERVE_B, seq.shape[1], device=DEVICE)
+            got, c = lm.prefill(params, cfg, seq, c)
+            del c
+            got = got[:, :cfg.vocab_size].float()
+            prefilled[j] = got
+            err = rel_l2(got, want)
+            same = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+            errors[j] = {"rel_l2": err, "max_abs_err": max_abs_err(got, want),
+                         "argmax_agree": same}
+            print(f"[serve] decode step {j} (position {SERVE_PROMPT + j}): a "
+                  f"prefill over {seq.shape[1]} tokens gives its logits within "
+                  f"relative L2 {err:.4g} (bound {SERVE_REL_L2}), max abs err "
+                  f"{errors[j]['max_abs_err']:.4g}, argmax agrees on "
+                  f"{same:.2f} of the rows")
+            check(err <= SERVE_REL_L2,
+                  f"serve: prefill vs decode step {j}: relative L2 {err} > "
+                  f"{SERVE_REL_L2}")
+        faults = serve_faults(params, cfg, prompts, dev_tokens, prefilled)
+    decode_ms = float(np.median(step_ms))
+    print(f"[serve] generate {SERVE_B} x {SERVE_PROMPT} + {SERVE_NEW}: "
+          f"{generate_s:.2f} s first call; prefill {prefill_ms:.1f} ms, a "
+          f"decode step {decode_ms:.2f} ms (median of {SERVE_NEW}; host "
+          f"clock + synchronize), peak memory {peak / 2**30:.2f} GiB; tokens "
+          f"{tokens[:, :6].tolist()} ... ({smi})")
+    del params
+    torch.cuda.empty_cache()
+    return {"parameters": n_params, "init_s": init_s,
+            "generate_first_call_s": generate_s, "prefill_ms": prefill_ms,
+            "decode_step_ms": step_ms, "decode_step_median_ms": decode_ms,
+            "max_memory_allocated_bytes": peak,
+            "prefill_vs_decode": errors, "planted_faults": faults}
+
+
+def serve_faults(params, cfg, prompts, dev_tokens, prefilled) -> dict:
+    """The prefill-vs-decode check read against planted faults: a prefill
+    over the prompt with ``cfg``, then decode steps 0..j teacher-forced
+    with the local window changed (SERVE_FAULTS), j the first check
+    step; step j's logits against the prefill over the prompt and the
+    tokens so far.  Dropping the window must exceed SERVE_REL_L2."""
+    j = SERVE_CHECK_STEPS[0]
+    readings = {}
+    for name, window in SERVE_FAULTS.items():
+        faulty = dataclasses.replace(cfg, sliding_window=window)
+        cache = lm.init_cache(cfg, SERVE_B, SERVE_PROMPT + j + 1,
+                              device=DEVICE)
+        _, cache = lm.prefill(params, cfg,
+                              torch.from_numpy(prompts).to(DEVICE), cache)
+        for i in range(j + 1):
+            logits, cache = lm.decode_step(params, faulty,
+                                           dev_tokens[:, i:i + 1], cache)
+        del cache
+        err = rel_l2(prefilled[j], logits[:, :cfg.vocab_size].float())
+        readings[name] = err
+        print(f"[serve] planted fault, {name} (window {window}): decode step "
+              f"{j} against the prefill, relative L2 {err:.4g} (bound "
+              f"{SERVE_REL_L2})")
+    dropped = readings["decode without the window"]
+    check(dropped > SERVE_REL_L2,
+          f"serve: the prefill-vs-decode bound {SERVE_REL_L2} does not "
+          f"reject a decode without the window ({dropped})")
+    return readings
+
+
+def phase_serve_smoke() -> None:
+    """gemma3-12b's smoke configuration (2 periods of 6 layers, window
+    16, float32) on the card against the same call on the CPU: the same
+    weights, a 48-token prompt (the kernel path and the window), prefill
+    and decode logits within 2e-3 and the same generated tokens."""
+    cfg = smoke_config(get_arch(SERVE_ARCH))
+    params = lm.init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    on_card = tree_map(lambda w: w.to(DEVICE), params)
+    prompts = np.random.default_rng(SEED + 1).integers(
+        0, cfg.vocab_size, (2, 48)).astype(np.int32)
+    out = {}
+    for device, p in (("cpu", params), (DEVICE, on_card)):
+        cache = lm.init_cache(cfg, 2, 52, device=device)
+        run = lambda: lm.prefill(p, cfg, torch.from_numpy(prompts).to(  # noqa: E731
+            device), cache)
+        logits, cache = (on_path("serve_gemma3_smoke", run)
+                         if device == DEVICE else run())
+        step, _ = lm.decode_step(p, cfg, torch.from_numpy(
+            prompts[:, :1]).to(device), cache)
+        toks = serve.generate(p, cfg, prompts, 4, device=device)
+        out[device] = (logits.cpu(), step.cpu(), toks)
+    (lc, sc, tc), (lg, sg, tg) = out["cpu"], out[DEVICE]
+    check(torch.allclose(lg, lc, rtol=2e-3, atol=2e-3)
+          and torch.allclose(sg, sc, rtol=2e-3, atol=2e-3),
+          "serve smoke: card logits differ from the CPU's beyond 2e-3")
+    check(np.array_equal(tg, tc), "serve smoke: card tokens != CPU tokens")
+    print(f"[small] {cfg.name} on the card: prefill and decode logits within "
+          f"{max_abs_err(lg, lc):.3g} / {max_abs_err(sg, sc):.3g} of the CPU "
+          f"run (bound 2e-3), tokens equal {tg.tolist()}")
+
+
+# ---------------------------------------------------------------------------
+# 8. times
 # ---------------------------------------------------------------------------
 
 def phase_times(rng, smi: str) -> dict:
     dev = torch.device(DEVICE)
     res = {}
 
-    def record(name, kernel, plain_ms, library_ms, nbytes, nops):
+    def record(name, kernel, plain_ms, library_ms, nbytes, nops,
+               ops_per_s=FP32_OPS_PER_S):
         ms, host_ms = kernel
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = nops / FP32_OPS_PER_S * 1e3
+        ops_ms = nops / ops_per_s * 1e3
         res[name] = {"ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
                      "library_ms": library_ms,
                      "bound_ms": max(bytes_ms, ops_ms),
@@ -1165,6 +1496,54 @@ def phase_times(rng, smi: str) -> dict:
            event_ms(lambda: torch.sort(flat, dim=-1), 20),
            (kp.numel() + ip.numel() + kp.numel()) * 4,
            kp.numel() * math.ceil(math.log2(kp.shape[-2])))
+
+    # bucketize_histogram at SMMS's shape: 4,194,304 f32 keys into 64
+    # buckets.  Keys and boundaries in, int32 ids and counts out; a
+    # binary search of ceil(log2 t) compares a key.  The yardstick:
+    # torch.bucketize (right side), then torch.bincount.
+    bk = x.reshape(-1)
+    bb = torch.sort(bk).values[M::M].contiguous()
+    record("bucketize_histogram",
+           timed_ms(lambda: bucketize.bucketize_histogram(bk, bb, T), 50),
+           event_ms(lambda: bucketize.bucketize_histogram_plain(bk, bb, T), 5),
+           event_ms(lambda: torch.bincount(torch.bucketize(
+               bk, bb, right=True), minlength=T), 50),
+           2 * bk.numel() * 4 + (bb.numel() + T) * 4,
+           bk.numel() * math.ceil(math.log2(T)))
+
+    # flash_attention at gemma3-12b's prefill: B = 4, 16 q / 8 kv heads,
+    # S = 2048, d = 256, bf16, causal.  q, k, v in, out once; the causal
+    # half of 4 * B * Hq * S^2 * d flops at the bf16 tensor-core peak
+    # (the kernel runs on the CUDA cores in f32, so this bound is one it
+    # cannot reach).  The yardstick: scaled_dot_product_attention with
+    # is_causal and enable_gqa.  Also with the 1024-token window (work:
+    # the band each query sees).
+    cfg = get_arch(SERVE_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    b, hq, hkv, s, d = (SERVE_B, cfg.n_heads, cfg.n_kv_heads, SERVE_PROMPT,
+                        cfg.head_dim_)
+    q = torch.randn((b, hq, s, d), generator=gen, device=dev).bfloat16()
+    k = torch.randn((b, hkv, s, d), generator=gen, device=dev).bfloat16()
+    v = torch.randn((b, hkv, s, d), generator=gen, device=dev).bfloat16()
+    qkv_bytes = (2 * q.numel() + k.numel() + v.numel()) * 2
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for label, window in (("flash_attention", None),
+                          ("flash_attention@window", cfg.sliding_window)):
+        seen = sum(min(i + 1, window or s) for i in range(s))  # keys a row sees
+        mask = None
+        if window is not None:
+            i = torch.arange(s, device=dev)
+            mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None]
+                                                 - window)
+        record(label,
+               timed_ms(lambda: fa.flash_attention(q, k, v, True, window), 5),
+               event_ms(lambda: fa.flash_attention_plain(q, k, v, True,
+                                                         window), 1, warm=1),
+               event_ms(lambda: sdpa(q, k, v, attn_mask=mask,
+                                     is_causal=window is None,
+                                     enable_gqa=True), 20),
+               qkv_bytes, 4 * b * hq * seen * d, BF16_OPS_PER_S)
+    del q, k, v
 
     # the end-to-end sorts by both families, in turns: SMMS and
     # Terasort (its draws made on the card from the seed, as a user's
@@ -1345,6 +1724,10 @@ def phase_launches() -> dict:
 
 def main() -> None:
     smi = phase_device()
+    # full float32 matmuls (the gemma3 smoke run against the CPU); stated,
+    # not left to the defaults
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     build = phase_build()
     rng = np.random.default_rng(SEED)
     errs = phase_kernels(rng)
@@ -1363,6 +1746,9 @@ def main() -> None:
     phase_small_values_and_joins()
     phase_small_terasort()
     phase_small_radix()
+    runs["bucketize"] = phase_bucketize(smi)
+    phase_serve_smoke()
+    serving = phase_serve(smi)
     launches = phase_launches()
 
     times = phase_times(rng, smi)
@@ -1379,7 +1765,8 @@ def main() -> None:
                 "library_ms": times[name]["library_ms"]}
                for name, k in cuda.KERNELS.items()]
     print(json.dumps({"build": build, "runs": runs, "joins": join_runs,
-                      "times": times, "crossover": crossover}))
+                      "serve": serving, "times": times,
+                      "crossover": crossover}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

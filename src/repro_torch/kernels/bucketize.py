@@ -1,11 +1,13 @@
-"""Batched searchsorted: the Round-3 cut of SMMS.
+"""Batched searchsorted (the Round-3 cut of SMMS) and the fused
+bucketize + histogram.
 
-Counterpart of ``src/repro/kernels/bucketize.py`` (``searchsorted``
-with its ``_bin_search_block`` and ``_pad_bounds``).  The kernel is
-``csrc/searchsorted.cu``; :func:`searchsorted_plain` is its plain
-version, the same fixed-step branch-free binary search with the
-``lo < hi`` guard (:func:`_bin_search_block`) in torch ops.  A CUDA
-tensor launches the kernel, a CPU tensor runs the plain version.
+Counterpart of ``src/repro/kernels/bucketize.py`` (``searchsorted`` and
+``bucketize_histogram`` with their ``_bin_search_block`` and
+``_pad_bounds``).  Both kernels are in ``csrc/searchsorted.cu``;
+:func:`searchsorted_plain` and :func:`bucketize_histogram_plain` are
+their plain versions, the same fixed-step branch-free binary search
+with the ``lo < hi`` guard (:func:`_bin_search_block`) in torch ops.  A
+CUDA tensor launches the kernel, a CPU tensor runs the plain version.
 """
 from __future__ import annotations
 
@@ -16,7 +18,8 @@ import torch
 from . import cuda
 from .bitonic import KEY_DTYPES, _SUFFIX, _next_pow2, ftz, sort_sentinel
 
-__all__ = ["searchsorted", "searchsorted_plain"]
+__all__ = ["searchsorted", "searchsorted_plain", "bucketize_histogram",
+           "bucketize_histogram_plain"]
 
 
 def _steps(n_bounds: int) -> int:
@@ -86,3 +89,62 @@ def searchsorted(sorted_arr: torch.Tensor, queries: torch.Tensor,
                 sorted_arr.data_ptr(), queries.data_ptr(), out.data_ptr(),
                 batch, n, nq, int(side == "right"), _steps(n))
     return out
+
+
+def _single_bucket(keys: torch.Tensor):
+    """t == 1: every key in bucket 0 (the reference returns before its
+    kernel too)."""
+    n = keys.shape[0]
+    return (torch.zeros((n,), dtype=torch.int32, device=keys.device),
+            torch.full((1,), n, dtype=torch.int32, device=keys.device))
+
+
+def _check_buckets(keys: torch.Tensor, boundaries: torch.Tensor,
+                   t: int) -> None:
+    if keys.dim() != 1 or boundaries.dim() != 1:
+        raise ValueError(f"bucketize_histogram: keys (n,) and boundaries "
+                         f"(t-1,) expected, got {tuple(keys.shape)} and "
+                         f"{tuple(boundaries.shape)}")
+    if boundaries.shape[0] != t - 1:
+        raise ValueError(f"bucketize_histogram: {boundaries.shape[0]} "
+                         f"boundaries for t = {t} buckets (want t - 1)")
+
+
+def bucketize_histogram_plain(keys: torch.Tensor, boundaries: torch.Tensor,
+                              t: int):
+    """The plain version of :func:`bucketize_histogram`, on any device."""
+    _check_buckets(keys, boundaries, t)
+    if t == 1:
+        return _single_bucket(keys)
+    ids = _bin_search_block(keys[None], _pad_bounds(boundaries[None]),
+                            t - 1, "right")[0]
+    counts = torch.bincount(ids.long(), minlength=t).to(torch.int32)
+    return ids, counts
+
+
+def bucketize_histogram(keys: torch.Tensor, boundaries: torch.Tensor,
+                        t: int):
+    """keys (n,), boundaries (t-1,) ascending -> (ids (n,), counts (t,)).
+
+    Buckets are [b_k, b_{k+1}): id = searchsorted(boundaries, key,
+    'right') -- denormals compare as zero, a NaN key lands in bucket 0
+    -- and counts[i] is the number of keys with id i, both int32.
+    Duplicate boundaries leave their middle buckets empty; t need not
+    be a power of two.  A CUDA tensor runs the kernel (float32 or int32,
+    one dtype for both operands); a CPU tensor the plain version.
+    """
+    _check_buckets(keys, boundaries, t)
+    if not keys.is_cuda:
+        return bucketize_histogram_plain(keys, boundaries, t)
+    cuda.check_cuda_tensor("bucketize_histogram", keys, KEY_DTYPES)
+    cuda.check_cuda_tensor("bucketize_histogram", boundaries, (keys.dtype,))
+    if t == 1:
+        return _single_bucket(keys)
+    n = keys.shape[0]
+    ids = torch.empty((n,), dtype=torch.int32, device=keys.device)
+    counts = torch.empty((t,), dtype=torch.int32, device=keys.device)
+    cuda.launch("bucketize_histogram",
+                f"bucketize_histogram_{_SUFFIX[keys.dtype]}",
+                keys.data_ptr(), boundaries.data_ptr(), ids.data_ptr(),
+                counts.data_ptr(), n, t, _steps(t - 1))
+    return ids, counts

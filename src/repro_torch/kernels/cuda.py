@@ -47,6 +47,7 @@ SOURCES = {
     "merge_ranks": "merge_ranks.cu",
     "sort_partition": "sort_partition.cu",
     "radix_sort": "radix_sort.cu",
+    "flash_attention": "flash_attention.cu",
 }
 
 
@@ -57,7 +58,7 @@ class Kernel(NamedTuple):
 
 # kernel name -> where it lives and what it ports.  The pair sort, the
 # argsort merge and the fused pair sort share their keys-only twins'
-# sources (and networks).
+# sources (and networks); the bucketize histogram shares the search's.
 KERNELS = {
     "bitonic_sort": Kernel("bitonic_sort", "src/repro/kernels/bitonic.py:224"),
     "bitonic_sort_kv": Kernel("bitonic_sort",
@@ -72,6 +73,10 @@ KERNELS = {
     "sort_partition_kv": Kernel("sort_partition",
                                 "src/repro/kernels/fused.py:118"),
     "radix_sort": Kernel("radix_sort", "src/repro/kernels/radix.py:235"),
+    "bucketize_histogram": Kernel("searchsorted",
+                                  "src/repro/kernels/bucketize.py:109"),
+    "flash_attention": Kernel("flash_attention",
+                              "src/repro/kernels/flash_attention.py:105"),
 }
 
 # No --use_fast_math and no -ftz: the kernels fold denormals themselves,
@@ -81,7 +86,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # C entry point -> its argument types, the stream last; every
 # entry point returns an int (cudaError_t).
-_P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_P, _I64, _I32, _F32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                        ctypes.c_float)
+_FLASH = [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _F32, _I32,
+          _I32, _P]
 SIGNATURES = {
     "bitonic_sort_f32": [_P, _I64, _I64, _P],
     "bitonic_sort_i32": [_P, _I64, _I64, _P],
@@ -101,6 +109,10 @@ SIGNATURES = {
     "sort_partition_kv_i32": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
     "radix_sort_f32": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _P],
     "radix_sort_i32": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _P],
+    "bucketize_histogram_f32": [_P, _P, _P, _P, _I64, _I64, _I32, _P],
+    "bucketize_histogram_i32": [_P, _P, _P, _P, _I64, _I64, _I32, _P],
+    "flash_attention_f32": _FLASH,
+    "flash_attention_bf16": _FLASH,
 }
 
 # kernel name -> launches made through launch(); the counts the chip

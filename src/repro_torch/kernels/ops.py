@@ -3,7 +3,8 @@
 Counterpart of ``src/repro/kernels/ops.py`` for SMMS with and without
 values, Terasort, RandJoin's routing and the local equi-join
 (``sort``, ``sort_kv``, ``searchsorted``, ``sort_partition``,
-``sort_partition_kv``, ``merge_sorted_rows``, ``merge_sorted_rows_kv``).
+``sort_partition_kv``, ``merge_sorted_rows``, ``merge_sorted_rows_kv``),
+the fused ``bucketize_histogram`` and the LM's ``flash_attention``.
 The reference picks between a Pallas backend and a jnp backend and
 falls back to jnp for operands a kernel cannot take.  The port has no
 backend switch and no fallback:
@@ -24,8 +25,8 @@ bitonic (the reference pins bitonic under interpret mode) and a CUDA
 operand the reference's cost model with constants fitted on the H100.
 Both families give the same keys and the same stable order.
 
-All operands carry the machine axis first: a (t, m) array is t
-machines' rows, and every call handles all of them at once.
+The sort-side operands carry the machine axis first: a (t, m) array
+is t machines' rows, and every call handles all of them at once.
 ``DISPATCH_COUNTS[(op, path)]`` counts calls per path: "cuda" or
 "plain" for the bitonic family and the other ops, "radix-cuda" or
 "radix-plain" for the radix family; the kernels' own launch counts are
@@ -41,11 +42,13 @@ from typing import Optional
 import torch
 
 from . import bitonic, bucketize, fused, radix
+from . import flash_attention as fa
 
 __all__ = [
     "sort", "sort_kv", "searchsorted", "sort_partition",
     "sort_partition_kv", "segments", "merge_sorted_rows",
-    "merge_sorted_rows_kv", "pad_pow2",
+    "merge_sorted_rows_kv", "bucketize_histogram", "flash_attention",
+    "pad_pow2",
     "kernel_eligible", "sort_kernel_choice", "force_sort_kernel",
     "reset_dispatch_counts", "DISPATCH_COUNTS", "MAX_KERNEL_LANES",
     "RANK_MERGE_BOUND_BLOCK", "MERGE_TILE_LANES", "RADIX_BITS",
@@ -152,6 +155,12 @@ def kernel_eligible(op: str, x: torch.Tensor, y=None) -> bool:
                 and y.dim() in (1, 2) and y.dim() <= x.dim()
                 and y.shape[-1] > 0 and x.dtype == y.dtype
                 and _lanes_ok(y.shape[-1]))
+    if op == "bucketize_histogram":
+        # the reference's gate (ops.py:301): 1-D keys and boundaries of
+        # one key dtype, at most MAX_KERNEL_LANES boundaries
+        return (x.dim() == 1 and y is not None and y.dim() == 1
+                and _key_dtype_ok(x) and x.dtype == y.dtype
+                and _lanes_ok(max(1, y.shape[0])))
     if op in ("merge_sorted_rows", "merge_sorted_rows_kv"):
         if x.dim() not in (2, 3) or not _key_dtype_ok(x):
             return False
@@ -469,3 +478,31 @@ def merge_sorted_rows_kv(keys: torch.Tensor, values: torch.Tensor):
         merged, order = _rank_merge(kb, with_order=True)
     vs = _take_rows(vb.reshape(batch, t * c, *vb.shape[3:]), order)
     return (merged[0], vs[0]) if keys.dim() == 2 else (merged, vs)
+
+
+def bucketize_histogram(keys: torch.Tensor, boundaries: torch.Tensor,
+                        t: int):
+    """Fused bucket-id + histogram.  keys: (n,); boundaries: (t-1,)
+    ascending.  Returns (ids (n,) int32, counts (t,) int32), ids per
+    ``searchsorted(boundaries, key, side='right')``.  Operands outside
+    the reference's gate raise on either device.
+    """
+    _require("bucketize_histogram", keys, boundaries)
+    _tick("bucketize_histogram", keys)
+    return bucketize.bucketize_histogram(keys.contiguous(),
+                                         boundaries.contiguous(), t)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: Optional[int] = None
+                    ) -> torch.Tensor:
+    """Blocked online-softmax attention with GQA and a sliding window.
+
+    q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D), float32 or bfloat16, D <=
+    256; queries right-aligned to the keys.  Returns (B, Hq, Sq, D).
+    Operands outside the kernel's gate raise on either device.
+    """
+    out = fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                             causal=causal, window=window)
+    _tick("flash_attention", q)
+    return out

@@ -1,0 +1,63 @@
+"""Carry the reference model's parameters over to the port.
+
+The reference's ``init_params`` returns a pytree whose per-layer leaves
+under ``params["periods"][str(pos)]`` carry a leading ``n_periods``
+axis (the axis its ``lax.scan`` runs over).  The port keeps one dict
+per period (``models/model.py``).  :func:`params_from_reference` takes
+that pytree with numpy arrays as leaves (``np.asarray`` of each jax
+array) and returns the port's parameters on ``device`` in
+``cfg.param_dtype``: the periods unstacked, ``unembed`` present only
+without tied embeddings, the embedding at the padded vocab as the
+reference holds it.  bfloat16 leaves (numpy's ``ml_dtypes`` type) go
+through float32, which holds them exactly.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from ..configs.base import ArchConfig
+from .model import check_dense
+
+__all__ = ["params_from_reference", "tree_map"]
+
+
+def _tensor(a, cfg: ArchConfig, device) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(a).astype(np.float32)).to(
+        device=device, dtype=cfg.param_dtype)
+
+
+def tree_map(fn, tree):
+    """``fn`` applied to every leaf of a tree of dicts and lists, in the
+    tree's shape (the port's parameters and caches are such trees)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def params_from_reference(tree: Dict[str, Any], cfg: ArchConfig,
+                          device="cpu") -> Dict[str, Any]:
+    check_dense(cfg)
+    want = {"embed", "final_norm", "periods"} | (
+        set() if cfg.tie_embeddings else {"unembed"})
+    if set(tree) != want:
+        raise ValueError(f"{cfg.name}: reference parameters {sorted(tree)}, "
+                         f"expected {sorted(want)}")
+    embed = np.asarray(tree["embed"])
+    if embed.shape != (cfg.padded_vocab, cfg.d_model):
+        raise ValueError(f"{cfg.name}: embed {embed.shape}, expected "
+                         f"{(cfg.padded_vocab, cfg.d_model)}")
+    params: Dict[str, Any] = {
+        name: _tensor(tree[name], cfg, device)
+        for name in sorted(want - {"periods"})}
+    params["periods"] = [
+        {str(pos): tree_map(
+            lambda a, i=i: _tensor(np.asarray(a)[i], cfg, device),
+            tree["periods"][str(pos)])
+         for pos in range(cfg.period)}
+        for i in range(cfg.n_periods)]
+    return params

@@ -20,7 +20,10 @@ run the paper's §5.2 tables at t = 64, host planning and routing
 included.  The sort paths run the bitonic kernel family; each has a
 ``_radix`` twin (``sort_radix``, ``sort_payload_radix``,
 ``terasort_radix``, ``terasort_payload_radix``) that runs the same call
-under ``ops.force_sort_kernel("radix")``.
+under ``ops.force_sort_kernel("radix")``.  ``serve_prefill`` is
+gemma3-12b's prefill of 4 x 2048 tokens and ``serve_decode`` one decode
+step after it (:data:`repro_torch.workloads.SERVE_ARCH`), bf16 weights
+made on the card from a seed.
 """
 from __future__ import annotations
 
@@ -32,9 +35,12 @@ import numpy as np
 import torch
 
 from repro_torch import cluster
+from repro_torch.configs import get_arch
 from repro_torch.data import uniform_keys
 from repro_torch.kernels import cuda, ops
-from repro_torch.workloads import JOIN_T, JOINS, M, T, make_payload
+from repro_torch.models import model
+from repro_torch.workloads import (JOIN_T, JOINS, M, SERVE_ARCH, SERVE_B,
+                                   SERVE_NEW, SERVE_PROMPT, T, make_payload)
 
 __all__ = ["PATHS"]
 
@@ -60,7 +66,31 @@ def _join_call(name: str):
                                 **cfg.options)
 
 
+def _serve_call(kind: str):
+    cfg = get_arch(SERVE_ARCH)
+    params = model.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (SERVE_B, SERVE_PROMPT)).astype(np.int32)).cuda()
+
+    def prefill():
+        with torch.inference_mode():
+            cache = model.init_cache(cfg, SERVE_B, SERVE_PROMPT + SERVE_NEW,
+                                     device="cuda")
+            return model.prefill(params, cfg, prompts, cache)
+    if kind == "prefill":
+        return lambda: prefill()[0]
+    _, cache = prefill()        # room for SERVE_NEW steps: warm-up + reps
+
+    def decode():
+        with torch.inference_mode():
+            return model.decode_step(params, cfg, prompts[:, :1], cache)[0]
+    return decode
+
+
 PATHS = {
+    "serve_prefill": lambda: _serve_call("prefill"),
+    "serve_decode": lambda: _serve_call("decode"),
     **{name + ("_radix" if family == "radix" else ""):
        (lambda p=payload, a=algorithm, f=family: _sort_call(p, a, f))
        for name, payload, algorithm in (

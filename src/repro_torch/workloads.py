@@ -10,7 +10,12 @@ One table for both ``chip_smoke.py`` and :mod:`repro_torch.profile_port`:
   (:data:`TERASORT_ATTEMPTS`); and the small t = 8 x m = 4,096 whose
   receive rows fit one merge tile for both;
 * the joins (:data:`JOINS`): the paper's §5.2 Zipf and scalar-skew
-  tables at t = 64, by StatJoin, RandJoin and the two baselines.
+  tables at t = 64, by StatJoin, RandJoin and the two baselines;
+* the serving path: gemma3-12b at full width and depth (48 layers,
+  d_model 3840, 16 q / 8 kv heads of 256, d_ff 15360, vocab 262,144),
+  bf16, random weights from a seed; :data:`SERVE_B` prompts of
+  :data:`SERVE_PROMPT` tokens (past the 1024-token window of its local
+  layers) and :data:`SERVE_NEW` new tokens.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ from .data import (lidar_like, scalar_skew_tables, uniform_keys, zipf_keys,
                    zipf_tables)
 
 __all__ = ["T", "M", "T_SMALL", "M_SMALL", "JOIN_T", "PAYLOAD_COLS",
+           "SERVE_ARCH", "SERVE_B", "SERVE_PROMPT", "SERVE_NEW",
            "JoinConfig", "JOINS", "TERASORT_ATTEMPTS", "sort_inputs",
            "adversarial_shards", "make_payload"]
 
@@ -30,6 +36,8 @@ T, M = 64, 65536            # the main sort: n = 4,194,304 keys
 T_SMALL, M_SMALL = 8, 4096  # receive rows that fit one merge tile
 JOIN_T = 64
 PAYLOAD_COLS = 24           # 4-byte key + 24 x 4-byte payload = 100 bytes
+SERVE_ARCH = "gemma3-12b"
+SERVE_B, SERVE_PROMPT, SERVE_NEW = 4, 2048, 16
 
 
 class JoinConfig(NamedTuple):

@@ -1,0 +1,135 @@
+"""The port's fused bucketize + histogram against the reference's.
+
+``bucketize_histogram_plain`` (the kernel's plain version) and
+``ops.bucketize_histogram`` are held **bitwise** against the reference's
+Pallas kernel in interpret mode (``repro.kernels.bucketize``) and its
+``ops.bucketize_histogram`` by both backends: ids and counts are
+integers.  Covered: float32 and int32 keys; t in {1, 2, 6, 10, 64};
+duplicate boundaries; keys equal to boundaries; +-inf, NaN, +-0 and
+denormal keys (XLA and the port both compare denormals as zero); n a
+multiple of no block.
+
+One stated difference, in the reference itself: a NaN key lands in
+bucket 0 under its Pallas kernel (every ``bound <= NaN`` is false) and
+in the last bucket under its jnp backend (``jnp.searchsorted`` orders
+NaN last, as ``jnp.sort`` does).  The port is the kernel's counterpart
+and follows the Pallas kernel; against the jnp backend the ids agree at
+every key that is not NaN, and the counts on keys with no NaN.  Tests
+marked ``cuda`` hold the CUDA kernel against its plain version on the
+card, bitwise.
+"""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro.kernels import bucketize as jbucketize
+from repro.kernels import ops as jops
+from repro_torch.kernels import bucketize, cuda, ops
+
+TS = [1, 2, 6, 10, 64]
+
+
+def keys_and_bounds(rng, dtype, n, t):
+    """Keys with every awkward class; t-1 ascending boundaries with
+    duplicates, drawn from the keys so that some keys equal them."""
+    if dtype == np.int32:
+        keys = rng.integers(-50, 50, n).astype(np.int32)
+        keys[::17] = np.iinfo(np.int32).max
+        keys[5::19] = np.iinfo(np.int32).min
+    else:
+        keys = rng.standard_normal(n).astype(np.float32)
+        special = np.float32([np.inf, -np.inf, np.nan, 0.0, -0.0, 1e-40,
+                              -1e-40, 2e-39])
+        keys[::7] = special[rng.integers(0, len(special), len(keys[::7]))]
+    finite = keys[np.isfinite(keys)] if dtype == np.float32 else keys
+    bounds = np.sort(rng.choice(finite, t - 1)).astype(dtype)
+    if t > 3:
+        bounds[1] = bounds[2]                  # a duplicate boundary
+    if dtype == np.float32 and t > 2:
+        bounds[0] = -1e-40                      # a denormal boundary
+        bounds = np.sort(bounds)
+    return keys, bounds
+
+
+@pytest.mark.parametrize("t", TS)
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+def test_bucketize_histogram_matches_reference(rng, dtype, t):
+    n = 2500                      # 2.44 of the reference's 1024-key blocks
+    keys, bounds = keys_and_bounds(rng, dtype, n, t)
+    jk, jb = jnp.asarray(keys), jnp.asarray(bounds)
+    want = jbucketize.bucketize_histogram(jk, jb, t, interpret=True)
+    want_ops = jops.bucketize_histogram(jk, jb, t, backend="pallas")
+    jnp_ids, _ = jops.bucketize_histogram(jk, jb, t, backend="reference")
+    real = ~np.isnan(keys) if dtype == np.float32 else slice(None)
+    kt, bt = torch.from_numpy(keys), torch.from_numpy(bounds)
+    ops.reset_dispatch_counts()
+    for ids, counts in (bucketize.bucketize_histogram_plain(kt, bt, t),
+                        ops.bucketize_histogram(kt, bt, t)):
+        assert ids.dtype == counts.dtype == torch.int32
+        for w_ids, w_counts in (want, want_ops):
+            np.testing.assert_array_equal(ids.numpy(), np.asarray(w_ids))
+            np.testing.assert_array_equal(counts.numpy(),
+                                          np.asarray(w_counts))
+        np.testing.assert_array_equal(ids.numpy()[real],
+                                      np.asarray(jnp_ids)[real])
+    assert ops.DISPATCH_COUNTS[("bucketize_histogram", "plain")] == 1
+    assert int(counts.sum()) == n
+
+
+@pytest.mark.parametrize("t", [2, 10])
+def test_counts_match_the_jnp_backend_without_nan(rng, t):
+    keys, bounds = keys_and_bounds(rng, np.float32, 3000, t)
+    keys = np.where(np.isnan(keys), np.float32(1.5), keys)
+    _, want = jops.bucketize_histogram(jnp.asarray(keys), jnp.asarray(bounds),
+                                       t, backend="reference")
+    _, got = ops.bucketize_histogram(torch.from_numpy(keys),
+                                     torch.from_numpy(bounds), t)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_nan_keys_land_in_bucket_zero_as_under_the_pallas_kernel():
+    keys = np.float32([np.nan, 0.5, 2.0, np.nan])
+    bounds = np.float32([0.0, 1.0])
+    want_ids, want_counts = jbucketize.bucketize_histogram(
+        jnp.asarray(keys), jnp.asarray(bounds), 3, interpret=True)
+    ids, counts = ops.bucketize_histogram(torch.from_numpy(keys),
+                                          torch.from_numpy(bounds), 3)
+    assert ids.tolist() == np.asarray(want_ids).tolist() == [0, 1, 2, 0]
+    assert counts.tolist() == np.asarray(want_counts).tolist() == [2, 1, 1]
+
+
+def test_outside_the_gate_or_contract_raises():
+    k = torch.zeros(8)
+    with pytest.raises(ValueError, match="gate"):
+        ops.bucketize_histogram(k, torch.zeros(3, dtype=torch.int32), 4)
+    with pytest.raises(ValueError, match="gate"):
+        ops.bucketize_histogram(k[None], torch.zeros(3), 4)
+    with pytest.raises(ValueError, match="gate"):
+        ops.bucketize_histogram(k, torch.zeros(ops.MAX_KERNEL_LANES + 1),
+                                ops.MAX_KERNEL_LANES + 2)
+    with pytest.raises(ValueError, match="t - 1"):
+        ops.bucketize_histogram(k, torch.zeros(3), 5)
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; run on the card with "
+                    "`python -m pytest -m cuda tests/test_torch_*.py`")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", TS + [20000])
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+def test_bucketize_kernel_matches_plain_on_the_card(card, rng, dtype, t):
+    """Bitwise, at a size that spans many blocks; t = 20,000 takes the
+    global-counter path (past the shared-memory histogram)."""
+    keys, bounds = keys_and_bounds(rng, dtype, 300_001, t)
+    kt, bt = torch.from_numpy(keys).to(card), torch.from_numpy(bounds).to(card)
+    cuda.reset_launches()
+    ids, counts = bucketize.bucketize_histogram(kt, bt, t)
+    assert cuda.LAUNCHES["bucketize_histogram"] == (t > 1)
+    want_ids, want_counts = bucketize.bucketize_histogram_plain(kt, bt, t)
+    assert torch.equal(ids, want_ids) and torch.equal(counts, want_counts)

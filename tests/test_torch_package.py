@@ -20,6 +20,9 @@ def test_port_imports_neither_jax_nor_the_reference():
         import repro_torch.kernels.ops, repro_torch.kernels.ref
         import repro_torch.kernels.cuda, repro_torch.cluster.api
         import repro_torch.profile_port, repro_torch.workloads
+        import repro_torch.configs, repro_torch.models, repro_torch.serve
+        import repro_torch.models.model, repro_torch.models.convert
+        import repro_torch.serve.engine, repro_torch.kernels.flash_attention
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "repro" or m.startswith("repro."))
@@ -61,6 +64,20 @@ def test_unported_options_name_their_roadmap_item(entry, kw, item):
             cluster.sort(np.ones((2, 8), np.float32), device="cpu", **kw)
         else:
             cluster.join(*_tables(), t_machines=2, device="cpu", **kw)
+
+
+def test_generate_defaults_to_the_card(monkeypatch):
+    from repro_torch.configs import ARCHS, smoke_config
+    from repro_torch.models import model
+    from repro_torch.serve import generate
+    cfg = smoke_config(ARCHS["gemma3-12b"])
+    params = model.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    prompt = np.zeros((1, 4), np.int32)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        generate(params, cfg, prompt, max_new_tokens=2)
+    out = generate(params, cfg, prompt, max_new_tokens=2, device="cpu")
+    assert out.shape == (1, 2) and out.dtype == np.int32
 
 
 def test_join_defaults_to_the_card(monkeypatch):
