@@ -15,19 +15,21 @@ version there:
   benchmark's record size), and at t = 8 x m = 4,096; each by both sort
   kernel families (the bitonic network and the LSD radix sort,
   ``ops.force_sort_kernel`` where the cost model would pick the other);
+  with bf16 keys at both sizes; and at t = 64 x m = 262,144, rows past
+  the bitonic tile's reach;
 * ``repro_torch.cluster.join(...)`` -- StatJoin (paper §4.3) on the
   paper's §5.2 Zipf tables (2^17 x 2^17, theta 0.5) and scalar-skew
   tables (2^20 rows, a hot key 2048 x 2048), RandJoin (§4.2) on the same
-  Zipf tables and on scalar-skew tables of 2^17 rows, repartition on the
-  scalar-skew tables and broadcast on Zipf tables of 2^14 x 2^17 rows,
-  all at t = 64;
+  Zipf and scalar-skew tables, repartition on the scalar-skew tables
+  and broadcast on Zipf tables of 2^14 x 2^17 rows, all at t = 64;
 * ``repro_torch.kernels.ops.bucketize_histogram`` -- SMMS's Round-3
   planning, 4,194,304 keys into 64 buckets;
 * ``repro_torch.serve.generate`` -- greedy generation on gemma3-12b at
   full width and depth (48 layers, bf16, random weights from a seed made
   on the card): 4 prompts of 2048 tokens, 16 new tokens; its prefill
-  goes through the flash-attention kernel, its decode through dense
-  rows.  Matmuls run in full float32 where they are float32 (TF32 off).
+  goes through the flash-attention kernel (bf16: the tensor-core
+  kernel), its decode through dense rows.  Matmuls run in full float32
+  where they are float32 (TF32 off).
 
 Phases, in order; any failure raises and the script exits non-zero
 without printing a result:
@@ -40,8 +42,10 @@ without printing a result:
                 (the radix sort also on
                 every class of float and int bits, at widths 1 to
                 65,536, and against a stable torch.sort of its canonical
-                bits); the fused sort, the pair sort and the searches
-                also at every operand the six joins hand them
+                bits); every sort-side kernel again on bf16 keys; flash
+                attention also at musicgen-medium's shape; the fused
+                sort, the pair sort and the searches also at every
+                operand the six joins hand them
   4. main path  t=64 x 65,536: uniform, LIDAR-like, Zipf and an
                 adversarial placement, keys only and with the payload,
                 by SMMS and by Terasort, each by both kernel families;
@@ -53,6 +57,11 @@ without printing a result:
                 by both sorts and both families, and each join on small
                 tables: outputs and every report field equal to the same
                 call on the CPU (RandJoin and Terasort on the same draws)
+     bf16       bf16 keys: SMMS and Terasort (with the records) at t=64 x
+                65,536 equal to np.sort, workload to a host recount; at
+                t=8 x 4,096 with values equal to the CPU run
+     wide       SMMS and Terasort at t=64 x 262,144: the radix sort and
+                the rank merge past the bitonic tile's reach
   6. serving    bucketize_histogram through its entry point against
                 numpy; gemma3-12b's smoke config on the card against the
                 CPU (logits within 2e-3, the same tokens); generate at
@@ -65,7 +74,9 @@ without printing a result:
                 before it, read just after): each path launched exactly
                 the kernels of PATH_KERNELS, and every kernel ran
   8. times      per kernel: CUDA-event time, plain version, one PyTorch
-                library call, bound; the bitonic/radix crossover at
+                library call, bound (each sort-side kernel also on bf16
+                keys, flash attention also in f32 and at musicgen's
+                shape); the bitonic/radix crossover at
                 (64, 2^k), k = 10..16; the end-to-end sorts by both
                 families, StatJoin and RandJoin, and peak memory
 
@@ -104,7 +115,7 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.models import model as lm  # noqa: E402
 from repro_torch.models.convert import tree_map  # noqa: E402
 from repro_torch.workloads import (JOIN_T, JOINS, M, M_SMALL,  # noqa: E402
-                                   PAYLOAD_COLS, SERVE_ARCH, SERVE_B,
+                                   M_WIDE, PAYLOAD_COLS, SERVE_ARCH, SERVE_B,
                                    SERVE_NEW, SERVE_PROMPT, T, T_SMALL,
                                    TERASORT_ATTEMPTS, make_payload,
                                    sort_inputs)
@@ -179,6 +190,15 @@ PATH_KERNELS = {
     "small_terasort_radix": {"radix_sort", "searchsorted", "merge_rows"},
     "small_terasort_values_radix": {"radix_sort", "searchsorted",
                                     "merge_rows_kv"},
+    # bf16 keys: 16-bit keys pick radix from 2^13 lanes on (4 passes)
+    "sort_bf16": RADIX_MAIN,
+    "terasort_payload_bf16": RADIX_MAIN,
+    "small_sort_values_bf16": {"bitonic_sort_kv", "searchsorted",
+                               "merge_rows_kv"},
+    "small_terasort_values_bf16": {"sort_partition_kv", "merge_rows_kv"},
+    # rows of 2^18, past the bitonic tile's reach
+    "sort_wide": RADIX_MAIN,
+    "terasort_wide": RADIX_MAIN,
     "bucketize": {"bucketize_histogram"},
     "serve_gemma3_12b": {"flash_attention"},
     "serve_gemma3_smoke": {"flash_attention"},
@@ -203,9 +223,11 @@ def path_name(algorithm: str, payload: bool, family: str) -> str:
             + ("_radix" if family == "radix" else ""))
 
 
-def cost_model_family(width: int) -> str:
-    """The family the cost model picks on the card for rows of ``width``."""
-    return ops.sort_kernel_choice(torch.empty((1, width), device=DEVICE))
+def cost_model_family(width: int, dtype=torch.float32) -> str:
+    """The family the cost model picks on the card for rows of ``width``
+    keys of ``dtype``."""
+    return ops.sort_kernel_choice(torch.empty((1, width), dtype=dtype,
+                                              device=DEVICE))
 
 
 def forced_family(family: str, width: int) -> Optional[str]:
@@ -226,8 +248,12 @@ def same_bits(a, b) -> bool:
         return all(same_bits(x, y) for x, y in zip(a, b))
     if a.device != b.device:
         a, b = a.cpu(), b.cpu()
+    if a.dtype != b.dtype:
+        return False
     if a.dtype == torch.float32:
         a, b = a.view(torch.int32), b.view(torch.int32)
+    if a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
     return a.shape == b.shape and torch.equal(a, b)
 
 
@@ -484,6 +510,7 @@ def phase_kernels(rng) -> dict:
     partition_operands(compare, rng, dev, x)
     radix_operands(compare, rng, dev, x)
     bucketize_operands(compare, rng, dev, x)
+    bf16_operands(compare, rng, dev, x)
     flash_operands(close, dev)
     join_operands(compare)
     torch.cuda.synchronize()
@@ -587,6 +614,90 @@ def radix_operands(compare, rng, dev, x) -> None:
           "torch.sort of the canonical bits")
 
 
+def _bf16_edge_rows(rng, rows, n) -> torch.Tensor:
+    """bf16 rows with duplicates, +-0, denormals and +-inf (bf16 keeps
+    float32's exponent field, so it has the same classes)."""
+    return _edge_rows(rng, rows, n).to(torch.bfloat16)
+
+
+def bf16_operands(compare, rng, dev, x) -> None:
+    """Every sort-side kernel on bf16 keys against its plain version,
+    bitwise, at the main path's shapes -- (64, 65536) for the sorts, the
+    fused sort and the search with 63 boundaries, (64, 64, 4096) for the
+    rank merge, 4,194,304 keys into 64 buckets for the histogram, the
+    small configuration's receive rows for the in-tile merges -- and on
+    edge rows; the radix sort also on every class of bf16 bits."""
+    xb = x.to(torch.bfloat16)
+    iota = torch.arange(M, dtype=torch.int32, device=dev).repeat(T, 1)
+    compare("bitonic_sort", f"({T}, {M}) bf16, the main shape",
+            bitonic.bitonic_sort(xb), bitonic.bitonic_sort_plain(xb))
+    compare("bitonic_sort_kv", f"({T}, {M}) bf16 + iota",
+            bitonic.bitonic_sort_kv(xb, iota),
+            bitonic.bitonic_sort_kv_plain(xb, iota))
+    compare("radix_sort", f"({T}, {M}) bf16, 4 passes",
+            radix.radix_sort(xb), radix.radix_sort_plain(xb))
+    xs = bitonic.bitonic_sort_plain(xb).contiguous()
+    q = xs[:1, ::M // T][:, 1:].expand(T, T - 1).contiguous()
+    for side in ("left", "right"):
+        compare("searchsorted", f"({T}, {M}) bf16 x {T - 1} queries, {side}",
+                bucketize.searchsorted(xs, q, side),
+                bucketize.searchsorted_plain(xs, q, side))
+    compare("sort_partition", f"({T}, {M}) bf16 x {T - 1} queries",
+            fused.sort_partition(xb, q), fused.sort_partition_plain(xb, q))
+    compare("sort_partition_kv", f"({T}, {M}) bf16 x {T - 1} queries",
+            fused.sort_partition_kv(xb, q),
+            fused.sort_partition_kv_plain(xb, q))
+    keys = xb.reshape(-1)
+    bounds = torch.sort(keys).values[M::M].contiguous()
+    compare("bucketize_histogram", f"({T * M},) bf16 into {T} buckets",
+            bucketize.bucketize_histogram(keys, bounds, T),
+            bucketize.bucketize_histogram_plain(keys, bounds, T))
+    kp, ip, _ = _main_rank_operands(rng, dev)
+    kb = kp.to(torch.bfloat16)
+    compare("merge_ranks", f"{tuple(kb.shape)} bf16, bound_block="
+            f"{ops.RANK_MERGE_BOUND_BLOCK}",
+            fused.merge_ranks(kb, ip, ops.RANK_MERGE_BOUND_BLOCK),
+            fused.merge_ranks_plain(kb, ip, ops.RANK_MERGE_BOUND_BLOCK))
+    cap = flat_receive_capacity(M_SMALL, T_SMALL,
+                                cluster.CapacityPolicy.smms(
+                                    T_SMALL * M_SMALL, T_SMALL,
+                                    2).first_factor) // T_SMALL
+    r = torch.sort(torch.from_numpy(rng.standard_normal(
+        (T_SMALL, T_SMALL, cap)).astype(np.float32)).to(dev)
+        .to(torch.bfloat16), dim=-1).values
+    compare("merge_rows", f"({T_SMALL}, {T_SMALL}, {cap}) bf16 receive rows",
+            bitonic.merge_sorted_rows(r), bitonic.merge_sorted_rows_plain(r))
+    compare("merge_rows_kv", f"({T_SMALL}, {T_SMALL}, {cap}) bf16",
+            bitonic.merge_sorted_rows_argsort(r),
+            bitonic.merge_sorted_rows_argsort_plain(r))
+    for rows, n in [(6, 1000), (4, 65536), (5, 3)]:
+        e = _bf16_edge_rows(rng, rows, n).to(dev)
+        ev = torch.arange(n, dtype=torch.int32, device=dev).repeat(rows, 1)
+        compare("bitonic_sort", f"({rows}, {n}) bf16 edge rows",
+                bitonic.bitonic_sort(e), bitonic.bitonic_sort_plain(e))
+        compare("bitonic_sort_kv", f"({rows}, {n}) bf16 edge rows + iota",
+                bitonic.bitonic_sort_kv(e, ev),
+                bitonic.bitonic_sort_kv_plain(e, ev))
+        es = bitonic.bitonic_sort_plain(e).contiguous()
+        eq = es[:, ::max(1, n // 5)].contiguous()
+        compare("searchsorted", f"({rows}, {n}) bf16 edge rows, queries "
+                f"from them", bucketize.searchsorted(es, eq),
+                bucketize.searchsorted_plain(es, eq))
+        compare("sort_partition_kv", f"({rows}, {n}) bf16 edge rows",
+                fused.sort_partition_kv(e, eq),
+                fused.sort_partition_kv_plain(e, eq))
+    for n in (1, 7, 257, 65535):
+        rb = torch.from_numpy(_radix_rows(rng, np.float32, n)).to(dev)
+        rb = rb.to(torch.bfloat16)     # NaN payloads, +-0, denormals, inf
+        compare("radix_sort", f"(9, {n}) bf16: every class of bits",
+                radix.radix_sort(rb), radix.radix_sort_plain(rb))
+        canon = radix.sort_ready_bits(rb).long()
+        check(torch.equal(radix.radix_sort(rb)[1].long(),
+                          torch.sort(canon, dim=1, stable=True).indices),
+              f"radix_sort (9, {n}) bf16: order is not the stable argsort "
+              f"of the canonical bits")
+
+
 def bucketize_operands(compare, rng, dev, x) -> None:
     """The fused bucketize + histogram, bitwise: at SMMS's shape (its n =
     4,194,304 keys into t = 64 buckets, the keys' own equi-depth
@@ -622,9 +733,11 @@ def bucketize_operands(compare, rng, dev, x) -> None:
 def flash_operands(close, dev) -> None:
     """Flash attention against its plain version at gemma3-12b's prefill
     shape (B = 4, 16 q heads over 8 kv heads, S = 2048, head_dim 256),
-    global and with its 1024-token window, in bf16 and f32; and at edge
-    shapes: S = 17, S a multiple of no tile with fewer queries than keys,
-    MQA, and a head_dim (48) that the kernel pads."""
+    global and with its 1024-token window, and at musicgen-medium's
+    (MHA, 24 heads of 64), in bf16 (the tensor-core kernel) and f32 (the
+    CUDA-core one); and at edge shapes: S = 17, S a multiple of no tile
+    with fewer queries than keys, MQA, and a head_dim (48) that the
+    kernel pads."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
     def qkv(b, hq, hkv, sq, sk, d, dtype):
@@ -635,7 +748,10 @@ def flash_operands(close, dev) -> None:
     cfg = get_arch(SERVE_ARCH)
     full = (SERVE_B, cfg.n_heads, cfg.n_kv_heads, SERVE_PROMPT, SERVE_PROMPT,
             cfg.head_dim_)
+    mg = get_arch("musicgen-medium")
     shapes = [(full, None), (full, cfg.sliding_window),
+              ((SERVE_B, mg.n_heads, mg.n_kv_heads, SERVE_PROMPT,
+                SERVE_PROMPT, mg.head_dim_), None),
               ((2, 4, 2, 17, 17, 256), None),
               ((2, 4, 2, 1000, 1300, 128), 333),
               ((1, 8, 1, 777, 777, 64), None),
@@ -897,6 +1013,112 @@ def phase_payload(smi: str, algorithm: str, family: str = "bitonic",
                   f"({smi})")
             del rows, payload
     return out, kept
+
+
+def phase_bf16(smi: str) -> dict:
+    """bf16 keys through the front door (ROADMAP C10).  At t=64 x
+    65,536: SMMS keys only and Terasort with the 100-byte records, by
+    the family the cost model picks for bf16 there (radix: 16-bit keys,
+    4 passes); keys equal to np.sort of the input (bf16 values widen to
+    float32 exactly), workload equal to a host recount at the report's
+    boundaries, alpha 3, the records in the keys' stable order.  At t=8
+    x 4,096: SMMS and Terasort with values, keys, values and every
+    report field equal to the CPU run (Terasort on the same draws)."""
+    out = {}
+    xb = torch.from_numpy(uniform_keys(T * M, seed=SEED + 5)
+                          .reshape(T, M)).to(torch.bfloat16)
+    wide = xb.float().numpy()
+    want = np.sort(wide.reshape(-1))
+    order = np.argsort(wide.reshape(-1), kind="stable")
+    for algorithm, with_payload in (("smms", False), ("terasort", True)):
+        path = path_name(algorithm, with_payload, "bitonic") + "_bf16"
+        payload = (make_payload(T, M, SEED + 5, device=DEVICE)
+                   if with_payload else None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (keys, vals), rep = on_path(path, lambda: cluster.sort(
+            xb, algorithm=algorithm, seed=SEED, values=payload,
+            device=DEVICE))
+        wall = time.perf_counter() - t0
+        check(keys.dtype == torch.bfloat16 and keys.device.type == DEVICE,
+              f"{path}: keys of {keys.dtype} on {keys.device}")
+        check(np.array_equal(keys.float().cpu().numpy(), want),
+              f"{path}: keys differ from np.sort of the input")
+        cuts = np.searchsorted(want, rep.boundaries[1:-1], side="left")
+        recount = np.diff(np.concatenate([[0], cuts, [T * M]]))
+        check(np.array_equal(np.asarray(rep.workload), recount),
+              f"{path}: workload {rep.workload} != host recount")
+        check(rep.alpha == 3, f"{path}: alpha {rep.alpha} != 3")
+        if with_payload:
+            rows = payload.reshape(T * M, PAYLOAD_COLS)[
+                torch.from_numpy(order).to(DEVICE)]
+            check(torch.equal(vals, rows),
+                  f"{path}: records not in the keys' stable order")
+            del rows, payload
+        out[path] = {"first_call_s": wall, "k_workload": rep.k_workload,
+                     "capacity_attempts": rep.capacity_attempts,
+                     "family": cost_model_family(M, xb.dtype)}
+        print(f"[bf16] {path}: t={T} m={M} bf16 keys by "
+              f"{out[path]['family']} ok: keys = np.sort, workload = host "
+              f"recount, k_workload={rep.k_workload:.4f} attempts="
+              f"{rep.capacity_attempts} first call {wall * 1e3:.1f} ms "
+              f"({smi})")
+
+    xs = torch.from_numpy(zipf_keys(T_SMALL * M_SMALL, seed=SEED + 6)
+                          .reshape(T_SMALL, M_SMALL) * 0.37).to(torch.bfloat16)
+    u = torch.rand((T_SMALL, M_SMALL),
+                   generator=torch.Generator().manual_seed(SEED + 6))
+    v = np.random.default_rng(SEED + 6).integers(
+        0, 1 << 30, (T_SMALL, M_SMALL, 3)).astype(np.int32)
+    for algorithm, kw in (("smms", {}), ("terasort", {"uniforms": u})):
+        path = "small_" + PATHS[algorithm] + "_values_bf16"
+        (keys, vals), rep = on_path(path, lambda: cluster.sort(
+            xs, algorithm=algorithm, values=v, device=DEVICE, **kw))
+        (keys_cpu, vals_cpu), rep_cpu = cluster.sort(
+            xs, algorithm=algorithm, values=v, device="cpu", **kw)
+        check(same_bits(keys, keys_cpu) and same_bits(vals, vals_cpu),
+              f"{path}: card keys or values != CPU")
+        check(np.array_equal(rep.boundaries, rep_cpu.boundaries),
+              f"{path}: card boundaries != CPU boundaries")
+        _same_report(path, rep, rep_cpu)
+    print(f"[bf16] t={T_SMALL} m={M_SMALL} bf16 Zipf keys with (t, m, 3) "
+          f"values, SMMS and Terasort: keys, values, boundaries and every "
+          f"report field equal to the CPU run, bitwise")
+    return out
+
+
+def phase_wide(smi: str) -> dict:
+    """Rows past the bitonic tile's reach (ROADMAP C10): SMMS and
+    Terasort at t=64 x m=262,144 float32 keys (n = 16,777,216), on the
+    route the dispatch takes there -- the radix sort, the search, the
+    rank merge; keys equal to np.sort, workload to a host recount, the
+    workload theorem's bound, one capacity attempt."""
+    out = {}
+    x = uniform_keys(T * M_WIDE, seed=SEED + 7).reshape(T, M_WIDE)
+    check(cost_model_family(M_WIDE) == "radix",
+          "the cost model does not pick radix past the bitonic tile")
+    for algorithm in PATHS:
+        path = PATHS[algorithm] + "_wide"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        (keys, _), rep = on_path(path, lambda: cluster.sort(
+            x, algorithm=algorithm, seed=SEED, device=DEVICE))
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        check_run(path, x, keys, rep, 1)
+        out[path] = {"first_call_s": wall, "k_workload": rep.k_workload,
+                     "k_network": rep.k_network,
+                     "max_workload": int(max(rep.workload)),
+                     "bound": rep.theoretical_workload_bound,
+                     "max_memory_allocated_bytes": peak}
+        print(f"[wide] {algorithm} t={T} m={M_WIDE} ok: k_workload="
+              f"{rep.k_workload:.4f} max machine {max(rep.workload)} (bound "
+              f"{rep.theoretical_workload_bound:.0f}) first call "
+              f"{wall * 1e3:.1f} ms, peak memory {peak / 2**20:.1f} MiB "
+              f"({smi})")
+        del keys
+    return out
 
 
 def host_pairs(s, t) -> np.ndarray:
@@ -1512,12 +1734,11 @@ def phase_times(rng, smi: str) -> dict:
            bk.numel() * math.ceil(math.log2(T)))
 
     # flash_attention at gemma3-12b's prefill: B = 4, 16 q / 8 kv heads,
-    # S = 2048, d = 256, bf16, causal.  q, k, v in, out once; the causal
-    # half of 4 * B * Hq * S^2 * d flops at the bf16 tensor-core peak
-    # (the kernel runs on the CUDA cores in f32, so this bound is one it
-    # cannot reach).  The yardstick: scaled_dot_product_attention with
-    # is_causal and enable_gqa.  Also with the 1024-token window (work:
-    # the band each query sees).
+    # S = 2048, d = 256, bf16 (the tensor-core kernel), causal.  q, k, v
+    # in, out once; the causal half of 4 * B * Hq * S^2 * d flops at the
+    # bf16 tensor-core peak.  The yardstick: scaled_dot_product_attention
+    # with is_causal and enable_gqa.  Also with the 1024-token window
+    # (work: the band each query sees).
     cfg = get_arch(SERVE_ARCH)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     b, hq, hkv, s, d = (SERVE_B, cfg.n_heads, cfg.n_kv_heads, SERVE_PROMPT,
@@ -1543,7 +1764,31 @@ def phase_times(rng, smi: str) -> dict:
                                      is_causal=window is None,
                                      enable_gqa=True), 20),
                qkv_bytes, 4 * b * hq * seen * d, BF16_OPS_PER_S)
+    # the same call in float32: the CUDA-core kernel (the smoke
+    # configuration's 1e-5 path), against the CUDA cores' f32 peak
+    qf, kf, vf = q.float(), k.float(), v.float()
+    seen = s * (s + 1) // 2
+    record("flash_attention@f32",
+           timed_ms(lambda: fa.flash_attention(qf, kf, vf, True, None), 3),
+           event_ms(lambda: fa.flash_attention_plain(qf, kf, vf, True, None),
+                    1, warm=1),
+           event_ms(lambda: sdpa(qf, kf, vf, is_causal=True,
+                                 enable_gqa=True), 5),
+           2 * qkv_bytes, 4 * b * hq * seen * d)
+    del q, k, v, qf, kf, vf
+    # musicgen-medium's prefill: MHA, 24 heads of 64, bf16, causal
+    mg = get_arch("musicgen-medium")
+    q, k, v = (torch.randn((b, mg.n_heads, s, mg.head_dim_), generator=gen,
+                           device=dev).bfloat16() for _ in range(3))
+    record("flash_attention@musicgen",
+           timed_ms(lambda: fa.flash_attention(q, k, v, True, None), 5),
+           event_ms(lambda: fa.flash_attention_plain(q, k, v, True, None),
+                    1, warm=1),
+           event_ms(lambda: sdpa(q, k, v, is_causal=True), 20),
+           4 * q.numel() * 2, 4 * b * mg.n_heads * seen * mg.head_dim_,
+           BF16_OPS_PER_S)
     del q, k, v
+    bf16_times(record, rng, x, xs)
 
     # the end-to-end sorts by both families, in turns: SMMS and
     # Terasort (its draws made on the card from the seed, as a user's
@@ -1605,6 +1850,90 @@ def phase_times(rng, smi: str) -> dict:
           f"plan {(t2 - t1) * 1e3:.1f} ms, routing (both sides) "
           f"{(t3 - t2) * 1e3:.1f} ms (host clock)")
     return res
+
+
+def bf16_times(record, rng, x, xs) -> None:
+    """Each sort-side kernel on bf16 keys, at the float32 entries' shapes
+    (``<kernel>@bf16``): the same work with 2-byte keys, so the bytes
+    bound counts 2 bytes a key; the yardsticks are the same torch calls
+    on the bf16 operands."""
+    dev = x.device
+    xb = x.to(torch.bfloat16)
+    n = xb.numel()
+    lg = int(math.log2(M))
+    iota = torch.arange(M, dtype=torch.int32, device=dev).repeat(T, 1)
+    record("bitonic_sort@bf16",
+           timed_ms(lambda: bitonic.bitonic_sort(xb), 20),
+           event_ms(lambda: bitonic.bitonic_sort_plain(xb), 1, warm=1),
+           event_ms(lambda: torch.sort(xb, dim=-1), 20), 2 * n * 2, n * lg)
+    record("bitonic_sort_kv@bf16",
+           timed_ms(lambda: bitonic.bitonic_sort_kv(xb, iota), 20),
+           event_ms(lambda: bitonic.bitonic_sort_kv_plain(xb, iota), 1,
+                    warm=1),
+           event_ms(lambda: torch.sort(xb, dim=-1, stable=True), 20),
+           n * (2 + 4) * 2, n * lg)
+    record("radix_sort@bf16",
+           timed_ms(lambda: radix.radix_sort(xb), 20),
+           event_ms(lambda: radix.radix_sort_plain(xb), 1, warm=1),
+           event_ms(lambda: torch.sort(xb, dim=-1, stable=True), 20),
+           n * (2 + 2 + 4), n * (16 // radix.DEFAULT_RADIX_BITS))
+    xsb = xs.to(torch.bfloat16)
+    q = xsb[:, ::M // T][:, 1:].contiguous()
+    steps = math.ceil(math.log2(M + 1))
+    probes = T * (T - 1) * steps
+    record("searchsorted@bf16",
+           timed_ms(lambda: bucketize.searchsorted(xsb, q), 200),
+           event_ms(lambda: bucketize.searchsorted_plain(xsb, q), 5),
+           event_ms(lambda: torch.searchsorted(xsb, q, out_int32=True), 200),
+           q.numel() * (2 + 4) + probes * 2, probes)
+    bq = xsb[:1, ::M // T][:, 1:].expand(T, T - 1).contiguous()
+    record("sort_partition@bf16",
+           timed_ms(lambda: fused.sort_partition(xb, bq), 20),
+           event_ms(lambda: fused.sort_partition_plain(xb, bq), 1, warm=1),
+           event_ms(lambda: torch.searchsorted(
+               torch.sort(xb, dim=-1).values, bq, out_int32=True), 20),
+           2 * n * 2 + bq.numel() * 6, n * lg + bq.numel() * steps)
+    record("sort_partition_kv@bf16",
+           timed_ms(lambda: fused.sort_partition_kv(xb, bq), 20),
+           event_ms(lambda: fused.sort_partition_kv_plain(xb, bq), 1,
+                    warm=1),
+           event_ms(lambda: torch.searchsorted(torch.sort(
+               xb, dim=-1, stable=True).values, bq, out_int32=True), 20),
+           n * (2 + 2 + 4) + bq.numel() * 6, n * lg + bq.numel() * steps)
+    cap = flat_receive_capacity(M_SMALL, T_SMALL, cluster.CapacityPolicy.smms(
+        T_SMALL * M_SMALL, T_SMALL, 2).first_factor) // T_SMALL
+    r = torch.sort(torch.rand((T_SMALL, T_SMALL, cap), device=dev)
+                   .to(torch.bfloat16), dim=-1).values
+    lt = math.ceil(math.log2(T_SMALL))
+    record("merge_rows@bf16",
+           timed_ms(lambda: bitonic.merge_sorted_rows(r), 200),
+           event_ms(lambda: bitonic.merge_sorted_rows_plain(r), 5),
+           event_ms(lambda: torch.sort(r.reshape(T_SMALL, -1), dim=-1), 200),
+           2 * r.numel() * 2, r.numel() * lt)
+    record("merge_rows_kv@bf16",
+           timed_ms(lambda: bitonic.merge_sorted_rows_argsort(r), 200),
+           event_ms(lambda: bitonic.merge_sorted_rows_argsort_plain(r), 5),
+           event_ms(lambda: torch.sort(r.reshape(T_SMALL, -1), dim=-1,
+                                       stable=True), 200),
+           r.numel() * (2 + 2 + 4), r.numel() * lt)
+    kp, ip, recv = _main_rank_operands(rng, dev)
+    kb, bb = kp.to(torch.bfloat16), ops.RANK_MERGE_BOUND_BLOCK
+    record("merge_ranks@bf16",
+           timed_ms(lambda: fused.merge_ranks(kb, ip, bb), 5, warm=1),
+           event_ms(lambda: fused.merge_ranks_plain(kb, ip, bb), 1, warm=0),
+           event_ms(lambda: torch.sort(kb.reshape(T, -1), dim=-1), 20),
+           kb.numel() * (2 + 4 + 4), kb.numel() * math.ceil(
+               math.log2(kb.shape[-2])))
+    bk = xb.reshape(-1)
+    hb = torch.sort(bk).values[M::M].contiguous()
+    record("bucketize_histogram@bf16",
+           timed_ms(lambda: bucketize.bucketize_histogram(bk, hb, T), 50),
+           event_ms(lambda: bucketize.bucketize_histogram_plain(bk, hb, T),
+                    5),
+           event_ms(lambda: torch.bincount(torch.bucketize(
+               bk, hb, right=True), minlength=T), 50),
+           bk.numel() * (2 + 4) + (hb.numel() * 2 + T * 4),
+           bk.numel() * math.ceil(math.log2(T)))
 
 
 def e2e_families(label: str, fn, smi: str, reps: int = 6) -> dict:
@@ -1746,6 +2075,8 @@ def main() -> None:
     phase_small_values_and_joins()
     phase_small_terasort()
     phase_small_radix()
+    runs["bf16"] = phase_bf16(smi)
+    runs["wide"] = phase_wide(smi)
     runs["bucketize"] = phase_bucketize(smi)
     phase_serve_smoke()
     serving = phase_serve(smi)
@@ -1762,7 +2093,14 @@ def main() -> None:
                 "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
                 "bound_ms": times[name]["bound_ms"],
                 "bound_by": times[name]["bound_by"],
-                "library_ms": times[name]["library_ms"]}
+                "library_ms": times[name]["library_ms"],
+                # the other key dtype's kernel at the same shape: bf16
+                # for the sort side, the f32 CUDA-core kernel for attention
+                "other_dtype": {key.split("@")[1]: {
+                    f: times[key][f] for f in ("ms", "plain_ms", "bound_ms",
+                                               "bound_by", "library_ms")}
+                    for key in (f"{name}@bf16", f"{name}@f32")
+                    if key in times}}
                for name, k in cuda.KERNELS.items()]
     print(json.dumps({"build": build, "runs": runs, "joins": join_runs,
                       "serve": serving, "times": times,

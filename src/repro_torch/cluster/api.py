@@ -50,6 +50,23 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+# The host dtypes JAX's default 32-bit mode narrows (the reference's
+# front door reads a numpy array through jnp.asarray): float64 and
+# int64 arrays arrive as float32 and int32.
+_X32 = {np.dtype(np.float64): np.dtype(np.float32),
+        np.dtype(np.int64): np.dtype(np.int32)}
+
+
+def _x32(a):
+    """``a`` as the reference's front door sees it: a host array with
+    float64 and int64 narrowed to float32 and int32 (a copy only then);
+    a tensor as it is."""
+    if isinstance(a, torch.Tensor):
+        return a
+    a = np.asarray(a)
+    return a.astype(_X32[a.dtype]) if a.dtype in _X32 else a
+
+
 def _as_tensor(a) -> torch.Tensor:
     """A tensor of ``a``; a numpy array (or a read-only view of one) is
     copied first."""
@@ -61,8 +78,11 @@ def sort(x, *, algorithm: str = "smms", r: int = 2, seed: int = 0,
          exchange: str = "flat", uniforms=None, device=None):
     """Distributed sort of x: (t, m), one row per machine.
 
-    x: a numpy array or a tensor; values: None, or (t, m, ...) payload
-    aligned with x.  ``r`` is SMMS's sampling ratio; ``seed`` and
+    x: a numpy array or a tensor (float32, bfloat16 or int32 keys; a
+    float64 or int64 numpy array is narrowed to float32 or int32, as
+    the reference's front door narrows it); values: None, or (t, m,
+    ...) payload aligned with x, narrowed the same way.  ``r`` is
+    SMMS's sampling ratio; ``seed`` and
     ``uniforms`` ((t, m) float32, one draw per object) are Terasort's
     Algorithm-S draws.  Returns ``((keys, values), report)``: the n
     sorted keys as a tensor on the run's device, the values in the
@@ -88,8 +108,8 @@ def sort(x, *, algorithm: str = "smms", r: int = 2, seed: int = 0,
         raise ValueError(f"values of shape {tuple(np.shape(values))} do not "
                          f"align with x of shape {tuple(np.shape(x))}")
     dev = resolve_device(device)
-    xt = torch.as_tensor(x).to(dev).contiguous()
-    vt = None if values is None else torch.as_tensor(values).to(dev)
+    xt = torch.as_tensor(_x32(x)).to(dev).contiguous()
+    vt = None if values is None else torch.as_tensor(_x32(values)).to(dev)
     if algorithm == "terasort":
         from ..core.terasort import terasort_sort
         ut = None if uniforms is None else _as_tensor(uniforms).to(dev)

@@ -9,8 +9,8 @@ front door pairs its default capacity with the capacity-retry loop.
 
 On the card the gathered small side is one shared array, the operand
 every machine's local join reads; it becomes a sorted searchsorted
-operand (or, when T is the small side, a pair-sort row), so it must fit
-the kernels' gate of 2^16 rows.
+operand (or, when T is the small side, a pair-sort row) of any width:
+past 2^16 rows its sort takes the radix family.
 """
 from __future__ import annotations
 

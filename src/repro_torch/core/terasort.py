@@ -132,5 +132,9 @@ def terasort_sort(x: torch.Tensor, seed: int = 0,
     report.total_dropped = 0
     report.cap_factor = factor
     report.capacity_attempts = attempts
-    report.boundaries = res.boundaries.cpu().numpy()
+    # numpy has no bf16: bf16 boundaries (the samples) come out as
+    # float32, exactly
+    b = res.boundaries
+    report.boundaries = (b.float() if b.dtype == torch.bfloat16
+                         else b).cpu().numpy()
     return (flat, vals), report

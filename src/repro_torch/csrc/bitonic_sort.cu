@@ -30,6 +30,10 @@
 // gets by default, so the kv entry points raise the kernel's dynamic
 // shared-memory limit first (cudaFuncSetAttribute).  It moves twice the
 // bytes of the keys-only sort on every pass.
+//
+// Keys are float32, int32 or bf16.  A bf16 key travels as bf16 (a tile
+// of 8192 is 16 KiB) and is widened to float32 in registers to be
+// compared (network.cuh cmp_key), so a bf16 pass moves half the bytes.
 #include "sort_tiles.cuh"
 
 using namespace repro;
@@ -62,4 +66,14 @@ extern "C" int bitonic_sort_kv_f32(float* k, int* v, long long rows,
 extern "C" int bitonic_sort_kv_i32(int* k, int* v, long long rows,
                                    long long n, void* stream) {
   return sort_only<int, true>(k, v, rows, n, stream);
+}
+
+extern "C" int bitonic_sort_bf16(__nv_bfloat16* x, long long rows,
+                                 long long n, void* stream) {
+  return sort_only<__nv_bfloat16, false>(x, nullptr, rows, n, stream);
+}
+
+extern "C" int bitonic_sort_kv_bf16(__nv_bfloat16* k, int* v, long long rows,
+                                    long long n, void* stream) {
+  return sort_only<__nv_bfloat16, true>(k, v, rows, n, stream);
 }

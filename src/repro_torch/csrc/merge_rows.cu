@@ -34,6 +34,8 @@
 // launch latency, not by arithmetic.  The kv variant moves a second
 // 4-byte channel through the same passes; its tile of 8192 pairs takes
 // 64 KiB of dynamic shared memory, allowed by cudaFuncSetAttribute.
+// Keys are float32, int32 or bf16 (moved as bf16, compared as float32:
+// network.cuh cmp_key).
 #include "network.cuh"
 
 using namespace repro;
@@ -211,4 +213,17 @@ extern "C" int merge_rows_kv_i32(int* k, int* v, long long batch,
                                  void* stream) {
   return merge_runs<int, true>(k, v, batch, total, run,
                                static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int merge_rows_bf16(__nv_bfloat16* x, long long batch,
+                               long long total, long long run, void* stream) {
+  return merge_runs<__nv_bfloat16, false>(x, nullptr, batch, total, run,
+                                          static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int merge_rows_kv_bf16(__nv_bfloat16* k, int* v, long long batch,
+                                  long long total, long long run,
+                                  void* stream) {
+  return merge_runs<__nv_bfloat16, true>(k, v, batch, total, run,
+                                         static_cast<cudaStream_t>(stream));
 }

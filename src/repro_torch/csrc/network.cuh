@@ -6,8 +6,11 @@
 // told to (and these sources are built without -ftz and without
 // --use_fast_math), so every comparison here goes through cmp_key(),
 // which folds a denormal to the zero of its sign in the bits domain.
-// The data itself is only ever moved, never rewritten: a sort or merge
-// returns a permutation of its input.
+// bf16 keys are widened to float32 by cmp_key (exact, order-keeping;
+// bf16 has float32's exponent field, so its denormals are the ones XLA
+// flushes when it widens them): the kernels compare cmp_t<T> values and
+// move T values.  The data itself is only ever moved, never rewritten:
+// a sort or merge returns a permutation of its input.
 //
 // Swap rule.  A compare-exchange swaps only when gt(a, b) differs from
 // the direction bit, as the reference's _compare_exchange does
@@ -16,8 +19,11 @@
 // break both properties.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <utility>
 
 namespace repro {
 
@@ -26,7 +32,18 @@ __device__ __forceinline__ float cmp_key(float v) {
   return (u & 0x7f800000u) == 0u ? __uint_as_float(u & 0x80000000u) : v;
 }
 
+__device__ __forceinline__ float cmp_key(__nv_bfloat16 v) {
+  const uint32_t u = static_cast<uint32_t>(__bfloat16_as_ushort(v)) << 16;
+  return (u & 0x7f800000u) == 0u ? __uint_as_float(u & 0x80000000u)
+                                 : __uint_as_float(u);
+}
+
 __device__ __forceinline__ int cmp_key(int v) { return v; }
+
+// The type a key of T compares as: float for float32 and bf16, int for
+// int32.
+template <typename T>
+using cmp_t = decltype(cmp_key(std::declval<T>()));
 
 template <typename T>
 __device__ __forceinline__ bool gt(T a, T b) {

@@ -1,5 +1,7 @@
-// Stable row-wise LSD radix sort of a (rows, n) array of float32 or
-// int32 keys, any n >= 1: the sorted rows and the int32 stable argsort.
+// Stable row-wise LSD radix sort of a (rows, n) array of float32, int32
+// or bf16 keys, any n >= 1: the sorted rows and the int32 stable argsort.
+// bf16 keys are 16-bit keys: 4 passes of 4 bits instead of 8, as the
+// reference's key_bits has it (radix.py:79).
 //
 // Replaces: src/repro/kernels/radix.py radix_sort (pallas_call at :235;
 // body _radix_kernel :185 -> _pass_positions :161, keys through
@@ -54,7 +56,9 @@ namespace {
 
 constexpr int kBits = 4;
 constexpr int kBins = 1 << kBits;
-constexpr int kPasses = 32 / kBits;
+// 8 passes for 32-bit keys, 4 for bf16's 16 (radix.py key_bits)
+template <typename T>
+constexpr int kPasses = 8 * sizeof(T) / kBits;
 constexpr int kThreads = 256;
 constexpr int kPerThread = 16;
 constexpr int kTile = kThreads * kPerThread;   // 4096 keys a block
@@ -84,6 +88,15 @@ __device__ __forceinline__ uint32_t sort_ready(float v) {
 
 __device__ __forceinline__ uint32_t sort_ready(int v) {
   return static_cast<uint32_t>(v) ^ 0x80000000u;
+}
+
+// bf16: the same fold on 16 bits, in the low half of the word (NaN to
+// 0xffff, the denormal band [0x7f80, 0x8080) and -0.0 onto 0x8000).
+__device__ __forceinline__ uint32_t sort_ready(__nv_bfloat16 v) {
+  const uint32_t u = __bfloat16_as_ushort(v);
+  if ((u & 0x7fffu) > 0x7f80u) return 0xffffu;                 // NaN
+  const uint32_t b = (u & 0x8000u) ? (~u & 0xffffu) : (u ^ 0x8000u);
+  return (b >= 0x7f80u && b < 0x8080u) ? 0x8000u : b;
 }
 
 __device__ __forceinline__ int digit_of(uint32_t b, int shift) {
@@ -269,7 +282,7 @@ int radix_rows(const T* x, T* sorted, int* order, uint32_t* bits_a,
   const long long blocks = rows * tiles;
   uint32_t* bits[2] = {bits_a, bits_b};
   int* idx[2] = {idx_a, order};
-  for (int p = 0; p < kPasses; ++p) {
+  for (int p = 0; p < kPasses<T>; ++p) {
     const int shift = p * kBits;
     const int in = (p + 1) & 1, out = p & 1;  // pass p writes buffer p % 2
     if (p == 0)
@@ -282,7 +295,7 @@ int radix_rows(const T* x, T* sorted, int* order, uint32_t* bits_a,
       scatter<T, true, false><<<blocks, kThreads, 0, stream>>>(
           x, nullptr, nullptr, bits[out], idx[out], nullptr, n, tiles, shift,
           counts);
-    else if (p < kPasses - 1)
+    else if (p < kPasses<T> - 1)
       scatter<T, false, false><<<blocks, kThreads, 0, stream>>>(
           x, bits[in], idx[in], bits[out], idx[out], nullptr, n, tiles,
           shift, counts);
@@ -311,6 +324,15 @@ extern "C" int radix_sort_i32(const int* x, int* sorted, int* order,
                               int* bits_a, int* idx_a, int* bits_b,
                               int* counts, long long rows, long long n,
                               void* stream) {
+  return radix_rows(x, sorted, order, reinterpret_cast<uint32_t*>(bits_a),
+                    idx_a, reinterpret_cast<uint32_t*>(bits_b), counts, rows,
+                    n, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int radix_sort_bf16(const __nv_bfloat16* x, __nv_bfloat16* sorted,
+                               int* order, int* bits_a, int* idx_a,
+                               int* bits_b, int* counts, long long rows,
+                               long long n, void* stream) {
   return radix_rows(x, sorted, order, reinterpret_cast<uint32_t*>(bits_a),
                     idx_a, reinterpret_cast<uint32_t*>(bits_b), counts, rows,
                     n, static_cast<cudaStream_t>(stream));

@@ -31,22 +31,32 @@
 // blocks run in no order, and integer atomics are exact, so the counts
 // are the same whatever order they land in.  Past SHARED_HIST_MAX
 // buckets the counters would not fit shared memory, and each key adds
-// to the global counts directly (equally exact).
+// to the global counts directly (equally exact): so any number of
+// boundaries up to kMaxBounds is taken, past the reference's 2^16-lane
+// gate too.
+//
+// Keys are float32, bf16 (compared as float32, cmp_key) or int32; a
+// bf16 row is read as bf16, half the bytes of a float32 one.
 #include "network.cuh"
 
 using namespace repro;
 
 namespace {
 
+// Rows (and boundary lists) of up to 2^30 keys: the search's int
+// arithmetic, lo + hi included, stays in range.
+constexpr long long kMaxBounds = 1LL << 30;
+
 // The reference's search: #bounds <= key (right) or < key (left) among
 // the n sorted bounds, in `steps` = ceil(log2(n + 1)) halvings.
 template <typename T>
-__device__ __forceinline__ int bin_search(const T* bounds, int n, T key,
-                                          int right, int steps) {
+__device__ __forceinline__ int bin_search(const T* bounds, int n,
+                                          cmp_t<T> key, int right,
+                                          int steps) {
   int lo = 0, hi = n;
   for (int s = 0; s < steps; ++s) {
     const int mid = min((lo + hi) / 2, n - 1);
-    const T b = cmp_key(bounds[mid]);
+    const cmp_t<T> b = cmp_key(bounds[mid]);
     const bool pred = right ? (b <= key) : (b < key);
     const bool go_right = pred && (lo < hi);
     lo = go_right ? mid + 1 : lo;
@@ -72,6 +82,7 @@ int search_rows(const T* arr, const T* queries, int* out, long long batch,
                 cudaStream_t stream) {
   const long long total = batch * nq;
   if (total <= 0 || n <= 0) return static_cast<int>(cudaGetLastError());
+  if (n > kMaxBounds) return static_cast<int>(cudaErrorInvalidValue);
   const int threads = 128;
   search<T><<<(total + threads - 1) / threads, threads, 0, stream>>>(
       arr, queries, out, batch, n, nq, right, steps);
@@ -109,7 +120,8 @@ template <typename T>
 int bucketize_keys(const T* keys, const T* bounds, int* ids, int* counts,
                    long long n, long long t, int steps,
                    cudaStream_t stream) {
-  if (t < 2) return static_cast<int>(cudaErrorInvalidValue);
+  if (t < 2 || t - 1 > kMaxBounds)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaMemsetAsync(counts, 0, sizeof(int) * t, stream);
   if (err != cudaSuccess || n <= 0) return static_cast<int>(err);
   // enough blocks to fill the card several times over; each thread
@@ -151,6 +163,22 @@ extern "C" int bucketize_histogram_f32(const float* keys, const float* bounds,
 extern "C" int bucketize_histogram_i32(const int* keys, const int* bounds,
                                        int* ids, int* counts, long long n,
                                        long long t, int steps, void* stream) {
+  return bucketize_keys(keys, bounds, ids, counts, n, t, steps,
+                        static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int searchsorted_bf16(const __nv_bfloat16* arr,
+                                 const __nv_bfloat16* queries, int* out,
+                                 long long batch, long long n, long long nq,
+                                 int right, int steps, void* stream) {
+  return search_rows(arr, queries, out, batch, n, nq, right, steps,
+                     static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int bucketize_histogram_bf16(const __nv_bfloat16* keys,
+                                        const __nv_bfloat16* bounds, int* ids,
+                                        int* counts, long long n, long long t,
+                                        int steps, void* stream) {
   return bucketize_keys(keys, bounds, ids, counts, n, t, steps,
                         static_cast<cudaStream_t>(stream));
 }

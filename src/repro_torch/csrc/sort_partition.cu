@@ -27,7 +27,8 @@
 // Terasort's Round 3 at (64, 65536) with 63 queries, 32,256 atomics,
 // against the reference's separate search pass over the sorted row.
 // Rows of 8192 or fewer (RandJoin's routing at (64, 2048)) take one
-// launch of one block per row, after the cuts are cleared.
+// launch of one block per row, after the cuts are cleared.  Keys are
+// float32, int32 or bf16 (compared as float32, network.cuh cmp_key).
 #include "sort_tiles.cuh"
 
 using namespace repro;
@@ -70,4 +71,21 @@ extern "C" int sort_partition_kv_i32(int* k, int* v, const int* queries,
                                      long long m, long long nq, void* stream) {
   return sort_partition_rows<int, true>(k, v, queries, cuts, rows, n, m, nq,
                                         stream);
+}
+
+extern "C" int sort_partition_bf16(__nv_bfloat16* x,
+                                   const __nv_bfloat16* queries, int* cuts,
+                                   long long rows, long long n, long long m,
+                                   long long nq, void* stream) {
+  return sort_partition_rows<__nv_bfloat16, false>(x, nullptr, queries, cuts,
+                                                   rows, n, m, nq, stream);
+}
+
+extern "C" int sort_partition_kv_bf16(__nv_bfloat16* k, int* v,
+                                      const __nv_bfloat16* queries, int* cuts,
+                                      long long rows, long long n,
+                                      long long m, long long nq,
+                                      void* stream) {
+  return sort_partition_rows<__nv_bfloat16, true>(k, v, queries, cuts, rows,
+                                                  n, m, nq, stream);
 }

@@ -78,7 +78,8 @@ __global__ void tile_stages(T* x, int* v, long long n, int log_tile,
     real = real < 0 ? 0 : (real > tile ? tile : real);
     for (long long qi = threadIdx.x; real > 0 && qi < search.nq;
          qi += blockDim.x) {
-      const T key = cmp_key(search.queries[row * search.nq + qi]);
+      const cmp_t<T> key =
+          cmp_key(search.queries[row * search.nq + qi]);
       int lo = 0, hi = static_cast<int>(real);
       while (lo < hi) {
         const int mid = (lo + hi) >> 1;

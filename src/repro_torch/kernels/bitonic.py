@@ -49,11 +49,16 @@ __all__ = [
     "merge_network_block_kv",
     "sort_sentinel",
     "ftz",
+    "as_bits",
     "MERGE_TILE_LANES",
 ]
 
-KEY_DTYPES = (torch.float32, torch.int32)
-_SUFFIX = {torch.float32: "f32", torch.int32: "i32"}
+# The key dtypes every sort-side kernel takes, as the reference's
+# _KERNEL_KEY_DTYPES (src/repro/kernels/ops.py:157-158).  bf16 keys stay
+# bf16 in device memory; the kernels widen them to float32 in registers
+# to compare them, which is exact and keeps their order.
+KEY_DTYPES = (torch.float32, torch.bfloat16, torch.int32)
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int32: "i32"}
 
 # The reference's soft per-block lane target for its hierarchical merge
 # (src/repro/kernels/bitonic.py:294), kept at its value until the gate
@@ -75,13 +80,28 @@ def ftz(x: torch.Tensor) -> torch.Tensor:
 
     Done on the bits (an exponent field of 0 keeps only the sign bit),
     because arithmetic such as ``x + 0.0`` does not flush on the CPU.
-    Integer keys are returned as they are.
+    bf16 has float32's exponent field, so its denormals are the ones
+    XLA flushes when it widens them to compare.  Integer keys are
+    returned as they are.
     """
-    if x.dtype != torch.float32:
-        return x
-    bits = x.view(torch.int32)
-    sign = bits & torch.iinfo(torch.int32).min
-    return torch.where((bits & 0x7F800000) == 0, sign, bits).view(torch.float32)
+    if x.dtype == torch.float32:
+        bits = x.view(torch.int32)
+        sign = bits & torch.iinfo(torch.int32).min
+        return torch.where((bits & 0x7F800000) == 0, sign,
+                           bits).view(torch.float32)
+    if x.dtype == torch.bfloat16:
+        bits = x.view(torch.int16)
+        sign = bits & torch.iinfo(torch.int16).min
+        return torch.where((bits & 0x7F80) == 0, sign,
+                           bits).view(torch.bfloat16)
+    return x
+
+
+def as_bits(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself, or a bf16 tensor's int16 view: torch's CPU
+    ``gather`` and ``scatter_`` rewrite a bf16 NaN's bits, so keys are
+    moved by those two as int16."""
+    return x.view(torch.int16) if x.dtype == torch.bfloat16 else x
 
 
 def _next_pow2(n: int) -> int:
@@ -230,8 +250,8 @@ def bitonic_sort(x: torch.Tensor) -> torch.Tensor:
 
     n is padded to a power of two (at least 2) with the sort sentinel
     and the padding stripped after.  A CUDA tensor runs the kernel
-    (float32 or int32; anything else raises); a CPU tensor runs
-    :func:`bitonic_sort_plain`.
+    (float32, bfloat16 or int32; anything else raises); a CPU tensor
+    runs :func:`bitonic_sort_plain`.
     """
     if not x.is_cuda:
         return bitonic_sort_plain(x)
@@ -256,8 +276,8 @@ def bitonic_sort_kv(keys: torch.Tensor, values: torch.Tensor):
     (keys, arange(n)) yields the stable argsort in the value channel.
     Rows are padded to a power of two with the sort sentinel in both
     channels (the value sentinel is int32 max), as the reference pads
-    them.  A CUDA tensor runs the kernel (float32 or int32 keys); a CPU
-    tensor runs :func:`bitonic_sort_kv_plain`.
+    them.  A CUDA tensor runs the kernel (float32, bfloat16 or int32
+    keys); a CPU tensor runs :func:`bitonic_sort_kv_plain`.
     """
     if keys.shape != values.shape:
         raise ValueError(f"bitonic_sort_kv: keys {tuple(keys.shape)} and "

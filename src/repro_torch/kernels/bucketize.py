@@ -69,8 +69,9 @@ def searchsorted(sorted_arr: torch.Tensor, queries: torch.Tensor,
     """Row-wise ``searchsorted(sorted_arr[b], queries[b], side)``, int32.
 
     sorted_arr: (B, n) ascending rows (duplicates fine); queries:
-    (B, q).  A CUDA tensor runs the kernel (float32 or int32, both
-    operands of one dtype); a CPU tensor runs the plain version.
+    (B, q); any row width.  A CUDA tensor runs the kernel (float32,
+    bfloat16 or int32, both operands of one dtype); a CPU tensor runs
+    the plain version.
     """
     if side not in ("left", "right"):
         raise ValueError(f"side must be 'left' or 'right', got {side!r}")
@@ -130,8 +131,9 @@ def bucketize_histogram(keys: torch.Tensor, boundaries: torch.Tensor,
     'right') -- denormals compare as zero, a NaN key lands in bucket 0
     -- and counts[i] is the number of keys with id i, both int32.
     Duplicate boundaries leave their middle buckets empty; t need not
-    be a power of two.  A CUDA tensor runs the kernel (float32 or int32,
-    one dtype for both operands); a CPU tensor the plain version.
+    be a power of two, nor below 2^16.  A CUDA tensor runs the kernel
+    (float32, bfloat16 or int32, one dtype for both operands); a CPU
+    tensor the plain version.
     """
     _check_buckets(keys, boundaries, t)
     if not keys.is_cuda:

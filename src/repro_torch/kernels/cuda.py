@@ -90,30 +90,24 @@ _P, _I64, _I32, _F32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                         ctypes.c_float)
 _FLASH = [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _F32, _I32,
           _I32, _P]
-SIGNATURES = {
-    "bitonic_sort_f32": [_P, _I64, _I64, _P],
-    "bitonic_sort_i32": [_P, _I64, _I64, _P],
-    "searchsorted_f32": [_P, _P, _P, _I64, _I64, _I64, _I32, _I32, _P],
-    "searchsorted_i32": [_P, _P, _P, _I64, _I64, _I64, _I32, _I32, _P],
-    "bitonic_sort_kv_f32": [_P, _P, _I64, _I64, _P],
-    "bitonic_sort_kv_i32": [_P, _P, _I64, _I64, _P],
-    "merge_rows_f32": [_P, _I64, _I64, _I64, _P],
-    "merge_rows_i32": [_P, _I64, _I64, _I64, _P],
-    "merge_rows_kv_f32": [_P, _P, _I64, _I64, _I64, _P],
-    "merge_rows_kv_i32": [_P, _P, _I64, _I64, _I64, _P],
-    "merge_ranks_f32": [_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P],
-    "merge_ranks_i32": [_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P],
-    "sort_partition_f32": [_P, _P, _P, _I64, _I64, _I64, _I64, _P],
-    "sort_partition_i32": [_P, _P, _P, _I64, _I64, _I64, _I64, _P],
-    "sort_partition_kv_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
-    "sort_partition_kv_i32": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
-    "radix_sort_f32": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _P],
-    "radix_sort_i32": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _P],
-    "bucketize_histogram_f32": [_P, _P, _P, _P, _I64, _I64, _I32, _P],
-    "bucketize_histogram_i32": [_P, _P, _P, _P, _I64, _I64, _I32, _P],
-    "flash_attention_f32": _FLASH,
-    "flash_attention_bf16": _FLASH,
+_SORT_SIGNATURES = {
+    "bitonic_sort": [_P, _I64, _I64, _P],
+    "searchsorted": [_P, _P, _P, _I64, _I64, _I64, _I32, _I32, _P],
+    "bitonic_sort_kv": [_P, _P, _I64, _I64, _P],
+    "merge_rows": [_P, _I64, _I64, _I64, _P],
+    "merge_rows_kv": [_P, _P, _I64, _I64, _I64, _P],
+    "merge_ranks": [_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P],
+    "sort_partition": [_P, _P, _P, _I64, _I64, _I64, _I64, _P],
+    "sort_partition_kv": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
+    "radix_sort": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _P],
+    "bucketize_histogram": [_P, _P, _P, _P, _I64, _I64, _I32, _P],
 }
+# every sort-side kernel has one entry point per key dtype
+SIGNATURES = {f"{fn}_{suffix}": args
+              for fn, args in _SORT_SIGNATURES.items()
+              for suffix in ("f32", "bf16", "i32")}
+SIGNATURES.update({"flash_attention_f32": _FLASH,
+                   "flash_attention_bf16": _FLASH})
 
 # kernel name -> launches made through launch(); the counts the chip
 # smoke run reads to show the main path went through each kernel.

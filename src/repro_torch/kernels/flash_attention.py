@@ -1,9 +1,11 @@
 """Blocked causal attention (flash-style online softmax): the LM's prefill.
 
 Counterpart of ``src/repro/kernels/flash_attention.py`` (``pallas_call``
-at :105, body ``_fa_kernel`` :31).  The kernel is
-``csrc/flash_attention.cu``; :func:`flash_attention_plain` is its plain
-version, the same online softmax over blocks of keys in torch ops:
+at :105, body ``_fa_kernel`` :31).  The kernels are in
+``csrc/flash_attention.cu``: bf16 runs on the tensor cores (``fa_wgmma``:
+wgmma products, K/V tiles double-buffered by cp.async), float32 on
+the CUDA cores (``fa_simt``).  :func:`flash_attention_plain` is their
+plain version, the same online softmax over blocks of keys in torch ops:
 scores in float32 with the -1e30 mask, the running (m, l, acc), and
 ``acc / where(l == 0, 1, l)`` at the end.  GQA maps q head h to kv head
 h // (Hq // Hkv); a sliding window keeps keys with kpos > qpos - window;
@@ -26,14 +28,17 @@ __all__ = ["flash_attention", "flash_attention_plain", "DTYPES",
 NEG = -1e30
 DTYPES = (torch.float32, torch.bfloat16)
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
-# The kernel's key tile (csrc/flash_attention.cu: 64 queries a block, 32
-# keys a step).  The plain version steps over keys by the same tile.
+# The float32 kernel's key tile (csrc/flash_attention.cu fa_simt: 64
+# queries a block, 32 keys a step).  The plain version steps over keys
+# by the same tile.
 BLOCK_K = 32
-# head dims the kernel is compiled for; another d <= 256 is zero-padded
-# to the next one (zero columns add nothing to q.k, and the padded
-# output columns are cut off)
-HEAD_DIMS = (16, 32, 64, 128, 256)
-MAX_HEAD_DIM = HEAD_DIMS[-1]
+# head dims the kernels are compiled for, by dtype; another d <= 256 is
+# zero-padded to the next one (zero columns add nothing to q.k, and the
+# padded output columns are cut off).  The bf16 kernel's wgmma tiles
+# take rows of 64 values or more.
+HEAD_DIMS = {torch.float32: (16, 32, 64, 128, 256),
+             torch.bfloat16: (64, 128, 256)}
+MAX_HEAD_DIM = 256
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -113,10 +118,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     hkv, sk = k.shape[1], k.shape[2]
     if b * hq > 65535:
         raise ValueError(f"flash_attention: B * Hq = {b * hq} > 65535")
-    dk = next(h for h in HEAD_DIMS if h >= d)
+    dk = next(h for h in HEAD_DIMS[q.dtype] if h >= d)
     if dk != d:
         pad = (0, dk - d)
         q, k, v = (torch.nn.functional.pad(x, pad) for x in (q, k, v))
+    # the bf16 kernel copies rows in 16-byte pieces (cp.async)
+    q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (q, k, v))
     out = torch.empty_like(q)
     if sq > 0:
         cuda.launch("flash_attention",

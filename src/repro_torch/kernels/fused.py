@@ -10,9 +10,10 @@ with its plain PyTorch version beside it:
 * :func:`sort_partition_kv` -- the (key, iota) pair sort (the stable
   argsort) with the same search.  Same source.
 * :func:`merge_ranks` -- every element's rank in the lexicographic
-  (key, flat id) order of t sorted rows (``_bin_search_pairs_block``
-  and ``_bin_search_pairs_bounded``, summed over the bound rows);
-  CUDA source ``csrc/merge_ranks.cu``.
+  (key, flat id) order of t sorted rows (the reference's
+  ``_bin_search_pairs_block`` and ``_bin_search_pairs_bounded``, summed
+  over the bound rows; the plain version's whole-row search gives the
+  blocked sums too); CUDA source ``csrc/merge_ranks.cu``.
 
 The plain versions run the networks of ``bitonic.py`` and the searches
 of ``bucketize.py`` in torch ops.  A CUDA tensor launches the kernel, a
@@ -143,47 +144,39 @@ def _bin_search_pairs_block(qk, qi, bk, bi, n_bounds: int) -> torch.Tensor:
     return lo
 
 
-def _bin_search_pairs_bounded(qk, qi, bk, bi, n_valid: int,
-                              steps: int) -> torch.Tensor:
-    """Count pairs in ONE bound block (B, bb) lexicographically < each
-    query; ``n_valid`` of its slots are real."""
-    width = bk.shape[-1]
-    lo = torch.zeros(qk.shape, dtype=torch.int32, device=qk.device)
-    hi = torch.full(qk.shape, n_valid, dtype=torch.int32, device=qk.device)
-    for _ in range(steps):
-        mid = torch.clamp((lo + hi) // 2, 0, width - 1).long()
-        k_mid = torch.gather(bk, 1, mid)
-        i_mid = torch.gather(bi, 1, mid)
-        pred = (k_mid < qk) | ((k_mid == qk) & (i_mid < qi))
-        go_right = pred & (lo < hi)
-        lo = torch.where(go_right, mid.int() + 1, lo)
-        hi = torch.where(go_right, hi, mid.int())
-        hi = torch.maximum(hi, lo)
-    return lo
+# Queries times bound rows that one step of the plain version searches
+# at once (the searches of several bound rows share a step when the
+# queries are few).
+_PLAIN_SEARCH_ELEMS = 1 << 22
 
 
-def _ranks_plain(keys, ids, c: int, bb: Optional[int]) -> torch.Tensor:
+def _ranks_plain(keys, ids, c: int) -> torch.Tensor:
     """Plain version of the kernel: keys/ids (batch, t, w) -> (batch, t, w).
 
-    The reference's sequential bound-row grid axis is the loop over k;
-    its bound-block axis the loop over column blocks.
+    The reference's sequential bound-row grid axis is the loop over k,
+    ``ch`` bound rows a step.  Its blocked variant searches each column
+    block [base, base + bb) of a bound row apart; the row is sorted, so
+    a block holds clamp(n - base, 0, valid) of the n pairs below a query
+    in the whole row, and the blocks' counts sum to n: one whole-row
+    search gives the blocked result too.  Each count is exact, so the
+    sum does not depend on ``ch``.
     """
     batch, t, w = keys.shape
-    qk = ftz(keys).reshape(batch, t * w)
-    qi = ids.reshape(batch, t * w)
-    pos = torch.zeros((batch, t * w), dtype=torch.int32, device=keys.device)
+    nq = t * w
+    ch = max(1, min(t, _PLAIN_SEARCH_ELEMS // max(1, batch * nq)))
+    qk = ftz(keys).reshape(batch, 1, nq)
+    qi = ids.reshape(batch, 1, nq)
+    pos = torch.zeros((batch, nq), dtype=torch.int32, device=keys.device)
     bk_all = ftz(keys)
-    for k in range(t):
-        bk, bi = bk_all[:, k], ids[:, k]
-        if bb is None:
-            pos += _bin_search_pairs_block(qk, qi, bk, bi, c)
-            continue
-        steps = _steps(bb)
-        for base in range(0, w, bb):
-            valid = min(max(c - base, 0), bb)
-            pos += _bin_search_pairs_bounded(
-                qk, qi, bk[:, base:base + bb], bi[:, base:base + bb],
-                valid, steps)
+    for k0 in range(0, t, ch):
+        rows = min(ch, t - k0)
+        # (batch * rows) searches: each bound row against all queries
+        q_k = qk.expand(batch, rows, nq).reshape(batch * rows, nq)
+        q_i = qi.expand(batch, rows, nq).reshape(batch * rows, nq)
+        bk = bk_all[:, k0:k0 + rows].reshape(batch * rows, w)
+        bi = ids[:, k0:k0 + rows].reshape(batch * rows, w)
+        found = _bin_search_pairs_block(q_k, q_i, bk, bi, c)
+        pos += found.reshape(batch, rows, nq).sum(dim=1, dtype=torch.int32)
     return pos.reshape(batch, t, w)
 
 
@@ -204,8 +197,8 @@ def _padded(keys, ids, bound_block):
 def merge_ranks_plain(keys: torch.Tensor, ids: torch.Tensor,
                       bound_block: Optional[int] = None) -> torch.Tensor:
     """The plain version of :func:`merge_ranks`, on any device."""
-    keys, ids, c, bb = _padded(keys, ids, bound_block)
-    return _ranks_plain(keys, ids, c, bb)[:, :, :c]
+    keys, ids, c, _ = _padded(keys, ids, bound_block)
+    return _ranks_plain(keys, ids, c)[:, :, :c]
 
 
 def merge_ranks(keys: torch.Tensor, ids: torch.Tensor,

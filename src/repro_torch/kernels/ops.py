@@ -13,9 +13,15 @@ backend switch and no fallback:
   a CUDA tensor launches the hand-written kernel, a CPU tensor runs the
   kernel's plain PyTorch version (the same network or search in torch
   ops, which is how the tests hold the port against the reference);
-* an operand outside the kernels' gate (:func:`kernel_eligible`: dtype,
-  rank, row width) raises on either device, so a CUDA run can never
-  end up in a library sort.
+* the kernels take every operand the reference's ``ops`` takes
+  (:func:`kernel_eligible`: float32, bfloat16 or int32 keys, rows of
+  any width); where the reference falls back to jnp past its VMEM-sized
+  gate, the port picks another kernel of its own (the radix sort past
+  the bitonic tile's reach, the rank merge past one tile, the search
+  and the histogram at any width);
+* any other operand (another dtype, a rank the ops do not take)
+  raises on either device, so a CUDA run can never end up in a library
+  sort.
 
 The sorts come in two kernel families, as in the reference: the bitonic
 network (``bitonic.py``, ``fused.py``) and the LSD radix sort
@@ -55,11 +61,15 @@ __all__ = [
     "RADIX_MIN_LANES", "RADIX_PASS_SUBSTAGES",
 ]
 
-# The reference's VMEM-sized constants (src/repro/kernels/ops.py:108,
-# :114 and bitonic.py:294), kept at their values so the port takes the
-# same merge path as the reference at every shape.  The CUDA kernels
-# size their own shared-memory tiles (csrc/*.cu); re-sizing these gates
-# for the H100 comes with the kernel redesigns.
+# Which kernel runs, not what is admitted.  The reference's VMEM-sized
+# constants (src/repro/kernels/ops.py:108, :114 and bitonic.py:294),
+# kept at their values so the port takes the same kernels as the
+# reference at every shape its kernels take: MAX_KERNEL_LANES is the
+# bitonic tile's reach (past it a row sorts by the radix family, and t
+# landed rows merge by the rank merge once their padded t * c passes
+# it); RANK_MERGE_BOUND_BLOCK the rank merge's bound-row block.  The
+# CUDA kernels size their own shared-memory tiles (csrc/*.cu);
+# re-sizing these for the H100 comes with the kernel redesigns.
 MAX_KERNEL_LANES = 1 << 16
 RANK_MERGE_BOUND_BLOCK = 1 << 11
 MERGE_TILE_LANES = bitonic.MERGE_TILE_LANES
@@ -68,14 +78,15 @@ MERGE_TILE_LANES = bitonic.MERGE_TILE_LANES
 # network's log2(n)(log2(n)+1)/2 compare-exchange substages exceed
 # ceil(key_bits / RADIX_BITS) counting passes of RADIX_PASS_SUBSTAGES
 # substages each, on rows of at least RADIX_MIN_LANES.  Fitted on the
-# H100 by chip_smoke.py's crossover table (PERF.md): at (64, 2^k),
-# k = 13..16, one pass of the radix kernel took as long as about 19 or
-# more substages of the bitonic kernel (fewest at the main path's 2^16,
-# float32), and radix was slower at every width on keys only.  With 19
-# the model keeps bitonic at every width the gate admits (136 substages
-# at 2^16 against 8 x 19 = 152) and would first pick radix at 2^17;
-# radix runs where it is forced.  RADIX_MIN_LANES keeps the reference's
-# value.
+# H100 by chip_smoke.py's crossover table (PERF.md) on float32: at
+# (64, 2^k), k = 13..16, one pass of the radix kernel took as long as
+# about 19 or more substages of the bitonic kernel (fewest at the main
+# path's 2^16), and radix was slower at every width on keys only.  With
+# 19 the model keeps bitonic for 32-bit keys at every width of the
+# bitonic tile's reach (136 substages at 2^16 against 8 x 19 = 152);
+# bf16 keys take 4 passes (76 substages), so they pick radix from 2^13
+# (91 substages) on, as the reference's model does an octave early.
+# RADIX_MIN_LANES keeps the reference's value.
 RADIX_BITS = radix.DEFAULT_RADIX_BITS
 RADIX_MIN_LANES = 1 << 13
 RADIX_PASS_SUBSTAGES = 19
@@ -106,8 +117,9 @@ def _key_dtype_ok(x) -> bool:
     return x.dtype in bitonic.KEY_DTYPES
 
 
-def _lanes_ok(n: int) -> bool:
-    return 1 <= _next_pow2(n) <= MAX_KERNEL_LANES
+def _fits_tile(n: int) -> bool:
+    """Within the bitonic tile's reach: a padded row of n lanes."""
+    return _next_pow2(n) <= MAX_KERNEL_LANES
 
 
 def pad_pow2(x: torch.Tensor, fill=None, axis: int = -1) -> torch.Tensor:
@@ -131,46 +143,36 @@ def pad_pow2(x: torch.Tensor, fill=None, axis: int = -1) -> torch.Tensor:
 
 
 def kernel_eligible(op: str, x: torch.Tensor, y=None) -> bool:
-    """Would the kernels take these operands?  Shape/dtype gate only.
+    """Do the kernels take these operands?  Shape/dtype gate only.
 
-    ``y`` is the second operand where the op has one (sort_kv values,
-    searchsorted queries, merge payload).
+    What is admitted, at any row width: float32, bfloat16 or int32 keys
+    (the reference's ``_KERNEL_KEY_DTYPES``) of the ranks the ops take.
+    Which kernel then runs is :func:`sort_kernel_choice`'s and the
+    merge's business.  ``y`` is the second operand where the op has one
+    (sort_kv values, searchsorted queries, merge payload).
     """
     if op in ("sort", "radix"):
-        # the radix family needs no power-of-two padding, but takes the
-        # same dtypes and row widths as the bitonic sort
-        return x.dim() in (1, 2) and _key_dtype_ok(x) and _lanes_ok(x.shape[-1])
+        return x.dim() in (1, 2) and _key_dtype_ok(x)
     if op == "sort_kv":
         return (x.dim() in (1, 2) and _key_dtype_ok(x)
-                and _lanes_ok(x.shape[-1])
                 and (y is None or y.shape[:x.dim()] == x.shape))
     if op == "searchsorted":
         return (x.dim() in (1, 2) and y is not None and y.dim() in (1, 2)
                 and y.dim() <= x.dim() and x.shape[-1] > 0
                 and y.shape[-1] > 0 and _key_dtype_ok(x)
-                and x.dtype == y.dtype and _lanes_ok(x.shape[-1]))
+                and x.dtype == y.dtype)
     if op in ("sort_partition", "sort_partition_kv"):
-        return (x.dim() in (1, 2) and _key_dtype_ok(x)
-                and _lanes_ok(x.shape[-1]) and y is not None
+        return (x.dim() in (1, 2) and _key_dtype_ok(x) and y is not None
                 and y.dim() in (1, 2) and y.dim() <= x.dim()
-                and y.shape[-1] > 0 and x.dtype == y.dtype
-                and _lanes_ok(y.shape[-1]))
+                and y.shape[-1] > 0 and x.dtype == y.dtype)
     if op == "bucketize_histogram":
-        # the reference's gate (ops.py:301): 1-D keys and boundaries of
-        # one key dtype, at most MAX_KERNEL_LANES boundaries
+        # 1-D keys and boundaries of one key dtype (the reference's
+        # ops.py:301, less its lane gate: the kernel takes any count)
         return (x.dim() == 1 and y is not None and y.dim() == 1
-                and _key_dtype_ok(x) and x.dtype == y.dtype
-                and _lanes_ok(max(1, y.shape[0])))
+                and _key_dtype_ok(x) and x.dtype == y.dtype)
     if op in ("merge_sorted_rows", "merge_sorted_rows_kv"):
-        if x.dim() not in (2, 3) or not _key_dtype_ok(x):
-            return False
-        if y is not None and y.shape[:x.dim()] != x.shape:
-            return False
-        t, c = x.shape[-2:]
-        tp2, cp2 = _next_pow2(t), _next_pow2(max(2, c))
-        if _lanes_ok(tp2 * cp2):
-            return True               # in-tile bitonic merge
-        return _lanes_ok(cp2) and tp2 <= 512   # rank merge
+        return (x.dim() in (2, 3) and _key_dtype_ok(x)
+                and (y is None or y.shape[:x.dim()] == x.shape))
     raise ValueError(f"unknown op {op!r}")
 
 
@@ -178,15 +180,21 @@ def _require(op: str, x: torch.Tensor, y=None) -> None:
     if not kernel_eligible(op, x, y):
         shapes = tuple(x.shape) if y is None else (tuple(x.shape),
                                                    tuple(y.shape))
-        raise ValueError(f"{op}: operands {shapes} of {x.dtype} are outside "
-                         f"the kernels' gate (float32/int32 keys, padded "
-                         f"rows of at most {MAX_KERNEL_LANES} lanes)")
+        dtypes = x.dtype if y is None else (x.dtype, y.dtype)
+        raise ValueError(f"{op}: operands {shapes} of {dtypes} are outside "
+                         f"what the port's kernels take (float32, bfloat16 "
+                         f"or int32 keys of the ops' ranks, one key dtype "
+                         f"for both operands; ROADMAP C10)")
 
 
 def sort_kernel_choice(x: torch.Tensor) -> str:
     """The sort-kernel family for ``x``: ``"bitonic"`` or ``"radix"``.
 
-    A family forced with :func:`force_sort_kernel` wins.  Otherwise a
+    A row past the bitonic tile's reach (padded width above
+    ``MAX_KERNEL_LANES``) sorts by radix on either device, whatever is
+    forced: the radix kernel takes any width, and the reference's jnp
+    fallback there is a stable sort, which the radix family equals.
+    Otherwise a family forced with :func:`force_sort_kernel` wins; a
     CPU operand takes bitonic, as the reference pins bitonic while its
     kernels run in interpret mode (src/repro/kernels/ops.py:348-349), so
     the CPU runs the family the reference runs there.  A CUDA operand
@@ -197,6 +205,8 @@ def sort_kernel_choice(x: torch.Tensor) -> str:
     device, shape, dtype and the constants; outputs are bitwise the
     same either way.
     """
+    if not _fits_tile(x.shape[-1]):
+        return "radix"
     if _FORCE_SORT_KERNEL is not None:
         return _FORCE_SORT_KERNEL
     if not x.is_cuda or not _key_dtype_ok(x):
@@ -295,6 +305,24 @@ def sort_kv(keys: torch.Tensor, values: torch.Tensor, *,
     return (ks[0], vs[0]) if keys.dim() == 1 else (ks, vs)
 
 
+def _bf16_queries(queries: torch.Tensor, side: str) -> torch.Tensor:
+    """float32 queries as the bf16 queries that cut bf16 rows at the same
+    places: for a bf16 key a, a < q iff a < q rounded up to bf16, and
+    a <= q iff a <= q rounded down.  Exact, in the comparator's
+    classes (denormals and -0.0 fold to 0 first).  This is the
+    reference's jnp search over a bf16 row with float32 queries (SMMS's
+    Round-2 boundaries), which promotes both to float32."""
+    q = bitonic.ftz(queries)
+    r = q.to(torch.bfloat16)                            # to nearest
+    off = r.float() < q if side == "left" else r.float() > q
+    # where r missed, one bf16 step toward q: up (left) or down (right);
+    # on the bits, +1 moves a positive value up and a negative one down
+    bits = r.view(torch.int16).to(torch.int32)
+    step = torch.where((bits < 0) == (side == "left"), -1, 1)
+    bits = torch.where(off, bits + step, bits)
+    return bits.to(torch.int16).view(torch.bfloat16)
+
+
 def searchsorted(sorted_arr: torch.Tensor, queries: torch.Tensor, *,
                  side: str = "left",
                  valid_len: Optional[int] = None) -> torch.Tensor:
@@ -303,13 +331,18 @@ def searchsorted(sorted_arr: torch.Tensor, queries: torch.Tensor, *,
     sorted_arr: (n,) or (B, n); queries: (q,) -- the same queries for
     every row -- or (B, q).  ``valid_len=m`` is the pre-padded path:
     rows may carry a sentinel tail past m real elements and results are
-    clamped to m, which reproduces the unpadded answer exactly.
+    clamped to m, which reproduces the unpadded answer exactly.  bf16
+    rows take float32 queries too, as exact bf16 queries
+    (:func:`_bf16_queries`).
     """
     if side not in ("left", "right"):
         raise ValueError(f"side must be 'left' or 'right', got {side!r}")
     if queries.shape[-1] == 0:          # t == 1: nothing to cut
         shape = sorted_arr.shape[:-1] + (0,)
         return torch.zeros(shape, dtype=torch.int32, device=sorted_arr.device)
+    if (sorted_arr.dtype == torch.bfloat16
+            and queries.dtype == torch.float32):
+        queries = _bf16_queries(queries, side)
     _require("searchsorted", sorted_arr, queries)
     _tick("searchsorted", sorted_arr)
     arr2 = sorted_arr[None] if sorted_arr.dim() == 1 else sorted_arr
@@ -407,7 +440,7 @@ def sort_partition_kv(keys: torch.Tensor, values: torch.Tensor,
 
 
 def _merge_fits_one_tile(t: int, c: int) -> bool:
-    return _lanes_ok(_next_pow2(t) * _next_pow2(max(2, c)))
+    return _fits_tile(_next_pow2(t) * _next_pow2(max(2, c)))
 
 
 def _rank_merge(keys: torch.Tensor, with_order: bool = False):
@@ -432,7 +465,8 @@ def _rank_merge(keys: torch.Tensor, with_order: bool = False):
     merged = torch.empty((batch, tp2 * cp2), dtype=keys.dtype,
                          device=keys.device)
     pos = pos.reshape(batch, -1).long()
-    merged.scatter_(1, pos, kp.reshape(batch, -1))
+    bitonic.as_bits(merged).scatter_(
+        1, pos, bitonic.as_bits(kp.reshape(batch, -1)))
     if not with_order:
         return merged[:, :t * c], None
     order = torch.empty((batch, tp2 * cp2), dtype=torch.int32,
@@ -446,7 +480,9 @@ def merge_sorted_rows(x: torch.Tensor) -> torch.Tensor:
 
     x: (t, c) -> (t*c,), or (batch, t, c) -> (batch, t*c).  The in-tile
     bitonic merge while the padded t*c fits ``MAX_KERNEL_LANES``, the
-    rank merge beyond, as in the reference.
+    rank merge beyond (any t, any c: where the reference's own rank
+    merge stops, at t > 512 or rows past 2^16, its jnp sort gives the
+    same keys).
     """
     _require("merge_sorted_rows", x)
     _tick("merge_sorted_rows", x)
@@ -484,8 +520,8 @@ def bucketize_histogram(keys: torch.Tensor, boundaries: torch.Tensor,
                         t: int):
     """Fused bucket-id + histogram.  keys: (n,); boundaries: (t-1,)
     ascending.  Returns (ids (n,) int32, counts (t,) int32), ids per
-    ``searchsorted(boundaries, key, side='right')``.  Operands outside
-    the reference's gate raise on either device.
+    ``searchsorted(boundaries, key, side='right')``, any number of
+    boundaries.  Operands of other dtypes raise on either device.
     """
     _require("bucketize_histogram", keys, boundaries)
     _tick("bucketize_histogram", keys)

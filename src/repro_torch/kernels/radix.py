@@ -11,7 +11,9 @@ plain PyTorch version beside it:
 
 Keys go through a monotone bijection into sortable unsigned bits
 (:func:`key_to_bits`): int32 ``x ^ 0x80000000``; float32 ``u ^
-0x80000000`` when the sign bit is clear and ``~u`` when it is set.
+0x80000000`` when the sign bit is clear and ``~u`` when it is set;
+bf16 the 16-bit variant of the float fold in [0, 2^16), so a bf16 key
+is a 16-bit key and sorts in 4 passes instead of 8.
 Before the passes the bits are folded onto the reference comparator's
 equivalence classes (:func:`sort_ready_bits`): every NaN to all ones,
 the denormal band and -0.0 onto +0.0.  The sorted keys are gathered
@@ -22,36 +24,43 @@ The bits ride in an int32 carrier, as in the reference's kernel: torch
 has no unsigned 32-bit arithmetic on the CPU.  ``(bits >> shift) & 15``
 is the right digit even for shift 28 (the sign fill is masked off), and
 unsigned comparisons are made on ``bits ^ 0x80000000`` as signed ints.
-bf16 keys are not taken: the port's gate has no bf16
-(``bitonic.KEY_DTYPES``).
+bf16 bits are below 2^16, so their carrier is never negative.
 """
 from __future__ import annotations
 
 import torch
 
 from . import cuda
-from .bitonic import KEY_DTYPES, _SUFFIX
+from .bitonic import KEY_DTYPES, _SUFFIX, as_bits
 
 __all__ = ["DEFAULT_RADIX_BITS", "key_bits", "key_to_bits", "bits_to_key",
            "sort_ready_bits", "pass_positions_plain", "radix_sort",
            "radix_sort_plain"]
 
-# Digits per counting pass: 16 bins, 8 passes for 32-bit keys.  The
-# CUDA kernel is written for this width (csrc/radix_sort.cu kBins).
+# Digits per counting pass: 16 bins, 8 passes for 32-bit keys and 4 for
+# bf16.  The CUDA kernel is written for this width (csrc/radix_sort.cu
+# kBins).
 DEFAULT_RADIX_BITS = 4
 # Keys one block of the CUDA kernel ranks at once (csrc/radix_sort.cu
 # kTile): the wrapper sizes the per-tile digit counts with it.
 RADIX_TILE = 4096
 
 _I32_MIN = -(1 << 31)
-_MANT = 1 << 23                 # float32 mantissa span: the denormal band
 
 
 def key_bits(dtype: torch.dtype) -> int:
-    """Sort-significant key width in bits: 32 for float32 and int32."""
+    """Sort-significant key width in bits: 16 for bf16, 32 for float32
+    and int32."""
+    if dtype == torch.bfloat16:
+        return 16
     if dtype in KEY_DTYPES:
         return 32
     raise TypeError(f"no radix key specialization for dtype {dtype}")
+
+
+def _bf16_bits(x: torch.Tensor) -> torch.Tensor:
+    """A bf16 tensor's 16 bits as int32 in [0, 2^16)."""
+    return x.view(torch.int16).to(torch.int32) & 0xFFFF
 
 
 def key_to_bits(x: torch.Tensor) -> torch.Tensor:
@@ -66,6 +75,9 @@ def key_to_bits(x: torch.Tensor) -> torch.Tensor:
     key_bits(x.dtype)
     if x.dtype == torch.int32:
         return x ^ _I32_MIN
+    if x.dtype == torch.bfloat16:
+        u = _bf16_bits(x)
+        return u ^ torch.where(u >= 0x8000, 0xFFFF, 0x8000).to(torch.int32)
     u = x.view(torch.int32)
     return u ^ torch.where(u < 0, -1, _I32_MIN).to(torch.int32)
 
@@ -75,6 +87,10 @@ def bits_to_key(bits: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     key_bits(dtype)
     if dtype == torch.int32:
         return bits ^ _I32_MIN
+    if dtype == torch.bfloat16:
+        u = bits ^ torch.where(bits >= 0x8000, 0x8000, 0xFFFF).to(torch.int32)
+        u = torch.where(u >= 0x8000, u - 0x10000, u)       # as signed 16 bits
+        return u.to(torch.int16).view(torch.bfloat16)
     mask = torch.where(bits < 0, _I32_MIN, -1).to(torch.int32)
     return (bits ^ mask).view(torch.float32)
 
@@ -84,17 +100,24 @@ def sort_ready_bits(x: torch.Tensor) -> torch.Tensor:
 
     The reference compares floats flush-to-zero: every denormal of
     either sign equals +-0.0, a contiguous bijected band
-    ``[2^31 - 2^23, 2^31 + 2^23)`` that folds onto the +0.0 point, and
-    every NaN maps to all ones (NaNs last, in input order).  The band
-    test is unsigned, made as a signed test on ``bits ^ 0x80000000``.
+    ``[2^(kb-1) - 2^mant, 2^(kb-1) + 2^mant)`` (kb = 32, mant = 23 for
+    float32; 16 and 7 for bf16) that folds onto the +0.0 point, and
+    every NaN maps to all ones of the key's width (NaNs last, in input
+    order).  float32's band test is unsigned, made as a signed test on
+    ``bits ^ 0x80000000``.
     """
     bits = key_to_bits(x)
     if x.dtype == torch.int32:
         return bits
-    centred = bits ^ _I32_MIN                  # unsigned order, signed ints
-    denorm = (centred >= -_MANT) & (centred < _MANT)
-    bits = torch.where(denorm, torch.full_like(bits, _I32_MIN), bits)
-    return torch.where(torch.isnan(x), torch.full_like(bits, -1), bits)
+    if x.dtype == torch.bfloat16:
+        zero, mant, allones = 0x8000, 1 << 7, 0xFFFF
+        denorm = (bits >= zero - mant) & (bits < zero + mant)
+    else:
+        zero, mant, allones = _I32_MIN, 1 << 23, -1
+        centred = bits ^ _I32_MIN              # unsigned order, signed ints
+        denorm = (centred >= -mant) & (centred < mant)
+    bits = torch.where(denorm, torch.full_like(bits, zero), bits)
+    return torch.where(torch.isnan(x), torch.full_like(bits, allones), bits)
 
 
 def pass_positions_plain(bits: torch.Tensor, shift: int,
@@ -134,7 +157,7 @@ def radix_sort_plain(x: torch.Tensor):
         cur = torch.gather(bits0, 1, idx.long())
         pos = pass_positions_plain(cur, p * DEFAULT_RADIX_BITS)
         idx = torch.empty_like(idx).scatter_(1, pos.long(), idx)
-    return torch.gather(x, 1, idx.long()), idx
+    return torch.gather(as_bits(x), 1, idx.long()).view(x.dtype), idx
 
 
 def radix_sort(x: torch.Tensor):
@@ -143,7 +166,8 @@ def radix_sort(x: torch.Tensor):
     Returns ``(sorted, order)``: ``order`` (rows, n) int32 is the stable
     argsort of each row's canonical bits, and ``sorted`` is gathered
     from ``x`` through it.  No power-of-two padding.  A CUDA tensor
-    runs the kernel (float32 or int32; anything else raises); a CPU
+    runs the kernel (float32, bfloat16 or int32; anything else raises);
+    a CPU
     tensor runs :func:`radix_sort_plain`.
     """
     if x.dim() != 2:

@@ -3,12 +3,13 @@
 One table for both ``chip_smoke.py`` and :mod:`repro_torch.profile_port`:
 
 * the sorts: t = 64 machines x m = 65,536 float32 keys (n = 4,194,304),
-  the widest row the kernels' gate admits, on four inputs
+  the widest row the bitonic tile reaches, on four inputs
   (:func:`sort_inputs`), keys only and with a (t, m, 24) int32 payload
   (:func:`make_payload`: with the 4-byte key a 100-byte record, the sort
   benchmark's record size), by SMMS and by Terasort
-  (:data:`TERASORT_ATTEMPTS`); and the small t = 8 x m = 4,096 whose
-  receive rows fit one merge tile for both;
+  (:data:`TERASORT_ATTEMPTS`); the small t = 8 x m = 4,096 whose
+  receive rows fit one merge tile for both; and t = 64 x m = 262,144
+  (:data:`M_WIDE`, n = 16,777,216), rows past the bitonic tile's reach;
 * the joins (:data:`JOINS`): the paper's §5.2 Zipf and scalar-skew
   tables at t = 64, by StatJoin, RandJoin and the two baselines;
 * the serving path: gemma3-12b at full width and depth (48 layers,
@@ -27,13 +28,15 @@ import torch
 from .data import (lidar_like, scalar_skew_tables, uniform_keys, zipf_keys,
                    zipf_tables)
 
-__all__ = ["T", "M", "T_SMALL", "M_SMALL", "JOIN_T", "PAYLOAD_COLS",
+__all__ = ["T", "M", "T_SMALL", "M_SMALL", "M_WIDE", "JOIN_T",
+           "PAYLOAD_COLS",
            "SERVE_ARCH", "SERVE_B", "SERVE_PROMPT", "SERVE_NEW",
            "JoinConfig", "JOINS", "TERASORT_ATTEMPTS", "sort_inputs",
            "adversarial_shards", "make_payload"]
 
 T, M = 64, 65536            # the main sort: n = 4,194,304 keys
 T_SMALL, M_SMALL = 8, 4096  # receive rows that fit one merge tile
+M_WIDE = 1 << 18            # t = 64 rows past the bitonic tile's reach
 JOIN_T = 64
 PAYLOAD_COLS = 24           # 4-byte key + 24 x 4-byte payload = 100 bytes
 SERVE_ARCH = "gemma3-12b"
@@ -48,11 +51,12 @@ class JoinConfig(NamedTuple):
 
 # name -> the join and its tables; the paper's §5.2 inputs.  RandJoin
 # runs on an 8 x 8 machine matrix with route tiles twice each machine's
-# fair share of a line (in_cap_factor 2.0, the reference core's default;
-# its front door's 4.0 would gather 65,536 rows a side a machine, and a
-# capacity retry 131,072, past the 2^16-lane gate).  On scalar skew it
-# takes 2^17-row tables, not StatJoin's 2^20: at 2^20 each machine's
-# gathered S side is 262,144 slots, past the same gate.
+# fair share of a line (in_cap_factor 2.0, the reference core's default,
+# kept from the slices whose kernels stopped at 2^16 lanes so that the
+# Zipf run's widths, launches and times compare with theirs).  On scalar
+# skew it takes the paper's 2^20-row tables, as StatJoin does: each
+# machine's gathered S side is then 262,144 slots, past the bitonic
+# tile's reach, and sorts by the radix family.
 JOINS = {
     "statjoin_zipf": JoinConfig("statjoin", lambda: zipf_tables(
         1 << 17, 1 << 17, theta=0.5, seed=3), {}),
@@ -61,7 +65,7 @@ JOINS = {
     "randjoin_zipf": JoinConfig("randjoin", lambda: zipf_tables(
         1 << 17, 1 << 17, theta=0.5, seed=3), {"in_cap_factor": 2.0}),
     "randjoin_scalar_skew": JoinConfig("randjoin", lambda: scalar_skew_tables(
-        1 << 17, 2048, 2048, seed=7), {"in_cap_factor": 2.0}),
+        1 << 20, 2048, 2048, seed=7), {"in_cap_factor": 2.0}),
     "repartition_scalar_skew": JoinConfig(
         "repartition", lambda: scalar_skew_tables(1 << 20, 2048, 2048,
                                                   seed=7), {}),

@@ -100,14 +100,22 @@ def test_nan_keys_land_in_bucket_zero_as_under_the_pallas_kernel():
 
 
 def test_outside_the_gate_or_contract_raises():
+    """Mixed dtypes, 2-D keys and a wrong boundary count still raise.
+    2^16 + 1 boundaries, past the reference's lane gate, used to raise
+    here (C10); the kernel takes any count, and the same operands give
+    the reference's ids and counts (its jnp path there)."""
     k = torch.zeros(8)
-    with pytest.raises(ValueError, match="gate"):
+    with pytest.raises(ValueError, match="C10"):
         ops.bucketize_histogram(k, torch.zeros(3, dtype=torch.int32), 4)
-    with pytest.raises(ValueError, match="gate"):
+    with pytest.raises(ValueError, match="C10"):
         ops.bucketize_histogram(k[None], torch.zeros(3), 4)
-    with pytest.raises(ValueError, match="gate"):
-        ops.bucketize_histogram(k, torch.zeros(ops.MAX_KERNEL_LANES + 1),
-                                ops.MAX_KERNEL_LANES + 2)
+    n_b = ops.MAX_KERNEL_LANES + 1
+    ids, counts = ops.bucketize_histogram(k, torch.zeros(n_b), n_b + 1)
+    want_ids, want_counts = jops.bucketize_histogram(
+        jnp.zeros(8), jnp.zeros(n_b), n_b + 1, backend="pallas")
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(want_ids))
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(want_counts))
+    assert counts[-1] == 8
     with pytest.raises(ValueError, match="t - 1"):
         ops.bucketize_histogram(k, torch.zeros(3), 5)
 

@@ -521,23 +521,40 @@ def test_sort_partition_edge_keys_and_queries_match_reference(rng):
 
 
 def test_sort_partition_gate():
+    """What is admitted: every width (C10), one key dtype of three.  A
+    row past the bitonic tile's reach (2 x 2^17) now returns the
+    reference's result -- there its jnp fallback, here a radix sort and
+    the search -- where it used to raise."""
     f = torch.zeros
     assert ops.kernel_eligible("sort_partition", f(4, ops.MAX_KERNEL_LANES),
                                f(3))
     assert ops.kernel_eligible("sort_partition_kv", f(4, 8), f(4, 3))
-    assert not ops.kernel_eligible("sort_partition",
-                                   f(4, ops.MAX_KERNEL_LANES + 1), f(3))
+    assert ops.kernel_eligible("sort_partition",
+                               f(4, ops.MAX_KERNEL_LANES + 1), f(3))
     assert not ops.kernel_eligible("sort_partition", f(4, 8),
                                    f(3, dtype=torch.int32))
     assert not ops.kernel_eligible("sort_partition", f(4, 8), f(0))
-    with pytest.raises(ValueError, match="gate"):
+    with pytest.raises(ValueError, match="C10"):
         ops.sort_partition(f(2, 8, dtype=torch.float64),
                            f(1, dtype=torch.float64))
-    with pytest.raises(ValueError, match="gate"):
-        ops.sort_partition_kv(f(2, 2 * ops.MAX_KERNEL_LANES), f(2, 2 * ops.MAX_KERNEL_LANES),
-                              f(1))
     with pytest.raises(ValueError, match="align"):
         ops.sort_partition_kv(f(2, 8), f(2, 7), f(1))
+    n = 2 * ops.MAX_KERNEL_LANES
+    x = np.random.default_rng(4).normal(size=(2, n)).astype(np.float32)
+    q = np.float32([0.25])
+    v = torch.arange(2 * n, dtype=torch.int32).reshape(2, n)
+    ops.reset_dispatch_counts()
+    ks, vs, starts, lens = ops.sort_partition_kv(torch.from_numpy(x), v,
+                                                 torch.from_numpy(q))
+    assert ops.DISPATCH_COUNTS[("sort_kv", "radix-plain")] == 1
+    for r in range(2):
+        wk, wv, ws, wl = jops.sort_partition_kv(
+            jnp.asarray(x[r]), jnp.asarray(v[r].numpy()), jnp.asarray(q),
+            backend="pallas")
+        assert_bitwise(ks[r], wk)
+        assert_bitwise(vs[r], wv)
+        assert_bitwise(starts[r], ws)
+        assert_bitwise(lens[r], wl)
 
 
 # ---------------------------------------------------------------------------
@@ -545,37 +562,72 @@ def test_sort_partition_gate():
 # ---------------------------------------------------------------------------
 
 def test_kernel_eligible_gate():
+    """What is admitted (float32/bfloat16/int32 keys, any width) apart
+    from which kernel runs (MAX_KERNEL_LANES: the bitonic tile's reach
+    and the in-tile/rank-merge split).  The operands past the old
+    2^16-lane gate -- a (4, 2^16 + 1) sort and pair sort, and t > 512
+    rows of 128 to merge -- return the reference's result (its jnp
+    fallback there) instead of raising (C10)."""
     f = torch.zeros
     assert ops.kernel_eligible("sort", f(4, ops.MAX_KERNEL_LANES))
-    assert not ops.kernel_eligible("sort", f(4, ops.MAX_KERNEL_LANES + 1))
+    assert ops.kernel_eligible("sort", f(4, ops.MAX_KERNEL_LANES + 1))
+    assert ops.kernel_eligible("sort", f(4, 8, dtype=torch.bfloat16))
     assert not ops.kernel_eligible("sort", f(4, 8, dtype=torch.float64))
     assert ops.kernel_eligible("merge_sorted_rows", f(64, 64, 2152))
     assert not ops._merge_fits_one_tile(64, 2152)
     assert ops._merge_fits_one_tile(8, 1077)
-    assert not ops.kernel_eligible("merge_sorted_rows", f(1024, 128))
+    assert ops.kernel_eligible("merge_sorted_rows", f(1024, 128))
+    assert not ops._merge_fits_one_tile(1024, 128)
     assert ops.sort_kernel_choice(f(64, 65536)) == "bitonic"
+    assert ops.sort_kernel_choice(f(4, ops.MAX_KERNEL_LANES + 1)) == "radix"
     assert ops.kernel_eligible("sort_kv", f(4, 8), f(4, 8, 24))
     assert not ops.kernel_eligible("sort_kv", f(4, 8), f(4, 7))
-    assert not ops.kernel_eligible("sort_kv", f(4, ops.MAX_KERNEL_LANES + 1))
+    assert ops.kernel_eligible("sort_kv", f(4, ops.MAX_KERNEL_LANES + 1))
     assert ops.kernel_eligible("merge_sorted_rows_kv", f(64, 64, 2152),
                                f(64, 64, 2152, 24))
     assert not ops.kernel_eligible("merge_sorted_rows_kv", f(8, 16),
                                    f(8, 15))
+    rng = np.random.default_rng(6)
+    x = rng.normal(size=(4, ops.MAX_KERNEL_LANES + 1)).astype(np.float32)
+    ks, vs = ops.sort_kv(torch.from_numpy(x), torch.from_numpy(x))
+    assert_bitwise(ops.sort(torch.from_numpy(x)), jnp.sort(x, axis=-1))
+    for r in range(4):
+        wk, wv = jops.sort_kv(jnp.asarray(x[r]), jnp.asarray(x[r]),
+                              backend="pallas")
+        assert_bitwise(ks[r], wk)
+        assert_bitwise(vs[r], wv)
+    # t > 512 rows, past one tile: the rank merge (the plain version's
+    # work grows as t^2, so 520 rows rather than 1024)
+    rows = np.sort(keys_f32(rng, (520, 128), "dups"), axis=-1)
+    assert_bitwise(ops.merge_sorted_rows(torch.from_numpy(rows)),
+                   jops.merge_sorted_rows(jnp.asarray(rows),
+                                          backend="pallas"))
 
 
 def test_ops_raise_outside_the_gate():
-    with pytest.raises(ValueError, match="gate"):
-        ops.sort(torch.zeros(2, ops.MAX_KERNEL_LANES * 2))
-    with pytest.raises(ValueError, match="gate"):
-        ops.sort(torch.zeros(2, 8, dtype=torch.bfloat16))
+    """Dtypes outside the reference's kernels and the prepadded contract
+    still raise (naming C10).  A (2, 2^17) row and a bf16 row, which
+    used to raise, give the reference's result: its jnp sort past its
+    lane gate, its bitonic kernel on bf16 keys (which flushes denormal
+    outputs, as for float32)."""
+    x = np.random.default_rng(2).normal(
+        size=(2, ops.MAX_KERNEL_LANES * 2)).astype(np.float32)
+    assert_bitwise(ops.sort(torch.from_numpy(x)),
+                   jops.sort(jnp.asarray(x), backend="pallas"))
+    xb = jnp.asarray(x[:, :8]).astype(jnp.bfloat16)
+    got = ops.sort(torch.from_numpy(np.asarray(xb).view(np.int16).copy())
+                   .view(torch.bfloat16))
+    np.testing.assert_array_equal(
+        bitonic.ftz(got).view(torch.int16).numpy(),
+        np.asarray(jops.sort(xb, backend="pallas")).view(np.int16))
     with pytest.raises(ValueError, match="prepadded"):
         ops.sort(torch.zeros(2, 6), prepadded=True)
-    with pytest.raises(ValueError, match="gate"):
+    with pytest.raises(ValueError, match="C10"):
         ops.sort_kv(torch.zeros(2, 8, dtype=torch.float64),
                     torch.zeros(2, 8))
     with pytest.raises(ValueError, match="prepadded"):
         ops.sort_kv(torch.zeros(2, 6), torch.zeros(2, 6), prepadded=True)
-    with pytest.raises(ValueError, match="gate"):
+    with pytest.raises(ValueError, match="C10"):
         ops.merge_sorted_rows_kv(torch.zeros(2, 3, dtype=torch.int64),
                                  torch.zeros(2, 3))
 
@@ -655,9 +707,15 @@ def test_cuda_argsort_merges_equal_plain(card, rng, t, c):
 
 
 @pytest.mark.cuda
-def test_cuda_kernel_rejects_what_the_gate_rejects(card):
-    with pytest.raises(ValueError, match="gate"):
-        ops.sort(torch.zeros(2, ops.MAX_KERNEL_LANES * 2, device=card))
+def test_cuda_kernel_rejects_what_the_gate_rejects(card, rng):
+    """float64 still raises on the card; a (2, 2^17) row, past the old
+    gate, sorts there by the radix kernel and equals the CPU's result."""
+    x = torch.from_numpy(keys_f32(rng, (2, ops.MAX_KERNEL_LANES * 2),
+                                  "dups"))
+    cuda.reset_launches()
+    got = ops.sort(x.to(card))
+    assert cuda.LAUNCHES["radix_sort"] == 1
+    assert_bitwise(got, ops.sort(x))
     with pytest.raises(TypeError):
         bitonic.bitonic_sort(torch.zeros(2, 8, dtype=torch.float64,
                                          device=card))

@@ -7,7 +7,10 @@ import numpy as np
 import pytest
 import torch
 
+import jax.numpy as jnp
+
 import repro_torch
+from repro import cluster as jcluster
 from repro_torch import cluster
 from repro_torch.kernels import ops
 
@@ -101,24 +104,43 @@ def test_front_door_rejects_a_flat_array():
 
 
 def test_rows_past_the_gate_raise_instead_of_falling_back():
-    """m = 2^17 keys per machine is past MAX_KERNEL_LANES: the port
-    raises on either device rather than use a library sort."""
-    x = torch.zeros(2, 2 * ops.MAX_KERNEL_LANES)
-    with pytest.raises(ValueError, match="gate"):
-        cluster.sort(x, device="cpu")
-    with pytest.raises(ValueError, match="gate"):
-        cluster.sort(x, values=torch.zeros(x.shape), device="cpu")
+    """m = 2^17 keys per machine is past MAX_KERNEL_LANES, where the
+    reference falls back to jnp.  The port used to raise there (C10);
+    now its own kernels sort it -- the radix family past the bitonic
+    tile's reach, the rank merge -- never a library sort, and the keys
+    and values are the reference's, bitwise."""
+    t, m = 2, 2 * ops.MAX_KERNEL_LANES
+    x = np.random.default_rng(8).normal(size=(t, m)).astype(np.float32)
+    v = np.arange(t * m, dtype=np.int32).reshape(t, m)
+    (want, want_v), want_rep = jcluster.sort(jnp.asarray(x), values=v)
+    ops.reset_dispatch_counts()
+    (got, got_v), rep = cluster.sort(x, values=v, device="cpu")
+    assert {p for _, p in ops.DISPATCH_COUNTS} <= {"plain", "radix-plain"}
+    assert ops.DISPATCH_COUNTS[("sort_kv", "radix-plain")] == 1
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  np.asarray(want).view(np.int32))
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
+    np.testing.assert_array_equal(rep.workload, want_rep.workload)
 
 
 def test_broadcast_small_side_past_the_gate_raises():
     """T as the small side is pair-sorted whole on every machine: past
-    2^16 rows the port raises where the reference falls back to jnp."""
+    2^16 rows the reference falls back to jnp and the port, which used
+    to raise (C10), sorts it by the radix family.  The same operands
+    give the reference's output: every one of the 2 x 65,537 pairs
+    matches, 8 slots a machine hold the first, the rest are dropped."""
     n = ops.MAX_KERNEL_LANES + 1
     keys = np.zeros(n, np.int32)
-    with pytest.raises(ValueError, match="gate"):
-        cluster.join(keys[:2], keys[:2], keys, keys, algorithm="broadcast",
-                     small_side="t", t_machines=2, out_capacity=8,
-                     device="cpu")
+    args = (keys[:2], keys[:2], keys, keys)
+    kw = dict(algorithm="broadcast", small_side="t", t_machines=2,
+              out_capacity=8)
+    want, want_rep = jcluster.join(*args, **kw)
+    got, rep = cluster.join(*args, **kw, device="cpu")
+    for field in ("s_rows", "t_rows", "valid", "count", "dropped"):
+        np.testing.assert_array_equal(getattr(got, field).numpy(),
+                                      np.asarray(getattr(want, field)))
+    assert int(got.count.sum()) == 2 * n
+    np.testing.assert_array_equal(rep.workload, want_rep.workload)
 
 
 @pytest.fixture
@@ -131,12 +153,20 @@ def card():
 
 @pytest.mark.cuda
 def test_cuda_tensor_past_the_gate_raises(card):
-    with pytest.raises(ValueError, match="gate"):
-        ops.sort(torch.zeros(2, 2 * ops.MAX_KERNEL_LANES, device=card))
-    with pytest.raises(ValueError, match="gate"):
-        ops.sort(torch.zeros(2, 8, dtype=torch.bfloat16, device=card))
-    with pytest.raises(ValueError, match="gate"):
-        cluster.sort(torch.zeros(2, 2 * ops.MAX_KERNEL_LANES, device=card))
-    with pytest.raises(ValueError, match="gate"):
-        ops.sort_kv(torch.zeros(2, 2 * ops.MAX_KERNEL_LANES, device=card),
-                    torch.zeros(2, 2 * ops.MAX_KERNEL_LANES, device=card))
+    """The operands that used to raise on the card (C10) -- rows of
+    2^17, bf16 keys -- now run the port's kernels there and equal the
+    CPU's plain versions; float64 keys still raise."""
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 2 * ops.MAX_KERNEL_LANES, generator=g)
+    xb = torch.randn(2, 8, generator=g).bfloat16()
+    v = torch.arange(x.numel(), dtype=torch.int32).reshape(x.shape)
+    assert torch.equal(ops.sort(x.to(card)).cpu(), ops.sort(x))
+    assert torch.equal(ops.sort(xb.to(card)).cpu().view(torch.int16),
+                       ops.sort(xb).view(torch.int16))
+    (gk, gv), _ = cluster.sort(x.to(card), values=v.to(card))
+    (wk, wv), _ = cluster.sort(x, values=v, device="cpu")
+    assert torch.equal(gk.cpu(), wk) and torch.equal(gv.cpu(), wv)
+    for a, b in zip(ops.sort_kv(x.to(card), v.to(card)), ops.sort_kv(x, v)):
+        assert torch.equal(a.cpu(), b)
+    with pytest.raises(ValueError, match="C10"):
+        ops.sort(torch.zeros(2, 8, dtype=torch.float64, device=card))

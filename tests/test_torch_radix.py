@@ -7,7 +7,9 @@ family; and the cluster front door, SMMS and Terasort with and without
 values, under forced radix on both sides.  Every comparison is bitwise,
 floats on their bit views, so NaN != NaN cannot pass a row vacuously.
 Tests marked ``cuda`` hold the CUDA kernel against its plain version on
-the card and skip where there is none.
+the card and skip where there is none.  Keys are int32, float32 and
+bf16, the reference's own dtypes (tests/test_radix.py:91); bf16 keys
+are 16-bit keys, sorted in 4 passes.
 """
 import types
 
@@ -27,11 +29,24 @@ from repro_torch.kernels import cuda, ops, radix
 from test_radix import N_CASES, adversarial_keys
 from test_torch_terasort import assert_reports_equal, reference_uniforms
 
-DTYPES = {"int32": np.int32, "float32": np.float32}
+DTYPES = {"int32": np.int32, "float32": np.float32,
+          "bfloat16": jnp.bfloat16}
+
+
+def tt(x: np.ndarray) -> torch.Tensor:
+    """A torch tensor of numpy keys, bf16 (ml_dtypes) by its bits."""
+    if x.dtype == jnp.bfloat16:
+        return torch.from_numpy(x.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(x)
 
 
 def bits(a) -> np.ndarray:
-    a = np.asarray(a.cpu() if isinstance(a, torch.Tensor) else a)
+    if isinstance(a, torch.Tensor):
+        a = a.cpu()
+        a = a.view(torch.int16) if a.dtype == torch.bfloat16 else a
+    a = np.asarray(a)
+    if a.dtype == jnp.bfloat16:
+        return a.view(np.int16)
     return a.view(np.uint32) if a.dtype == np.float32 else a
 
 
@@ -53,12 +68,12 @@ def keys(dtype: str, case: int, rows: int, n: int) -> np.ndarray:
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_key_bits_match_reference_and_round_trip(dtype, case):
     x = keys(dtype, case, 2, 300)
-    got = radix.key_to_bits(torch.from_numpy(x))
+    got = radix.key_to_bits(tt(x))
     assert got.dtype == torch.int32
     want = jradix.key_to_bits(jnp.asarray(x))
     np.testing.assert_array_equal(got.numpy().view(np.uint32),
                                   np.asarray(want))
-    back = radix.bits_to_key(got, torch.from_numpy(x).dtype)
+    back = radix.bits_to_key(got, tt(x).dtype)
     assert_bitwise(back, x)
     want_back = jradix.bits_to_key(jradix.key_to_bits(jnp.asarray(x)),
                                    jnp.asarray(x).dtype)
@@ -69,7 +84,7 @@ def test_key_bits_match_reference_and_round_trip(dtype, case):
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_sort_ready_bits_match_reference(dtype, case):
     x = keys(dtype, case, 2, 300)
-    got = radix.sort_ready_bits(torch.from_numpy(x))
+    got = radix.sort_ready_bits(tt(x))
     want = jradix._sort_ready_bits(jnp.asarray(x))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
@@ -100,13 +115,13 @@ def test_every_float_class_folds_as_the_reference_folds():
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_radix_sort_plain_matches_reference(dtype, case, rows, n):
     x = keys(dtype, case, rows, n)
-    got, order = radix.radix_sort(torch.from_numpy(x))
+    got, order = radix.radix_sort(tt(x))
     want, want_order = jradix.radix_sort(jnp.asarray(x))
     assert order.dtype == torch.int32
     assert_bitwise(got, want)
     np.testing.assert_array_equal(order.numpy(), np.asarray(want_order))
     # and the stable argsort of the canonical bits, independently
-    canon = radix.sort_ready_bits(torch.from_numpy(x)).numpy().view(np.uint32)
+    canon = radix.sort_ready_bits(tt(x)).numpy().view(np.uint32)
     np.testing.assert_array_equal(order.numpy(),
                                   np.argsort(canon, axis=1, kind="stable"))
 
@@ -140,10 +155,10 @@ def test_ops_forced_radix_match_reference(op, dtype):
     """Each op on (3, 300) rows against the reference's 1-D op on each
     row, both under their forced radix family."""
     x = np.concatenate([keys(dtype, c, 1, 300) for c in (1, 5, 6)])
-    if op.startswith("sort_partition") and dtype == "float32":
+    if op.startswith("sort_partition") and dtype != "int32":
         x[np.isnan(x)] = 7.0              # the queries need an order
     q = np.sort(x[0, [3, 50, 99, 201]])
-    tx, tq = torch.from_numpy(x), torch.from_numpy(q)
+    tx, tq = tt(x), tt(q)
     tv = torch.arange(300, dtype=torch.int32).repeat(3, 1)
     ops.reset_dispatch_counts()
     with ops.force_sort_kernel("radix"):
@@ -183,10 +198,10 @@ def test_prepadded_radix_keeps_the_sentinel_tail_last(dtype):
     land after every real key equal to the sentinel, in position order,
     as the bitonic pair sort places them."""
     m = 37
-    big = np.inf if dtype == "float32" else np.iinfo(np.int32).max
+    big = np.iinfo(np.int32).max if dtype == "int32" else np.inf
     x = np.random.default_rng(3).integers(-4, 4, (3, m)).astype(DTYPES[dtype])
     x[:, ::5] = big
-    kp = ops.pad_pow2(torch.from_numpy(x))
+    kp = ops.pad_pow2(tt(x))
     vp = ops.pad_pow2(torch.arange(3 * m, dtype=torch.int32).reshape(3, m),
                       fill=0, axis=1)
     with ops.force_sort_kernel("radix"):
@@ -248,18 +263,35 @@ def test_sort_kernel_choice_on_the_card_is_the_fitted_cost_model():
         assert choice(n) == choice(n, torch.int32) == want
         assert choice(n) == ("radix" if n in FITTED_RADIX_WIDTHS
                              else "bitonic")
+        # bf16 keys take 4 passes: radix from RADIX_MIN_LANES on, as the
+        # reference's model crosses an octave earlier for them
+        want16 = ("radix" if n >= ops.RADIX_MIN_LANES and logn * (logn + 1)
+                  // 2 > 4 * ops.RADIX_PASS_SUBSTAGES else "bitonic")
+        assert choice(n, torch.bfloat16) == want16
+        assert want16 == ("radix" if k >= 13 else "bitonic")
     assert choice(1 << 16, torch.float64) == "bitonic"
-    # the formula itself crosses one octave past the gate
+    # the formula itself crosses one octave past the bitonic tile's reach
     assert 17 * 18 // 2 > 8 * ops.RADIX_PASS_SUBSTAGES >= 16 * 17 // 2
+    # past the reach (C10) every row sorts by radix, on either device,
+    # whatever is forced
+    for n in (65537, 1 << 17):
+        assert choice(n) == choice(n, torch.int32) == "radix"
+        assert ops.sort_kernel_choice(torch.zeros(2, n)) == "radix"
+        with ops.force_sort_kernel("bitonic"):
+            assert choice(n, torch.bfloat16) == "radix"
     assert ops.kernel_eligible("radix", torch.zeros(4, 65535))
-    assert not ops.kernel_eligible("radix", torch.zeros(4, 65537))
+    assert ops.kernel_eligible("radix", torch.zeros(4, 65537))
+    assert ops.kernel_eligible("radix", torch.zeros(4, 8, dtype=torch.bfloat16))
     assert not ops.kernel_eligible("radix", torch.zeros(4, 8, 2))
+    assert not ops.kernel_eligible("radix", torch.zeros(4, 8,
+                                                        dtype=torch.float64))
 
 
 # The widths (64, 2^k), k = 10..16, at which the radix kernel measured
-# faster than the bitonic one on keys only, on the card (PERF.md, the
-# crossover table): none, so the fitted model keeps bitonic throughout
-# and would first pick radix at 2^17, past the gate.
+# faster than the bitonic one on float32 keys only, on the card (PERF.md,
+# the crossover table): none, so the fitted model keeps bitonic for
+# 32-bit keys throughout and would first pick radix at 2^17, past the
+# bitonic tile's reach.
 FITTED_RADIX_WIDTHS = ()
 
 
@@ -349,8 +381,7 @@ def card():
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("n", [1, 257, 4097, 65535, 65536])
 def test_cuda_radix_sort_equals_plain(card, dtype, n):
-    x = torch.from_numpy(np.concatenate(
-        [keys(dtype, c, 1, n) for c in range(N_CASES)]))
+    x = tt(np.concatenate([keys(dtype, c, 1, n) for c in range(N_CASES)]))
     got, order = radix.radix_sort(x.to(card))
     want, want_order = radix.radix_sort_plain(x)
     assert got.is_cuda and order.is_cuda

@@ -1,6 +1,6 @@
 """The port's dense serving path against the reference model.
 
-On the smoke configurations of the four dense architectures (float32),
+On the smoke configurations of the five dense architectures (float32),
 the reference's ``init_params`` draws the weights and
 ``models.convert.params_from_reference`` carries them over, so both
 models hold the same numbers.  Then, on the same numpy-seeded prompt of
@@ -37,7 +37,10 @@ from repro_torch.models import model
 from repro_torch.models.convert import params_from_reference, tree_map
 from repro_torch.serve import generate
 
-DENSE = ["gemma3-12b", "gemma-2b", "llama3-405b", "mistral-large-123b"]
+# musicgen-medium's audio front end is a stub in the reference, which
+# serves it as a dense decoder over audio codes (ROADMAP C11)
+DENSE = ["gemma3-12b", "gemma-2b", "llama3-405b", "mistral-large-123b",
+         "musicgen-medium"]
 B, PROMPT, STEPS = 2, 48, 4
 TOL = dict(rtol=2e-3, atol=2e-3)
 
