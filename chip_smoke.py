@@ -38,8 +38,12 @@ without printing a result:
   2. build      one nvcc per kernel source, all at once; -Xptxas -v
   3. kernels    each kernel vs its plain version, bitwise (flash
                 attention within 1e-5 in f32, rtol 8e-3 + atol 1e-3 in
-                bf16), at the main path's shapes and at edge cases
-                (the radix sort also on
+                bf16), at the main path's shapes and at edge cases (the
+                rank merge's merged keys and order also at every landed
+                buffer the sort paths hand it, uniform, Zipf and wide,
+                against a torch scatter of the plain ranks, and on bf16
+                and int32 keys, t = 6 and 48, edge rows; the radix sort
+                also on
                 every class of float and int bits, at widths 1 to
                 65,536, and against a stable torch.sort of its canonical
                 bits); every sort-side kernel again on bf16 keys; flash
@@ -76,7 +80,8 @@ without printing a result:
   8. times      per kernel: CUDA-event time, plain version, one PyTorch
                 library call, bound (each sort-side kernel also on bf16
                 keys, flash attention also in f32 and at musicgen's
-                shape); the bitonic/radix crossover at
+                shape, the rank merge also at each path's landed
+                buffers); the bitonic/radix crossover at
                 (64, 2^k), k = 10..16; the end-to-end sorts by both
                 families, StatJoin and RandJoin, and peak memory
 
@@ -494,6 +499,7 @@ def phase_kernels(rng) -> dict:
         compare("merge_ranks", f"(1, 8, 512) edge rows, bound_block={bb}",
                 fused.merge_ranks(ke, ie, bb),
                 fused.merge_ranks_plain(ke, ie, bb))
+    rank_operands(compare, rng, dev)
 
     def close(name, label, kernel_out, plain_out, tol):
         a, b = kernel_out.float(), plain_out.float()
@@ -859,6 +865,80 @@ def join_operands(compare) -> None:
             ops.sort_kv, ops.sort_partition_kv = (ops_sort_kv,
                                                   ops_partition_kv)
         PATH_KERNELS[name] = join_kernels(name, sorts)
+
+
+# landed rows the sort paths hand the rank merge (rank_operands): name ->
+# (64, 64, C) rows, for the checks and the times; kept on the host, so
+# that the later phases' peak device memory does not count them
+RANK_OPERANDS: dict = {}
+RANK_RUNS = (("smms", "uniform", M), ("smms", "zipf", M),
+             ("terasort", "uniform", M), ("terasort", "zipf", M),
+             ("smms", "uniform", M_WIDE), ("terasort", "uniform", M_WIDE))
+
+
+def rank_operands(compare, rng, dev) -> None:
+    """The rank merge at every operand the sort paths hand it, and at the
+    dtypes, row counts and edge rows the paths do not reach.
+
+    SMMS and Terasort run once each on the uniform and Zipf (37 values)
+    keys at t = 64 x 65,536 and on uniform keys at t = 64 x 262,144 (the
+    wide rows) with ``fused.rank_merge`` tapped: every call runs the
+    kernel, then the plain version on the same card tensors (the plain
+    ranks, then a torch scatter of the keys and the flat ids), and the
+    merged keys and order are held bitwise equal.  Each run's last
+    landed rows are kept in :data:`RANK_OPERANDS` (on the host).  On SMMS's uniform
+    rows then: the same rows as bf16 and as int32 keys, t = 6 and 48 of
+    them (not powers of two), and the ranks' contract (``merge_ranks``
+    with flat ids); and the sorted edge rows (+-inf, denormals, +-0,
+    duplicates, an all-equal row) through both entries.  These runs are
+    not main-path runs: the counts are reset before each of those.
+    """
+    rank_merge = fused.rank_merge
+    inputs = sort_inputs(SEED)
+    wide = uniform_keys(T * M_WIDE, seed=SEED + 7).reshape(T, M_WIDE)
+    for algorithm, name, m in RANK_RUNS:
+        label = f"{algorithm}_{name}" + ("_wide" if m == M_WIDE else "")
+
+        def tapped(keys):
+            out = rank_merge(keys)
+            compare("merge_ranks", f"{label}: {tuple(keys.shape)} "
+                    f"{str(keys.dtype)[6:]}, merged keys and order", out,
+                    fused.rank_merge_plain(keys))
+            RANK_OPERANDS[label] = keys.cpu()
+            return out
+
+        fused.rank_merge = tapped
+        try:
+            cluster.sort(inputs[name][0] if m == M else wide,
+                         algorithm=algorithm, seed=SEED, device=DEVICE)
+        finally:
+            fused.rank_merge = rank_merge
+        check(label in RANK_OPERANDS, f"{label}: no rank merge on the path")
+
+    recv = RANK_OPERANDS["smms_uniform"].to(dev)
+    finite = torch.where(torch.isinf(recv), 0.0, recv / 1000)  # ties
+    as_int = torch.where(torch.isinf(recv), torch.iinfo(torch.int32).max,
+                         finite.to(torch.int32))
+    variants = {"bf16": recv.to(torch.bfloat16),
+                "int32 (ties)": as_int,
+                "t=6": recv[:, :6].contiguous(),
+                "t=48": recv[:, :48].contiguous(),
+                "t=48 bf16": recv[:, :48].to(torch.bfloat16).contiguous()}
+    edge = torch.sort(_edge_rows(rng, 12, 5000), dim=-1).values
+    variants["edge rows (2, 6, 5000)"] = edge.reshape(2, 6, 5000).to(dev)
+    edge = torch.sort(_edge_rows(rng, 8, 300), dim=-1).values[None]
+    variants["edge rows (1, 8, 300)"] = edge.to(dev)
+    variants["edge rows bf16"] = edge.to(dev).to(torch.bfloat16)
+    for label, keys in variants.items():
+        compare("merge_ranks", f"{label}: {tuple(keys.shape)}, merged keys "
+                f"and order", fused.rank_merge(keys),
+                fused.rank_merge_plain(keys))
+        batch, t, c = keys.shape
+        ids = torch.arange(t * c, dtype=torch.int32, device=dev)
+        ids = ids.reshape(1, t, c).expand(batch, t, c).contiguous()
+        compare("merge_ranks", f"{label}: {tuple(keys.shape)}, ranks",
+                fused.merge_ranks(keys, ids), fused.merge_ranks_plain(keys,
+                                                                     ids))
 
 
 def _main_rank_operands(rng, dev):
@@ -1706,18 +1786,21 @@ def phase_times(rng, smi: str) -> dict:
                                        stable=True), 200),
            3 * r.numel() * 4, r.numel() * math.ceil(math.log2(T_SMALL)))
 
-    # merge_ranks at the main path's (64, 64, 4096), bound block 2048:
-    # keys and ids in, positions out; merging t sorted rows needs at most
-    # ceil(log2 t) compares per key, whatever the kernel's search costs
+    # merge_ranks at PR 16's shape, the main path's rows padded to (64,
+    # 64, 4096) with their pad ids, bound block 2048 (ignored on the
+    # card): keys and ids in, positions out; merging t sorted rows needs
+    # at most ceil(log2 t) compares per key.  Then the rank merge as the
+    # paths call it, at their own landed rows.
     kp, ip, recv = _main_rank_operands(rng, dev)
     bb = ops.RANK_MERGE_BOUND_BLOCK
     flat = recv.reshape(T, -1)
     record("merge_ranks",
-           timed_ms(lambda: fused.merge_ranks(kp, ip, bb), 5, warm=1),
+           timed_ms(lambda: fused.merge_ranks(kp, ip, bb), 10),
            event_ms(lambda: fused.merge_ranks_plain(kp, ip, bb), 1, warm=0),
            event_ms(lambda: torch.sort(flat, dim=-1), 20),
            (kp.numel() + ip.numel() + kp.numel()) * 4,
            kp.numel() * math.ceil(math.log2(kp.shape[-2])))
+    rank_merge_times(record, {"4096": kp, **RANK_OPERANDS})
 
     # bucketize_histogram at SMMS's shape: 4,194,304 f32 keys into 64
     # buckets.  Keys and boundaries in, int32 ids and counts out; a
@@ -1852,6 +1935,27 @@ def phase_times(rng, smi: str) -> dict:
     return res
 
 
+def rank_merge_times(record, operands: dict) -> None:
+    """The rank merge as the paths call it (``fused.rank_merge``: keys
+    in, merged keys and the int32 order out), ``merge_ranks@<name>``, at
+    (64, 64, 4096) rows of real keys and at the landed rows each sort
+    path handed it (:data:`RANK_OPERANDS`), beside one stable torch.sort
+    of the same keys, values and indices.  Bound: the keys read once,
+    the merged keys and the order written once; merging t sorted rows
+    needs ceil(log2 t) compares a key."""
+    for name, keys in operands.items():
+        keys = keys.to(DEVICE)
+        batch, t, c = keys.shape
+        n = keys.numel()
+        flat = keys.reshape(batch, -1)
+        record(f"merge_ranks@{name}",
+               timed_ms(lambda: fused.rank_merge(keys), 10),
+               event_ms(lambda: fused.rank_merge_plain(keys), 1, warm=0),
+               event_ms(lambda: torch.sort(flat, dim=-1, stable=True), 10),
+               n * (2 * keys.element_size() + 4),
+               n * math.ceil(math.log2(t)))
+
+
 def bf16_times(record, rng, x, xs) -> None:
     """Each sort-side kernel on bf16 keys, at the float32 entries' shapes
     (``<kernel>@bf16``): the same work with 2-byte keys, so the bytes
@@ -1919,11 +2023,13 @@ def bf16_times(record, rng, x, xs) -> None:
     kp, ip, recv = _main_rank_operands(rng, dev)
     kb, bb = kp.to(torch.bfloat16), ops.RANK_MERGE_BOUND_BLOCK
     record("merge_ranks@bf16",
-           timed_ms(lambda: fused.merge_ranks(kb, ip, bb), 5, warm=1),
+           timed_ms(lambda: fused.merge_ranks(kb, ip, bb), 10),
            event_ms(lambda: fused.merge_ranks_plain(kb, ip, bb), 1, warm=0),
            event_ms(lambda: torch.sort(kb.reshape(T, -1), dim=-1), 20),
            kb.numel() * (2 + 4 + 4), kb.numel() * math.ceil(
                math.log2(kb.shape[-2])))
+    rank_merge_times(record, {
+        "smms_uniform_bf16": RANK_OPERANDS["smms_uniform"].to(torch.bfloat16)})
     bk = xb.reshape(-1)
     hb = torch.sort(bk).values[M::M].contiguous()
     record("bucketize_histogram@bf16",
@@ -2100,7 +2206,14 @@ def main() -> None:
                     f: times[key][f] for f in ("ms", "plain_ms", "bound_ms",
                                                "bound_by", "library_ms")}
                     for key in (f"{name}@bf16", f"{name}@f32")
-                    if key in times}}
+                    if key in times},
+                # the same kernel at other shapes: the paths' own
+                # operands (the rank merge's landed rows), another window
+                "shapes": {key.split("@")[1]: {
+                    f: times[key][f] for f in ("ms", "plain_ms", "bound_ms",
+                                               "bound_by", "library_ms")}
+                    for key in times if key.startswith(name + "@")
+                    and key.split("@")[1] not in ("bf16", "f32")}}
                for name, k in cuda.KERNELS.items()]
     print(json.dumps({"build": build, "runs": runs, "joins": join_runs,
                       "serve": serving, "times": times,

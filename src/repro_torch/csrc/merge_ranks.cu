@@ -1,70 +1,175 @@
-// Global rank of every (key, id) pair of t sorted rows, per batch entry.
+// Merge of t sorted rows per batch entry: the merged keys and the stable
+// flat order, or every pair's global rank.
 //
-// keys, ids: (batch, t, w) with row stride w; the first c slots of each
-// row are real and lexicographically increasing in (key, id).  pos:
-// (batch, t, w) int32, pos[b, i, j] = the number of real pairs of rows
-// 0..t-1 of batch entry b that are lexicographically < (key, id)[b, i, j]
-// -- the element's index in the merged order.  The caller keeps the
-// first c slots of each row.
+// keys: (batch, t, c), each row increasing in (key, tie); the tie is the
+// pair's flat index row * c + col, or its id where ids are given.
+// Without ids the merged keys and the flat order (the stable argsort of
+// the flattened rows) land in side 0 (k0, s0), (batch, t * c) each.
+// With ids (batch, t, c) -- the TPU kernel's contract -- pos[b, i, j]
+// gets the number of pairs of batch entry b that are lexicographically
+// < (key, id)[b, i, j], its index in the merged order; both sides are
+// then scratch.  Keys are float32, int32 or bf16, compared as
+// network.cuh cmp_key does (bf16 widened to float32, denormals folded
+// to zero: C1).
 //
 // Replaces: src/repro/kernels/fused.py merge_ranks (:237; pallas_call
-// at :272 with body _rank_kernel :163 -> _bin_search_pairs_block :139,
-// and at :286 with body _rank_kernel_blocked :209 ->
-// _bin_search_pairs_bounded :182) -- the Round-3 receive merge once the
+// at :272, body _rank_kernel :163, and at :286, body
+// _rank_kernel_blocked :209) -- the Round-3 receive merge once the
 // padded receive buffer exceeds one tile.
 //
-// Translation.  On the TPU the bound rows are a sequential grid axis
-// and the rank accumulates in the resident output block.  Hopper blocks
-// run in no order, so that axis becomes a loop inside the thread: each
-// thread owns one query and sums its per-row counts in a register.
-// With bound_block > 0 each bound row is counted block by block, as the
-// reference's blocked variant splits its columns (:209).  Every count
-// is exact, so the ranks are bitwise the reference's whichever way a
-// row is searched.
+// Translation.  The TPU kernel counts, for every query, the pairs below
+// it in each of the t bound rows, a binary search per row summed over a
+// sequential grid axis: t * log2(c) dependent probes a pair.  Here the
+// rows are merged instead, ceil(log2 t) levels of two-way merge path,
+// each level a pass that reads and writes every pair once:
 //
-// What bounds it on the H100.  At the main path's shape (64 machines x
-// 64 rows x 4096 slots) there are 16.7M queries and 64 bound rows each.
-// A first version searched every bound row whole for every query: 64
-// rows x 2 blocks x 12 dependent probes per thread, 33 ms, bound by
-// the issue of those probe instructions.  This version uses the rows'
-// order: a block owns kQueryTile consecutive queries of one row, which
-// are increasing, so their count in bound row k lies between the
-// counts of the tile's first and last query.  Those 2t counts are
-// searched once per block (by 2t threads at once) into shared memory;
-// each thread then searches only that window, ~log2(kQueryTile) probes
-// per row on near-uniform data, and a column block that lies wholly
-// below or above the window costs no probe at all.
+//   phase A  where it saves a pass over device memory (where g >= 4 rows
+//            fit, as at C = 2152): one block takes g rows of one entry
+//            into shared memory, merges them there, ceil(log2 g) levels
+//            ping-ponging between two buffers, and writes one run out; g
+//            is the smallest that needs no more device levels than the
+//            largest that fits a block's 227 KB.
+//   phase B  the remaining levels over device memory, each merging pairs
+//            of runs (an odd run out is carried to the next level);
+//            without phase A the first level reads the input rows
+//            themselves.  A level is two launches: cut_level finds the
+//            co-rank at every tile's start, one thread a tile (a binary
+//            search of the two runs); merge_level makes one tile of kTileB
+//            outputs a block -- both input slices staged in shared memory
+//            by cp.async, each thread merging kItemsB outputs after a
+//            binary search for its own co-rank, the tile written out
+//            coalesced.
+//   output   the last level writes the merged keys and the flat order,
+//            or pos[src] = position (the ranks of the ids' contract).
 //
-// Any t and any row width: the windows are searched kRowChunk bound
-// rows at a time (one pass for t <= 512, as on the main path), and
-// positions stay int32 while a batch entry holds fewer than 2^31
-// slots.  Keys are float32, int32 or bf16 (compared as float32,
-// network.cuh cmp_key).
+// The work is the same whatever the keys' skew: every level moves every
+// pair once.  Ranks are additive over column blocks, so the reference's
+// bound-row blocking (RANK_MERGE_BOUND_BLOCK) has nothing to say here;
+// the wrapper accepts it and ignores it.
+//
+// What bounds it on the H100: device-memory traffic -- ceil(log2(t / g))
+// passes (one more with phase A), each reading and writing sizeof(T) + 4
+// bytes a pair (+ 4 with ids) -- and each level's cut search, ~17
+// dependent loads (PERF.md has the times).  Tried and no faster:
+// merging in place in shared memory (twice the rows a block, one block
+// an SM), a 32- or 8-lane cut search (more scattered traffic), a
+// two-block cluster merging through distributed shared memory (remote
+// loads on the merge's dependent chain), other tile shapes, the batch
+// as two halves on two streams (they compete rather than overlap).
+// Positions are int32: a batch entry holds fewer than 2^31 pairs.
 #include "network.cuh"
 
 using namespace repro;
 
 namespace {
 
-constexpr int kQueryTile = 256;     // queries per block, one per thread
-constexpr int kRowChunk = 512;      // bound rows whose windows a pass holds
+constexpr int kThreadsA = 1024;           // phase A: threads a block
+constexpr int kThreadsB = 256;            // phase B: threads a block
+constexpr int kItemsB = 9;                // outputs a phase-B thread merges
+constexpr int kTileB = kThreadsB * kItemsB;
+constexpr long long kSmemBytes = 227 * 1024;  // a block's limit on sm_90
 
-// (km, im) < (qk, qi) lexicographically; keys already cmp_key-folded.
-template <typename K>
-__device__ __forceinline__ bool pair_less(K km, int im, K qk, int qi) {
-  return (km < qk) || (km == qk && im < qi);
+__host__ __device__ constexpr long long align16(long long b) {
+  return (b + 15) / 16 * 16;
 }
 
-// lo + the number of pairs of rk/ri[lo, hi) below (qk, qi): a binary
-// search of the sorted slice, ceil(log2(hi - lo + 1)) halvings.
+// One side of the ping-pong: keys, flat source indices and (kIds) ids.
+template <typename T, bool kIds>
+struct Side {
+  T* k;
+  int* src;
+  int* id;
+
+  // shared-memory bytes of a side holding n pairs
+  __host__ __device__ static constexpr long long bytes(long long n) {
+    return align16(n * (long long)sizeof(T)) + align16(n * 4) +
+           (kIds ? align16(n * 4) : 0);
+  }
+  __device__ static Side carve(unsigned char* p, long long n) {
+    Side s;
+    s.k = reinterpret_cast<T*>(p);
+    s.src = reinterpret_cast<int*>(p + align16(n * (long long)sizeof(T)));
+    s.id = kIds ? s.src + align16(n * 4) / 4 : nullptr;
+    return s;
+  }
+  __device__ Side at(long long off) const {
+    return {k + off, src ? src + off : nullptr, kIds ? id + off : nullptr};
+  }
+  // what ties between equal keys break on
+  __device__ int tie(long long x) const {
+    if constexpr (kIds) return id[x];
+    else return src[x];
+  }
+  __device__ void put(long long x, T key, int s, int i) const {
+    k[x] = key;
+    src[x] = s;
+    if constexpr (kIds) id[x] = i;
+  }
+  __device__ void copy(long long x, const Side& from, long long y) const {
+    put(x, from.k[y], from.src[y], kIds ? from.id[y] : 0);
+  }
+};
+
+// dst[e] = src[e] for e = threadIdx.x + k * kStride < n, into shared
+// memory without waiting: 4-byte elements by cp.async (completed by
+// staged()), 2-byte ones eight at a time through registers, so a
+// thread keeps many loads in flight either way.
+template <int kStride, typename T>
+__device__ __forceinline__ void stage(T* dst, const T* src, int n) {
+  if constexpr (sizeof(T) == 4) {
+    for (int e = threadIdx.x; e < n; e += kStride) {
+      const unsigned d =
+          static_cast<unsigned>(__cvta_generic_to_shared(dst + e));
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+                   "l"(src + e));
+    }
+  } else {
+    for (int e0 = threadIdx.x; e0 < n; e0 += 8 * kStride) {
+      T v[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        if (e0 + q * kStride < n) v[q] = src[e0 + q * kStride];
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        if (e0 + q * kStride < n) dst[e0 + q * kStride] = v[q];
+    }
+  }
+}
+
+// The block's stage() copies have landed and are visible to it.
+__device__ __forceinline__ void staged() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+}
+
+// (ka, ta) < (kb, tb) lexicographically, keys compared as cmp_key does.
 template <typename T>
-__device__ int count_below(const T* rk, const int* ri, int lo, int hi,
-                           cmp_t<T> qk, int qi) {
+__device__ __forceinline__ bool pair_less(T ka, int ta, T kb, int tb) {
+  const cmp_t<T> a = cmp_key(ka), b = cmp_key(kb);
+  return a < b || (a == b && ta < tb);
+}
+
+// Rows of the input as a run of the first level, without ids: a pair's
+// tie is its flat index, origin + its place in the run.
+template <typename T>
+struct InputRun {
+  const T* k;
+  long long origin;
+  __device__ int tie(long long x) const {
+    return static_cast<int>(origin + x);
+  }
+};
+
+// The number of a's pairs among the first d of merge(a, b): the least
+// i with a[i] > b[d - 1 - i] (pairs are unique, so never equal).  R is
+// a Side or an InputRun.
+template <typename R>
+__device__ int co_rank(const R& a, int la, const R& b, int lb, int d) {
+  int lo = d - lb > 0 ? d - lb : 0;
+  int hi = d < la ? d : la;
   while (lo < hi) {
-    // lo + hi < 2^32: the unsigned sum cannot wrap, and its shift is
-    // the floor the reference's (lo + hi) // 2 takes
     const int mid = static_cast<int>((static_cast<unsigned>(lo) + hi) >> 1);
-    if (pair_less(cmp_key(rk[mid]), ri[mid], qk, qi))
+    if (pair_less(a.k[mid], a.tie(mid), b.k[d - 1 - mid], b.tie(d - 1 - mid)))
       lo = mid + 1;
     else
       hi = mid;
@@ -72,97 +177,328 @@ __device__ int count_below(const T* rk, const int* ri, int lo, int hi,
   return lo;
 }
 
-template <typename T>
-__global__ void ranks(const T* keys, const int* ids, int* pos, int t,
-                      long long w, int c, int bound_block) {
-  __shared__ int first_count[kRowChunk];
-  __shared__ int last_count[kRowChunk];
-  const long long tiles = (w + kQueryTile - 1) / kQueryTile;
-  const long long tile = blockIdx.x % tiles;
-  const long long row = (blockIdx.x / tiles) % t;
-  const long long entry = blockIdx.x / (tiles * t);
-  const T* K = keys + entry * t * w;
-  const int* I = ids + entry * t * w;
-  const long long j0 = tile * kQueryTile;
-  const long long j1 = (j0 + kQueryTile < w ? j0 + kQueryTile : w) - 1;
-  const long long j = j0 + threadIdx.x;
-  const bool mine = j <= j1;
-  const cmp_t<T> qk = cmp_key(K[row * w + (mine ? j : j1)]);
-  const int qi = I[row * w + (mine ? j : j1)];
-  const cmp_t<T> fk = cmp_key(K[row * w + j0]);
-  const cmp_t<T> lk = cmp_key(K[row * w + j1]);
-  const int fi = I[row * w + j0], li = I[row * w + j1];
-  const int bb = bound_block > 0 ? bound_block : c;
-  int rank = 0;
-  // bound rows in chunks of kRowChunk, so any t fits the window arrays
-  for (int k0 = 0; k0 < t; k0 += kRowChunk) {
-    const int rows = t - k0 < kRowChunk ? t - k0 : kRowChunk;
-    __syncthreads();                 // the last chunk's windows are read
-    // the window of every bound row: counts of the tile's end queries
-    for (int e = threadIdx.x; e < 2 * rows; e += blockDim.x) {
-      const long long k = k0 + e / 2;
-      if (e & 1)
-        last_count[e / 2] = count_below(K + k * w, I + k * w, 0, c, lk, li);
-      else
-        first_count[e / 2] = count_below(K + k * w, I + k * w, 0, c, fk, fi);
-    }
-    __syncthreads();
-    if (!mine) continue;
-    for (int kr = 0; kr < rows; ++kr) {
-      const T* rk = K + (long long)(k0 + kr) * w;
-      const int* ri = I + (long long)(k0 + kr) * w;
-      const int lo = first_count[kr], hi = last_count[kr];
-      for (int base = 0; base < c; base += bb) {
-        const int end = base + bb < c ? base + bb : c;  // the block's end
-        if (lo >= end) {             // the whole block is below the tile
-          rank += end - base;
-          continue;
-        }
-        if (hi <= base) break;       // this block and the rest are above
-        rank += count_below(rk, ri, lo > base ? lo : base,
-                            hi < end ? hi : end, qk, qi) - base;
-      }
+// Outputs [d0, d1) of merge(a, b) into out[d0, d1): a co-rank search,
+// then a sequential merge holding both heads in registers.
+template <typename T, bool kIds>
+__device__ void merge_part(const Side<T, kIds>& a, int la,
+                           const Side<T, kIds>& b, int lb, int d0, int d1,
+                           const Side<T, kIds>& out) {
+  if (d0 >= d1) return;
+  int i = co_rank(a, la, b, lb, d0);
+  int j = d0 - i;
+  T ka{}, kb{};
+  int ta = 0, tb = 0;
+  if (i < la) ka = a.k[i], ta = a.tie(i);
+  if (j < lb) kb = b.k[j], tb = b.tie(j);
+  for (int d = d0; d < d1; ++d) {
+    if (j >= lb || (i < la && pair_less(ka, ta, kb, tb))) {
+      out.put(d, ka, kIds ? a.src[i] : ta, ta);
+      if (++i < la) ka = a.k[i], ta = a.tie(i);
+    } else {
+      out.put(d, kb, kIds ? b.src[j] : tb, tb);
+      if (++j < lb) kb = b.k[j], tb = b.tie(j);
     }
   }
-  if (mine) pos[entry * t * w + row * w + j] = rank;
 }
 
-template <typename T>
-int rank_rows(const T* keys, const int* ids, int* pos, long long batch,
-              long long t, long long w, long long c, long long bound_block,
-              cudaStream_t stream) {
-  // positions are int32: a batch entry holds fewer than 2^31 slots
-  if (c > w || t * w >= (1LL << 31))
+// Pair e of `from` goes to position o of its entry's level: into the
+// next level's side, or (the ids' last level) its rank into pos.
+template <typename T, bool kIds>
+__device__ __forceinline__ void emit(const Side<T, kIds>& from, long long e,
+                                     const Side<T, kIds>& dst, int* pos,
+                                     long long base, long long o) {
+  if (pos != nullptr)
+    pos[base + from.src[e]] = static_cast<int>(o);
+  else
+    dst.copy(base + o, from, e);
+}
+
+// Phase A: g rows of one entry merged in shared memory, ping-ponging
+// between two buffers, written out as one run of the level-0 layout
+// (entry-major, row-major).
+template <typename T, bool kIds>
+__global__ void __launch_bounds__(kThreadsA)
+merge_groups(const T* keys, const int* ids, Side<T, kIds> dst, int* pos,
+             int t, int c, int g) {
+  using S = Side<T, kIds>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int groups = (t + g - 1) / g;
+  const long long entry = blockIdx.x / groups;
+  const int r0 = static_cast<int>(blockIdx.x % groups) * g;
+  const int rows = g < t - r0 ? g : t - r0;
+  const int n = rows * c;
+  const long long base = entry * t * c;
+  S x = S::carve(smem, (long long)g * c);
+  S y = S::carve(smem + S::bytes((long long)g * c), (long long)g * c);
+  const int first = r0 * c;
+  stage<kThreadsA>(x.k, keys + base + first, n);
+  if constexpr (kIds) stage<kThreadsA>(x.id, ids + base + first, n);
+  for (int e = threadIdx.x; e < n; e += kThreadsA) x.src[e] = first + e;
+  staged();
+  // one contiguous span of outputs a thread each level; an odd span
+  // keeps the threads' shared-memory writes on distinct banks
+  const int span = ((n + kThreadsA - 1) / kThreadsA) | 1;
+  for (int runs = rows, len = c; runs > 1; runs = (runs + 1) / 2, len *= 2) {
+    const int o1 = min(n, (int)(threadIdx.x + 1) * span);
+    for (int o = min(n, (int)threadIdx.x * span); o < o1;) {
+      const int ps = o / (2 * len) * (2 * len);   // the pair's start
+      const int a1 = min(ps + len, n), b1 = min(ps + 2 * len, n);
+      const int stop = min(o1, b1);
+      merge_part(x.at(ps), a1 - ps, x.at(a1), b1 - a1, o - ps, stop - ps,
+                 y.at(ps));
+      o = stop;
+    }
+    __syncthreads();
+    const S swap = x;
+    x = y;
+    y = swap;
+  }
+  for (int e = threadIdx.x; e < n; e += kThreadsA)
+    emit(x, e, dst, pos, base, first + e);
+}
+
+// t == 1: the one row is the merged order; each pair's rank its place.
+template <typename T, bool kIds>
+__global__ void copy_rows(const T* keys, Side<T, kIds> dst, int* pos,
+                          long long total, int n) {
+  for (long long x = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       x < total; x += (long long)gridDim.x * blockDim.x) {
+    const int e = static_cast<int>(x % n);
+    if (pos != nullptr)
+      pos[x] = e;
+    else
+      dst.put(x, keys[x], e, 0);
+  }
+}
+
+// Phase B, one level: runs of len pairs (the last one shorter) merged
+// two by two, each pair's outputs cut into tiles of kTileB; tile q of
+// the level is the q-th of batch * per_entry, entry-major, pair-major.
+struct Tile {
+  long long base;   // the entry's first pair
+  long long ps;     // the pair's first output: its first run's start
+  long long a1;     // the first run's end, the second's start
+  long long b1;     // the second run's end
+  long long o0;     // the tile's first output
+  int m;            // the tile's outputs
+};
+
+__device__ __forceinline__ Tile tile_of(long long q, int n, long long len,
+                                        int per_entry, int tiles_full) {
+  Tile tl;
+  const long long entry = q / per_entry;
+  const int rest = static_cast<int>(q - entry * per_entry);
+  tl.base = entry * n;
+  tl.ps = (long long)(rest / tiles_full) * 2 * len;
+  tl.o0 = tl.ps + (long long)(rest % tiles_full) * kTileB;
+  tl.a1 = min(tl.ps + len, (long long)n);
+  tl.b1 = min(tl.ps + 2 * len, (long long)n);
+  tl.m = static_cast<int>(min((long long)kTileB, tl.b1 - tl.o0));
+  return tl;
+}
+
+// The co-rank at every tile's start, one thread a tile, so that a
+// merging block finds its inputs' slices without a search of its own.
+// kInput: the level's runs are the input rows themselves (src.k and
+// src.id are the input's; a pair's source index is its place).
+template <typename T, bool kIds, bool kInput>
+__global__ void cut_level(Side<T, kIds> src, int* cuts, long long count,
+                          int n, long long len, int per_entry,
+                          int tiles_full) {
+  const long long q = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (q >= count) return;
+  const Tile tl = tile_of(q, n, len, per_entry, tiles_full);
+  const int la = static_cast<int>(tl.a1 - tl.ps);
+  const int lb = static_cast<int>(tl.b1 - tl.a1);
+  const int d = static_cast<int>(tl.o0 - tl.ps);
+  if constexpr (kInput && !kIds)
+    cuts[q] = co_rank(InputRun<T>{src.k + tl.base + tl.ps, tl.ps}, la,
+                      InputRun<T>{src.k + tl.base + tl.a1, tl.a1}, lb, d);
+  else
+    cuts[q] = co_rank(src.at(tl.base + tl.ps), la, src.at(tl.base + tl.a1),
+                      lb, d);
+}
+
+// Tile blockIdx.x of the level: both input slices staged in shared
+// memory, kItemsB outputs merged by each thread into a second buffer,
+// written out coalesced.
+template <typename T, bool kIds, bool kInput>
+__global__ void __launch_bounds__(kThreadsB)
+merge_level(Side<T, kIds> src, Side<T, kIds> dst, int* pos, const int* cuts,
+            int n, long long len, int per_entry, int tiles_full) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Tile tl = tile_of(blockIdx.x, n, len, per_entry, tiles_full);
+  const Side<T, kIds> a = src.at(tl.base + tl.ps), b = src.at(tl.base + tl.a1);
+  const int m = tl.m;
+  const int la = static_cast<int>(tl.a1 - tl.ps);
+  // the next tile of the same pair starts where this one ends
+  const int i0 = cuts[blockIdx.x];
+  const int na = (tl.o0 + m == tl.b1 ? la : cuts[blockIdx.x + 1]) - i0;
+  const int j0 = static_cast<int>(tl.o0 - tl.ps) - i0;
+  Side<T, kIds> tile = Side<T, kIds>::carve(smem, kTileB);
+  Side<T, kIds> out = Side<T, kIds>::carve(
+      smem + Side<T, kIds>::bytes(kTileB), kTileB);
+  stage<kThreadsB>(tile.k, a.k + i0, na);
+  stage<kThreadsB>(tile.k + na, b.k + j0, m - na);
+  if constexpr (kInput) {            // a pair's source index: its place
+    for (int e = threadIdx.x; e < m; e += kThreadsB)
+      tile.src[e] = static_cast<int>(
+          e < na ? tl.ps + i0 + e : tl.a1 + j0 + (e - na));
+  } else {
+    stage<kThreadsB>(tile.src, a.src + i0, na);
+    stage<kThreadsB>(tile.src + na, b.src + j0, m - na);
+  }
+  if constexpr (kIds) {
+    stage<kThreadsB>(tile.id, a.id + i0, na);
+    stage<kThreadsB>(tile.id + na, b.id + j0, m - na);
+  }
+  staged();
+  const int q0 = min(m, (int)threadIdx.x * kItemsB);
+  merge_part(tile, na, tile.at(na), m - na, q0, min(m, q0 + kItemsB), out);
+  __syncthreads();
+  for (int e = threadIdx.x; e < m; e += kThreadsB)
+    emit(out, e, dst, pos, tl.base, tl.o0 + e);
+}
+
+// Tiles of level r of a merge of `groups` runs of g * c pairs: each
+// entry's (pairs - 1) * tiles_full + the last pair's.
+struct LevelShape {
+  long long len;
+  int per_entry;
+  int tiles_full;
+};
+
+LevelShape level_shape(long long n, long long groups, long long run, int r) {
+  const long long len = run << (r - 1);
+  const long long runs = (groups + (1LL << (r - 1)) - 1) >> (r - 1);
+  const long long pairs = (runs + 1) / 2;
+  const long long full = (2 * len + kTileB - 1) / kTileB;
+  const long long last = (n - (pairs - 1) * 2 * len + kTileB - 1) / kTileB;
+  return {len, static_cast<int>((pairs - 1) * full + last),
+          static_cast<int>(full)};
+}
+
+int ceil_log2(long long v) {
+  int l = 0;
+  while ((1LL << l) < v) ++l;
+  return l;
+}
+
+template <typename T, bool kIds>
+int merge_rows(const T* keys, const int* ids, Side<T, kIds> side0,
+               Side<T, kIds> side1, int* pos, int* cuts, long long batch,
+               long long t, long long c, cudaStream_t stream) {
+  using S = Side<T, kIds>;
+  const long long n = t * c;
+  if (batch < 0 || t < 0 || c < 0 || n >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long blocks = batch * t * ((w + kQueryTile - 1) / kQueryTile);
-  if (blocks <= 0 || c <= 0) return static_cast<int>(cudaGetLastError());
-  ranks<T><<<blocks, kQueryTile, 0, stream>>>(keys, ids, pos, (int)t, w,
-                                              (int)c, (int)bound_block);
+  if (batch == 0 || n == 0) return static_cast<int>(cudaGetLastError());
+  // g: rows a phase-A block merges; the fewest levels, then the least
+  // shared memory.  Phase A runs where it saves a pass over device
+  // memory: where it merges 2 (or 3) rows, the first level reads the
+  // input rows instead.
+  long long g_max = 1;
+  while (g_max < t && 2 * S::bytes((g_max + 1) * c) <= kSmemBytes) ++g_max;
+  long long g = 1;
+  if (g_max >= 2) {
+    const int fewest = ceil_log2((t + g_max - 1) / g_max);
+    for (g = 2; ceil_log2((t + g - 1) / g) > fewest; ++g) {
+    }
+    if (1 + ceil_log2((t + g - 1) / g) >= ceil_log2(t)) g = 1;
+  }
+  const long long groups = (t + g - 1) / g;     // runs of the first level
+  const int levels = ceil_log2(groups);
+  // level r lives in side 0 when levels - r is even: the last one is side 0
+  auto level = [&](int r) { return ((levels - r) & 1) ? side1 : side0; };
+  cudaError_t err;
+  if (t == 1) {
+    const long long total = batch * n;
+    const long long blocks = (total + 255) / 256 < 8192 ? (total + 255) / 256
+                                                        : 8192;
+    copy_rows<T, kIds><<<blocks, 256, 0, stream>>>(keys, level(0), pos, total,
+                                                   (int)n);
+  } else if (g >= 2) {
+    const long long smem = 2 * S::bytes(g * c);
+    err = cudaFuncSetAttribute(merge_groups<T, kIds>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    merge_groups<T, kIds><<<batch * groups, kThreadsA, smem, stream>>>(
+        keys, ids, level(0), levels == 0 ? pos : nullptr, (int)t, (int)c,
+        (int)g);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long smem_b = 2 * S::bytes(kTileB);
+  for (auto fn : {merge_level<T, kIds, false>, merge_level<T, kIds, true>}) {
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem_b));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  // without phase A the first level reads the input rows
+  const S input{const_cast<T*>(keys), nullptr, const_cast<int*>(ids)};
+  for (int r = 1; r <= levels; ++r) {
+    const LevelShape ls = level_shape(n, groups, g * c, r);
+    const long long count = batch * ls.per_entry;
+    const bool from_input = r == 1 && g == 1;
+    const S from = from_input ? input : level(r - 1);
+    int* const last = r == levels ? pos : nullptr;
+    const auto cut = from_input ? cut_level<T, kIds, true>
+                                : cut_level<T, kIds, false>;
+    const auto merge = from_input ? merge_level<T, kIds, true>
+                                  : merge_level<T, kIds, false>;
+    cut<<<(count + 127) / 128, 128, 0, stream>>>(
+        from, cuts, count, (int)n, ls.len, ls.per_entry, ls.tiles_full);
+    merge<<<count, kThreadsB, smem_b, stream>>>(
+        from, level(r), last, cuts, (int)n, ls.len, ls.per_entry,
+        ls.tiles_full);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The cuts a call needs: at most ceil(n / kTileB) + pairs tiles an
+// entry at any level, pairs <= t.
+long long cuts_bound(long long batch, long long t, long long c) {
+  return batch * ((t * c + kTileB - 1) / kTileB + t);
+}
+
+// ids null: the merged keys and flat order land in (k0, s0) and i0, i1
+// and pos are unused; ids given: pos gets the ranks and the sides are
+// scratch.  Each side holds (batch, t * c) pairs; cuts holds
+// merge_ranks_cuts(batch, t, c) ints.
+template <typename T>
+int merge_entry(const T* keys, const int* ids, T* k0, int* s0, int* i0,
+                T* k1, int* s1, int* i1, int* pos, int* cuts, long long batch,
+                long long t, long long c, void* stream) {
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (ids == nullptr)
+    return merge_rows<T, false>(keys, ids, {k0, s0, nullptr},
+                                {k1, s1, nullptr}, nullptr, cuts, batch, t,
+                                c, st);
+  if (pos == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return merge_rows<T, true>(keys, ids, {k0, s0, i0}, {k1, s1, i1}, pos,
+                             cuts, batch, t, c, st);
 }
 
 }  // namespace
 
-extern "C" int merge_ranks_f32(const float* keys, const int* ids, int* pos,
-                               long long batch, long long t, long long w,
-                               long long c, long long bound_block,
-                               void* stream) {
-  return rank_rows(keys, ids, pos, batch, t, w, c, bound_block,
-                   static_cast<cudaStream_t>(stream));
+extern "C" long long merge_ranks_cuts(long long batch, long long t,
+                                      long long c) {
+  return cuts_bound(batch, t, c);
 }
 
-extern "C" int merge_ranks_i32(const int* keys, const int* ids, int* pos,
-                               long long batch, long long t, long long w,
-                               long long c, long long bound_block,
-                               void* stream) {
-  return rank_rows(keys, ids, pos, batch, t, w, c, bound_block,
-                   static_cast<cudaStream_t>(stream));
-}
+#define MERGE_RANKS_ENTRY(suffix, T)                                        \
+  extern "C" int merge_ranks_##suffix(const T* keys, const int* ids, T* k0, \
+                                      int* s0, int* i0, T* k1, int* s1,     \
+                                      int* i1, int* pos, int* cuts,         \
+                                      long long batch, long long t,         \
+                                      long long c, void* stream) {          \
+    return merge_entry(keys, ids, k0, s0, i0, k1, s1, i1, pos, cuts, batch, \
+                       t, c, stream);                                       \
+  }
 
-extern "C" int merge_ranks_bf16(const __nv_bfloat16* keys, const int* ids,
-                                int* pos, long long batch, long long t,
-                                long long w, long long c,
-                                long long bound_block, void* stream) {
-  return rank_rows(keys, ids, pos, batch, t, w, c, bound_block,
-                   static_cast<cudaStream_t>(stream));
-}
+MERGE_RANKS_ENTRY(f32, float)
+MERGE_RANKS_ENTRY(i32, int)
+MERGE_RANKS_ENTRY(bf16, __nv_bfloat16)

@@ -96,7 +96,7 @@ _SORT_SIGNATURES = {
     "bitonic_sort_kv": [_P, _P, _I64, _I64, _P],
     "merge_rows": [_P, _I64, _I64, _I64, _P],
     "merge_rows_kv": [_P, _P, _I64, _I64, _I64, _P],
-    "merge_ranks": [_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P],
+    "merge_ranks": [_P] * 10 + [_I64, _I64, _I64, _P],
     "sort_partition": [_P, _P, _P, _I64, _I64, _I64, _I64, _P],
     "sort_partition_kv": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
     "radix_sort": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _P],
@@ -107,10 +107,16 @@ SIGNATURES = {f"{fn}_{suffix}": args
               for fn, args in _SORT_SIGNATURES.items()
               for suffix in ("f32", "bf16", "i32")}
 SIGNATURES.update({"flash_attention_f32": _FLASH,
-                   "flash_attention_bf16": _FLASH})
+                   "flash_attention_bf16": _FLASH,
+                   "merge_ranks_cuts": [_I64, _I64, _I64]})
+# entry points that return something other than a cudaError_t
+RESTYPES = {"merge_ranks_cuts": ctypes.c_longlong}
 
-# kernel name -> launches made through launch(); the counts the chip
-# smoke run reads to show the main path went through each kernel.
+# kernel name -> calls of its C entry point made through launch(); the
+# counts the chip smoke run reads to show the main path went through each
+# kernel.  A call is one launch for every kernel but the rank merge, whose
+# call launches its phases one after another (merge_ranks.cu: phase A,
+# then a cut and a merge kernel a level) and counts once.
 LAUNCHES: collections.Counter = collections.Counter()
 # kernel name -> {"seconds": build time, "ptxas": nvcc's -Xptxas -v}
 BUILD_LOG: Dict[str, dict] = {}
@@ -189,7 +195,8 @@ def library(name: str) -> ctypes.CDLL:
             for fn, argtypes in SIGNATURES.items():
                 if hasattr(lib, fn):
                     getattr(lib, fn).argtypes = argtypes
-                    getattr(lib, fn).restype = ctypes.c_int
+                    getattr(lib, fn).restype = RESTYPES.get(fn,
+                                                            ctypes.c_int)
             lib.error_string.argtypes = [ctypes.c_int]
             lib.error_string.restype = ctypes.c_char_p
             _LIBS[name] = lib

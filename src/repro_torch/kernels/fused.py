@@ -2,7 +2,7 @@
 RandJoin's routing, and the rank merge past one tile.
 
 Counterpart of ``src/repro/kernels/fused.py``.  Three kernels, each
-with its plain PyTorch version beside it:
+entry with its plain PyTorch version beside it:
 
 * :func:`sort_partition` -- sort each row and left-search the row's
   queries over the sorted row in one pass; CUDA source
@@ -10,10 +10,13 @@ with its plain PyTorch version beside it:
 * :func:`sort_partition_kv` -- the (key, iota) pair sort (the stable
   argsort) with the same search.  Same source.
 * :func:`merge_ranks` -- every element's rank in the lexicographic
-  (key, flat id) order of t sorted rows (the reference's
+  (key, id) order of t sorted rows (the reference's
   ``_bin_search_pairs_block`` and ``_bin_search_pairs_bounded``, summed
   over the bound rows; the plain version's whole-row search gives the
-  blocked sums too); CUDA source ``csrc/merge_ranks.cu``.
+  blocked sums too), and :func:`rank_merge` -- the merged keys and the
+  stable flat order of the same rows with ids ``row * c + col``, what
+  the dispatch's rank merge consumes; CUDA source ``csrc/merge_ranks.cu``
+  for both (a multiway merge: the ranks are the merged positions).
 
 The plain versions run the networks of ``bitonic.py`` and the searches
 of ``bucketize.py`` in torch ops.  A CUDA tensor launches the kernel, a
@@ -27,13 +30,14 @@ from typing import Optional
 import torch
 
 from . import cuda
-from .bitonic import (KEY_DTYPES, _SUFFIX, _pad_row, ftz,
+from .bitonic import (KEY_DTYPES, _SUFFIX, _pad_row, as_bits, ftz,
                       sort_network_block, sort_network_block_kv,
                       sort_sentinel)
 from .bucketize import _bin_search_block
 
 __all__ = ["sort_partition", "sort_partition_plain", "sort_partition_kv",
-           "sort_partition_kv_plain", "merge_ranks", "merge_ranks_plain"]
+           "sort_partition_kv_plain", "merge_ranks", "merge_ranks_plain",
+           "rank_merge", "rank_merge_plain"]
 
 
 def _check_queries(keys: torch.Tensor, queries: torch.Tensor) -> None:
@@ -201,6 +205,38 @@ def merge_ranks_plain(keys: torch.Tensor, ids: torch.Tensor,
     return _ranks_plain(keys, ids, c)[:, :, :c]
 
 
+def _launch_merge(keys: torch.Tensor, ids: Optional[torch.Tensor],
+                  pos: Optional[torch.Tensor]):
+    """One call of the merge kernel on (batch, t, c) rows, with its two
+    ping-pong sides and its tile cuts allocated here.  Without ``ids``
+    the merged keys and the flat order land in side 0, which is
+    returned (side 1 is freed on return); with ``ids`` the ranks land in
+    ``pos`` and the sides (an id channel too) are scratch.
+    """
+    batch, t, c = keys.shape
+
+    def side(dtype):
+        return torch.empty((batch, t * c), dtype=dtype, device=keys.device)
+
+    k = [side(keys.dtype), side(keys.dtype)]
+    src = [side(torch.int32), side(torch.int32)]
+    tie = [None, None] if ids is None else [side(torch.int32),
+                                            side(torch.int32)]
+    # each level's tile boundaries, found before the level merges
+    cuts = torch.empty(cuda.library("merge_ranks").merge_ranks_cuts(
+        batch, t, c), dtype=torch.int32, device=keys.device)
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    cuda.launch("merge_ranks", f"merge_ranks_{_SUFFIX[keys.dtype]}",
+                keys.data_ptr(), ptr(ids), k[0].data_ptr(),
+                src[0].data_ptr(), ptr(tie[0]), k[1].data_ptr(),
+                src[1].data_ptr(), ptr(tie[1]), ptr(pos), cuts.data_ptr(),
+                batch, t, c)
+    return k[0], src[0]
+
+
 def merge_ranks(keys: torch.Tensor, ids: torch.Tensor,
                 bound_block: Optional[int] = None) -> torch.Tensor:
     """Global rank of every (key, id) pair.  keys/ids: (batch, t, c).
@@ -211,18 +247,49 @@ def merge_ranks(keys: torch.Tensor, ids: torch.Tensor,
     ``bound_block=None`` searches each bound row whole; an int searches
     it in column blocks of that width, as the reference's double-buffered
     variant does.  The ranks are bitwise the same either way.  A CUDA
-    tensor runs the kernel, a CPU tensor :func:`merge_ranks_plain`.
+    tensor runs the kernel, which merges the rows and ignores
+    ``bound_block`` (ranks are additive over column blocks); a CPU tensor
+    :func:`merge_ranks_plain`.
     """
     if not keys.is_cuda:
         return merge_ranks_plain(keys, ids, bound_block)
     cuda.check_cuda_tensor("merge_ranks", keys, KEY_DTYPES)
     cuda.check_cuda_tensor("merge_ranks", ids, (torch.int32,))
-    batch, t, _ = keys.shape
-    keys, ids, c, bb = _padded(keys, ids, bound_block)
-    width = keys.shape[-1]
-    pos = torch.empty((batch, t, width), dtype=torch.int32,
-                      device=keys.device)
-    cuda.launch("merge_ranks", f"merge_ranks_{_SUFFIX[keys.dtype]}",
-                keys.data_ptr(), ids.data_ptr(), pos.data_ptr(),
-                batch, t, width, c, 0 if bb is None else bb)
-    return pos[:, :, :c]
+    if ids.shape != keys.shape:
+        raise ValueError(f"merge_ranks: ids {tuple(ids.shape)} do not align "
+                         f"with keys {tuple(keys.shape)}")
+    pos = torch.empty(keys.shape, dtype=torch.int32, device=keys.device)
+    _launch_merge(keys, ids, pos)
+    return pos
+
+
+def rank_merge_plain(keys: torch.Tensor):
+    """The plain version of :func:`rank_merge`, on any device: the ranks
+    of the (key, flat index) pairs, then a scatter of the keys and of
+    the flat indices to their ranks."""
+    batch, t, c = keys.shape
+    flat = torch.arange(t * c, dtype=torch.int32, device=keys.device)
+    ids = flat.reshape(1, t, c).expand(batch, t, c).contiguous()
+    pos = merge_ranks_plain(keys, ids).reshape(batch, -1).long()
+    merged = torch.empty((batch, t * c), dtype=keys.dtype,
+                         device=keys.device)
+    as_bits(merged).scatter_(1, pos, as_bits(keys.reshape(batch, -1)))
+    order = torch.empty((batch, t * c), dtype=torch.int32,
+                        device=keys.device)
+    order.scatter_(1, pos, ids.reshape(batch, -1))
+    return merged, order
+
+
+def rank_merge(keys: torch.Tensor):
+    """Merge t sorted rows per batch entry.  keys: (batch, t, c).
+
+    Returns (merged (batch, t*c), order (batch, t*c) int32): the keys in
+    the lexicographic (key, flat index) order and the flat indices
+    ``row * c + col`` in that order, which are the stable flat argsort.
+    A CUDA tensor runs the merge kernel, which writes both in its last
+    level; a CPU tensor :func:`rank_merge_plain`.
+    """
+    if not keys.is_cuda:
+        return rank_merge_plain(keys)
+    cuda.check_cuda_tensor("rank_merge", keys, KEY_DTYPES)
+    return _launch_merge(keys, None, None)

@@ -67,9 +67,14 @@ __all__ = [
 # reference at every shape its kernels take: MAX_KERNEL_LANES is the
 # bitonic tile's reach (past it a row sorts by the radix family, and t
 # landed rows merge by the rank merge once their padded t * c passes
-# it); RANK_MERGE_BOUND_BLOCK the rank merge's bound-row block.  The
-# CUDA kernels size their own shared-memory tiles (csrc/*.cu);
-# re-sizing these for the H100 comes with the kernel redesigns.
+# it; that crossover is still the TPU's, not fitted on the H100).
+# RANK_MERGE_BOUND_BLOCK is the reference's bound-row block (its
+# _rank_merge blocks rows wider than it); the dispatch here no longer
+# reads it: the CUDA rank merge merges the landed rows at their own
+# width and sizes its shared-memory tiles itself (csrc/merge_ranks.cu),
+# and the plain ranks are the same blocked or not.  It stays the block
+# a caller hands fused.merge_ranks to run the reference's blocked
+# variant.
 MAX_KERNEL_LANES = 1 << 16
 RANK_MERGE_BOUND_BLOCK = 1 << 11
 MERGE_TILE_LANES = bitonic.MERGE_TILE_LANES
@@ -444,35 +449,18 @@ def _merge_fits_one_tile(t: int, c: int) -> bool:
 
 
 def _rank_merge(keys: torch.Tensor, with_order: bool = False):
-    """Scale-out merge: global (key, flat-id) ranks, then a scatter.
+    """Scale-out merge of (batch, t, c) sorted rows at their own width.
 
-    keys: (batch, t, c) sorted rows.  Every element's final position is
-    its rank in the lexicographic (key, id) order (``fused.merge_ranks``,
-    bound rows blocked past ``RANK_MERGE_BOUND_BLOCK``); the scatter
-    places the keys and, with ``with_order``, the flat ids, which are
-    then the stable flat argsort.  The positions are a permutation, so
-    the scatter is deterministic.  Returns (merged (batch, t*c), order
-    (batch, t*c) int32 or None).
+    ``fused.rank_merge``: the keys in the lexicographic (key, flat id)
+    order, ids ``row * c + col`` -- exactly the real part of the
+    reference's padded rows, whose pads rank above every real pair --
+    and the flat ids in that order, the stable flat argsort.  On the
+    card both come out of the merge kernel's last level; on the CPU from
+    the plain ranks and a scatter.  Returns (merged (batch, t*c), order
+    (batch, t*c) int32, or None without ``with_order``).
     """
-    batch, t, c = keys.shape
-    kp = bitonic._pad_sorted_rows(keys, bitonic.sort_sentinel(keys.dtype))
-    tp2, cp2 = kp.shape[-2:]
-    ip = bitonic._pad_iota_unique(t, c, tp2, cp2, device=keys.device)
-    ip = ip.expand(batch, tp2, cp2).contiguous()
-    bound_block = RANK_MERGE_BOUND_BLOCK if cp2 > RANK_MERGE_BOUND_BLOCK \
-        else None
-    pos = fused.merge_ranks(kp.contiguous(), ip, bound_block=bound_block)
-    merged = torch.empty((batch, tp2 * cp2), dtype=keys.dtype,
-                         device=keys.device)
-    pos = pos.reshape(batch, -1).long()
-    bitonic.as_bits(merged).scatter_(
-        1, pos, bitonic.as_bits(kp.reshape(batch, -1)))
-    if not with_order:
-        return merged[:, :t * c], None
-    order = torch.empty((batch, tp2 * cp2), dtype=torch.int32,
-                        device=keys.device)
-    order.scatter_(1, pos, ip.reshape(batch, -1))
-    return merged[:, :t * c], order[:, :t * c]
+    merged, order = fused.rank_merge(keys.contiguous())
+    return merged, (order if with_order else None)
 
 
 def merge_sorted_rows(x: torch.Tensor) -> torch.Tensor:
