@@ -49,7 +49,12 @@ without printing a result:
                 bits); every sort-side kernel again on bf16 keys; flash
                 attention also at musicgen-medium's shape; the fused
                 sort, the pair sort and the searches also at every
-                operand the six joins hand them
+                operand the six joins hand them; both in-tile merges at
+                the landed rows of the t=8 paths, at t = 3 and 6 with
+                odd c, past one block's tile, in f32, bf16 and int32,
+                on edge rows with NaN keys; the search with one shared
+                query row (and through ops, with and without valid_len)
+                on rows and queries with NaN, +-inf and denormals
   4. main path  t=64 x 65,536: uniform, LIDAR-like, Zipf and an
                 adversarial placement, keys only and with the payload,
                 by SMMS and by Terasort, each by both kernel families;
@@ -81,9 +86,12 @@ without printing a result:
                 library call, bound (each sort-side kernel also on bf16
                 keys, flash attention also in f32 and at musicgen's
                 shape, the rank merge also at each path's landed
-                buffers); the bitonic/radix crossover at
-                (64, 2^k), k = 10..16; the end-to-end sorts by both
-                families, StatJoin and RandJoin, and peak memory
+                buffers, the search also as SMMS's Round 3 calls it
+                through ops); each in-tile merge and the ops search one
+                C call and one kernel a call (torch.profiler); the
+                bitonic/radix crossover at (64, 2^k), k = 10..16; the
+                end-to-end sorts by both families, StatJoin and
+                RandJoin, and peak memory
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists the kernels, and the one before that the card's name and power
@@ -469,14 +477,15 @@ def phase_kernels(rng) -> dict:
             bitonic.merge_sorted_rows(e), bitonic.merge_sorted_rows_plain(e))
     big = torch.sort(torch.from_numpy(rng.standard_normal(
         (2, 16, 4096)).astype(np.float32)), dim=-1).values.to(dev)
-    compare("merge_rows", "(2, 16, 4096): global flip and cascade",
+    compare("merge_rows", "(2, 16, 4096): a cluster at MAX_KERNEL_LANES",
             bitonic.merge_sorted_rows(big),
             bitonic.merge_sorted_rows_plain(big))
 
     # merge_rows_kv (the argsort merge): the same three shapes
     for label, rows in [(f"({T_SMALL}, {T_SMALL}, {cap}) receive rows", r),
                         ("(1, 8, 300) dups/equal/inf/denormals", e),
-                        ("(2, 16, 4096): global flip and cascade", big)]:
+                        ("(2, 16, 4096): a cluster at MAX_KERNEL_LANES",
+                         big)]:
         compare("merge_rows_kv", label, bitonic.merge_sorted_rows_argsort(rows),
                 bitonic.merge_sorted_rows_argsort_plain(rows))
     ei = torch.sort(torch.from_numpy(rng.integers(-3, 3, (2, 8, 777))
@@ -486,6 +495,8 @@ def phase_kernels(rng) -> dict:
     compare("merge_rows_kv", "(2, 8, 777) int32 ties and MASKED_KEY",
             bitonic.merge_sorted_rows_argsort(ei),
             bitonic.merge_sorted_rows_argsort_plain(ei))
+    merge_operands(compare, rng, dev)
+    search_operands(compare, rng, dev)
 
     # merge_ranks: the main path's (64, 64, 4096), blocked and not
     kp, ip, _ = _main_rank_operands(rng, dev)
@@ -521,6 +532,161 @@ def phase_kernels(rng) -> dict:
     join_operands(compare)
     torch.cuda.synchronize()
     return errs
+
+
+def _nan_rows(rng, rows, n) -> torch.Tensor:
+    """:func:`_edge_rows` with NaN keys in every fifth row (a NaN at
+    every 9th place), sorted as torch sorts them: NaN last."""
+    x = _edge_rows(rng, rows, n)
+    x[::5, ::9] = math.nan
+    return torch.sort(x, dim=-1).values
+
+
+def merge_operands(compare, rng, dev) -> None:
+    """The in-tile merges, keys only and with the order, bitwise against
+    their plain versions at every operand the t = 8 paths hand them and
+    at the shapes and data those do not reach.
+
+    SMMS (uniform keys, C = 1077 slots a pair) and Terasort (C = 2817)
+    run once each at t = 8 x 4,096 with and without values, with the
+    two merge wrappers tapped: every call runs the kernel, then the
+    plain version on the same card tensors.  On SMMS's landed rows then:
+    the same rows as bf16 and as int32 keys, t = 3 and 6 of them with an
+    odd c, and the padded entries past one block's shared memory
+    ((2, 8, 2817) and (2, 16, 4096), 32,768 and 65,536 slots, up to
+    MAX_KERNEL_LANES: a cluster) and past a cluster's ((1, 64, 4096),
+    the global passes) in every key dtype; and sorted edge rows (+-inf,
+    denormals, +-0, duplicates, an all-equal row, NaN keys) at t = 3, 6
+    and 8.  These runs are not main-path runs: the counts are reset
+    before each of those.
+    """
+    merge = bitonic.merge_sorted_rows
+    argsort = bitonic.merge_sorted_rows_argsort
+    landed = {}
+
+    def tapped(x):
+        out = merge(x)
+        compare("merge_rows", f"{label}: {tuple(x.shape)} landed rows", out,
+                bitonic.merge_sorted_rows_plain(x))
+        landed[label] = x
+        return out
+
+    def tapped_kv(x):
+        out = argsort(x)
+        compare("merge_rows_kv", f"{label}: {tuple(x.shape)} landed rows",
+                out, bitonic.merge_sorted_rows_argsort_plain(x))
+        landed[label] = x
+        return out
+
+    x = uniform_keys(T_SMALL * M_SMALL, seed=SEED + 1).reshape(T_SMALL,
+                                                                M_SMALL)
+    v = np.random.default_rng(SEED).integers(
+        0, 1 << 30, (T_SMALL, M_SMALL, 3)).astype(np.int32)
+    bitonic.merge_sorted_rows, bitonic.merge_sorted_rows_argsort = (tapped,
+                                                                    tapped_kv)
+    try:
+        for algorithm in PATHS:
+            for values in (None, v):
+                label = f"small {algorithm}" + ("" if values is None
+                                                else " with values")
+                cluster.sort(x, algorithm=algorithm, values=values,
+                             seed=SEED, device=DEVICE)
+    finally:
+        bitonic.merge_sorted_rows, bitonic.merge_sorted_rows_argsort = (
+            merge, argsort)
+    shapes = {tuple(rows.shape) for rows in landed.values()}
+    check({(T_SMALL, T_SMALL, 1077), (T_SMALL, T_SMALL, 2817)} <= shapes,
+          f"the t = {T_SMALL} paths landed {sorted(shapes)}, not C = 1077 "
+          f"(SMMS) and 2817 (Terasort)")
+
+    def both(label, rows):
+        compare("merge_rows", label, bitonic.merge_sorted_rows(rows),
+                bitonic.merge_sorted_rows_plain(rows))
+        compare("merge_rows_kv", label,
+                bitonic.merge_sorted_rows_argsort(rows),
+                bitonic.merge_sorted_rows_argsort_plain(rows))
+
+    recv = landed["small smms"]
+    as_int = torch.where(torch.isinf(recv), torch.iinfo(torch.int32).max,
+                         (recv * 7).to(torch.int32))       # ties
+    variants = {"bf16": recv.to(torch.bfloat16), "int32 (ties)": as_int,
+                "t=3, c=1001": recv[:, :3, :1001].contiguous(),
+                "t=6, c=77": recv[:, :6, :77].contiguous()}
+    for label, rows in variants.items():
+        both(f"small smms {label}: {tuple(rows.shape)}", rows)
+    for b, t, c, where in ((2, 8, 2817, "a cluster of 8 CTAs"),
+                           (2, 16, 4096, "MAX_KERNEL_LANES, a cluster"),
+                           (1, 64, 4096, "past a cluster: global passes")):
+        big = torch.sort(torch.from_numpy(rng.standard_normal(
+            (b, t, c)).astype(np.float32)), dim=-1).values.to(dev)
+        big_i = torch.sort(torch.from_numpy(rng.integers(
+            -50, 50, (b, t, c)).astype(np.int32)), dim=-1).values.to(dev)
+        for label, rows in (("f32", big), ("bf16", big.to(torch.bfloat16)),
+                            ("int32", big_i)):
+            both(f"{(b, t, c)} {label}: {where}", rows)
+    for t, c in ((3, 301), (6, 1000), (8, 1077)):
+        edge = _nan_rows(rng, 2 * t, c).reshape(2, t, c).to(dev)
+        both(f"{(2, t, c)} edge rows, NaN keys", edge)
+        both(f"{(2, t, c)} bf16 edge rows, NaN keys", edge.to(torch.bfloat16))
+
+
+def search_operands(compare, rng, dev) -> None:
+    """The search with one query row shared by every key row (a (1, q)
+    row through ``bucketize.searchsorted``, a (q,) row through
+    ``ops.searchsorted``) against its plain version on the same row
+    expanded to (B, q), with and without ``valid_len``, at SMMS's
+    Round-3 cut ((64, 65536) rows, 63 boundaries) and on rows of
+    duplicates, +-inf, denormals and NaN (at the end, as a sort leaves
+    them, and inside a row) with NaN, +-inf and denormal queries, in
+    float32, bf16 and int32."""
+    xs = bitonic.bitonic_sort(torch.from_numpy(
+        uniform_keys(T * M, seed=SEED).reshape(T, M)).to(dev))
+    row = xs[0, ::M // T][1:].contiguous()
+    for side in ("left", "right"):
+        for valid_len in (None, M, M // 2):
+            want = bucketize.searchsorted_plain(xs, row.expand(T, -1), side,
+                                                valid_len)
+            compare("searchsorted", f"({T}, {M}) x shared (1, {T - 1}), "
+                    f"{side}, valid_len={valid_len}",
+                    bucketize.searchsorted(xs, row[None], side, valid_len),
+                    want)
+            compare("searchsorted", f"ops: ({T}, {M}) x ({T - 1},), {side}, "
+                    f"valid_len={valid_len}",
+                    ops.searchsorted(xs, row, side=side,
+                                     valid_len=valid_len), want)
+    for dtype in (torch.float32, torch.bfloat16, torch.int32):
+        for b, n, q in ((6, 777, 40), (6, 65536, 63), (8, 3001, 2000),
+                        (5, 1, 3)):
+            if dtype == torch.int32:
+                rows = torch.sort(torch.from_numpy(rng.integers(
+                    0, 300, (b, n)).astype(np.int32)), dim=-1).values
+                rows[:, n - n // 5:] = MASKED_KEY
+                qs = torch.from_numpy(rng.integers(
+                    -5, 305, (b, q)).astype(np.int32))
+                qs[:, ::9] = MASKED_KEY
+            else:
+                rows = _nan_rows(rng, b, n)
+                rows[-1, n // 2] = math.nan            # NaN inside a row
+                qs = torch.from_numpy(rng.standard_normal(
+                    (b, q)).astype(np.float32))
+                qs[:, ::5] = rows[:, torch.linspace(0, n - 1, qs[:, ::5]
+                                                    .shape[1]).long()]
+                qs[:, 1::7], qs[:, 2::11], qs[:, 3::11] = (math.nan, math.inf,
+                                                           -math.inf)
+                qs[:, 4::13] = 1e-40
+                rows, qs = rows.to(dtype), qs.to(dtype)
+            rows, qs = rows.to(dev), qs.to(dev)
+            name = str(dtype)[6:]
+            for side in ("left", "right"):
+                compare("searchsorted", f"({b}, {n}) x {q} {name} edge rows, "
+                        f"{side}", bucketize.searchsorted(rows, qs, side),
+                        bucketize.searchsorted_plain(rows, qs, side))
+                shared = qs[:1].contiguous()
+                compare("searchsorted", f"({b}, {n}) x shared (1, {q}) "
+                        f"{name}, {side}, valid_len={n // 2}",
+                        bucketize.searchsorted(rows, shared, side, n // 2),
+                        bucketize.searchsorted_plain(
+                            rows, shared.expand(b, -1), side, n // 2))
 
 
 def partition_operands(compare, rng, dev, x) -> None:
@@ -833,11 +999,12 @@ def join_operands(compare) -> None:
                     out, bitonic.bitonic_sort_kv_plain(keys, values))
             return out
 
-        def tapped_search(rows, queries, side="left"):
-            out = search(rows, queries, side)
+        def tapped_search(rows, queries, side="left", valid_len=None):
+            out = search(rows, queries, side, valid_len)
             compare("searchsorted", f"{name}: {tuple(rows.shape)} x "
-                    f"{queries.shape[1]} {str(rows.dtype)[6:]}, {side}",
-                    out, bucketize.searchsorted_plain(rows, queries, side))
+                    f"{tuple(queries.shape)} {str(rows.dtype)[6:]}, {side}",
+                    out, bucketize.searchsorted_plain(rows, queries, side,
+                                                      valid_len))
             return out
 
         def tapped_fused_kv(keys, queries):
@@ -1709,6 +1876,20 @@ def phase_times(rng, smi: str) -> dict:
            event_ms(lambda: bucketize.searchsorted_plain(xs, q), 10),
            event_ms(lambda: torch.searchsorted(xs, q, out_int32=True), 200),
            q.numel() * 4 * 2 + probes * 4, probes)
+    # the path's own call (core/exchange.py:partition_sorted, SMMS's Round
+    # 3 cut): the sorted (64, 65536) rows, the 63 interior boundaries as
+    # one (63,) row, valid_len = m.  The yardstick: torch.searchsorted of
+    # the same row expanded to every key row (made once, outside the
+    # timing); the clamp to valid_len = 65536 changes nothing there.
+    row = xs[0, ::M // T][1:].contiguous()
+    rows_q = row.expand(T, -1).contiguous()
+    record("searchsorted@ops",
+           timed_ms(lambda: ops.searchsorted(xs, row, valid_len=M), 200),
+           event_ms(lambda: torch.clamp_max(bucketize.searchsorted_plain(
+               xs, rows_q), M), 10),
+           event_ms(lambda: torch.searchsorted(xs, rows_q, out_int32=True),
+                    200),
+           row.numel() * 4 + q.numel() * 4 + probes * 4, probes)
 
     # sort_partition at Terasort's Round 3: (64, 65536) f32 and the 63
     # boundaries every machine shares.  Keys in; sorted keys and cuts
@@ -1872,6 +2053,12 @@ def phase_times(rng, smi: str) -> dict:
            BF16_OPS_PER_S)
     del q, k, v
     bf16_times(record, rng, x, xs)
+    rb = r.to(torch.bfloat16)
+    one_launch(smi, {
+        "merge_rows_kv": lambda: bitonic.merge_sorted_rows_argsort(r),
+        "merge_rows_kv@bf16": lambda: bitonic.merge_sorted_rows_argsort(rb),
+        "merge_rows": lambda: bitonic.merge_sorted_rows(r),
+        "searchsorted@ops": lambda: ops.searchsorted(xs, row, valid_len=M)})
 
     # the end-to-end sorts by both families, in turns: SMMS and
     # Terasort (its draws made on the card from the seed, as a user's
@@ -1933,6 +2120,32 @@ def phase_times(rng, smi: str) -> dict:
           f"plan {(t2 - t1) * 1e3:.1f} ms, routing (both sides) "
           f"{(t3 - t2) * 1e3:.1f} ms (host clock)")
     return res
+
+
+def one_launch(smi: str, calls: dict) -> None:
+    """Each call is one C call and one kernel on the card: under
+    torch.profiler, 10 calls run 10 device kernels, all of one name, and
+    no copy or fill; and ``cuda.LAUNCHES`` counts 10.  Operands are
+    made before the window, so only the call's own work is in it."""
+    from torch.profiler import ProfilerActivity, profile
+    for label, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        cuda.reset_launches()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+        kernels = collections.Counter()
+        for ev in prof.events():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                kernels[ev.name] += 1
+        print(f"[times] {label}: 10 calls ran {dict(kernels)}, "
+              f"{dict(cuda.LAUNCHES)} C calls ({smi})")
+        check(len(kernels) == 1 and sum(kernels.values()) == 10
+              and sum(cuda.LAUNCHES.values()) == 10,
+              f"{label}: a call is not one C call and one kernel "
+              f"({dict(kernels)}, {dict(cuda.LAUNCHES)})")
 
 
 def rank_merge_times(record, operands: dict) -> None:

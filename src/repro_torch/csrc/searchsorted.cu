@@ -1,25 +1,39 @@
 // Batched searchsorted: for each of nq queries of each of batch rows,
 // the number of elements of that row's sorted (n,) array that are
-// < the query (left) or <= it (right), as int32.  And the fused
-// bucketize + histogram: each key's bucket id (a right search into the
-// t - 1 boundaries) and the count of keys in each of the t buckets.
+// < the query (left) or <= it (right), as int32, optionally clamped to
+// valid_len.  And the fused bucketize + histogram: each key's bucket id
+// (a right search into the t - 1 boundaries) and the count of keys in
+// each of the t buckets.
 //
 // Replaces: src/repro/kernels/bucketize.py searchsorted (:128,
-// pallas_call at :145) and bucketize_histogram (pallas_call at :109,
-// body _bucketize_kernel :62); both run the reference's search
-// _bin_search_block (:34-59) step for step: a fixed count of
-// branch-free halvings with the lo < hi guard and the clamp of mid to
-// n-1, so duplicate bounds and sentinel tails give the same answer.
+// pallas_call at :145) with the clamp of src/repro/kernels/ops.py
+// searchsorted's valid_len (:489-490), and bucketize_histogram
+// (pallas_call at :109, body _bucketize_kernel :62); both run the
+// reference's search _bin_search_block (:34-59) step for step: a fixed
+// count of branch-free halvings with the lo < hi guard and the clamp of
+// mid to n-1, so duplicate bounds, sentinel tails, NaN queries (bucket
+// 0) and NaN inside a row give the reference's answer.
 //
 // What bounds searchsorted on the H100.  The TPU holds the whole sorted
-// row in VMEM and streams query blocks past it.  Here a 65,536-key row
-// (256 KiB) does not fit shared memory and there are only t-1 = 63
-// queries per row, so staging the row would cost far more than the
-// search: one thread per query reads its ~17 probes straight from
-// global memory (the first probes of a row's queries coincide, and the
-// rest hit L2).  All rows go in one launch.  At (64 rows x 63 queries)
-// the work is tiny; launch latency and the dependent probe chain bound
-// it, far above the bytes-moved bound.
+// row in VMEM and streams query blocks past it.  A 65,536-key row does
+// not fit shared memory, and SMMS's Round 3 asks only t - 1 = 63
+// queries of each, so the bytes are nothing and the time is the chain of
+// ~17 dependent probes a query makes.  The first L steps of the
+// fixed-step search visit the same positions whatever the query: at
+// most 2^L - 1 of them, a binary tree computed from n alone.  One block
+// takes one row's chunk of queries; its threads load that tree's keys
+// into shared memory in one parallel round (node k's position is found
+// by replaying the search's index arithmetic along k's bits), then each
+// query runs steps 0..L-1 against shared memory and the rest against
+// the row in global memory, with the same positions, comparisons and
+// order as the reference, so the answer is bitwise its own on any row.
+// L grows with the queries a block shares the tree with (7 for 63
+// queries: 127 keys, 512 bytes), so 17 dependent global rounds become
+// one parallel round and 10 dependent ones.  Queries come with a row
+// stride: nq for (batch, nq) queries, 0 when one query row serves every
+// row, so a shared row is never copied.  All rows go in one launch, and
+// at the paths' shapes the host's issue time (an output allocation and
+// one ctypes call) is longer than the kernel's few microseconds.
 //
 // bucketize_histogram is bounded by bytes: it reads each key once and
 // writes its id once (8 bytes a key), and its ceil(log2 t) probes hit
@@ -66,26 +80,103 @@ __device__ __forceinline__ int bin_search(const T* bounds, int n,
   return lo;
 }
 
+// Queries a search block takes.
+constexpr int kSearchThreads = 256;
+// Tree keys a thread stages: the tree holds fewer than kTreePerQuery
+// keys for each query of the block (at most 255 keys, 1 KiB).  Deeper
+// trees cost more to stage than the steps they save: the rows a search
+// reads were just written and sit in L2.
+constexpr int kTreePerQuery = 2;
+
+// One step of the reference's search at mid with key b: the lo < hi
+// guard, then hi = max(hi, lo).  Returns whether it went right.
+template <typename K>
+__device__ __forceinline__ bool search_step(int& lo, int& hi, int mid, K b,
+                                            K key, int right) {
+  const bool pred = right ? (b <= key) : (b < key);
+  const bool go_right = pred && (lo < hi);
+  lo = go_right ? mid + 1 : lo;
+  hi = go_right ? hi : mid;
+  hi = max(hi, lo);
+  return go_right;
+}
+
+// Block (row, chunk): queries [chunk * blockDim.x, ...) of that row.
+// Node k (1 <= k < 2^levels, heap order) of the tree holds the key the
+// search reads at its step depth(k) after the decisions k's bits below
+// its top bit spell (1 = went right); a node no query reaches gets the
+// key at whatever position the arithmetic gives, never read.
 template <typename T>
-__global__ void search(const T* arr, const T* queries, int* out,
-                       long long batch, long long n, long long nq,
-                       int right, int steps) {
-  const long long g = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (g >= batch * nq) return;
-  out[g] = bin_search(arr + (g / nq) * n, (int)n, cmp_key(queries[g]), right,
-                      steps);
+__global__ void __launch_bounds__(kSearchThreads)
+    search(const T* __restrict__ arr, const T* __restrict__ queries,
+           int* __restrict__ out, long long n, long long nq,
+           long long q_stride, long long chunks, int right, int steps,
+           int levels, long long valid_len) {
+  using K = cmp_t<T>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  K* tree = reinterpret_cast<K*>(smem_raw);          // tree[k - 1]: node k
+  const long long row = blockIdx.x / chunks;
+  const long long j = (blockIdx.x % chunks) * blockDim.x + threadIdx.x;
+  const T* bounds = arr + row * n;
+  const int nb = static_cast<int>(n);
+  // a thread's nodes: positions first, then every load in flight at once
+  T node[kTreePerQuery];
+#pragma unroll
+  for (int u = 0; u < kTreePerQuery; ++u) {
+    const int k = threadIdx.x + 1 + u * blockDim.x;
+    int lo = 0, hi = nb;
+    for (int bit = 30 - __clz(k); bit >= 0; --bit) {
+      const int mid = min((lo + hi) / 2, nb - 1);
+      const bool go_right = (k >> bit) & 1;
+      lo = go_right ? mid + 1 : lo;
+      hi = go_right ? hi : mid;
+      hi = max(hi, lo);
+    }
+    if (k < (1 << levels)) node[u] = bounds[min((lo + hi) / 2, nb - 1)];
+  }
+#pragma unroll
+  for (int u = 0; u < kTreePerQuery; ++u) {
+    const int k = threadIdx.x + 1 + u * blockDim.x;
+    if (k < (1 << levels)) tree[k - 1] = cmp_key(node[u]);
+  }
+  __syncthreads();
+  if (j >= nq) return;
+  const K key = cmp_key(queries[row * q_stride + j]);
+  int lo = 0, hi = nb, k = 1;
+  for (int s = 0; s < levels; ++s) {
+    const int mid = min((lo + hi) / 2, nb - 1);
+    k = 2 * k + search_step(lo, hi, mid, tree[k - 1], key, right);
+  }
+  for (int s = levels; s < steps; ++s) {
+    const int mid = min((lo + hi) / 2, nb - 1);
+    search_step(lo, hi, mid, cmp_key(bounds[mid]), key, right);
+  }
+  out[row * nq + j] = valid_len >= 0 && lo > valid_len
+                          ? static_cast<int>(valid_len) : lo;
 }
 
 template <typename T>
 int search_rows(const T* arr, const T* queries, int* out, long long batch,
-                long long n, long long nq, int right, int steps,
-                cudaStream_t stream) {
-  const long long total = batch * nq;
-  if (total <= 0 || n <= 0) return static_cast<int>(cudaGetLastError());
+                long long n, long long nq, long long q_stride, int right,
+                long long valid_len, cudaStream_t stream) {
+  if (batch <= 0 || nq <= 0 || n <= 0)
+    return static_cast<int>(cudaGetLastError());
   if (n > kMaxBounds) return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = 128;
-  search<T><<<(total + threads - 1) / threads, threads, 0, stream>>>(
-      arr, queries, out, batch, n, nq, right, steps);
+  // the reference's step count, ceil(log2(n + 1)): n's bit length
+  int steps = 0;
+  while ((n >> steps) > 0) ++steps;
+  // a power-of-two warp multiple of threads up to kSearchThreads; a tree
+  // of about kTreePerQuery keys a query, no deeper than the search
+  int threads = 32;
+  while (threads < nq && threads < kSearchThreads) threads *= 2;
+  int levels = 1;
+  while ((2 << levels) <= threads * kTreePerQuery) ++levels;
+  levels = levels < steps ? levels : steps;
+  const long long chunks = (nq + threads - 1) / threads;
+  const size_t smem = ((1 << levels) - 1) * sizeof(cmp_t<T>);
+  search<T><<<batch * chunks, threads, smem, stream>>>(
+      arr, queries, out, n, nq, q_stride, chunks, right, steps, levels,
+      valid_len);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -136,20 +227,21 @@ int bucketize_keys(const T* keys, const T* bounds, int* ids, int* counts,
 
 }  // namespace
 
-extern "C" int searchsorted_f32(const float* arr, const float* queries,
-                                int* out, long long batch, long long n,
-                                long long nq, int right, int steps,
-                                void* stream) {
-  return search_rows(arr, queries, out, batch, n, nq, right, steps,
-                     static_cast<cudaStream_t>(stream));
-}
+// arr (batch, n) sorted rows; queries (batch, nq) with row stride
+// q_stride (0: one row for all); out (batch, nq) int32; valid_len < 0
+// means no clamp.
+#define SEARCH_ENTRY(SUFFIX, T)                                              \
+  extern "C" int searchsorted_##SUFFIX(                                     \
+      const T* arr, const T* queries, int* out, long long batch,            \
+      long long n, long long nq, long long q_stride, int right,             \
+      long long valid_len, void* stream) {                                  \
+    return search_rows(arr, queries, out, batch, n, nq, q_stride, right,    \
+                       valid_len, static_cast<cudaStream_t>(stream));       \
+  }
 
-extern "C" int searchsorted_i32(const int* arr, const int* queries, int* out,
-                                long long batch, long long n, long long nq,
-                                int right, int steps, void* stream) {
-  return search_rows(arr, queries, out, batch, n, nq, right, steps,
-                     static_cast<cudaStream_t>(stream));
-}
+SEARCH_ENTRY(f32, float)
+SEARCH_ENTRY(i32, int)
+SEARCH_ENTRY(bf16, __nv_bfloat16)
 
 // keys (n,), boundaries (t - 1,) ascending, t >= 2 -> ids (n,) int32 and
 // counts (t,) int32 (cleared here).
@@ -165,14 +257,6 @@ extern "C" int bucketize_histogram_i32(const int* keys, const int* bounds,
                                        long long t, int steps, void* stream) {
   return bucketize_keys(keys, bounds, ids, counts, n, t, steps,
                         static_cast<cudaStream_t>(stream));
-}
-
-extern "C" int searchsorted_bf16(const __nv_bfloat16* arr,
-                                 const __nv_bfloat16* queries, int* out,
-                                 long long batch, long long n, long long nq,
-                                 int right, int steps, void* stream) {
-  return search_rows(arr, queries, out, batch, n, nq, right, steps,
-                     static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int bucketize_histogram_bf16(const __nv_bfloat16* keys,

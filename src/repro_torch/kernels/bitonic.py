@@ -64,7 +64,8 @@ _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int32: "i32"}
 # (src/repro/kernels/bitonic.py:294), kept at its value until the gate
 # constants are re-sized for the H100.  It groups levels into blocks in
 # the reference only; which merge runs is decided by MAX_KERNEL_LANES
-# (ops.py), and the CUDA kernel tiles by its own kTile.
+# (ops.py), and the CUDA kernel sizes its blocks and clusters itself
+# (csrc/merge_rows.cu).
 MERGE_TILE_LANES = 1 << 12
 
 
@@ -317,21 +318,76 @@ def _pad_iota_unique(t: int, c: int, tp2: int, cp2: int,
     return torch.where(real, row * c + col, t * c + flatpos)
 
 
-def _padded_runs(x: torch.Tensor):
-    """(t, c) or (batch, t, c) sorted rows -> ((batch, tp2*cp2) padded
-    rows of sorted length-cp2 runs, cp2, t*c)."""
-    xb = x[None] if x.dim() == 2 else x
-    batch, t, c = xb.shape
-    xp = _pad_sorted_rows(xb, sort_sentinel(x.dtype))
-    tp2, cp2 = xp.shape[-2:]
-    return xp.reshape(batch, tp2 * cp2), cp2, t * c
+def _padded_slots(x: torch.Tensor):
+    """(batch, t, c) sorted rows -> the reference's padded entry, slot by
+    slot, as the merge kernel loads it: (keys (batch, tp2*cp2), ids
+    (tp2*cp2,) int32, cp2).  Slot s = row*cp2 + col holds x[row, col]
+    and id row*c + col where row < t and col < c, the sort sentinel and
+    id t*c + s otherwise -- ``_pad_sorted_rows`` and
+    ``_pad_iota_unique`` flattened."""
+    batch, t, c = x.shape
+    tp2, cp2 = max(1, _next_pow2(t)), max(2, _next_pow2(c))
+    slot = torch.arange(tp2 * cp2, dtype=torch.int32, device=x.device)
+    row, col = slot // cp2, slot % cp2
+    real = (row < t) & (col < c)
+    ids = torch.where(real, row * c + col, t * c + slot)
+    # moved as bits: torch's CPU gather rewrites a bf16 NaN's bits
+    bits = _key_bits(x).reshape(batch, t * c)
+    pad = torch.tensor(sort_sentinel(x.dtype), dtype=x.dtype)
+    keys = torch.where(real, bits[:, torch.where(real, ids, 0).long()],
+                       _key_bits(pad).to(x.device))
+    return keys.view(x.dtype), ids, cp2
+
+
+def _key_bits(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as the integers of its bits (float32 as int32, bf16 as
+    int16; int32 as it is)."""
+    return x.view(torch.int32) if x.dtype == torch.float32 else as_bits(x)
+
+
+def _as_batch(x: torch.Tensor) -> torch.Tensor:
+    return x[None] if x.dim() == 2 else x
 
 
 def merge_sorted_rows_plain(x: torch.Tensor) -> torch.Tensor:
     """The plain version of :func:`merge_sorted_rows`, on any device."""
-    flat, run, n = _padded_runs(x)
-    merged = merge_network_block(flat, run)[:, :n]
+    xb = _as_batch(x)
+    flat, _, run = _padded_slots(xb)
+    merged = merge_network_block(flat, run)[:, :xb.shape[1] * xb.shape[2]]
     return merged[0] if x.dim() == 2 else merged
+
+
+# (key dtype, with ids) -> lanes of the largest padded entry the merge
+# kernel merges in shared memory in one launch (merge_rows.cu)
+_LAUNCH_LANES: dict = {}
+
+
+def _merge_operand(name: str, x: torch.Tensor, kv: bool):
+    """The checked (batch, t, c) operand of a merge kernel call, its
+    outputs (batch, t*c) -- the keys, and with ``kv`` the int32 order --
+    and, where the padded entry outgrows one launch, the padded
+    (batch, tp2*cp2) scratch of the kernel's global passes (None
+    otherwise).  All uninitialised: the kernel fills them from the
+    rows."""
+    xb = _as_batch(x).contiguous()
+    _check_kernel_operand(name, xb)
+    batch, t, c = xb.shape
+    key = (xb.dtype, kv)
+    if key not in _LAUNCH_LANES:
+        _LAUNCH_LANES[key] = cuda.library(
+            "merge_rows").merge_rows_launch_lanes(xb.element_size(), int(kv))
+    total = max(1, _next_pow2(t)) * max(2, _next_pow2(c))
+    dtypes = (xb.dtype, torch.int32) if kv else (xb.dtype,)
+    out = [torch.empty((batch, t * c), dtype=d, device=xb.device)
+           for d in dtypes]
+    scratch = ([torch.empty((batch, total), dtype=d, device=xb.device)
+                for d in dtypes] if total > _LAUNCH_LANES[key]
+               else [None] * len(dtypes))
+    return xb, out, scratch
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
 
 
 def merge_sorted_rows(x: torch.Tensor) -> torch.Tensor:
@@ -342,33 +398,26 @@ def merge_sorted_rows(x: torch.Tensor) -> torch.Tensor:
     sort sentinel and merged by the reference's log2(t) pairwise
     bitonic-merge levels (``_merge_levels`` groups levels into row-group
     blocks, which does not change the compare-exchanges).  A CUDA tensor
-    runs the kernel, a CPU tensor :func:`merge_sorted_rows_plain`.
+    runs the kernel, which pads as it loads the rows and writes only the
+    merged real positions (one launch for every padded entry up to
+    ``MAX_KERNEL_LANES``); a CPU tensor :func:`merge_sorted_rows_plain`.
     """
     if not x.is_cuda:
         return merge_sorted_rows_plain(x)
-    _check_kernel_operand("merge_sorted_rows", x)
-    flat, run, n = _padded_runs(x)
-    out = flat.clone(memory_format=torch.contiguous_format)
-    batch, total = out.shape
-    cuda.launch("merge_rows", f"merge_rows_{_SUFFIX[out.dtype]}",
-                out.data_ptr(), batch, total, run)
-    merged = out[:, :n]
-    return merged[0] if x.dim() == 2 else merged
-
-
-def _padded_runs_kv(x: torch.Tensor):
-    """As :func:`_padded_runs`, with the ``_pad_iota_unique`` id rows."""
-    flat, run, n = _padded_runs(x)
-    t, c = x.shape[-2:]
-    tp2 = flat.shape[1] // run
-    ids = _pad_iota_unique(t, c, tp2, run, device=x.device)
-    return flat, ids.reshape(1, -1).expand(flat.shape[0], -1), run, n
+    xb, (out,), (scratch,) = _merge_operand("merge_sorted_rows", x, False)
+    batch, t, c = xb.shape
+    cuda.launch("merge_rows", f"merge_rows_{_SUFFIX[xb.dtype]}",
+                xb.data_ptr(), out.data_ptr(), _ptr(scratch), batch, t, c)
+    return out[0] if x.dim() == 2 else out
 
 
 def merge_sorted_rows_argsort_plain(x: torch.Tensor):
     """The plain version of :func:`merge_sorted_rows_argsort`."""
-    flat, ids, run, n = _padded_runs_kv(x)
-    merged, order = merge_network_block_kv(flat, ids, run)
+    xb = _as_batch(x)
+    flat, ids, run = _padded_slots(xb)
+    n = xb.shape[1] * xb.shape[2]
+    merged, order = merge_network_block_kv(
+        flat, ids.expand(flat.shape[0], -1), run)
     merged, order = merged[:, :n], order[:, :n]
     return (merged[0], order[0]) if x.dim() == 2 else (merged, order)
 
@@ -380,17 +429,16 @@ def merge_sorted_rows_argsort(x: torch.Tensor):
     (t*c,) or (batch, t*c) each, ``order`` int32 indices into each batch
     entry's ``x.reshape(-1)`` -- bitwise a stable flat argsort (ties
     resolve by buffer position).  The ids are ``_pad_iota_unique``, so
-    every (key, id) pair is distinct.  A CUDA tensor runs the kernel, a
-    CPU tensor :func:`merge_sorted_rows_argsort_plain`.
+    every (key, id) pair is distinct.  A CUDA tensor runs the kernel,
+    which builds the ids and the padding as it loads the rows; a CPU
+    tensor :func:`merge_sorted_rows_argsort_plain`.
     """
     if not x.is_cuda:
         return merge_sorted_rows_argsort_plain(x)
-    _check_kernel_operand("merge_sorted_rows_argsort", x)
-    flat, ids, run, n = _padded_runs_kv(x)
-    keys = flat.clone(memory_format=torch.contiguous_format)
-    order = ids.clone(memory_format=torch.contiguous_format)
-    batch, total = keys.shape
-    cuda.launch("merge_rows_kv", f"merge_rows_kv_{_SUFFIX[keys.dtype]}",
-                keys.data_ptr(), order.data_ptr(), batch, total, run)
-    merged, order = keys[:, :n], order[:, :n]
-    return (merged[0], order[0]) if x.dim() == 2 else (merged, order)
+    xb, (out, order), scratch = _merge_operand("merge_sorted_rows_argsort",
+                                               x, True)
+    batch, t, c = xb.shape
+    cuda.launch("merge_rows_kv", f"merge_rows_kv_{_SUFFIX[xb.dtype]}",
+                xb.data_ptr(), out.data_ptr(), order.data_ptr(),
+                _ptr(scratch[0]), _ptr(scratch[1]), batch, t, c)
+    return (out[0], order[0]) if x.dim() == 2 else (out, order)

@@ -12,6 +12,7 @@ CUDA tensor launches the kernel, a CPU tensor runs the plain version.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -57,38 +58,62 @@ def _pad_bounds(boundaries: torch.Tensor) -> torch.Tensor:
                                    value=sort_sentinel(boundaries.dtype))
 
 
+def _search_shape(sorted_arr: torch.Tensor, queries: torch.Tensor):
+    """Check a search's operands: (B, n) rows and (q,), (1, q) or (B, q)
+    queries.  Returns (B, n, q, the queries' row stride: 0 for one row
+    shared by every key row)."""
+    batch, n = sorted_arr.shape
+    if queries.dim() == 1:
+        return batch, n, queries.shape[0], 0
+    rows, nq = queries.shape
+    if rows != batch and rows != 1:
+        raise ValueError(f"searchsorted: {batch} sorted rows but queries "
+                         f"{tuple(queries.shape)} (want (q,), (1, q) or "
+                         f"({batch}, q))")
+    return batch, n, nq, nq if rows > 1 else 0
+
+
 def searchsorted_plain(sorted_arr: torch.Tensor, queries: torch.Tensor,
-                       side: str = "left") -> torch.Tensor:
+                       side: str = "left",
+                       valid_len: Optional[int] = None) -> torch.Tensor:
     """The plain version of :func:`searchsorted`, on any device."""
-    return _bin_search_block(queries, _pad_bounds(sorted_arr),
-                             sorted_arr.shape[1], side)
+    batch, n, nq, _ = _search_shape(sorted_arr, queries)
+    ids = _bin_search_block(queries.expand(batch, nq),
+                            _pad_bounds(sorted_arr), n, side)
+    return ids if valid_len is None else torch.clamp_max(ids, int(valid_len))
+
+
+_SEARCH_ENTRY = {dtype: f"searchsorted_{suffix}"
+                 for dtype, suffix in _SUFFIX.items()}
 
 
 def searchsorted(sorted_arr: torch.Tensor, queries: torch.Tensor,
-                 side: str = "left") -> torch.Tensor:
+                 side: str = "left",
+                 valid_len: Optional[int] = None) -> torch.Tensor:
     """Row-wise ``searchsorted(sorted_arr[b], queries[b], side)``, int32.
 
-    sorted_arr: (B, n) ascending rows (duplicates fine); queries:
-    (B, q); any row width.  A CUDA tensor runs the kernel (float32,
-    bfloat16 or int32, both operands of one dtype); a CPU tensor runs
-    the plain version.
+    sorted_arr: (B, n) ascending rows (duplicates fine), any width;
+    queries: (B, q), or (1, q) or (q,) -- one query row searched in
+    every row.
+    ``valid_len=m`` clamps each result to m (the rows' real length when
+    they carry a sentinel tail).  A CUDA tensor runs the kernel
+    (float32, bfloat16 or int32, both operands of one dtype; a shared
+    row is read in place through a row stride of 0, and the clamp is
+    the kernel's); a CPU tensor runs the plain version.
     """
-    if side not in ("left", "right"):
+    if side != "left" and side != "right":
         raise ValueError(f"side must be 'left' or 'right', got {side!r}")
-    batch, n = sorted_arr.shape
-    nq = queries.shape[1]
-    if queries.shape[0] != batch:
-        raise ValueError(f"searchsorted: {batch} sorted rows but "
-                         f"{queries.shape[0]} query rows")
+    batch, n, nq, q_stride = _search_shape(sorted_arr, queries)
     if not sorted_arr.is_cuda:
-        return searchsorted_plain(sorted_arr, queries, side)
+        return searchsorted_plain(sorted_arr, queries, side, valid_len)
     cuda.check_cuda_tensor("searchsorted", sorted_arr, KEY_DTYPES)
     cuda.check_cuda_tensor("searchsorted", queries, (sorted_arr.dtype,))
     out = torch.empty((batch, nq), dtype=torch.int32,
                       device=sorted_arr.device)
-    cuda.launch("searchsorted", f"searchsorted_{_SUFFIX[sorted_arr.dtype]}",
+    cuda.launch("searchsorted", _SEARCH_ENTRY[sorted_arr.dtype],
                 sorted_arr.data_ptr(), queries.data_ptr(), out.data_ptr(),
-                batch, n, nq, int(side == "right"), _steps(n))
+                batch, n, nq, q_stride, side == "right",
+                -1 if valid_len is None else int(valid_len))
     return out
 
 

@@ -10,10 +10,12 @@ source, the shared header and the flags, so an edited source is rebuilt
 and a stale library is never loaded.  :func:`build_all` starts one
 ``nvcc`` per source, all at once.
 
-Every C entry point launches on the stream it is given (the wrapper
-passes ``torch.cuda.current_stream()``), allocates nothing and returns
-``cudaGetLastError()``; :func:`launch` raises when that is not 0 and
-only then counts the launch in :data:`LAUNCHES`.
+Every C entry point launches on the stream it is given (:func:`launch`
+passes the raw handle of ``torch.cuda.current_stream()``), allocates
+nothing and returns ``cudaGetLastError()``; :func:`launch` raises when
+that is not 0 and only then counts the call in :data:`LAUNCHES`.  Each
+entry point is looked up once, with its ``argtypes``, and called
+directly after that: a call costs the host one ctypes call.
 
 Nothing here runs at import time: this module is imported on machines
 with no ``nvcc`` and no card, where only the plain versions run.
@@ -92,10 +94,10 @@ _FLASH = [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _F32, _I32,
           _I32, _P]
 _SORT_SIGNATURES = {
     "bitonic_sort": [_P, _I64, _I64, _P],
-    "searchsorted": [_P, _P, _P, _I64, _I64, _I64, _I32, _I32, _P],
+    "searchsorted": [_P, _P, _P, _I64, _I64, _I64, _I64, _I32, _I64, _P],
     "bitonic_sort_kv": [_P, _P, _I64, _I64, _P],
-    "merge_rows": [_P, _I64, _I64, _I64, _P],
-    "merge_rows_kv": [_P, _P, _I64, _I64, _I64, _P],
+    "merge_rows": [_P, _P, _P, _I64, _I64, _I64, _P],
+    "merge_rows_kv": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _P],
     "merge_ranks": [_P] * 10 + [_I64, _I64, _I64, _P],
     "sort_partition": [_P, _P, _P, _I64, _I64, _I64, _I64, _P],
     "sort_partition_kv": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
@@ -108,21 +110,30 @@ SIGNATURES = {f"{fn}_{suffix}": args
               for suffix in ("f32", "bf16", "i32")}
 SIGNATURES.update({"flash_attention_f32": _FLASH,
                    "flash_attention_bf16": _FLASH,
-                   "merge_ranks_cuts": [_I64, _I64, _I64]})
+                   "merge_ranks_cuts": [_I64, _I64, _I64],
+                   "merge_rows_launch_lanes": [_I32, _I32]})
 # entry points that return something other than a cudaError_t
-RESTYPES = {"merge_ranks_cuts": ctypes.c_longlong}
+RESTYPES = {"merge_ranks_cuts": ctypes.c_longlong,
+            "merge_rows_launch_lanes": ctypes.c_longlong}
 
 # kernel name -> calls of its C entry point made through launch(); the
 # counts the chip smoke run reads to show the main path went through each
-# kernel.  A call is one launch for every kernel but the rank merge, whose
-# call launches its phases one after another (merge_ranks.cu: phase A,
-# then a cut and a merge kernel a level) and counts once.
+# kernel.  A call is one launch for every kernel but two, each of which
+# counts once a call: the rank merge launches its phases one after
+# another (merge_ranks.cu: phase A, then a cut and a merge kernel a
+# level), and the in-tile merge launches its global passes when a padded
+# entry outgrows one block's shared memory (merge_rows.cu).
 LAUNCHES: collections.Counter = collections.Counter()
 # kernel name -> {"seconds": build time, "ptxas": nvcc's -Xptxas -v}
 BUILD_LOG: Dict[str, dict] = {}
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# C entry point -> its ctypes function, resolved once (argtypes set)
+_ENTRIES: Dict[str, ctypes._CFuncPtr] = {}
+# torch's accessors of the current device and of a device's current
+# stream as a raw handle, resolved at the first launch
+_device = _raw_stream = None
 
 
 def reset_launches() -> None:
@@ -203,20 +214,38 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
+def _stream_accessor():
+    """The cheapest call that gives ``torch.cuda.current_stream()``'s raw
+    handle: torch's own accessor of a device's current stream, which
+    ``current_stream()`` wraps in a new ``Stream`` object on every call,
+    applied to the current device."""
+    import torch
+
+    return torch._C._cuda_getDevice, torch._C._cuda_getCurrentRawStream
+
+
+def _entry(name: str, fn: str):
+    """C entry point ``fn`` of kernel ``name``'s library, with its
+    ``argtypes``; built, loaded and looked up on the first call only."""
+    global _device, _raw_stream
+    func = getattr(library(KERNELS[name].library), fn)
+    _device, _raw_stream = _stream_accessor()
+    _ENTRIES[fn] = func
+    return func
+
+
 def launch(name: str, fn: str, *args) -> None:
     """Call C entry point ``fn`` of kernel ``name`` on the current stream.
 
     ``name`` is a key of :data:`KERNELS`; ``args`` are the entry
-    point's arguments before the stream: tensors' ``data_ptr()`` and
-    Python ints.  Raises if the launch reports a CUDA error; counts the
-    launch under ``name`` otherwise.
+    point's arguments before the stream: tensors' ``data_ptr()``,
+    Python ints, and None for a null pointer.  Raises if the launch
+    reports a CUDA error; counts the call under ``name`` otherwise.
     """
-    import torch
-
-    lib = library(KERNELS[name].library)
-    stream = torch.cuda.current_stream().cuda_stream
-    rc = getattr(lib, fn)(*args, stream)
-    if rc != 0:
+    func = _ENTRIES.get(fn) or _entry(name, fn)
+    rc = func(*args, _raw_stream(_device()))
+    if rc:
+        lib = library(KERNELS[name].library)
         raise RuntimeError(f"{fn}: CUDA error {rc} "
                            f"({lib.error_string(rc).decode()})")
     LAUNCHES[name] += 1

@@ -334,10 +334,11 @@ def searchsorted(sorted_arr: torch.Tensor, queries: torch.Tensor, *,
     """Row-wise ``searchsorted(sorted_arr, queries, side)``, int32.
 
     sorted_arr: (n,) or (B, n); queries: (q,) -- the same queries for
-    every row -- or (B, q).  ``valid_len=m`` is the pre-padded path:
-    rows may carry a sentinel tail past m real elements and results are
-    clamped to m, which reproduces the unpadded answer exactly.  bf16
-    rows take float32 queries too, as exact bf16 queries
+    every row, handed to the kernel as they are -- or (B, q).
+    ``valid_len=m`` is the pre-padded path: rows may carry a sentinel
+    tail past m real elements and results are clamped to m (by the
+    kernel), which reproduces the unpadded answer exactly.  bf16 rows
+    take float32 queries too, as exact bf16 queries
     (:func:`_bf16_queries`).
     """
     if side not in ("left", "right"):
@@ -350,12 +351,13 @@ def searchsorted(sorted_arr: torch.Tensor, queries: torch.Tensor, *,
         queries = _bf16_queries(queries, side)
     _require("searchsorted", sorted_arr, queries)
     _tick("searchsorted", sorted_arr)
-    arr2 = sorted_arr[None] if sorted_arr.dim() == 1 else sorted_arr
-    q2 = queries.expand(arr2.shape[0], queries.shape[-1]).contiguous()
-    ids = bucketize.searchsorted(arr2.contiguous(), q2, side=side)
-    if valid_len is not None:
-        ids = torch.clamp_max(ids, int(valid_len))
-    return ids[0] if sorted_arr.dim() == 1 else ids
+    if sorted_arr.dim() == 1:
+        return bucketize.searchsorted(sorted_arr.contiguous()[None],
+                                      queries.contiguous(), side=side,
+                                      valid_len=valid_len)[0]
+    return bucketize.searchsorted(sorted_arr.contiguous(),
+                                  queries.contiguous(), side=side,
+                                  valid_len=valid_len)
 
 
 def segments(cuts: torch.Tensor, m: int):
@@ -497,7 +499,7 @@ def merge_sorted_rows_kv(keys: torch.Tensor, values: torch.Tensor):
     vb = values[None] if keys.dim() == 2 else values
     batch, t, c = kb.shape
     if _merge_fits_one_tile(t, c):
-        merged, order = bitonic.merge_sorted_rows_argsort(kb.contiguous())
+        merged, order = bitonic.merge_sorted_rows_argsort(kb)
     else:
         merged, order = _rank_merge(kb, with_order=True)
     vs = _take_rows(vb.reshape(batch, t * c, *vb.shape[3:]), order)

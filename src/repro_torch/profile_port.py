@@ -20,7 +20,14 @@ run the paper's §5.2 tables at t = 64, host planning and routing
 included.  The sort paths run the bitonic kernel family; each has a
 ``_radix`` twin (``sort_radix``, ``sort_payload_radix``,
 ``terasort_radix``, ``terasort_payload_radix``) that runs the same call
-under ``ops.force_sort_kernel("radix")``.  ``serve_prefill`` is
+under ``ops.force_sort_kernel("radix")``.  ``small_sort``,
+``small_sort_values`` and ``small_terasort_values`` are the t = 8 x
+4,096 sorts (SMMS, SMMS and Terasort with the payload), whose landed
+rows take the in-tile merges; ``searchsorted`` is SMMS's Round-3 cut
+alone (``ops.searchsorted`` of a (63,) boundary row in (64, 65536)
+sorted rows, ``valid_len``); ``merge_rows_kv`` and
+``merge_rows_kv_bf16`` the argsort merge alone at SMMS's t = 8 landed
+rows, (8, 8, 1077), float32 and bf16 keys.  ``serve_prefill`` is
 gemma3-12b's prefill of 4 x 2048 tokens and ``serve_decode`` one decode
 step after it (:data:`repro_torch.workloads.SERVE_ARCH`), bf16 weights
 made on the card from a seed.
@@ -37,23 +44,44 @@ import torch
 from repro_torch import cluster
 from repro_torch.configs import get_arch
 from repro_torch.data import uniform_keys
-from repro_torch.kernels import cuda, ops
+from repro_torch.kernels import bitonic, cuda, ops
 from repro_torch.models import model
-from repro_torch.workloads import (JOIN_T, JOINS, M, SERVE_ARCH, SERVE_B,
-                                   SERVE_NEW, SERVE_PROMPT, T, make_payload)
+from repro_torch.workloads import (JOIN_T, JOINS, M, M_SMALL, SERVE_ARCH,
+                                   SERVE_B, SERVE_NEW, SERVE_PROMPT, T,
+                                   T_SMALL, make_payload)
 
 __all__ = ["PATHS"]
 
 
 def _sort_call(payload: bool, algorithm: str = "smms",
-               family: str = "bitonic"):
-    x = uniform_keys(T * M, seed=0).reshape(T, M)
-    v = make_payload(T, M, 0) if payload else None
+               family: str = "bitonic", t: int = T, m: int = M):
+    x = uniform_keys(t * m, seed=0).reshape(t, m)
+    v = make_payload(t, m, 0) if payload else None
 
     def call():
         with ops.force_sort_kernel(family):
             return cluster.sort(x, algorithm=algorithm, values=v)
     return call
+
+
+def _merge_call(dtype: torch.dtype):
+    """The argsort merge alone at the small configuration's landed rows:
+    8 machines x 8 sorted rows of 1,077 slots."""
+    rows = torch.sort(torch.rand((T_SMALL, T_SMALL, 1077), device="cuda",
+                                 generator=torch.Generator(
+                                     "cuda").manual_seed(0)),
+                      dim=-1).values.to(dtype)
+    return lambda: bitonic.merge_sorted_rows_argsort(rows)
+
+
+def _search_call():
+    """SMMS's Round-3 cut as core/exchange.py makes it: the 63 interior
+    boundaries as one (63,) row searched in each of 64 sorted rows of
+    65,536 keys, valid_len = 65,536."""
+    keys = torch.from_numpy(uniform_keys(T * M, seed=0).reshape(T, M))
+    rows = torch.sort(keys.cuda(), dim=-1).values
+    bounds = rows[0, ::M // T][1:].contiguous()
+    return lambda: ops.searchsorted(rows, bounds, valid_len=M)
 
 
 def _join_call(name: str):
@@ -98,6 +126,14 @@ PATHS = {
            ("terasort", False, "terasort"),
            ("terasort_payload", True, "terasort"))
        for family in ("bitonic", "radix")},
+    **{name: (lambda p=payload, a=algorithm: _sort_call(
+        p, a, "bitonic", T_SMALL, M_SMALL))
+       for name, payload, algorithm in (
+           ("small_sort", False, "smms"), ("small_sort_values", True, "smms"),
+           ("small_terasort_values", True, "terasort"))},
+    "searchsorted": _search_call,
+    "merge_rows_kv": lambda: _merge_call(torch.float32),
+    "merge_rows_kv_bf16": lambda: _merge_call(torch.bfloat16),
     **{name: (lambda n=name: _join_call(n)) for name in JOINS}}
 
 
