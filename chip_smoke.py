@@ -47,7 +47,11 @@ without printing a result:
                 every class of float and int bits, at widths 1 to
                 65,536, and against a stable torch.sort of its canonical
                 bits); every sort-side kernel again on bf16 keys; flash
-                attention also at musicgen-medium's shape; the fused
+                attention also at musicgen-medium's shape; the pair
+                sorts at each layout of their one-launch schedule (one
+                CTA; clusters of 2, 4 and 8 CTAs; 52,049 unpadded) in
+                f32, bf16 and int32 with the order generated and with
+                tied values, NaN and sentinel keys; the fused
                 sort, the pair sort and the searches also at every
                 operand the six joins hand them; both in-tile merges at
                 the landed rows of the t=8 paths, at t = 3 and 6 with
@@ -87,8 +91,10 @@ without printing a result:
                 keys, flash attention also in f32 and at musicgen's
                 shape, the rank merge also at each path's landed
                 buffers, the search also as SMMS's Round 3 calls it
-                through ops); each in-tile merge and the ops search one
-                C call and one kernel a call (torch.profiler); the
+                through ops, the pair sorts also as ops calls them);
+                each pair sort at (64, 65536) and (64, 2048), each
+                in-tile merge and the ops search one C call and one
+                kernel a call (torch.profiler); the
                 bitonic/radix crossover at (64, 2^k), k = 10..16; the
                 end-to-end sorts by both families, StatJoin and
                 RandJoin, and peak memory
@@ -525,6 +531,7 @@ def phase_kernels(rng) -> dict:
         errs[name] = max(errs.get(name, 0.0), err)
 
     partition_operands(compare, rng, dev, x)
+    pair_sort_operands(compare, rng, dev, x)
     radix_operands(compare, rng, dev, x)
     bucketize_operands(compare, rng, dev, x)
     bf16_operands(compare, rng, dev, x)
@@ -720,6 +727,57 @@ def partition_operands(compare, rng, dev, x) -> None:
     qi = torch.tensor([[-3, 0, 0, 2, imax]], dtype=torch.int32).expand(4, 5)
     both("(4, 8193) int32, INT32_MAX keys and query", ei.to(dev),
          qi.contiguous().to(dev))
+
+
+def _pair_rows(rng, rows, m, dtype):
+    """Pair-sort operands: keys with heavy ties, +-0, denormals, +-inf,
+    NaN and the sort sentinel (int32: INT32_MAX), one gaussian row; int32
+    values with ties and int32 max, the pads' value."""
+    if dtype == torch.int32:
+        k = rng.integers(-3, 3, (rows, m)).astype(np.int32)
+        k.reshape(-1)[::5] = np.iinfo(np.int32).max
+        keys = torch.from_numpy(k)
+    else:
+        pool = np.float32([-1.5, 0.0, -0.0, 2.25, 1e-40, -3e-39, np.inf,
+                           -np.inf, np.nan, 7.0])
+        k = rng.choice(pool, size=(rows, m)).astype(np.float32)
+        k[0] = rng.standard_normal(m).astype(np.float32)
+        keys = torch.from_numpy(k).to(dtype)
+    v = rng.integers(0, 3, (rows, m)).astype(np.int32)
+    v.reshape(-1)[::7] = np.iinfo(np.int32).max
+    return keys, torch.from_numpy(v)
+
+
+def pair_sort_operands(compare, rng, dev, x) -> None:
+    """The pair sorts' one-launch schedule (csrc/sort_tiles.cuh row_sort)
+    at each of its layouts: one CTA (8,192 and 2,048 padded slots) and
+    clusters of 2, 4 and 8 CTAs (2^14, 2^15, 2^16; 52,049 unpadded), in
+    f32, bf16 and int32, on rows with tied values, +-0, denormals,
+    +-inf, NaN and sentinel-valued keys: ``bitonic_sort_kv`` with the
+    order generated (``values=None``, what ``ops.sort_kv`` passes) and
+    with tied values given, and ``sort_partition_kv`` with 63 queries
+    drawn from the row (NaN among them).  Then the main shape (64,
+    65536) in each dtype with the order generated."""
+    for dtype in (torch.float32, torch.bfloat16, torch.int32):
+        dname = str(dtype)[6:]
+        for m in (2048, 8192, 16384, 32768, 65536, 52049):
+            keys, vals = _pair_rows(rng, 4, m, dtype)
+            q = torch.sort(keys[:, rng.permutation(m)[:63]], dim=1).values
+            keys, vals, q = keys.to(dev), vals.to(dev), q.to(dev)
+            compare("bitonic_sort_kv", f"(4, {m}) {dname} edge rows, order "
+                    f"generated", bitonic.bitonic_sort_kv(keys),
+                    bitonic.bitonic_sort_kv_plain(keys))
+            compare("bitonic_sort_kv", f"(4, {m}) {dname} edge rows, tied "
+                    f"values", bitonic.bitonic_sort_kv(keys, vals),
+                    bitonic.bitonic_sort_kv_plain(keys, vals))
+            compare("sort_partition_kv", f"(4, {m}) {dname} edge rows x 63",
+                    fused.sort_partition_kv(keys, q),
+                    fused.sort_partition_kv_plain(keys, q))
+        xm = (x.to(dtype) if dtype != torch.int32 else
+              torch.randint(-2**31, 2**31 - 1, x.shape, dtype=torch.int32,
+                            device=dev))
+        compare("bitonic_sort_kv", f"({T}, {M}) {dname}, order generated",
+                bitonic.bitonic_sort_kv(xm), bitonic.bitonic_sort_kv_plain(xm))
 
 
 def _radix_rows(rng, dtype, n: int) -> np.ndarray:
@@ -992,10 +1050,11 @@ def join_operands(compare) -> None:
                     radix.radix_sort_plain(keys))
             return out
 
-        def tapped_sort_kv(keys, values):
+        def tapped_sort_kv(keys, values=None):
             out = sort_kv(keys, values)
             compare("bitonic_sort_kv", f"{name}: {tuple(keys.shape)} "
-                    f"{str(keys.dtype)[6:]} + iota",
+                    f"{str(keys.dtype)[6:]}, order generated"
+                    if values is None else "+ values",
                     out, bitonic.bitonic_sort_kv_plain(keys, values))
             return out
 
@@ -1865,6 +1924,15 @@ def phase_times(rng, smi: str) -> dict:
            event_ms(lambda: torch.sort(x, dim=-1, stable=True), 20),
            4 * x.numel() * 4, x.numel() * int(math.log2(M)))
 
+    # the call ops.sort_kv makes (the paths' pair sort: SMMS Round 1 with
+    # the payload, the local joins): no values, the kernel generates the
+    # iota.  Keys in; keys and the order out.
+    record("bitonic_sort_kv@ops",
+           timed_ms(lambda: bitonic.bitonic_sort_kv(x), 20),
+           event_ms(lambda: bitonic.bitonic_sort_kv_plain(x), 3, warm=1),
+           event_ms(lambda: torch.sort(x, dim=-1, stable=True), 20),
+           3 * x.numel() * 4, x.numel() * int(math.log2(M)))
+
     # searchsorted: 63 queries into each of 64 sorted rows; a binary
     # search must read only its probes, not the rows
     xs = bitonic.bitonic_sort(x)
@@ -1915,6 +1983,18 @@ def phase_times(rng, smi: str) -> dict:
 
     record("sort_partition_kv",
            timed_ms(lambda: fused.sort_partition_kv(x, bq), 20),
+           event_ms(lambda: fused.sort_partition_kv_plain(x, bq), 3, warm=1),
+           event_ms(sort_then_search, 20),
+           3 * x.numel() * 4 + bq.numel() * 8,
+           x.numel() * int(math.log2(M)) + search_ops)
+
+    # the call ops.sort_partition_kv makes (Terasort's Round 3 with the
+    # records, core/exchange.py): the (63,) boundary row made into one
+    # query row a key row, then the fused pair sort
+    brow = bq[0].contiguous()
+    record("sort_partition_kv@ops",
+           timed_ms(lambda: fused.sort_partition_kv(
+               x, ops._query_rows(x, brow)), 20),
            event_ms(lambda: fused.sort_partition_kv_plain(x, bq), 3, warm=1),
            event_ms(sort_then_search, 20),
            3 * x.numel() * 4 + bq.numel() * 8,
@@ -2055,6 +2135,10 @@ def phase_times(rng, smi: str) -> dict:
     bf16_times(record, rng, x, xs)
     rb = r.to(torch.bfloat16)
     one_launch(smi, {
+        "bitonic_sort_kv@ops": lambda: bitonic.bitonic_sort_kv(x),
+        "bitonic_sort_kv@routing": lambda: bitonic.bitonic_sort_kv(a),
+        "sort_partition_kv": lambda: fused.sort_partition_kv(x, bq),
+        "sort_partition_kv@routing": lambda: fused.sort_partition_kv(a, aq),
         "merge_rows_kv": lambda: bitonic.merge_sorted_rows_argsort(r),
         "merge_rows_kv@bf16": lambda: bitonic.merge_sorted_rows_argsort(rb),
         "merge_rows": lambda: bitonic.merge_sorted_rows(r),
@@ -2129,8 +2213,9 @@ def one_launch(smi: str, calls: dict) -> None:
     made before the window, so only the call's own work is in it."""
     from torch.profiler import ProfilerActivity, profile
     for label, fn in calls.items():
-        fn()
-        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]):
+            fn()                    # the profiler's first window may drop
+            torch.cuda.synchronize()      # the first kernel it sees
         cuda.reset_launches()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(10):
@@ -2189,6 +2274,13 @@ def bf16_times(record, rng, x, xs) -> None:
                     warm=1),
            event_ms(lambda: torch.sort(xb, dim=-1, stable=True), 20),
            n * (2 + 4) * 2, n * lg)
+    # the call ops.sort_kv makes on bf16 keys: the order generated (the
+    # kernel's 32-bit words); keys in, keys and the order out
+    record("bitonic_sort_kv@ops_bf16",
+           timed_ms(lambda: bitonic.bitonic_sort_kv(xb), 20),
+           event_ms(lambda: bitonic.bitonic_sort_kv_plain(xb), 1, warm=1),
+           event_ms(lambda: torch.sort(xb, dim=-1, stable=True), 20),
+           n * (2 + 2 + 4), n * lg)
     record("radix_sort@bf16",
            timed_ms(lambda: radix.radix_sort(xb), 20),
            event_ms(lambda: radix.radix_sort_plain(xb), 1, warm=1),
@@ -2334,6 +2426,10 @@ def phase_crossover(smi: str) -> dict:
           f"RADIX_MIN_LANES={ops.RADIX_MIN_LANES} "
           f"RADIX_PASS_SUBSTAGES={ops.RADIX_PASS_SUBSTAGES} "
           f"{'agree' if agree else 'DISAGREE'} with this run")
+    faster_kv = [key for key, row in table.items() if row["radix_faster_kv"]]
+    print(f"[times] crossover: radix sort_kv faster than the pair sort "
+          f"(radix_faster_kv) at {faster_kv if faster_kv else 'no width'} "
+          f"({smi})")
     return table
 
 

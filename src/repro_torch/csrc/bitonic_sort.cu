@@ -15,65 +15,77 @@
 //
 // What bounds it on the H100.  The TPU kernel keeps a whole row (up to
 // 2^16 lanes, 256 KiB of f32) in VMEM.  A Hopper block has at most
-// 227 KB of shared memory and the main path's rows are exactly 2^16
-// f32, so a row cannot stay on chip.  The network is split between
-// shared-memory tiles of 8192 elements and one global pass per larger
-// substage (sort_tiles.cuh).  At (64, 65536) f32 that is 10 launches
-// and about 10 round trips of the 16 MiB array, so it is bound by
-// device-memory bytes of those passes plus shared-memory traffic, not
-// by the 2 x 16 MiB the sort must move.  A row is spread over
-// n / 8192 blocks (8 at the main path's width, 512 blocks in all), so
-// 64 rows do not leave most of the 132 SMs idle.
+// 227 KB of shared memory, so the keys-only sort splits the network
+// between shared-memory tiles of 8192 elements and one global pass per
+// larger substage (sort_tiles.cuh tile_stages / global_substage): at
+// (64, 65536) f32 10 launches and about 10 round trips of the 16 MiB
+// array, bound by the device-memory bytes of those passes plus
+// shared-memory traffic.
 //
-// The pair sort runs the same split with a second channel: a tile of
-// 8192 pairs needs 64 KiB of shared memory, above the 48 KiB a launch
-// gets by default, so the kv entry points raise the kernel's dynamic
-// shared-memory limit first (cudaFuncSetAttribute).  It moves twice the
-// bytes of the keys-only sort on every pass.
+// The pair sort (bitonic_sort_kv_*) runs one launch a call
+// (sort_tiles.cuh row_sort): a row of up to 8,192 padded pairs a CTA, a
+// row of 2^14-2^16 a cluster of 2-8 CTAs whose shared memory holds it
+// (distributed shared memory), the network in register rounds of up to
+// five substages on 32 slots a thread (30 rounds a row at 2^16, where
+// the network has 136 substages), each slot one unsigned word compared
+// in one instruction unless the row holds a NaN key.  It reads the
+// caller's unpadded keys (and values) once and writes the real
+// positions once; the pads, and with no values the order channel (the
+// column: the stable argsort), are made as the row is loaded.  At (64,
+// 65536) that is 16 MiB in and 32 MiB out where the split schedule moved
+// ~640 MiB in 10 launches, so the pair sort is bound by its
+// shared-memory rounds and its compare-exchanges.  Rows past 2^16 padded
+// pairs (direct calls only: the dispatch sends them to the radix sort)
+// are padded into a scratch the wrapper allocates and sorted there by
+// the split schedule.
 //
-// Keys are float32, int32 or bf16.  A bf16 key travels as bf16 (a tile
-// of 8192 is 16 KiB) and is widened to float32 in registers to be
-// compared (network.cuh cmp_key), so a bf16 pass moves half the bytes.
+// Keys are float32, int32 or bf16.  A bf16 key travels as bf16 and is
+// widened to float32 in registers to be compared (network.cuh cmp_key),
+// so a bf16 pass moves fewer bytes.
 #include "sort_tiles.cuh"
 
 using namespace repro;
 
 namespace {
 
-template <typename T, bool KV>
-int sort_only(T* x, int* v, long long rows, long long n, void* stream) {
-  return sort_rows<T, KV>(x, v, rows, n, TileSearch<T>{nullptr, nullptr, 0, 0},
-                          false, static_cast<cudaStream_t>(stream));
+template <typename T>
+int sort_only(T* x, long long rows, long long n, void* stream) {
+  return sort_rows<T, false>(x, nullptr, rows, n,
+                             TileSearch<T>{nullptr, nullptr, 0, 0}, false,
+                             static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
 
 extern "C" int bitonic_sort_f32(float* x, long long rows, long long n,
                                 void* stream) {
-  return sort_only<float, false>(x, nullptr, rows, n, stream);
+  return sort_only<float>(x, rows, n, stream);
 }
 
 extern "C" int bitonic_sort_i32(int* x, long long rows, long long n,
                                 void* stream) {
-  return sort_only<int, false>(x, nullptr, rows, n, stream);
-}
-
-extern "C" int bitonic_sort_kv_f32(float* k, int* v, long long rows,
-                                   long long n, void* stream) {
-  return sort_only<float, true>(k, v, rows, n, stream);
-}
-
-extern "C" int bitonic_sort_kv_i32(int* k, int* v, long long rows,
-                                   long long n, void* stream) {
-  return sort_only<int, true>(k, v, rows, n, stream);
+  return sort_only<int>(x, rows, n, stream);
 }
 
 extern "C" int bitonic_sort_bf16(__nv_bfloat16* x, long long rows,
                                  long long n, void* stream) {
-  return sort_only<__nv_bfloat16, false>(x, nullptr, rows, n, stream);
+  return sort_only<__nv_bfloat16>(x, rows, n, stream);
 }
 
-extern "C" int bitonic_sort_kv_bf16(__nv_bfloat16* k, int* v, long long rows,
-                                    long long n, void* stream) {
-  return sort_only<__nv_bfloat16, true>(k, v, rows, n, stream);
-}
+// keys, values: (rows, m) in (values null: the order is generated, the
+// stable argsort); keys_out, order_out: (rows, m) out; scratch,
+// scratch_values: (rows, pow2 >= m), read only past 2^16 padded slots.
+#define PAIR_SORT_ENTRY(SUFFIX, T)                                          \
+  extern "C" int bitonic_sort_kv_##SUFFIX(                                  \
+      const T* keys, const int* values, T* keys_out, int* order_out,        \
+      T* scratch, int* scratch_values, long long rows, long long m,         \
+      void* stream) {                                                       \
+    return sort_pairs<T, false>(keys, values, keys_out, order_out,          \
+                                scratch, scratch_values, rows, m, nullptr,  \
+                                nullptr, 0,                                 \
+                                static_cast<cudaStream_t>(stream));         \
+  }
+
+PAIR_SORT_ENTRY(f32, float)
+PAIR_SORT_ENTRY(i32, int)
+PAIR_SORT_ENTRY(bf16, __nv_bfloat16)

@@ -82,16 +82,6 @@ constexpr int kLogMaxCluster = 3;            // 8 CTAs, the portable most
 constexpr int kSlice = 16;
 constexpr int kLogCta = 13;                  // kThreads * kSlice slots
 
-template <typename T> __device__ __forceinline__ T sentinel();
-template <> __device__ __forceinline__ float sentinel<float>() {
-  return __int_as_float(0x7f800000);
-}
-template <> __device__ __forceinline__ int sentinel<int>() { return INT_MAX; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 sentinel<__nv_bfloat16>() {
-  return __ushort_as_bfloat16(0x7f80);
-}
-
 template <typename T, bool KV>
 constexpr long long slot_bytes() {
   return sizeof(T) + (KV ? sizeof(int) : 0);

@@ -100,6 +100,20 @@ __device__ __forceinline__ void compare_exchange_any(T* k, int* v,
     compare_exchange(k, i, d, desc);
 }
 
+// The value that sorts last: +inf for floats (bf16 0x7f80), int32 max;
+// what the reference pads a row with (sort_sentinel).
+template <typename T> __device__ __forceinline__ T sentinel();
+template <> __device__ __forceinline__ float sentinel<float>() {
+  return __int_as_float(0x7f800000);
+}
+template <> __device__ __forceinline__ int sentinel<int>() {
+  return 0x7fffffff;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 sentinel<__nv_bfloat16>() {
+  return __ushort_as_bfloat16(0x7f80);
+}
+
 // Lower index of pair q of a substage at distance d (within a row or
 // an aligned block): pairs (p, p + d) with bit log2(d) of p clear.
 __device__ __forceinline__ long long pair_low(long long q, long long d) {

@@ -7,8 +7,8 @@ with its plain PyTorch version beside it:
 * :func:`bitonic_sort` -- ascending sort of each row of (rows, n);
   CUDA source ``csrc/bitonic_sort.cu``.
 * :func:`bitonic_sort_kv` -- lexicographic (key, int32 value) sort of
-  each row; fed ``arange(n)`` values it is the stable argsort.  Same
-  source.
+  each row; with no values (the kernel generates ``arange(n)``) it is
+  the stable argsort.  Same source, its own one-launch schedule.
 * :func:`merge_sorted_rows` -- merge of t sorted rows into one sorted
   row, per batch entry; CUDA source ``csrc/merge_rows.cu``.
 * :func:`merge_sorted_rows_argsort` -- the same merge carrying each
@@ -29,6 +29,7 @@ moved, so every output is a permutation of its input.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -51,6 +52,7 @@ __all__ = [
     "ftz",
     "as_bits",
     "MERGE_TILE_LANES",
+    "PAIR_SORT_LAUNCH_LANES",
 ]
 
 # The key dtypes every sort-side kernel takes, as the reference's
@@ -263,36 +265,77 @@ def bitonic_sort(x: torch.Tensor) -> torch.Tensor:
     return out[:, :x.shape[-1]]
 
 
-def bitonic_sort_kv_plain(keys: torch.Tensor, values: torch.Tensor):
+# Padded slots of the widest row the pair sorts take in one launch (a
+# cluster of 8 CTAs of 8,192 slots: csrc/sort_tiles.cuh kRowLogLaunch);
+# a wider row (direct calls only: the dispatch sends it to the radix
+# sort) is sorted in a padded scratch the wrapper allocates.
+PAIR_SORT_LAUNCH_LANES = 1 << 16
+
+
+def _iota_rows(rows: int, m: int, device) -> torch.Tensor:
+    """(rows, pow2 >= 2) arange(m) padded with int32 max, as the
+    reference pads it (src/repro/kernels/fused.py:111-112): the value
+    channel the pair sort kernels generate when given none."""
+    iota = torch.arange(m, dtype=torch.int32, device=device)
+    return _pad_row(iota.repeat(rows, 1))
+
+
+def bitonic_sort_kv_plain(keys: torch.Tensor,
+                          values: Optional[torch.Tensor] = None):
     """The plain version of :func:`bitonic_sort_kv`, on any device."""
-    n = keys.shape[-1]
-    ks, vs = sort_network_block_kv(_pad_row(keys), _pad_row(values))
+    rows, n = keys.shape
+    vs = _iota_rows(rows, n, keys.device) if values is None \
+        else _pad_row(values)
+    ks, vs = sort_network_block_kv(_pad_row(keys), vs)
     return ks[:, :n], vs[:, :n]
 
 
-def bitonic_sort_kv(keys: torch.Tensor, values: torch.Tensor):
+def _pair_operands(keys: torch.Tensor):
+    """The outputs of a pair sort kernel call on (rows, m) keys -- the
+    keys and the int32 order, (rows, m) -- and its padded scratch (None
+    up to ``PAIR_SORT_LAUNCH_LANES``), all uninitialised: the kernel
+    writes them."""
+    rows, m = keys.shape
+    ks = torch.empty_like(keys)
+    order = torch.empty((rows, m), dtype=torch.int32, device=keys.device)
+    np2 = max(2, _next_pow2(m))
+    scratch = ((torch.empty((rows, np2), dtype=keys.dtype, device=keys.device),
+                torch.empty((rows, np2), dtype=torch.int32,
+                            device=keys.device))
+               if np2 > PAIR_SORT_LAUNCH_LANES else (None, None))
+    return ks, order, scratch
+
+
+def bitonic_sort_kv(keys: torch.Tensor,
+                    values: Optional[torch.Tensor] = None):
     """Row-wise (key, value) pair sort, values breaking key ties.
 
-    keys/values: (rows, n), the same shape; values int32.  Sorting
-    (keys, arange(n)) yields the stable argsort in the value channel.
-    Rows are padded to a power of two with the sort sentinel in both
-    channels (the value sentinel is int32 max), as the reference pads
-    them.  A CUDA tensor runs the kernel (float32, bfloat16 or int32
-    keys); a CPU tensor runs :func:`bitonic_sort_kv_plain`.
+    keys: (rows, n); values: (rows, n) int32, or None for the stable
+    argsort (each row's value channel is arange(n), which the kernel
+    generates).  Rows are padded to a power of two with the sort
+    sentinel in both channels (the value sentinel is int32 max), as the
+    reference pads them.  A CUDA tensor runs the kernel (float32,
+    bfloat16 or int32 keys), which reads the rows unpadded and writes
+    fresh (rows, n) outputs in one launch up to
+    ``PAIR_SORT_LAUNCH_LANES`` padded slots; a CPU tensor runs
+    :func:`bitonic_sort_kv_plain`.
     """
-    if keys.shape != values.shape:
+    if values is not None and keys.shape != values.shape:
         raise ValueError(f"bitonic_sort_kv: keys {tuple(keys.shape)} and "
                          f"values {tuple(values.shape)} differ in shape")
     if not keys.is_cuda:
         return bitonic_sort_kv_plain(keys, values)
+    keys = keys.contiguous()
     _check_kernel_operand("bitonic_sort_kv", keys)
-    cuda.check_cuda_tensor("bitonic_sort_kv", values, (torch.int32,))
-    n = keys.shape[-1]
-    ks = _pad_row(keys).clone(memory_format=torch.contiguous_format)
-    vs = _pad_row(values).clone(memory_format=torch.contiguous_format)
+    if values is not None:
+        values = values.contiguous()
+        cuda.check_cuda_tensor("bitonic_sort_kv", values, (torch.int32,))
+    ks, order, (sk, sv) = _pair_operands(keys)
     cuda.launch("bitonic_sort_kv", f"bitonic_sort_kv_{_SUFFIX[keys.dtype]}",
-                ks.data_ptr(), vs.data_ptr(), ks.shape[0], ks.shape[1])
-    return ks[:, :n], vs[:, :n]
+                keys.data_ptr(), _ptr(values), ks.data_ptr(),
+                order.data_ptr(), _ptr(sk), _ptr(sv), keys.shape[0],
+                keys.shape[1])
+    return ks, order
 
 
 def _pad_sorted_rows(x: torch.Tensor, sentinel) -> torch.Tensor:

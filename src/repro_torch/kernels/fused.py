@@ -8,7 +8,8 @@ entry with its plain PyTorch version beside it:
   queries over the sorted row in one pass; CUDA source
   ``csrc/sort_partition.cu``.
 * :func:`sort_partition_kv` -- the (key, iota) pair sort (the stable
-  argsort) with the same search.  Same source.
+  argsort) with the same search.  Same source, the pair sort's
+  one-launch schedule (the iota generated in the kernel).
 * :func:`merge_ranks` -- every element's rank in the lexicographic
   (key, id) order of t sorted rows (the reference's
   ``_bin_search_pairs_block`` and ``_bin_search_pairs_bounded``, summed
@@ -30,9 +31,9 @@ from typing import Optional
 import torch
 
 from . import cuda
-from .bitonic import (KEY_DTYPES, _SUFFIX, _pad_row, as_bits, ftz,
-                      sort_network_block, sort_network_block_kv,
-                      sort_sentinel)
+from .bitonic import (KEY_DTYPES, _SUFFIX, _iota_rows, _pad_row,
+                      _pair_operands, _ptr, as_bits, ftz, sort_network_block,
+                      sort_network_block_kv, sort_sentinel)
 from .bucketize import _bin_search_block
 
 __all__ = ["sort_partition", "sort_partition_plain", "sort_partition_kv",
@@ -44,13 +45,6 @@ def _check_queries(keys: torch.Tensor, queries: torch.Tensor) -> None:
     if queries.dim() != 2 or queries.shape[0] != keys.shape[0]:
         raise ValueError(f"sort_partition: {keys.shape[0]} key rows need "
                          f"one query row each, got {tuple(queries.shape)}")
-
-
-def _iota_rows(rows: int, m: int, device) -> torch.Tensor:
-    """(rows, pow2 >= 2) arange(m) padded with int32 max, as the
-    reference pads it (src/repro/kernels/fused.py:111-112)."""
-    iota = torch.arange(m, dtype=torch.int32, device=device)
-    return _pad_row(iota.repeat(rows, 1))
 
 
 def sort_partition_plain(x: torch.Tensor, queries: torch.Tensor):
@@ -104,24 +98,27 @@ def sort_partition_kv(keys: torch.Tensor, queries: torch.Tensor):
     keys: (rows, m); queries: (rows, nq).  Returns (keys sorted (rows,
     m), order (rows, m) int32, cuts (rows, nq) int32): ``order`` is the
     stable argsort, from the lexicographic (key, arange(m)) network.  A
-    CUDA tensor runs the kernel, a CPU tensor
-    :func:`sort_partition_kv_plain`.
+    CUDA tensor runs the kernel, which reads the rows unpadded,
+    generates the order channel and writes the three outputs in one
+    launch (up to ``bitonic.PAIR_SORT_LAUNCH_LANES`` padded slots); a
+    CPU tensor runs :func:`sort_partition_kv_plain`.
     """
     if not keys.is_cuda:
         return sort_partition_kv_plain(keys, queries)
     _check_queries(keys, queries)
+    keys, queries = keys.contiguous(), queries.contiguous()
     cuda.check_cuda_tensor("sort_partition_kv", keys, KEY_DTYPES)
     cuda.check_cuda_tensor("sort_partition_kv", queries, (keys.dtype,))
     rows, m = keys.shape
-    ks = _pad_row(keys).clone(memory_format=torch.contiguous_format)
-    order = _iota_rows(rows, m, keys.device).contiguous()
+    ks, order, (sk, sv) = _pair_operands(keys)
     cuts = torch.empty((rows, queries.shape[1]), dtype=torch.int32,
                        device=keys.device)
     cuda.launch("sort_partition_kv",
-                f"sort_partition_kv_{_SUFFIX[keys.dtype]}", ks.data_ptr(),
-                order.data_ptr(), queries.data_ptr(), cuts.data_ptr(), rows,
-                ks.shape[1], m, queries.shape[1])
-    return ks[:, :m], order[:, :m], cuts
+                f"sort_partition_kv_{_SUFFIX[keys.dtype]}", keys.data_ptr(),
+                queries.data_ptr(), ks.data_ptr(), order.data_ptr(),
+                cuts.data_ptr(), _ptr(sk), _ptr(sv), rows, m,
+                queries.shape[1])
+    return ks, order, cuts
 
 
 def _steps(n: int) -> int:

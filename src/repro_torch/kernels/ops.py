@@ -283,7 +283,8 @@ def sort_kv(keys: torch.Tensor, values: torch.Tensor, *,
     reference's kernel path does, then one gather of the values, so key
     ties keep input order bitwise: the radix family's order channel
     (``radix.radix_sort``), or the bitonic family's pair sort of (key,
-    arange(n)) (``bitonic.bitonic_sort_kv``).  ``prepadded=True``: both
+    arange(n)) (``bitonic.bitonic_sort_kv`` with no values: the kernel
+    generates the iota).  ``prepadded=True``: both
     operands were padded to the same power of two (keys with their sort
     sentinel); outputs stay padded, pads last (pad-slot ties resolve by
     position).
@@ -295,7 +296,6 @@ def sort_kv(keys: torch.Tensor, values: torch.Tensor, *,
     _require("sort_kv", keys, values)
     k2 = keys[None] if keys.dim() == 1 else keys
     v2 = values[None] if keys.dim() == 1 else values
-    rows, n = k2.shape
     if sort_kernel_choice(keys) == "radix":
         # the order comes out of the counting passes: one gather carries
         # the payload, no (key, iota) pair sort
@@ -303,9 +303,7 @@ def sort_kv(keys: torch.Tensor, values: torch.Tensor, *,
         ks, order = radix.radix_sort(k2.contiguous())
     else:
         _tick("sort_kv", keys)
-        iota = torch.arange(n, dtype=torch.int32, device=keys.device)
-        ks, order = bitonic.bitonic_sort_kv(k2.contiguous(),
-                                            iota.repeat(rows, 1))
+        ks, order = bitonic.bitonic_sort_kv(k2.contiguous())
     vs = _take_rows(v2, order)
     return (ks[0], vs[0]) if keys.dim() == 1 else (ks, vs)
 

@@ -27,7 +27,9 @@ rows take the in-tile merges; ``searchsorted`` is SMMS's Round-3 cut
 alone (``ops.searchsorted`` of a (63,) boundary row in (64, 65536)
 sorted rows, ``valid_len``); ``merge_rows_kv`` and
 ``merge_rows_kv_bf16`` the argsort merge alone at SMMS's t = 8 landed
-rows, (8, 8, 1077), float32 and bf16 keys.  ``serve_prefill`` is
+rows, (8, 8, 1077), float32 and bf16 keys; ``pair_sort``,
+``pair_sort_partition`` and ``pair_sort_routing`` the pair sorts alone
+as ``ops`` calls them (:func:`_pair_call`).  ``serve_prefill`` is
 gemma3-12b's prefill of 4 x 2048 tokens and ``serve_decode`` one decode
 step after it (:data:`repro_torch.workloads.SERVE_ARCH`), bf16 weights
 made on the card from a seed.
@@ -44,7 +46,7 @@ import torch
 from repro_torch import cluster
 from repro_torch.configs import get_arch
 from repro_torch.data import uniform_keys
-from repro_torch.kernels import bitonic, cuda, ops
+from repro_torch.kernels import bitonic, cuda, fused, ops
 from repro_torch.models import model
 from repro_torch.workloads import (JOIN_T, JOINS, M, M_SMALL, SERVE_ARCH,
                                    SERVE_B, SERVE_NEW, SERVE_PROMPT, T,
@@ -82,6 +84,28 @@ def _search_call():
     rows = torch.sort(keys.cuda(), dim=-1).values
     bounds = rows[0, ::M // T][1:].contiguous()
     return lambda: ops.searchsorted(rows, bounds, valid_len=M)
+
+
+def _pair_call(kind: str):
+    """A pair sort alone, as ops calls it: ``bitonic_sort_kv`` of (64,
+    65536) uniform float32 keys with the order generated (SMMS's Round 1
+    with the payload), ``sort_partition_kv`` of the same keys with the
+    63 boundaries every machine shares (Terasort's Round 3 with the
+    records), or of RandJoin's (64, 2048) int32 draws with 7 (its
+    routing)."""
+    gen = torch.Generator("cuda").manual_seed(0)
+    if kind == "routing":
+        keys = torch.randint(0, 8, (T, 2048), dtype=torch.int32,
+                             device="cuda", generator=gen)
+        bounds = torch.arange(1, 8, dtype=torch.int32, device="cuda")
+    else:
+        keys = torch.from_numpy(uniform_keys(T * M, seed=0).reshape(T, M))
+        keys = keys.cuda()
+        bounds = torch.sort(keys[0]).values[M // T::M // T].contiguous()
+    if kind == "sort":
+        return lambda: bitonic.bitonic_sort_kv(keys)
+    return lambda: fused.sort_partition_kv(keys,
+                                           ops._query_rows(keys, bounds))
 
 
 def _join_call(name: str):
@@ -133,6 +157,9 @@ PATHS = {
            ("small_terasort_values", True, "terasort"))},
     "searchsorted": _search_call,
     "merge_rows_kv": lambda: _merge_call(torch.float32),
+    "pair_sort": lambda: _pair_call("sort"),
+    "pair_sort_partition": lambda: _pair_call("partition"),
+    "pair_sort_routing": lambda: _pair_call("routing"),
     "merge_rows_kv_bf16": lambda: _merge_call(torch.bfloat16),
     **{name: (lambda n=name: _join_call(n)) for name in JOINS}}
 
