@@ -51,7 +51,10 @@ without printing a result:
                 sorts at each layout of their one-launch schedule (one
                 CTA; clusters of 2, 4 and 8 CTAs; 52,049 unpadded) in
                 f32, bf16 and int32 with the order generated and with
-                tied values, NaN and sentinel keys; the fused
+                tied values, NaN and sentinel keys; the keys-only sort
+                and fused sort on unsorted NaN rows and on rows of +-0
+                and denormals only, 3 to 65,536 keys, f32 and bf16, the
+                fused sort with a NaN query (ROADMAP C12); the fused
                 sort, the pair sort and the searches also at every
                 operand the six joins hand them; both in-tile merges at
                 the landed rows of the t=8 paths, at t = 3 and 6 with
@@ -91,11 +94,15 @@ without printing a result:
                 keys, flash attention also in f32 and at musicgen's
                 shape, the rank merge also at each path's landed
                 buffers, the search also as SMMS's Round 3 calls it
-                through ops, the pair sorts also as ops calls them);
-                each pair sort at (64, 65536) and (64, 2048), each
-                in-tile merge and the ops search one C call and one
-                kernel a call (torch.profiler); the
-                bitonic/radix crossover at (64, 2^k), k = 10..16; the
+                through ops, the pair sorts also as ops calls them,
+                the keys-only sort also on rows whose keys fold to zero
+                and on rows with NaN keys);
+                each sort at (64, 65536) (the keys-only ones also in
+                bf16) and the pair sorts at (64, 2048), each in-tile
+                merge and the ops search one C call and one kernel a
+                call (torch.profiler); the bitonic/radix crossover at
+                (64, 2^k), k = 10..16, f32, bf16 and int32, with the
+                radix-pass cost that fits the cost model to it; the
                 end-to-end sorts by both families, StatJoin and
                 RandJoin, and peak memory
 
@@ -209,9 +216,10 @@ PATH_KERNELS = {
     "small_terasort_radix": {"radix_sort", "searchsorted", "merge_rows"},
     "small_terasort_values_radix": {"radix_sort", "searchsorted",
                                     "merge_rows_kv"},
-    # bf16 keys: 16-bit keys pick radix from 2^13 lanes on (4 passes)
-    "sort_bf16": RADIX_MAIN,
-    "terasort_payload_bf16": RADIX_MAIN,
+    # bf16 keys at t = 64: the float32 path's set of the family the cost
+    # model picks for 16-bit keys there, set by phase_bf16
+    "sort_bf16": set(),
+    "terasort_payload_bf16": set(),
     "small_sort_values_bf16": {"bitonic_sort_kv", "searchsorted",
                                "merge_rows_kv"},
     "small_terasort_values_bf16": {"sort_partition_kv", "merge_rows_kv"},
@@ -367,6 +375,55 @@ def _edge_rows(rng, rows, n):
     return torch.from_numpy(x)
 
 
+# The keys-only sorts' widths for the rows they sort on the exact
+# comparator and on key-half words: one CTA (3, 1,000) and clusters of 2,
+# 4 and 8 CTAs (8,193, 20,000, 65,536) of their one-launch schedule.
+KEY_SORT_WIDTHS = (3, 1000, 8193, 20000, 65536)
+
+
+def _as_dtype(x: torch.Tensor, dtype) -> torch.Tensor:
+    """float32 keys as ``dtype``; bf16 as the top half of each key's bits
+    (a NaN keeps its sign and payload, a denormal stays one)."""
+    if dtype != torch.bfloat16:
+        return x.to(dtype)
+    return (x.view(torch.int32) >> 16).to(torch.int16).view(torch.bfloat16)
+
+
+def _unsorted_nan_rows(rng, rows, n, dtype=torch.float32) -> torch.Tensor:
+    """Unsorted gaussian rows with five NaN keys a row at random places, a
+    negative NaN and a NaN with a payload among them: the rows the
+    network leaves a NaN inside of, where a fused search that sums
+    per-tile counts past one 8,192-slot tile missed the reference's cut
+    (ROADMAP C12)."""
+    x = rng.standard_normal((rows, n)).astype(np.float32)
+    for r in range(rows):
+        x[r, rng.permutation(n)[:min(n, 5)]] = np.nan
+    flat = x.reshape(-1).view(np.uint32)
+    nans = np.flatnonzero(np.isnan(x.reshape(-1)))
+    flat[nans[::2]] = 0xFFC00000                        # a negative NaN
+    flat[nans[1::3]] = 0x7FC00123                       # a payload
+    return _as_dtype(torch.from_numpy(x), dtype)
+
+
+def _zero_class_rows(rng, rows, n, dtype=torch.float32) -> torch.Tensor:
+    """Rows of +0, -0 and denormals only: keys that compare equal (C1
+    folds them to zero) and differ in bits, so the network alone says
+    where each ends up (the key-half words' rows)."""
+    tiny = np.float32([0.0, -0.0, 1e-40, -1e-40, 2e-39, -3e-39, 5e-41])
+    return _as_dtype(torch.from_numpy(rng.choice(tiny, size=(rows, n))),
+                     dtype)
+
+
+def _queries_with_nan(rng, keys: torch.Tensor) -> torch.Tensor:
+    """63 ascending queries drawn from a row's keys, one of them NaN
+    (below nothing: its cut is 0), shared by every row."""
+    q = keys[0, rng.permutation(keys.shape[1])[:62]]
+    q = torch.sort(q[~torch.isnan(q)]).values
+    nan = torch.full((1,), float("nan"), dtype=keys.dtype)
+    q = torch.cat([q[:len(q) // 2], nan, q[len(q) // 2:]])
+    return q[None].expand(keys.shape[0], -1).contiguous()
+
+
 def _ranked(keys: torch.Tensor):
     """(batch, t, c) sorted rows -> the padded (key, id) rows of _rank_merge."""
     batch, t, c = keys.shape
@@ -401,6 +458,16 @@ def phase_kernels(rng) -> dict:
     xi = xi.to(dev)
     compare("bitonic_sort", "(4, 5000) int32",
             bitonic.bitonic_sort(xi), bitonic.bitonic_sort_plain(xi))
+    # unsorted NaN rows (the exact comparator) and rows of +-0 and
+    # denormals only (the key-half words), one CTA to a cluster of 8
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype)[6:]
+        for n in KEY_SORT_WIDTHS:
+            for kind, rows in (("unsorted NaN", _unsorted_nan_rows),
+                               ("+-0/denormal", _zero_class_rows)):
+                e = rows(rng, 4, n, dtype).to(dev)
+                compare("bitonic_sort", f"(4, {n}) {dname} {kind} rows",
+                        bitonic.bitonic_sort(e), bitonic.bitonic_sort_plain(e))
 
     # bitonic_sort_kv: the payload sort's (64, 65536) f32 with its iota,
     # a join's int32 T side with a MASKED_KEY tail, and edge rows
@@ -727,6 +794,17 @@ def partition_operands(compare, rng, dev, x) -> None:
     qi = torch.tensor([[-3, 0, 0, 2, imax]], dtype=torch.int32).expand(4, 5)
     both("(4, 8193) int32, INT32_MAX keys and query", ei.to(dev),
          qi.contiguous().to(dev))
+    # ROADMAP C12: unsorted NaN rows, whose cuts past one 8,192-slot tile
+    # only the reference's own search gives, and rows of +-0 and
+    # denormals only; 63 queries, a NaN among them
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype)[6:]
+        for m in KEY_SORT_WIDTHS:
+            for kind, rows in (("unsorted NaN", _unsorted_nan_rows),
+                               ("+-0/denormal", _zero_class_rows)):
+                e = rows(rng, 4, m, dtype)
+                both(f"(4, {m}) {dname} {kind} rows x 63, a NaN query",
+                     e.to(dev), _queries_with_nan(rng, e).to(dev))
 
 
 def _pair_rows(rng, rows, m, dtype):
@@ -1324,8 +1402,9 @@ def phase_payload(smi: str, algorithm: str, family: str = "bitonic",
 def phase_bf16(smi: str) -> dict:
     """bf16 keys through the front door (ROADMAP C10).  At t=64 x
     65,536: SMMS keys only and Terasort with the 100-byte records, by
-    the family the cost model picks for bf16 there (radix: 16-bit keys,
-    4 passes); keys equal to np.sort of the input (bf16 values widen to
+    the family the cost model picks for bf16 there (16-bit keys, 4 radix
+    passes), which launches the float32 path's kernels of that family;
+    keys equal to np.sort of the input (bf16 values widen to
     float32 exactly), workload equal to a host recount at the report's
     boundaries, alpha 3, the records in the keys' stable order.  At t=8
     x 4,096: SMMS and Terasort with values, keys, values and every
@@ -1336,8 +1415,11 @@ def phase_bf16(smi: str) -> dict:
     wide = xb.float().numpy()
     want = np.sort(wide.reshape(-1))
     order = np.argsort(wide.reshape(-1), kind="stable")
+    family = cost_model_family(M, xb.dtype)
     for algorithm, with_payload in (("smms", False), ("terasort", True)):
         path = path_name(algorithm, with_payload, "bitonic") + "_bf16"
+        PATH_KERNELS[path] = PATH_KERNELS[path_name(algorithm, with_payload,
+                                                    family)]
         payload = (make_payload(T, M, SEED + 5, device=DEVICE)
                    if with_payload else None)
         torch.cuda.synchronize()
@@ -1363,7 +1445,7 @@ def phase_bf16(smi: str) -> dict:
             del rows, payload
         out[path] = {"first_call_s": wall, "k_workload": rep.k_workload,
                      "capacity_attempts": rep.capacity_attempts,
-                     "family": cost_model_family(M, xb.dtype)}
+                     "family": family}
         print(f"[bf16] {path}: t={T} m={M} bf16 keys by "
               f"{out[path]['family']} ok: keys = np.sort, workload = host "
               f"recount, k_workload={rep.k_workload:.4f} attempts="
@@ -1912,6 +1994,24 @@ def phase_times(rng, smi: str) -> dict:
            event_ms(lambda: bitonic.bitonic_sort_plain(x), 3, warm=1),
            event_ms(lambda: torch.sort(x, dim=-1), 20),
            2 * x.numel() * 4, x.numel() * int(math.log2(M)))
+    # the same sort on the rows of its other representations, which no
+    # path hands it: a +0.0 every 97th key (keys that fold: float32 sorts
+    # as 64-bit words, bf16 compares its words' key half) and a NaN every
+    # 997th (the keys as they are, the exact comparator)
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, col, fill in (("folds", 97, 0.0), ("nan", 997, math.nan)):
+            rows = x.to(dtype, copy=True)
+            rows[:, ::col] = fill
+            name = f"bitonic_sort@{label}" + (
+                "_bf16" if dtype == torch.bfloat16 else "")
+            record(name,
+                   timed_ms(lambda: bitonic.bitonic_sort(rows), 20),
+                   event_ms(lambda: bitonic.bitonic_sort_plain(rows), 1,
+                            warm=1),
+                   event_ms(lambda: torch.sort(rows, dim=-1), 20),
+                   2 * rows.numel() * rows.element_size(),
+                   rows.numel() * int(math.log2(M)))
+            del rows
 
     # bitonic_sort_kv at (64, 65536): f32 keys and the int32 iota in,
     # keys and the order out; a comparison sort needs log2 m compares a
@@ -2134,7 +2234,17 @@ def phase_times(rng, smi: str) -> dict:
     del q, k, v
     bf16_times(record, rng, x, xs)
     rb = r.to(torch.bfloat16)
+    xb, bqb = x.to(torch.bfloat16), bq.to(torch.bfloat16)
+
+    def sort_bitonic(keys):              # the call ops.sort makes
+        with ops.force_sort_kernel("bitonic"):
+            return ops.sort(keys)
+
     one_launch(smi, {
+        "bitonic_sort@ops": lambda: sort_bitonic(x),
+        "bitonic_sort@ops_bf16": lambda: sort_bitonic(xb),
+        "sort_partition": lambda: fused.sort_partition(x, bq),
+        "sort_partition@bf16": lambda: fused.sort_partition(xb, bqb),
         "bitonic_sort_kv@ops": lambda: bitonic.bitonic_sort_kv(x),
         "bitonic_sort_kv@routing": lambda: bitonic.bitonic_sort_kv(a),
         "sort_partition_kv": lambda: fused.sort_partition_kv(x, bq),
@@ -2143,6 +2253,7 @@ def phase_times(rng, smi: str) -> dict:
         "merge_rows_kv@bf16": lambda: bitonic.merge_sorted_rows_argsort(rb),
         "merge_rows": lambda: bitonic.merge_sorted_rows(r),
         "searchsorted@ops": lambda: ops.searchsorted(xs, row, valid_len=M)})
+    del xb, bqb                     # out of the end-to-end peaks below
 
     # the end-to-end sorts by both families, in turns: SMMS and
     # Terasort (its draws made on the card from the seed, as a user's
@@ -2206,24 +2317,35 @@ def phase_times(rng, smi: str) -> dict:
     return res
 
 
+# The spin kernels (torch.cuda._sleep, clock cycles) around a profiled
+# window: ~25 ms before the calls, so that they run once the profiler
+# records, and a short one after them.  With nothing around them a window
+# of a few calls lost some or all of their kernels' events on the card.
+SPIN_BEFORE, SPIN_AFTER = 50_000_000, 1000
+
+
 def one_launch(smi: str, calls: dict) -> None:
     """Each call is one C call and one kernel on the card: under
     torch.profiler, 10 calls run 10 device kernels, all of one name, and
     no copy or fill; and ``cuda.LAUNCHES`` counts 10.  Operands are
-    made before the window, so only the call's own work is in it."""
+    made before the window, so only the call's own work is in it; the
+    window's spin kernels (:data:`SPIN_BEFORE`) are left out of the
+    count."""
     from torch.profiler import ProfilerActivity, profile
     for label, fn in calls.items():
-        with profile(activities=[ProfilerActivity.CUDA]):
-            fn()                    # the profiler's first window may drop
-            torch.cuda.synchronize()      # the first kernel it sees
+        fn()
+        torch.cuda.synchronize()
         cuda.reset_launches()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(SPIN_BEFORE)
             for _ in range(10):
                 fn()
+            torch.cuda._sleep(SPIN_AFTER)
             torch.cuda.synchronize()
         kernels = collections.Counter()
         for ev in prof.events():
-            if ev.device_type == torch.autograd.DeviceType.CUDA:
+            if (ev.device_type == torch.autograd.DeviceType.CUDA
+                    and "spin_kernel" not in ev.name):
                 kernels[ev.name] += 1
         print(f"[times] {label}: 10 calls ran {dict(kernels)}, "
               f"{dict(cuda.LAUNCHES)} C calls ({smi})")
@@ -2379,20 +2501,25 @@ def e2e_families(label: str, fn, smi: str, reps: int = 6) -> dict:
 def phase_crossover(smi: str) -> dict:
     """The sort-family split measured on the card: ``ops.sort`` (keys
     only) and ``ops.sort_kv`` (a (64, n) int32 value gathered through
-    the order) by each family at (64, 2^k), k = 10..16, float32 and
-    int32, CUDA-event ms and the host's issue ms; a stable torch.sort
-    beside them as the yardstick.  Prints where radix was faster on the
-    keys-only comparison and what the cost model picks there."""
+    the order) by each family at (64, 2^k), k = 10..16, float32, bf16
+    and int32, CUDA-event ms and the host's issue ms; a stable
+    torch.sort beside them as the yardstick.  Prints where radix was
+    faster on the keys-only comparison, what the cost model picks there,
+    what a radix pass cost in bitonic substages at each width, and the
+    values of ``ops.RADIX_PASS_SUBSTAGES`` with which the model picks the
+    faster family at every width from ``ops.RADIX_MIN_LANES`` on."""
     dev = torch.device(DEVICE)
     table = {}
-    for dtype in (torch.float32, torch.int32):
+    fit_lo, fit_hi = 0.0, math.inf
+    for dtype in (torch.float32, torch.bfloat16, torch.int32):
         dname = str(dtype)[6:]
+        passes = -(-radix.key_bits(dtype) // ops.RADIX_BITS)
         for k in range(10, 17):
             n = 1 << k
             reps = 50 if k < 14 else 20
-            x = (torch.rand((T, n), device=dev) if dtype == torch.float32
-                 else torch.randint(-2**31, 2**31 - 1, (T, n), device=dev,
-                                    dtype=torch.int32))
+            x = (torch.randint(-2**31, 2**31 - 1, (T, n), device=dev,
+                               dtype=torch.int32) if dtype == torch.int32
+                 else torch.rand((T, n), device=dev).to(dtype))
             v = torch.randint(0, 1 << 30, (T, n), dtype=torch.int32,
                               device=dev)
             row = {}
@@ -2408,6 +2535,15 @@ def phase_crossover(smi: str) -> dict:
             row["radix_faster_kv"] = (row["radix_sort_kv"][0]
                                       < row["bitonic_sort_kv"][0])
             row["cost_model"] = ops.sort_kernel_choice(x)
+            # a radix pass in bitonic substages, and the model's bracket
+            substages = k * (k + 1) // 2
+            row["pass_substages"] = ((row["radix_sort"][0] / passes)
+                                     / (row["bitonic_sort"][0] / substages))
+            if n >= ops.RADIX_MIN_LANES:
+                if row["radix_faster_keys"]:
+                    fit_hi = min(fit_hi, substages / passes)
+                else:
+                    fit_lo = max(fit_lo, substages / passes)
             table[f"{dname}_2^{k}"] = row
             print(f"[times] crossover {dname} ({T}, 2^{k}): sort bitonic "
                   f"{row['bitonic_sort'][0]:.4f} radix "
@@ -2416,8 +2552,9 @@ def phase_crossover(smi: str) -> dict:
                   f"{row['radix_sort_kv'][0]:.4f} ms | host issue "
                   f"{row['bitonic_sort'][1]:.4f} / "
                   f"{row['radix_sort'][1]:.4f} ms | stable torch.sort "
-                  f"{row['library_stable_sort_ms']:.4f} ms | cost model: "
-                  f"{row['cost_model']} ({smi})")
+                  f"{row['library_stable_sort_ms']:.4f} ms | a radix pass "
+                  f"= {row['pass_substages']:.1f} bitonic substages | cost "
+                  f"model: {row['cost_model']} ({smi})")
     faster = [key for key, row in table.items() if row["radix_faster_keys"]]
     agree = all((row["cost_model"] == "radix") == row["radix_faster_keys"]
                 for row in table.values())
@@ -2426,7 +2563,17 @@ def phase_crossover(smi: str) -> dict:
           f"RADIX_MIN_LANES={ops.RADIX_MIN_LANES} "
           f"RADIX_PASS_SUBSTAGES={ops.RADIX_PASS_SUBSTAGES} "
           f"{'agree' if agree else 'DISAGREE'} with this run")
-    faster_kv = [key for key, row in table.items() if row["radix_faster_kv"]]
+    # radix where substages > passes * RADIX_PASS_SUBSTAGES: at least
+    # every width bitonic won, below every width radix won
+    fit = max(1, math.ceil(fit_lo))
+    table["fit"] = {"radix_pass_substages_from": fit,
+                    "radix_pass_substages_below": fit_hi}
+    print(f"[times] crossover: the model picks the faster family at every "
+          f"width from 2^{ops.RADIX_MIN_LANES.bit_length() - 1} with "
+          f"RADIX_PASS_SUBSTAGES in [{fit}, {fit_hi}) "
+          f"({'an empty range' if fit >= fit_hi else 'fitted: ' + str(fit)})")
+    faster_kv = [key for key, row in table.items()
+                 if key != "fit" and row["radix_faster_kv"]]
     print(f"[times] crossover: radix sort_kv faster than the pair sort "
           f"(radix_faster_kv) at {faster_kv if faster_kv else 'no width'} "
           f"({smi})")

@@ -1,6 +1,6 @@
-// Row-wise ascending bitonic sort of a (rows, n) array, n a power of two,
-// of keys alone (bitonic_sort_*) or of (key, int32 value) pairs in
-// lexicographic order (bitonic_sort_kv_*).
+// Row-wise ascending bitonic sort of a (rows, m) array, padded to a power
+// of two with the sort sentinel, of keys alone (bitonic_sort_*) or of
+// (key, int32 value) pairs in lexicographic order (bitonic_sort_kv_*).
 //
 // Replaces: src/repro/kernels/bitonic.py bitonic_sort (pallas_call at
 // :224; body _sort_kernel :169 -> sort_network_block :112) and
@@ -15,29 +15,27 @@
 //
 // What bounds it on the H100.  The TPU kernel keeps a whole row (up to
 // 2^16 lanes, 256 KiB of f32) in VMEM.  A Hopper block has at most
-// 227 KB of shared memory, so the keys-only sort splits the network
-// between shared-memory tiles of 8192 elements and one global pass per
-// larger substage (sort_tiles.cuh tile_stages / global_substage): at
-// (64, 65536) f32 10 launches and about 10 round trips of the 16 MiB
-// array, bound by the device-memory bytes of those passes plus
-// shared-memory traffic.
-//
-// The pair sort (bitonic_sort_kv_*) runs one launch a call
-// (sort_tiles.cuh row_sort): a row of up to 8,192 padded pairs a CTA, a
+// 227 KB of shared memory, so both sorts run one launch a call
+// (sort_tiles.cuh row_sort): a row of up to 8,192 padded slots a CTA, a
 // row of 2^14-2^16 a cluster of 2-8 CTAs whose shared memory holds it
 // (distributed shared memory), the network in register rounds of up to
 // five substages on 32 slots a thread (30 rounds a row at 2^16, where
 // the network has 136 substages), each slot one unsigned word compared
-// in one instruction unless the row holds a NaN key.  It reads the
-// caller's unpadded keys (and values) once and writes the real
-// positions once; the pads, and with no values the order channel (the
-// column: the stable argsort), are made as the row is loaded.  At (64,
-// 65536) that is 16 MiB in and 32 MiB out where the split schedule moved
-// ~640 MiB in 10 launches, so the pair sort is bound by its
-// shared-memory rounds and its compare-exchanges.  Rows past 2^16 padded
-// pairs (direct calls only: the dispatch sends them to the radix sort)
-// are padded into a scratch the wrapper allocates and sorted there by
-// the split schedule.
+// in one instruction unless the row holds a NaN key.  Keys alone sort as
+// 32-bit words (the key integer; bf16 its key integer over its bits; a
+// float32 row whose keys fold to zero 64-bit words compared on the key
+// half, so that +-0 and denormals keep the network's order); pairs as
+// 64-bit words, or 32-bit ones for bf16 keys with the order generated.
+// The kernel reads the caller's unpadded keys (and values) once and
+// writes the real positions once; the pads, and with no values the
+// order channel (the column: the stable argsort), are made as the row
+// is loaded.  At (64, 65536) f32 the keys-only sort moves 32 MiB where
+// the split schedule it replaces moved ~640 MiB in 10 launches, so
+// both sorts are bound by their shared-memory rounds and their
+// compare-exchanges.  Rows past 2^16 padded slots (direct calls only:
+// the dispatch sends them to the radix sort) are padded into a scratch
+// the wrapper allocates and sorted there by the split schedule
+// (sort_tiles.cuh tile_stages / global_substage).
 //
 // Keys are float32, int32 or bf16.  A bf16 key travels as bf16 and is
 // widened to float32 in registers to be compared (network.cuh cmp_key),
@@ -46,31 +44,20 @@
 
 using namespace repro;
 
-namespace {
+// keys: (rows, m) in; keys_out: (rows, m) out; scratch: (rows, pow2 >=
+// m), read only past 2^16 padded slots.
+#define SORT_ENTRY(SUFFIX, T)                                               \
+  extern "C" int bitonic_sort_##SUFFIX(const T* keys, T* keys_out,          \
+                                       T* scratch, long long rows,          \
+                                       long long m, void* stream) {         \
+    return sort_unpadded<T, false, false>(                                  \
+        keys, nullptr, keys_out, nullptr, scratch, nullptr, rows, m,        \
+        nullptr, nullptr, 0, static_cast<cudaStream_t>(stream));            \
+  }
 
-template <typename T>
-int sort_only(T* x, long long rows, long long n, void* stream) {
-  return sort_rows<T, false>(x, nullptr, rows, n,
-                             TileSearch<T>{nullptr, nullptr, 0, 0}, false,
-                             static_cast<cudaStream_t>(stream));
-}
-
-}  // namespace
-
-extern "C" int bitonic_sort_f32(float* x, long long rows, long long n,
-                                void* stream) {
-  return sort_only<float>(x, rows, n, stream);
-}
-
-extern "C" int bitonic_sort_i32(int* x, long long rows, long long n,
-                                void* stream) {
-  return sort_only<int>(x, rows, n, stream);
-}
-
-extern "C" int bitonic_sort_bf16(__nv_bfloat16* x, long long rows,
-                                 long long n, void* stream) {
-  return sort_only<__nv_bfloat16>(x, rows, n, stream);
-}
+SORT_ENTRY(f32, float)
+SORT_ENTRY(i32, int)
+SORT_ENTRY(bf16, __nv_bfloat16)
 
 // keys, values: (rows, m) in (values null: the order is generated, the
 // stable argsort); keys_out, order_out: (rows, m) out; scratch,
@@ -80,10 +67,9 @@ extern "C" int bitonic_sort_bf16(__nv_bfloat16* x, long long rows,
       const T* keys, const int* values, T* keys_out, int* order_out,        \
       T* scratch, int* scratch_values, long long rows, long long m,         \
       void* stream) {                                                       \
-    return sort_pairs<T, false>(keys, values, keys_out, order_out,          \
-                                scratch, scratch_values, rows, m, nullptr,  \
-                                nullptr, 0,                                 \
-                                static_cast<cudaStream_t>(stream));         \
+    return sort_unpadded<T, true, false>(                                   \
+        keys, values, keys_out, order_out, scratch, scratch_values, rows,   \
+        m, nullptr, nullptr, 0, static_cast<cudaStream_t>(stream));         \
   }
 
 PAIR_SORT_ENTRY(f32, float)

@@ -1,8 +1,9 @@
-// Fused sort and boundary partition of each row of a (rows, n) array, n a
-// power of two: the keys alone (sort_partition_*) or (key, int32 value)
-// pairs in lexicographic order (sort_partition_kv_*), and for each row's
-// nq queries the count of sorted elements among the first m that compare
-// below it -- the left searchsorted of the queries over the sorted row.
+// Fused sort and boundary partition of each row of a (rows, m) array,
+// padded to a power of two with the sort sentinel: the keys alone
+// (sort_partition_*) or (key, int32 value) pairs in lexicographic order
+// (sort_partition_kv_*), and for each row's nq queries the count of
+// sorted elements among the first m that compare below it -- the left
+// searchsorted of the queries over the sorted row.
 //
 // Replaces: src/repro/kernels/fused.py sort_partition (pallas_call at :87;
 // body _sort_partition_kernel :49) and sort_partition_kv (pallas_call at
@@ -13,22 +14,18 @@
 // directions, same swap rule, so the sorted row is bitwise the plain
 // version's).
 //
-// The keys-only sort (sort_partition_*) fuses the search into the split
-// schedule's last launch: each 8192-element tile of the sorted row
-// counts its own elements below each query and adds the count to the
-// row's cut (sort_tiles.cuh tile_stages); for a sorted row the
-// reference's guarded binary search returns exactly that count.
-//
-// The pair sort (sort_partition_kv_*) is one launch a call
-// (sort_tiles.cuh row_sort): the row in a CTA's shared memory, or in a
-// cluster's for rows of 2^14-2^16 padded pairs, the order channel
-// generated as the row loads (the column, int32 max on a pad: the
+// Both run one launch a call (sort_tiles.cuh row_sort): the row in a
+// CTA's shared memory, or in a cluster's for rows of 2^14-2^16 padded
+// slots, as in csrc/bitonic_sort.cu; the pair sort generates its order
+// channel as the row loads (the column, int32 max on a pad: the
 // reference's iota padded, fused.py:111-112, so the order is the stable
-// argsort), and after the network each query runs the reference's
+// argsort).  After the network each query runs the reference's
 // fixed-step search over the row's first m sorted keys, each probe read
 // from the CTA that holds it, and writes its cut: no memset, no atomics,
-// and the reference's cuts for any row, NaN keys included.  Rows past
-// 2^16 padded pairs (direct calls only) are sorted in a scratch by the
+// and the reference's cuts for any row, NaN keys included (the network
+// leaves a NaN where its swap rule puts it, so a row holding one is not
+// sorted, and only the reference's own probes give its cut).  Rows past
+// 2^16 padded slots (direct calls only) are sorted in a scratch by the
 // split schedule and searched there the same way.
 //
 // What bounds it on the H100: the sort, as for bitonic_sort.cu.  The
@@ -40,39 +37,21 @@
 
 using namespace repro;
 
-namespace {
+// keys: (rows, m) in; queries: (rows, nq) in; keys_out: (rows, m) out;
+// cuts: (rows, nq) out; scratch: (rows, pow2 >= m), read only past 2^16
+// padded slots.
+#define SORT_PARTITION_ENTRY(SUFFIX, T)                                     \
+  extern "C" int sort_partition_##SUFFIX(                                   \
+      const T* keys, const T* queries, T* keys_out, int* cuts, T* scratch,  \
+      long long rows, long long m, long long nq, void* stream) {            \
+    return sort_unpadded<T, false, true>(                                   \
+        keys, nullptr, keys_out, nullptr, scratch, nullptr, rows, m,        \
+        queries, cuts, nq, static_cast<cudaStream_t>(stream));              \
+  }
 
-template <typename T>
-int sort_partition_rows(T* x, const T* queries, int* cuts, long long rows,
-                        long long n, long long m, long long nq,
-                        void* stream) {
-  return sort_rows<T, false>(x, nullptr, rows, n,
-                             TileSearch<T>{queries, cuts, m, nq}, true,
-                             static_cast<cudaStream_t>(stream));
-}
-
-}  // namespace
-
-extern "C" int sort_partition_f32(float* x, const float* queries, int* cuts,
-                                  long long rows, long long n, long long m,
-                                  long long nq, void* stream) {
-  return sort_partition_rows<float>(x, queries, cuts, rows, n, m, nq,
-                                    stream);
-}
-
-extern "C" int sort_partition_i32(int* x, const int* queries, int* cuts,
-                                  long long rows, long long n, long long m,
-                                  long long nq, void* stream) {
-  return sort_partition_rows<int>(x, queries, cuts, rows, n, m, nq, stream);
-}
-
-extern "C" int sort_partition_bf16(__nv_bfloat16* x,
-                                   const __nv_bfloat16* queries, int* cuts,
-                                   long long rows, long long n, long long m,
-                                   long long nq, void* stream) {
-  return sort_partition_rows<__nv_bfloat16>(x, queries, cuts, rows, n, m,
-                                            nq, stream);
-}
+SORT_PARTITION_ENTRY(f32, float)
+SORT_PARTITION_ENTRY(i32, int)
+SORT_PARTITION_ENTRY(bf16, __nv_bfloat16)
 
 // keys: (rows, m) in; queries: (rows, nq) in; keys_out, order_out (the
 // stable argsort): (rows, m) out; cuts: (rows, nq) out; scratch,
@@ -82,9 +61,9 @@ extern "C" int sort_partition_bf16(__nv_bfloat16* x,
       const T* keys, const T* queries, T* keys_out, int* order_out,         \
       int* cuts, T* scratch, int* scratch_values, long long rows,           \
       long long m, long long nq, void* stream) {                            \
-    return sort_pairs<T, true>(keys, nullptr, keys_out, order_out, scratch, \
-                               scratch_values, rows, m, queries, cuts, nq,  \
-                               static_cast<cudaStream_t>(stream));          \
+    return sort_unpadded<T, true, true>(                                    \
+        keys, nullptr, keys_out, order_out, scratch, scratch_values, rows,  \
+        m, queries, cuts, nq, static_cast<cudaStream_t>(stream));           \
   }
 
 SORT_PARTITION_KV_ENTRY(f32, float)

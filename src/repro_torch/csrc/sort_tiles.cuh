@@ -4,14 +4,14 @@
 // compare-exchange (same pairs, same directions, same swap rule), so
 // both give the plain versions' output bitwise.
 //
-// row_sort (below; the pair sorts, rows of up to 2^16 padded slots).
-// One launch a call.  A row of up to 8,192 padded slots is one CTA; a row
-// of 2^14-2^16 is a cluster of 2-8 CTAs of 8,192 slots each, whose
-// shared memory holds the row (64 KiB a CTA).  The kernel reads the
-// caller's unpadded row once, makes the pads as it loads (the sort
-// sentinel, value int32 max; a generated value channel is the column),
-// runs the whole network on chip and writes the real positions [0, m)
-// once.
+// row_sort (below; every sort, keys alone or (key, value) pairs, on rows
+// of up to 2^16 padded slots).  One launch a call.  A row of up to 8,192
+// padded slots is one CTA; a row of 2^14-2^16 is a cluster of 2-8 CTAs
+// of 8,192 slots each, whose shared memory holds the row (64 KiB a CTA).
+// The kernel reads the caller's unpadded row once, makes the pads as it
+// loads (the sort sentinel; with pairs, value int32 max, and a generated
+// value channel is the column), runs the whole network on chip and
+// writes the real positions [0, m) once.
 //   * Register rounds.  A thread loads a group of 32 slots closed under
 //     five consecutive substages of one stage (16 slots and four in a
 //     tile of 4,096 slots or fewer, which so keeps twice the threads),
@@ -31,10 +31,16 @@
 //     of a round, a load or a store meets a bank conflict
 //     (tests/test_torch_pair_sort.py checks every access).
 //   * Words.  A row with no NaN key is sorted as one unsigned word a
-//     slot, (key, value) ordered as gt_kv orders them (RowKey): a 64-bit
-//     word, or a 32-bit one for bf16 keys with the order generated.  A
-//     compare-exchange is then one integer comparison; a row with a NaN
-//     key runs the same network on the keys as they are (gt_kv).
+//     slot (WordSlots, RowKey), so that a compare-exchange is one
+//     integer comparison.  Pairs: (key, value) ordered as gt_kv orders
+//     them, a 64-bit word, or a 32-bit one for bf16 keys with the order
+//     generated.  Keys alone: the 32-bit key integer where no key folds
+//     (int32 keys always); where keys fold (+-0, denormals: one integer
+//     for the whole class), the key integer over the key's own bits,
+//     compared on the key half only, so that keys that compare equal
+//     never trade places, as under the network's swap rule (bf16 keys
+//     always carry their bits: a 32-bit word).  A row with a NaN key
+//     runs the same network on the keys as they are (gt, gt_kv).
 //   * Occupancy.  At most 256 threads a CTA at 128 registers: two CTAs
 //     an SM, so one's barriers hide behind the other's rounds.
 // With SEARCH the kernel then runs the reference's fixed-step search of
@@ -43,20 +49,19 @@
 // step, so the cuts are its own for any row, NaN keys included, with no
 // memset and no atomics.
 //
-// tile_stages / global_substage (the keys-only sorts, and pair rows past
-// 2^16).  The usual GPU split: every substage at a distance below the
-// tile runs in shared memory on tiles of 2^kLogTile elements (one launch
-// for all stages up to log2(tile), then one launch per larger stage for
-// its in-tile tail); each substage at a distance of a tile or more is
-// one pass over global memory, one thread per pair (global_substage,
-// network.cuh).  With KV an int32 value channel moves with the keys; its
-// tile follows the keys' tile in shared memory (64 KiB at 8192 pairs,
-// past the 48 KiB a launch gets by default, so the limit is raised once
-// per instantiation).  Its fused search: after the last stage's in-tile
-// tail each tile counts its elements with a row index below m that
-// compare below each query (a lower bound in the tile) and adds the
-// count to the row's cut with atomicAdd; the cuts are cleared on the
-// same stream first.
+// tile_stages / global_substage (rows past 2^16 padded slots, direct
+// calls only: the dispatch sends such rows to the radix sort).  The usual
+// GPU split over a padded scratch: every substage at a distance below
+// the tile runs in shared memory on tiles of 2^kLogTile elements (one
+// launch for all stages up to log2(tile), then one launch per larger
+// stage for its in-tile tail); each substage at a distance of a tile or
+// more is one pass over global memory, one thread per pair
+// (global_substage, network.cuh).  With KV an int32 value channel moves
+// with the keys; its tile follows the keys' tile in shared memory (64
+// KiB at 8192 pairs, past the 48 KiB a launch gets by default, so the
+// limit is raised once per instantiation).  The search then runs apart
+// (search_rows), the reference's fixed-step search over the sorted
+// scratch.
 #pragma once
 
 #include "network.cuh"
@@ -75,23 +80,13 @@ namespace {
 constexpr int kLogTile = 13;          // 8192 elements per shared-memory tile
 constexpr int kThreads = 1024;
 
-// What the fused search reads and writes: queries and cuts are
-// (rows, nq) row-major, m the count of real elements in each row.
-template <typename T>
-struct TileSearch {
-  const T* queries;
-  int* cuts;
-  long long m;
-  long long nq;
-};
-
 // Stages k in [k_lo, k_hi], each with its substages j from
 // min(k, log_tile - 1) down to 0, on each tile of 2^log_tile
 // consecutive elements.  A tile never straddles two rows (it divides
 // n); the direction comes from the element's position in its row.
-template <typename T, bool KV, bool SEARCH>
+template <typename T, bool KV>
 __global__ void tile_stages(T* x, int* v, long long n, int log_tile,
-                            int k_lo, int k_hi, TileSearch<T> search) {
+                            int k_lo, int k_hi) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* s = reinterpret_cast<T*>(smem_raw);
   const int tile = 1 << log_tile;
@@ -115,77 +110,33 @@ __global__ void tile_stages(T* x, int* v, long long n, int log_tile,
       __syncthreads();
     }
   }
-  if constexpr (SEARCH) {
-    // one thread per query: a lower bound over the tile's real elements
-    const long long row = base / n;
-    long long real = search.m - col0;
-    real = real < 0 ? 0 : (real > tile ? tile : real);
-    for (long long qi = threadIdx.x; real > 0 && qi < search.nq;
-         qi += blockDim.x) {
-      const cmp_t<T> key =
-          cmp_key(search.queries[row * search.nq + qi]);
-      int lo = 0, hi = static_cast<int>(real);
-      while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (cmp_key(s[mid]) < key)
-          lo = mid + 1;
-        else
-          hi = mid;
-      }
-      if (lo > 0) atomicAdd(search.cuts + row * search.nq + qi, lo);
-    }
-  }
   for (int i = threadIdx.x; i < tile; i += blockDim.x) {
     x[base + i] = s[i];
     if constexpr (KV) v[base + i] = sv[i];
   }
 }
 
-template <typename T, bool KV, bool SEARCH>
-cudaError_t launch_tiles(T* x, int* v, long long n, int log_tile, int k_lo,
-                         int k_hi, const TileSearch<T>& search,
-                         long long blocks, int threads, size_t smem,
-                         cudaStream_t stream) {
+// Sort each row of x (and v with KV) in place: rows of n slots, n a
+// power of two.
+template <typename T, bool KV>
+int sort_rows(T* x, int* v, long long rows, long long n,
+              cudaStream_t stream) {
+  if (rows <= 0 || n < 2) return static_cast<int>(cudaGetLastError());
   if (KV) {
     // once per instantiation: room for the largest tile of pairs
     static const cudaError_t configured = cudaFuncSetAttribute(
-        tile_stages<T, KV, SEARCH>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        tile_stages<T, KV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>((1 << kLogTile) * (sizeof(T) + sizeof(int))));
-    if (configured != cudaSuccess) return configured;
+    if (configured != cudaSuccess) return static_cast<int>(configured);
   }
-  tile_stages<T, KV, SEARCH><<<blocks, threads, smem, stream>>>(
-      x, v, n, log_tile, k_lo, k_hi, search);
-  return cudaSuccess;
-}
-
-// Sort each row of x (and v with KV) in place.  With fuse_search the
-// last in-tile launch also searches the rows' queries into search.cuts.
-template <typename T, bool KV>
-int sort_rows(T* x, int* v, long long rows, long long n,
-              const TileSearch<T>& search, bool fuse_search,
-              cudaStream_t stream) {
-  if (fuse_search && rows > 0 && search.nq > 0) {
-    const cudaError_t err = cudaMemsetAsync(
-        search.cuts, 0, sizeof(int) * rows * search.nq, stream);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  if (rows <= 0 || n < 2) return static_cast<int>(cudaGetLastError());
   const int log_n = log2_exact(n);
   const int log_tile = log_n < kLogTile ? log_n : kLogTile;
   const int tile = 1 << log_tile;
   const int threads = tile / 2 < kThreads ? tile / 2 : kThreads;
   const long long blocks = rows * n / tile;
   const size_t smem = tile * (sizeof(T) + (KV ? sizeof(int) : 0));
-  auto tiles = [&](int k_lo, int k_hi) {
-    if (fuse_search && k_hi == log_n - 1)
-      return launch_tiles<T, KV, true>(x, v, n, log_tile, k_lo, k_hi, search,
-                                       blocks, threads, smem, stream);
-    return launch_tiles<T, KV, false>(x, v, n, log_tile, k_lo, k_hi, search,
-                                      blocks, threads, smem, stream);
-  };
-  cudaError_t err = tiles(0, log_tile - 1);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  tile_stages<T, KV><<<blocks, threads, smem, stream>>>(x, v, n, log_tile, 0,
+                                                        log_tile - 1);
   const long long pairs = rows * n / 2;
   const int gthreads = 256;
   const long long gblocks = (pairs + gthreads - 1) / gthreads;
@@ -193,8 +144,8 @@ int sort_rows(T* x, int* v, long long rows, long long n,
     for (int j = k; j >= log_tile; --j)
       global_substage<T, KV><<<gblocks, gthreads, 0, stream>>>(
           x, v, pairs, n, 1LL << j, k, true);
-    err = tiles(k, k);
-    if (err != cudaSuccess) return static_cast<int>(err);
+    tile_stages<T, KV><<<blocks, threads, smem, stream>>>(x, v, n, log_tile,
+                                                          k, k);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -225,8 +176,8 @@ constexpr int kRowLoadBatch = 8;       // global loads a thread keeps in flight
 using u64 = unsigned long long;
 
 // Bytes of shared memory a CTA of 2^log_l slots takes: 8 a slot, the
-// widest slot (the packed pair), which also holds the exact
-// comparator's key and value arrays.
+// widest slot (a packed pair, or a float32 key over its bits), which also
+// holds the exact comparator's key and value arrays.
 constexpr size_t row_smem(int log_l) {
   return static_cast<size_t>(sizeof(u64)) << log_l;
 }
@@ -238,22 +189,24 @@ struct RowLaunch {
   int log_total, log_l;
 };
 
-// The integer representations.  A row with no NaN key whose keys can be
-// rebuilt from their integers (int32 keys always; float keys when no
-// key folds to zero, or when the values are the generated columns,
-// which locate a key's original bits in the caller's row) is sorted as
-// one unsigned word a slot: high part the key folded as cmp_key folds
+// The integer representations.  A row with no NaN key is sorted as one
+// unsigned word a slot whose key part is the key folded as cmp_key folds
 // it (a denormal to zero, -0.0 to +0.0: keys that compare equal map to
-// one integer) and mapped to an unsigned integer of the same order, low
-// part the value so that unsigned order is int32 order.  gt_kv is then
-// one unsigned comparison of the words: the network's compare-exchanges
-// with cmp_key's outcomes, so the output is the exact comparator's.
-// Packed: a 64-bit word, the value biased by 2^31.  Compact (bf16 keys,
-// values generated): a 32-bit word, the 16-bit key over the 16-bit
-// column (0xffff on a pad: a row of 2^16 columns has no pad, a shorter
-// one no column 0xffff).  NaN, which compares neither above nor below
-// nor equal to anything, keeps its row on the exact comparator
-// (network.cuh gt_kv on the keys as they are, key and value arrays).
+// one integer) and mapped to an unsigned integer of the same order (to;
+// from undoes it for a key that does not fold).  Pairs: the low part is
+// the value, so that unsigned order is int32 order and gt_kv one
+// unsigned comparison of the words: the network's compare-exchanges with
+// cmp_key's outcomes, so the output is the exact comparator's.  Packed: a
+// 64-bit word, the value biased by 2^31.  Compact (bf16 keys, values
+// generated): a 32-bit word, the 16-bit key over the 16-bit column
+// (0xffff on a pad: a row of 2^16 columns has no pad, a shorter one no
+// column 0xffff).  A key of the zero class is rebuilt from the caller's
+// row at its column, so values given need a row whose keys do not fold.
+// Keys alone: the key integer alone where no key folds (gt is then one
+// unsigned comparison), else the key integer over the key's own bits
+// (bits, of_bits), compared on the key half only.  NaN, which compares
+// neither above nor below nor equal to anything, keeps its row on the
+// exact comparator (network.cuh gt, gt_kv on the keys as they are).
 template <typename T> struct RowKey;
 template <> struct RowKey<float> {
   static __device__ __forceinline__ bool nan(float v) {
@@ -268,6 +221,12 @@ template <> struct RowKey<float> {
   }
   static __device__ __forceinline__ float from(uint32_t t) {
     return __uint_as_float((t & 0x80000000u) ? (t & 0x7fffffffu) : ~t);
+  }
+  static __device__ __forceinline__ uint32_t bits(float v) {
+    return __float_as_uint(v);
+  }
+  static __device__ __forceinline__ float of_bits(uint32_t u) {
+    return __uint_as_float(u);
   }
   static constexpr uint32_t kZero = 0x80000000u;          // to(+-0.0)
   static constexpr bool kRebuilt = true;  // kZero is rebuilt from the row
@@ -287,6 +246,12 @@ template <> struct RowKey<__nv_bfloat16> {
     return __ushort_as_bfloat16(static_cast<uint16_t>(
         (t & 0x8000u) ? (t & 0x7fffu) : ~t));
   }
+  static __device__ __forceinline__ uint32_t bits(__nv_bfloat16 v) {
+    return __bfloat16_as_ushort(v);
+  }
+  static __device__ __forceinline__ __nv_bfloat16 of_bits(uint32_t u) {
+    return __ushort_as_bfloat16(static_cast<uint16_t>(u));
+  }
   static constexpr uint32_t kZero = 0x8000u;
   static constexpr bool kRebuilt = true;
 };
@@ -298,6 +263,12 @@ template <> struct RowKey<int> {
   }
   static __device__ __forceinline__ int from(uint32_t t) {
     return static_cast<int>(t ^ 0x80000000u);
+  }
+  static __device__ __forceinline__ uint32_t bits(int v) {
+    return static_cast<uint32_t>(v);
+  }
+  static __device__ __forceinline__ int of_bits(uint32_t u) {
+    return static_cast<int>(u);
   }
   static constexpr uint32_t kZero = 0x80000000u;
   static constexpr bool kRebuilt = false;
@@ -384,12 +355,18 @@ struct ExactSlots {
   }
 };
 
-// WordSlots: one unsigned word a slot (U: u64 packed, uint32_t compact;
-// keys alone leave the value part 0).
-template <typename U, int W>
+// WordSlots: one unsigned word a slot (U: 64 or 32 bits), the key
+// integer (RowKey::to) in its bits from S up and below it a payload: a
+// pair's value (packed: S = 32) or column (compact: S = 16), or for keys
+// alone the key's own bits (S = 32 for float32, 16 for bf16) or nothing
+// (S = 0).  HALF compares the key integers alone, so that two keys of one
+// class (+-0.0 and the denormals) never trade places, as under the
+// network's swap rule; else whole words are compared.
+template <typename U, int W, int S, bool HALF = false>
 struct WordSlots {
   static constexpr int kW = W;
   static constexpr bool kWord = true;
+  static constexpr int kShift = S;
   using Slot = U;
   U* s;
   __device__ __forceinline__ Slot get(int i) const {
@@ -402,9 +379,20 @@ struct WordSlots {
                                           unsigned rank) const {
     return WordSlots{c.map_shared_rank(s, rank)};
   }
+  // the key integer of a slot
+  static __device__ __forceinline__ uint32_t key(Slot x) {
+    return static_cast<uint32_t>(x >> S);
+  }
   static __device__ __forceinline__ void exchange(Slot& a, Slot& b,
                                                   bool desc) {
-    const bool swap = (a > b) != desc;
+    bool after;
+    if constexpr (!HALF)
+      after = a > b;
+    else if constexpr (sizeof(U) == 8)
+      after = key(a) > key(b);               // the high words
+    else
+      after = a > (b | ((U{1} << S) - 1));   // key(a) > key(b)
+    const bool swap = after != desc;
     const Slot lo = swap ? b : a;
     b = swap ? a : b;
     a = lo;
@@ -578,14 +566,8 @@ __device__ __forceinline__ int ref_search(Probe probe, int m, K key) {
   return lo;
 }
 
-// A word slot's key integer and value.
-template <typename U>
-__device__ __forceinline__ uint32_t word_key(U x) {
-  if constexpr (sizeof(U) == 8)
-    return static_cast<uint32_t>(x >> 32);
-  else
-    return x >> 16;
-}
+// A pair word's value: the biased value of a packed word, the column of
+// a compact one.
 template <typename U>
 __device__ __forceinline__ int word_value(U x) {
   if constexpr (sizeof(U) == 8)
@@ -597,9 +579,10 @@ __device__ __forceinline__ int word_value(U x) {
 // The sorted slice of a CTA to the real positions it holds, and with
 // SEARCH the row's queries searched over the sorted row (each query by
 // one thread of the cluster, each probe read from the CTA that holds
-// the slot).  Word slots are unpacked: a key of the zero class (+-0.0
-// and denormals, all one integer) is taken from the caller's row at its
-// column, the slot's value.
+// the slot).  Word slots are unpacked: a pair's key of the zero class
+// (+-0.0 and denormals, all one integer) is taken from the caller's row
+// at its column, the slot's value; a key alone comes from its own bits
+// below the key integer, or from the key integer (S = 0).
 template <typename T, bool KV, bool SEARCH, typename P>
 __device__ __forceinline__ void row_finish(const P& tile, const T* in,
                                            T* keys_out, int* order_out,
@@ -617,12 +600,15 @@ __device__ __forceinline__ void row_finish(const P& tile, const T* in,
   int* vo = KV ? order_out + row * r.m + col0 : nullptr;
   for (int i = threadIdx.x; i < real; i += blockDim.x) {
     const auto x = tile.get(i);
-    if constexpr (kWord) {
-      const uint32_t t = word_key(x);
+    if constexpr (kWord && KV) {
+      const uint32_t t = P::key(x);
       const int v = word_value(x);
-      ko[i] = KV && RowKey<T>::kRebuilt && t == RowKey<T>::kZero
+      ko[i] = RowKey<T>::kRebuilt && t == RowKey<T>::kZero
                   ? in[v] : RowKey<T>::from(t);
-      if constexpr (KV) vo[i] = v;
+      vo[i] = v;
+    } else if constexpr (kWord) {
+      ko[i] = P::kShift ? RowKey<T>::of_bits(static_cast<uint32_t>(x))
+                        : RowKey<T>::from(P::key(x));
     } else {
       ko[i] = x.k;
       if constexpr (KV) vo[i] = x.v;
@@ -642,7 +628,7 @@ __device__ __forceinline__ void row_finish(const P& tile, const T* in,
       int cut;
       if constexpr (kWord)         // a NaN query is below nothing: 0
         cut = RowKey<T>::nan(q) ? 0 : ref_search([&](int i) {
-          return word_key(slot(i));
+          return P::key(slot(i));
         }, m, RowKey<T>::to(q));
       else
         cut = ref_search([&](int i) { return cmp_key(slot(i).k); }, m,
@@ -665,42 +651,72 @@ __device__ __forceinline__ void row_run(const P& tile, const T* in,
                             queries, cuts, nq);
 }
 
-// Sort one row a CTA (rows of up to 2^kRowLogSlice padded slots) or a
-// cluster of CTAs (up to 2^kRowLogLaunch), blockIdx.x = row * CTAs +
-// rank: with KV (key, int32 value) pairs, the values given or generated
-// (the column), else keys alone (the pair sorts instantiate KV only).
-// keys (and values) are (rows, m), read once; keys_out (and order_out)
-// (rows, m), written once; with SEARCH the nq queries of each row
-// (queries (rows, nq)) are searched into cuts (rows, nq).  The row loads
-// as word slots (compact for bf16 keys with the values generated); if
-// it needs the exact comparator (see RowKey), it loads again as key and
-// value arrays.
-template <typename T, bool KV, bool SEARCH, int W>
-__device__ __forceinline__ void row_body(
+// Where a row's CTA sits: its rank in the cluster (0 for a CTA a row),
+// its row, and the row's first column it holds.
+struct RowPlace {
+  int rank;
+  long long row, col0;
+};
+__device__ __forceinline__ RowPlace row_place(const RowLaunch& r) {
+  const int log_c = r.log_total - r.log_l;
+  const int rank =
+      log_c ? static_cast<int>(cg::this_cluster().block_rank()) : 0;
+  return RowPlace{rank, static_cast<long long>(blockIdx.x) >> log_c,
+                  static_cast<long long>(rank) << r.log_l};
+}
+
+// The OR over the whole row of each thread's flags (bits kRowExact: a key
+// that needs the exact comparator, kRowFolds: a key that folds to zero):
+// over the CTA and, in a cluster, over its CTAs (cta_flags: the CTA's,
+// read by the others).  Also the barrier after the load: every slot of
+// every CTA is stored.
+constexpr int kRowExact = 1, kRowFolds = 2;
+__device__ __forceinline__ int row_flags(int flags, const RowLaunch& r,
+                                         int& cta_flags) {
+  flags = (__syncthreads_or(flags & kRowExact) ? kRowExact : 0) |
+          (__syncthreads_or(flags & kRowFolds) ? kRowFolds : 0);
+  const int log_c = r.log_total - r.log_l;
+  if (log_c) {
+    cg::cluster_group cluster = cg::this_cluster();
+    if (threadIdx.x == 0) cta_flags = flags;
+    cluster.sync();
+    flags = 0;
+    for (int c = 0; c < (1 << log_c); ++c)
+      flags |= *cluster.map_shared_rank(&cta_flags, c);
+  }
+  return flags;
+}
+
+// Sort one row of (key, int32 value) pairs a CTA (rows of up to
+// 2^kRowLogSlice padded slots) or a cluster of CTAs (up to
+// 2^kRowLogLaunch), blockIdx.x = row * CTAs + rank, the values given or
+// generated (the column).  keys (and values) are (rows, m), read once;
+// keys_out and order_out (rows, m), written once; with SEARCH the nq
+// queries of each row (queries (rows, nq)) are searched into cuts (rows,
+// nq).  The row loads as word slots (compact for bf16 keys with the
+// values generated); if it needs the exact comparator (see RowKey), it
+// loads again as key and value arrays.
+template <typename T, bool SEARCH, int W>
+__device__ __forceinline__ void row_pairs(
     const T* __restrict__ keys, const int* __restrict__ values,
     T* __restrict__ keys_out, int* __restrict__ order_out, const RowLaunch& r,
     const T* __restrict__ queries, int* cuts, long long nq,
-    unsigned char* smem_raw, int& cta_exact) {
-  using PackedSlots = WordSlots<u64, W>;
-  using CompactSlots = WordSlots<uint32_t, W>;
+    unsigned char* smem_raw, int& cta_flags) {
+  using PackedSlots = WordSlots<u64, W, 32>;
+  using CompactSlots = WordSlots<uint32_t, W, 16>;
   const int L = 1 << r.log_l;
-  const int log_c = r.log_total - r.log_l;
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = log_c ? static_cast<int>(cluster.block_rank()) : 0;
-  const long long row = static_cast<long long>(blockIdx.x) >> log_c;
-  const long long col0 = static_cast<long long>(rank) << r.log_l;
-  const T* in = keys + row * r.m;
-  const int* vin = values ? values + row * r.m : nullptr;
-  const bool compact = KV && std::is_same<T, __nv_bfloat16>::value && !vin;
+  const RowPlace at = row_place(r);
+  const T* in = keys + at.row * r.m;
+  const int* vin = values ? values + at.row * r.m : nullptr;
+  const bool compact = std::is_same<T, __nv_bfloat16>::value && !vin;
 
   // slot i of the CTA: the caller's key and value, or a pad (the sort
   // sentinel, int32 max); the value generated is the column
   auto load = [&](int i, T& key, int& val) {
-    const long long col = col0 + i;
+    const long long col = at.col0 + i;
     const bool real = col < r.m;
     key = real ? in[col] : sentinel<T>();
-    val = !KV ? 0 : !real ? 0x7fffffff
-                          : (vin ? vin[col] : static_cast<int>(col));
+    val = !real ? 0x7fffffff : (vin ? vin[col] : static_cast<int>(col));
   };
   const PackedSlots packed{reinterpret_cast<u64*>(smem_raw)};
   const CompactSlots small{reinterpret_cast<uint32_t*>(smem_raw)};
@@ -717,7 +733,7 @@ __device__ __forceinline__ void row_body(
       if (i < L) {
         // a folded key is rebuilt from its column: generated values only
         exact |= RowKey<T>::nan(key[u]) ||
-                 ((!KV || vin) && RowKey<T>::folds(key[u]));
+                 (vin && RowKey<T>::folds(key[u]));
         const uint32_t t = RowKey<T>::to(key[u]);
         if (compact)
           small.put(i, (t << 16) | (val[u] == 0x7fffffff
@@ -725,44 +741,109 @@ __device__ __forceinline__ void row_body(
                                         : static_cast<uint32_t>(val[u])));
         else
           packed.put(i, (static_cast<u64>(t) << 32) |
-                            (KV ? static_cast<uint32_t>(val[u]) ^
-                                      kRowValueBias
-                                : 0u));
+                            (static_cast<uint32_t>(val[u]) ^ kRowValueBias));
       }
     }
   }
   // the comparator of the whole row: exact if any CTA of it needs it
-  exact = __syncthreads_or(exact);
-  if (log_c) {
-    if (threadIdx.x == 0) cta_exact = exact;
-    cluster.sync();
-    exact = 0;
-    for (int c = 0; c < (1 << log_c); ++c)
-      exact |= *cluster.map_shared_rank(&cta_exact, c);
-  }
-  if (!exact) {
+  if (!row_flags(exact ? kRowExact : 0, r, cta_flags)) {
     if (compact)
-      row_run<T, KV, SEARCH>(small, in, keys_out, order_out, r, rank, row,
-                             queries, cuts, nq);
+      row_run<T, true, SEARCH>(small, in, keys_out, order_out, r, at.rank,
+                               at.row, queries, cuts, nq);
     else
-      row_run<T, KV, SEARCH>(packed, in, keys_out, order_out, r, rank, row,
-                             queries, cuts, nq);
+      row_run<T, true, SEARCH>(packed, in, keys_out, order_out, r, at.rank,
+                               at.row, queries, cuts, nq);
     return;
   }
-  const ExactSlots<T, KV, W> tile{
+  const ExactSlots<T, true, W> tile{
       reinterpret_cast<T*>(smem_raw),
       reinterpret_cast<int*>(smem_raw + L * sizeof(T))};
   for (int i = threadIdx.x; i < L; i += blockDim.x) {
-    typename ExactSlots<T, KV, W>::Slot x;
+    typename ExactSlots<T, true, W>::Slot x;
     load(i, x.k, x.v);
     tile.put(i, x);
   }
   __syncthreads();
-  row_run<T, KV, SEARCH>(tile, in, keys_out, order_out, r, rank, row, queries,
-                         cuts, nq);
+  row_run<T, true, SEARCH>(tile, in, keys_out, order_out, r, at.rank, at.row,
+                           queries, cuts, nq);
 }
 
-// One kernel a group size W (row_log_round), each with its own registers.
+// Sort one row of keys alone, laid out as row_pairs lays pairs out (the
+// same network: the keys-only swap rule, gt).  The row loads as 32-bit
+// words: the key integer (float32, int32), or for bf16 the key integer
+// over the key's bits, compared whole where no key folds, on the key
+// half where some do.  A float32 row whose keys fold loads again as
+// 64-bit words, the key integer over the key's bits, compared on the key
+// half; a row with a NaN key loads again as the keys themselves.
+template <typename T, bool SEARCH, int W>
+__device__ __forceinline__ void row_keys(
+    const T* __restrict__ keys, T* __restrict__ keys_out, const RowLaunch& r,
+    const T* __restrict__ queries, int* cuts, long long nq,
+    unsigned char* smem_raw, int& cta_flags) {
+  constexpr bool kInt = std::is_same<T, int>::value;
+  constexpr int kS = sizeof(T) == 2 ? 16 : 0;    // bf16: its bits below
+  using Words = WordSlots<uint32_t, W, kS>;
+  const int L = 1 << r.log_l;
+  const RowPlace at = row_place(r);
+  const T* in = keys + at.row * r.m;
+  // slot i of the CTA: the caller's key, or a pad (the sort sentinel)
+  auto load = [&](int i) {
+    const long long col = at.col0 + i;
+    return col < r.m ? in[col] : sentinel<T>();
+  };
+  const Words words{reinterpret_cast<uint32_t*>(smem_raw)};
+  int flags = 0;
+  for (int i0 = threadIdx.x; i0 < L; i0 += kRowLoadBatch * blockDim.x) {
+    T key[kRowLoadBatch];
+#pragma unroll
+    for (int u = 0; u < kRowLoadBatch; ++u)
+      if (i0 + u * blockDim.x < L) key[u] = load(i0 + u * blockDim.x);
+#pragma unroll
+    for (int u = 0; u < kRowLoadBatch; ++u) {
+      const int i = i0 + u * blockDim.x;
+      if (i < L) {
+        flags |= (RowKey<T>::nan(key[u]) ? kRowExact : 0) |
+                 (RowKey<T>::folds(key[u]) ? kRowFolds : 0);
+        const uint32_t t = RowKey<T>::to(key[u]);
+        words.put(i, kS ? (t << kS) | RowKey<T>::bits(key[u]) : t);
+      }
+    }
+  }
+  flags = row_flags(flags, r, cta_flags);
+  if (kInt || !flags) {            // int32 keys never hold a NaN or fold
+    row_run<T, false, SEARCH>(words, in, keys_out, nullptr, r, at.rank,
+                              at.row, queries, cuts, nq);
+    return;
+  }
+  if constexpr (!kInt) {
+    if (flags & kRowExact) {
+      const ExactSlots<T, false, W> tile{reinterpret_cast<T*>(smem_raw),
+                                         nullptr};
+      for (int i = threadIdx.x; i < L; i += blockDim.x)
+        tile.put(i, typename ExactSlots<T, false, W>::Slot{load(i), 0});
+      __syncthreads();
+      row_run<T, false, SEARCH>(tile, in, keys_out, nullptr, r, at.rank,
+                                at.row, queries, cuts, nq);
+    } else if constexpr (kS) {     // bf16: the same words, the key half
+      const WordSlots<uint32_t, W, kS, true> half{words.s};
+      row_run<T, false, SEARCH>(half, in, keys_out, nullptr, r, at.rank,
+                                at.row, queries, cuts, nq);
+    } else {                       // float32: 64-bit words, the key half
+      const WordSlots<u64, W, 32, true> wide{reinterpret_cast<u64*>(smem_raw)};
+      for (int i = threadIdx.x; i < L; i += blockDim.x) {
+        const T k = load(i);
+        wide.put(i, (static_cast<u64>(RowKey<T>::to(k)) << 32) |
+                        RowKey<T>::bits(k));
+      }
+      __syncthreads();
+      row_run<T, false, SEARCH>(wide, in, keys_out, nullptr, r, at.rank,
+                                at.row, queries, cuts, nq);
+    }
+  }
+}
+
+// One kernel a group size W (row_log_round), each with its own registers:
+// with KV the pairs (row_pairs), else the keys alone (row_keys).
 template <typename T, bool KV, bool SEARCH, int W>
 __global__ void __launch_bounds__(kRowThreads, kRowMinBlocks)
     row_sort(const T* __restrict__ keys, const int* __restrict__ values,
@@ -770,9 +851,13 @@ __global__ void __launch_bounds__(kRowThreads, kRowMinBlocks)
              RowLaunch r, const T* __restrict__ queries, int* cuts,
              long long nq) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ int cta_exact;
-  row_body<T, KV, SEARCH, W>(keys, values, keys_out, order_out, r, queries,
-                             cuts, nq, smem_raw, cta_exact);
+  __shared__ int cta_flags;
+  if constexpr (KV)
+    row_pairs<T, SEARCH, W>(keys, values, keys_out, order_out, r, queries,
+                            cuts, nq, smem_raw, cta_flags);
+  else
+    row_keys<T, SEARCH, W>(keys, keys_out, r, queries, cuts, nq, smem_raw,
+                           cta_flags);
 }
 
 // One launch of row_sort<W> over rows of r.m keys padded to
@@ -827,7 +912,7 @@ int launch_row_sort(const T* keys, const int* values, T* keys_out,
 
 // The reference's left search of each row's nq queries over the first
 // m of its n sorted keys, one thread a query: the split schedule's
-// search for pair rows past kRowLogLaunch.
+// search for rows past kRowLogLaunch.
 template <typename T>
 __global__ void search_rows(const T* sk, long long n, long long m,
                             const T* queries, int* cuts, long long total,
@@ -840,50 +925,50 @@ __global__ void search_rows(const T* sk, long long n, long long m,
                          static_cast<int>(m), cmp_key(queries[idx]));
 }
 
-// Rows of m keys (and values, or the column generated) padded to n
-// slots in scratch: the tile_stages schedule's operand for pair rows
-// past kRowLogLaunch.
+// Rows of m keys (and with sv, values or the column generated) padded to
+// n slots in scratch: the tile_stages schedule's operand for rows past
+// kRowLogLaunch.
 template <typename T>
-__global__ void pad_pairs(const T* keys, const int* values, T* sk, int* sv,
-                          long long total, long long m, long long n) {
+__global__ void pad_rows(const T* keys, const int* values, T* sk, int* sv,
+                         long long total, long long m, long long n) {
   const long long idx = blockIdx.x * static_cast<long long>(blockDim.x) +
                         threadIdx.x;
   if (idx >= total) return;
   const long long row = idx / n, col = idx % n;
   const bool real = col < m;
   sk[idx] = real ? keys[row * m + col] : sentinel<T>();
-  sv[idx] = !real ? 0x7fffffff
-                  : (values ? values[row * m + col] : static_cast<int>(col));
+  if (sv)
+    sv[idx] = !real ? 0x7fffffff
+                    : (values ? values[row * m + col] : static_cast<int>(col));
 }
 
-// The pair sort of (rows, m) keys with values (null: the column, the
-// stable argsort) into keys_out and order_out, and with SEARCH the
-// left search of each row's nq queries into cuts.  Up to kRowLogLaunch
-// padded slots a row: one row_sort launch.  Past it (direct calls only:
-// the dispatch sends such rows to the radix sort) the rows are padded
-// into the scratch (sk, sv: (rows, 2^log_total)), sorted there by the
-// tile_stages schedule, searched by search_rows and copied out.
-template <typename T, bool SEARCH>
-int sort_pairs(const T* keys, const int* values, T* keys_out, int* order_out,
-               T* sk, int* sv, long long rows, long long m,
-               const T* queries, int* cuts, long long nq,
-               cudaStream_t stream) {
+// The sort of (rows, m) keys into keys_out, with KV of (key, value)
+// pairs (values null: the column, the stable argsort) with the order
+// into order_out, and with SEARCH the left search of each row's nq
+// queries into cuts.  Up to kRowLogLaunch padded slots a row: one
+// row_sort launch.  Past it (direct calls only: the dispatch sends such
+// rows to the radix sort) the rows are padded into the scratch (sk, and
+// with KV sv: (rows, 2^log_total)), sorted there by the tile_stages
+// schedule, searched by search_rows and copied out.
+template <typename T, bool KV, bool SEARCH>
+int sort_unpadded(const T* keys, const int* values, T* keys_out,
+                  int* order_out, T* sk, int* sv, long long rows, long long m,
+                  const T* queries, int* cuts, long long nq,
+                  cudaStream_t stream) {
   if (rows <= 0) return static_cast<int>(cudaGetLastError());
   if (m >= (1LL << 30)) return static_cast<int>(cudaErrorInvalidValue);
   const int log_total = log2_exact(m < 2 ? 2 : m);
   if (log_total <= kRowLogLaunch)
-    return launch_row_sort<T, true, SEARCH>(keys, values, keys_out,
-                                            order_out, rows, m, log_total,
-                                            queries, cuts, nq, stream);
-  if (sk == nullptr || sv == nullptr)
+    return launch_row_sort<T, KV, SEARCH>(keys, values, keys_out, order_out,
+                                          rows, m, log_total, queries, cuts,
+                                          nq, stream);
+  if (sk == nullptr || (KV && sv == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long n = 1LL << log_total;
   const long long total = rows * n;
-  pad_pairs<T><<<(total + 255) / 256, 256, 0, stream>>>(keys, values, sk, sv,
-                                                        total, m, n);
-  const int err = sort_rows<T, true>(sk, sv, rows, n,
-                                     TileSearch<T>{nullptr, nullptr, 0, 0},
-                                     false, stream);
+  pad_rows<T><<<(total + 255) / 256, 256, 0, stream>>>(
+      keys, values, sk, KV ? sv : nullptr, total, m, n);
+  const int err = sort_rows<T, KV>(sk, sv, rows, n, stream);
   if (err != 0) return err;
   if (SEARCH && nq > 0)
     search_rows<T><<<(rows * nq + 255) / 256, 256, 0, stream>>>(
@@ -891,7 +976,7 @@ int sort_pairs(const T* keys, const int* values, T* keys_out, int* order_out,
   cudaError_t c = cudaMemcpy2DAsync(keys_out, m * sizeof(T), sk,
                                     n * sizeof(T), m * sizeof(T), rows,
                                     cudaMemcpyDeviceToDevice, stream);
-  if (c == cudaSuccess)
+  if (KV && c == cudaSuccess)
     c = cudaMemcpy2DAsync(order_out, m * sizeof(int), sv, n * sizeof(int),
                           m * sizeof(int), rows, cudaMemcpyDeviceToDevice,
                           stream);

@@ -5,10 +5,10 @@ Counterpart of ``src/repro/kernels/bitonic.py``.  Four kernels, each
 with its plain PyTorch version beside it:
 
 * :func:`bitonic_sort` -- ascending sort of each row of (rows, n);
-  CUDA source ``csrc/bitonic_sort.cu``.
+  CUDA source ``csrc/bitonic_sort.cu``, one launch a call.
 * :func:`bitonic_sort_kv` -- lexicographic (key, int32 value) sort of
   each row; with no values (the kernel generates ``arange(n)``) it is
-  the stable argsort.  Same source, its own one-launch schedule.
+  the stable argsort.  Same source and schedule.
 * :func:`merge_sorted_rows` -- merge of t sorted rows into one sorted
   row, per batch entry; CUDA source ``csrc/merge_rows.cu``.
 * :func:`merge_sorted_rows_argsort` -- the same merge carrying each
@@ -52,7 +52,7 @@ __all__ = [
     "ftz",
     "as_bits",
     "MERGE_TILE_LANES",
-    "PAIR_SORT_LAUNCH_LANES",
+    "SORT_LAUNCH_LANES",
 ]
 
 # The key dtypes every sort-side kernel takes, as the reference's
@@ -251,25 +251,41 @@ def bitonic_sort_plain(x: torch.Tensor) -> torch.Tensor:
 def bitonic_sort(x: torch.Tensor) -> torch.Tensor:
     """Row-wise ascending sort.  x: (rows, n), any n >= 1.
 
-    n is padded to a power of two (at least 2) with the sort sentinel
-    and the padding stripped after.  A CUDA tensor runs the kernel
-    (float32, bfloat16 or int32; anything else raises); a CPU tensor
-    runs :func:`bitonic_sort_plain`.
+    Rows are padded to a power of two (at least 2) with the sort
+    sentinel, as the reference pads them, and the padding stripped
+    after.  A CUDA tensor runs the kernel (float32, bfloat16 or int32;
+    anything else raises), which reads the rows unpadded and writes
+    fresh (rows, n) keys in one launch up to ``SORT_LAUNCH_LANES``
+    padded slots; a CPU tensor runs :func:`bitonic_sort_plain`.
     """
     if not x.is_cuda:
         return bitonic_sort_plain(x)
+    x = x.contiguous()
     _check_kernel_operand("bitonic_sort", x)
-    out = _pad_row(x).clone(memory_format=torch.contiguous_format)
+    out = torch.empty_like(x)
     cuda.launch("bitonic_sort", f"bitonic_sort_{_SUFFIX[x.dtype]}",
-                out.data_ptr(), out.shape[0], out.shape[1])
-    return out[:, :x.shape[-1]]
+                x.data_ptr(), out.data_ptr(), _ptr(_scratch(x)), x.shape[0],
+                x.shape[1])
+    return out
 
 
-# Padded slots of the widest row the pair sorts take in one launch (a
-# cluster of 8 CTAs of 8,192 slots: csrc/sort_tiles.cuh kRowLogLaunch);
-# a wider row (direct calls only: the dispatch sends it to the radix
-# sort) is sorted in a padded scratch the wrapper allocates.
-PAIR_SORT_LAUNCH_LANES = 1 << 16
+# Padded slots of the widest row the sorts take in one launch (a cluster
+# of 8 CTAs of 8,192 slots: csrc/sort_tiles.cuh kRowLogLaunch); a wider
+# row (direct calls only: the dispatch sends it to the radix sort) is
+# sorted in a padded scratch the wrapper allocates.
+SORT_LAUNCH_LANES = 1 << 16
+
+
+def _scratch(keys: torch.Tensor, dtype=None) -> Optional[torch.Tensor]:
+    """The padded (rows, pow2 >= 2) scratch a sort kernel call on (rows,
+    m) keys needs past ``SORT_LAUNCH_LANES`` (of the keys' dtype, or
+    ``dtype``), uninitialised; None up to it."""
+    rows, m = keys.shape
+    np2 = max(2, _next_pow2(m))
+    if np2 <= SORT_LAUNCH_LANES:
+        return None
+    return torch.empty((rows, np2), dtype=dtype or keys.dtype,
+                       device=keys.device)
 
 
 def _iota_rows(rows: int, m: int, device) -> torch.Tensor:
@@ -293,17 +309,12 @@ def bitonic_sort_kv_plain(keys: torch.Tensor,
 def _pair_operands(keys: torch.Tensor):
     """The outputs of a pair sort kernel call on (rows, m) keys -- the
     keys and the int32 order, (rows, m) -- and its padded scratch (None
-    up to ``PAIR_SORT_LAUNCH_LANES``), all uninitialised: the kernel
-    writes them."""
+    up to ``SORT_LAUNCH_LANES``), all uninitialised: the kernel writes
+    them."""
     rows, m = keys.shape
     ks = torch.empty_like(keys)
     order = torch.empty((rows, m), dtype=torch.int32, device=keys.device)
-    np2 = max(2, _next_pow2(m))
-    scratch = ((torch.empty((rows, np2), dtype=keys.dtype, device=keys.device),
-                torch.empty((rows, np2), dtype=torch.int32,
-                            device=keys.device))
-               if np2 > PAIR_SORT_LAUNCH_LANES else (None, None))
-    return ks, order, scratch
+    return ks, order, (_scratch(keys), _scratch(keys, torch.int32))
 
 
 def bitonic_sort_kv(keys: torch.Tensor,
@@ -317,7 +328,7 @@ def bitonic_sort_kv(keys: torch.Tensor,
     reference pads them.  A CUDA tensor runs the kernel (float32,
     bfloat16 or int32 keys), which reads the rows unpadded and writes
     fresh (rows, n) outputs in one launch up to
-    ``PAIR_SORT_LAUNCH_LANES`` padded slots; a CPU tensor runs
+    ``SORT_LAUNCH_LANES`` padded slots; a CPU tensor runs
     :func:`bitonic_sort_kv_plain`.
     """
     if values is not None and keys.shape != values.shape:

@@ -93,13 +93,13 @@ _P, _I64, _I32, _F32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
 _FLASH = [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _F32, _I32,
           _I32, _P]
 _SORT_SIGNATURES = {
-    "bitonic_sort": [_P, _I64, _I64, _P],
+    "bitonic_sort": [_P, _P, _P, _I64, _I64, _P],
     "searchsorted": [_P, _P, _P, _I64, _I64, _I64, _I64, _I32, _I64, _P],
     "bitonic_sort_kv": [_P] * 6 + [_I64, _I64, _P],
     "merge_rows": [_P, _P, _P, _I64, _I64, _I64, _P],
     "merge_rows_kv": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _P],
     "merge_ranks": [_P] * 10 + [_I64, _I64, _I64, _P],
-    "sort_partition": [_P, _P, _P, _I64, _I64, _I64, _I64, _P],
+    "sort_partition": [_P] * 5 + [_I64, _I64, _I64, _P],
     "sort_partition_kv": [_P] * 7 + [_I64, _I64, _I64, _P],
     "radix_sort": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _P],
     "bucketize_histogram": [_P, _P, _P, _P, _I64, _I64, _I32, _P],

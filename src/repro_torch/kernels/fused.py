@@ -5,11 +5,11 @@ Counterpart of ``src/repro/kernels/fused.py``.  Three kernels, each
 entry with its plain PyTorch version beside it:
 
 * :func:`sort_partition` -- sort each row and left-search the row's
-  queries over the sorted row in one pass; CUDA source
+  queries over the sorted row in one launch; CUDA source
   ``csrc/sort_partition.cu``.
 * :func:`sort_partition_kv` -- the (key, iota) pair sort (the stable
-  argsort) with the same search.  Same source, the pair sort's
-  one-launch schedule (the iota generated in the kernel).
+  argsort) with the same search.  Same source and schedule (the iota
+  generated in the kernel).
 * :func:`merge_ranks` -- every element's rank in the lexicographic
   (key, id) order of t sorted rows (the reference's
   ``_bin_search_pairs_block`` and ``_bin_search_pairs_bounded``, summed
@@ -32,8 +32,9 @@ import torch
 
 from . import cuda
 from .bitonic import (KEY_DTYPES, _SUFFIX, _iota_rows, _pad_row,
-                      _pair_operands, _ptr, as_bits, ftz, sort_network_block,
-                      sort_network_block_kv, sort_sentinel)
+                      _pair_operands, _ptr, _scratch, as_bits, ftz,
+                      sort_network_block, sort_network_block_kv,
+                      sort_sentinel)
 from .bucketize import _bin_search_block
 
 __all__ = ["sort_partition", "sort_partition_plain", "sort_partition_kv",
@@ -64,22 +65,26 @@ def sort_partition(x: torch.Tensor, queries: torch.Tensor):
     ``queries[r, i]`` (denormals fold to zero): the sort and
     ``searchsorted(side="left")`` in one pass.  Rows are padded to a
     power of two with the sort sentinel, as the reference pads them.  A
-    CUDA tensor runs the kernel, a CPU tensor
+    CUDA tensor runs the kernel, which reads the rows unpadded and
+    writes the keys and the cuts in one launch (up to
+    ``bitonic.SORT_LAUNCH_LANES`` padded slots); a CPU tensor
     :func:`sort_partition_plain`.
     """
     if not x.is_cuda:
         return sort_partition_plain(x, queries)
     _check_queries(x, queries)
+    x, queries = x.contiguous(), queries.contiguous()
     cuda.check_cuda_tensor("sort_partition", x, KEY_DTYPES)
     cuda.check_cuda_tensor("sort_partition", queries, (x.dtype,))
     rows, m = x.shape
-    xs = _pad_row(x).clone(memory_format=torch.contiguous_format)
+    xs = torch.empty_like(x)
     cuts = torch.empty((rows, queries.shape[1]), dtype=torch.int32,
                        device=x.device)
     cuda.launch("sort_partition", f"sort_partition_{_SUFFIX[x.dtype]}",
-                xs.data_ptr(), queries.data_ptr(), cuts.data_ptr(), rows,
-                xs.shape[1], m, queries.shape[1])
-    return xs[:, :m], cuts
+                x.data_ptr(), queries.data_ptr(), xs.data_ptr(),
+                cuts.data_ptr(), _ptr(_scratch(x)), rows, m,
+                queries.shape[1])
+    return xs, cuts
 
 
 def sort_partition_kv_plain(keys: torch.Tensor, queries: torch.Tensor):
@@ -100,7 +105,7 @@ def sort_partition_kv(keys: torch.Tensor, queries: torch.Tensor):
     stable argsort, from the lexicographic (key, arange(m)) network.  A
     CUDA tensor runs the kernel, which reads the rows unpadded,
     generates the order channel and writes the three outputs in one
-    launch (up to ``bitonic.PAIR_SORT_LAUNCH_LANES`` padded slots); a
+    launch (up to ``bitonic.SORT_LAUNCH_LANES`` padded slots); a
     CPU tensor runs :func:`sort_partition_kv_plain`.
     """
     if not keys.is_cuda:

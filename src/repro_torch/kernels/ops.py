@@ -83,18 +83,18 @@ MERGE_TILE_LANES = bitonic.MERGE_TILE_LANES
 # network's log2(n)(log2(n)+1)/2 compare-exchange substages exceed
 # ceil(key_bits / RADIX_BITS) counting passes of RADIX_PASS_SUBSTAGES
 # substages each, on rows of at least RADIX_MIN_LANES.  Fitted on the
-# H100 by chip_smoke.py's crossover table (PERF.md) on float32: at
-# (64, 2^k), k = 13..16, one pass of the radix kernel took as long as
-# about 19 or more substages of the bitonic kernel (fewest at the main
-# path's 2^16), and radix was slower at every width on keys only.  With
-# 19 the model keeps bitonic for 32-bit keys at every width of the
-# bitonic tile's reach (136 substages at 2^16 against 8 x 19 = 152);
-# bf16 keys take 4 passes (76 substages), so they pick radix from 2^13
-# (91 substages) on, as the reference's model does an octave early.
+# H100 by chip_smoke.py's crossover table (PERF.md) on float32, bf16 and
+# int32 keys only: at (64, 2^k), k = 13..16, the one-launch bitonic
+# kernel was faster than radix at every width in every dtype, one radix
+# pass costing 33 to 57 of its substages.  34 is the least value with
+# which the model keeps bitonic wherever it was faster: bf16 keys take
+# 4 passes, 4 x 34 = 136 substages, the network's at 2^16; 32-bit keys
+# 8 passes (272).  So the model picks bitonic at every width of the
+# bitonic tile's reach, and past it the reach sends every row to radix.
 # RADIX_MIN_LANES keeps the reference's value.
 RADIX_BITS = radix.DEFAULT_RADIX_BITS
 RADIX_MIN_LANES = 1 << 13
-RADIX_PASS_SUBSTAGES = 19
+RADIX_PASS_SUBSTAGES = 34
 
 SORT_FAMILIES = ("bitonic", "radix")
 _FORCE_SORT_KERNEL: Optional[str] = None

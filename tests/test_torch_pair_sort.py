@@ -46,6 +46,18 @@ def round_bits(log_l: int) -> int:
     return ROUND if log_l >= LOG_SLICE else 4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The schedule models run thousands of small torch ops; beside other
+    test processes on the same cores, each op's thread pool waits on
+    threads another process holds (the file took minutes, not seconds,
+    under six workers), so the module runs them on one thread."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # ---------------------------------------------------------------------------
 # The schedule, as the kernel runs it
 # ---------------------------------------------------------------------------
@@ -507,26 +519,40 @@ def test_cuda_pair_sorts_equal_plain(card, rng, dtype, m):
         assert torch.equal(key_bits(g.cpu()), key_bits(w))
 
 
+def profiled_kernels(fn, calls: int):
+    """The device kernels ``calls`` calls of ``fn`` run under
+    torch.profiler (names, in order) and the C calls ``cuda.LAUNCHES``
+    counts.  The calls run between two spin kernels
+    (``torch.cuda._sleep``), ~25 ms before them so that they run once
+    the profiler records: on the card a window with nothing around the
+    calls lost some or all of their kernels' events (0 or 4 of 5).  The
+    spins are left out of the names."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(50_000_000)
+        for _ in range(calls):
+            fn()
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    names = [ev.name for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA
+             and "spin_kernel" not in ev.name]
+    return names, sum(cuda.LAUNCHES.values())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(64, 65536), (64, 2048)])
 def test_cuda_pair_sort_is_one_kernel_a_call(card, shape):
     """Under torch.profiler, 5 calls of each pair sort run 5 kernels of
     one name: no global pass, no fill, no copy, no iota."""
-    from torch.profiler import ProfilerActivity, profile
     x = torch.randint(0, 1 << 20, shape, dtype=torch.int32, device=card)
     q = torch.arange(1, 8, dtype=torch.int32, device=card).expand(
         shape[0], 7).contiguous() * (1 << 17)
     for fn in (lambda: bitonic.bitonic_sort_kv(x),
                lambda: fused.sort_partition_kv(x, q)):
-        with profile(activities=[ProfilerActivity.CUDA]):
-            fn()                    # the profiler's first window may drop
-            torch.cuda.synchronize()      # the first kernel it sees
-        cuda.reset_launches()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(5):
-                fn()
-            torch.cuda.synchronize()
-        names = [ev.name for ev in prof.events()
-                 if ev.device_type == torch.autograd.DeviceType.CUDA]
+        names, c_calls = profiled_kernels(fn, 5)
         assert len(names) == 5 and len(set(names)) == 1, names
-        assert sum(cuda.LAUNCHES.values()) == 5
+        assert c_calls == 5

@@ -263,15 +263,16 @@ def test_sort_kernel_choice_on_the_card_is_the_fitted_cost_model():
         assert choice(n) == choice(n, torch.int32) == want
         assert choice(n) == ("radix" if n in FITTED_RADIX_WIDTHS
                              else "bitonic")
-        # bf16 keys take 4 passes: radix from RADIX_MIN_LANES on, as the
-        # reference's model crosses an octave earlier for them
+        # bf16 keys take 4 passes, so the model crosses for them first
         want16 = ("radix" if n >= ops.RADIX_MIN_LANES and logn * (logn + 1)
                   // 2 > 4 * ops.RADIX_PASS_SUBSTAGES else "bitonic")
         assert choice(n, torch.bfloat16) == want16
-        assert want16 == ("radix" if k >= 13 else "bitonic")
+        assert want16 == ("radix" if n in FITTED_RADIX_WIDTHS_BF16
+                          else "bitonic")
     assert choice(1 << 16, torch.float64) == "bitonic"
     # the formula itself crosses one octave past the bitonic tile's reach
-    assert 17 * 18 // 2 > 8 * ops.RADIX_PASS_SUBSTAGES >= 16 * 17 // 2
+    # for bf16 keys (4 passes), later for 32-bit ones
+    assert 17 * 18 // 2 > 4 * ops.RADIX_PASS_SUBSTAGES >= 16 * 17 // 2
     # past the reach (C10) every row sorts by radix, on either device,
     # whatever is forced
     for n in (65537, 1 << 17):
@@ -288,11 +289,12 @@ def test_sort_kernel_choice_on_the_card_is_the_fitted_cost_model():
 
 
 # The widths (64, 2^k), k = 10..16, at which the radix kernel measured
-# faster than the bitonic one on float32 keys only, on the card (PERF.md,
-# the crossover table): none, so the fitted model keeps bitonic for
-# 32-bit keys throughout and would first pick radix at 2^17, past the
-# bitonic tile's reach.
+# faster than the bitonic one on keys only, on the card (PERF.md, the
+# crossover table), float32 and bf16: none, so the fitted model keeps
+# bitonic for both throughout; for bf16 it would first pick radix at
+# 2^17, past the bitonic tile's reach.
 FITTED_RADIX_WIDTHS = ()
+FITTED_RADIX_WIDTHS_BF16 = ()
 
 
 # ---------------------------------------------------------------------------
