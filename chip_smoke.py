@@ -43,10 +43,11 @@ without printing a result:
                 buffer the sort paths hand it, uniform, Zipf and wide,
                 against a torch scatter of the plain ranks, and on bf16
                 and int32 keys, t = 6 and 48, edge rows; the radix sort
-                also on
-                every class of float and int bits, at widths 1 to
-                65,536, and against a stable torch.sort of its canonical
-                bits); every sort-side kernel again on bf16 keys; flash
+                also at the wide paths' (64, 262144) in f32 and bf16, on
+                every class of float, bf16 and int bits at widths 1 to
+                262,144 across its 4,096-key tile's edges, and against a
+                stable torch.sort of its canonical bits); every
+                sort-side kernel again on bf16 keys; flash
                 attention also at musicgen-medium's shape; the pair
                 sorts at each layout of their one-launch schedule (one
                 CTA; clusters of 2, 4 and 8 CTAs; 52,049 unpadded) in
@@ -77,7 +78,12 @@ without printing a result:
                 65,536 equal to np.sort, workload to a host recount; at
                 t=8 x 4,096 with values equal to the CPU run
      wide       SMMS and Terasort at t=64 x 262,144: the radix sort and
-                the rank merge past the bitonic tile's reach
+                the rank merge past the bitonic tile's reach; the first
+                call's time and the median of the next three
+     NaN keys   t=4 x 64 with four NaN in one row (ROADMAP C13, C14):
+                SMMS keys only, SMMS and Terasort with values equal to
+                the CPU run: keys, values, report (boundaries but for
+                their NaN's bits)
   6. serving    bucketize_histogram through its entry point against
                 numpy; gemma3-12b's smoke config on the card against the
                 CPU (logits within 2e-3, the same tokens); generate at
@@ -100,7 +106,10 @@ without printing a result:
                 each sort at (64, 65536) (the keys-only ones also in
                 bf16) and the pair sorts at (64, 2048), each in-tile
                 merge and the ops search one C call and one kernel a
-                call (torch.profiler); the bitonic/radix crossover at
+                call, the radix sort one C call, one memset, one
+                histogram and one kernel a pass (torch.profiler); the
+                radix sort also at (64, 262144), f32 and bf16; the
+                bitonic/radix crossover at
                 (64, 2^k), k = 10..16, f32, bf16 and int32, with the
                 radix-pass cost that fits the cost model to it; the
                 end-to-end sorts by both families, StatJoin and
@@ -858,6 +867,14 @@ def pair_sort_operands(compare, rng, dev, x) -> None:
                 bitonic.bitonic_sort_kv(xm), bitonic.bitonic_sort_kv_plain(xm))
 
 
+# The radix sort's widths: small rows, each edge of its 4,096-key tile
+# (csrc/radix_sort.cu kTile), several tiles, the bitonic tile's reach
+# and the wide paths' 2^18.
+RADIX_WIDTHS = (1, 7, 257, radix.RADIX_TILE - 1, radix.RADIX_TILE,
+                radix.RADIX_TILE + 1, 3 * radix.RADIX_TILE + 17, 65535,
+                1 << 18)
+
+
 def _radix_rows(rng, dtype, n: int) -> np.ndarray:
     """One row of each class of bits that breaks radix sorts (the
     classes of tests/test_radix.py's adversarial_keys)."""
@@ -898,9 +915,10 @@ def _radix_rows(rng, dtype, n: int) -> np.ndarray:
 
 def radix_operands(compare, rng, dev, x) -> None:
     """The radix sort at the main path's (64, 65536), float32 and int32,
-    and on every class of bits at widths 1, 7, 257 and 65,535 (no
-    padding): sorted bits and order bitwise against the plain version,
-    and the order against a stable torch.sort of the canonical bits."""
+    at the wide paths' (64, 262144), float32 and bf16, and on every class
+    of bits at :data:`RADIX_WIDTHS` (no padding): sorted bits and order
+    bitwise against the plain version, and the order against a stable
+    torch.sort of the canonical bits."""
     def both(label, keys):
         got = radix.radix_sort(keys)
         compare("radix_sort", label, got, radix.radix_sort_plain(keys))
@@ -913,7 +931,12 @@ def radix_operands(compare, rng, dev, x) -> None:
     both(f"({T}, {M}) f32, the main path", x)
     both(f"({T}, {M}) int32", torch.from_numpy(rng.integers(
         -2**31, 2**31, (T, M), dtype=np.int64).astype(np.int32)).to(dev))
-    for n in (1, 7, 257, 65535):
+    xw = torch.from_numpy(uniform_keys(T * M_WIDE, seed=SEED + 7)
+                          .reshape(T, M_WIDE)).to(dev)
+    both(f"({T}, {M_WIDE}) f32, the wide paths", xw)
+    both(f"({T}, {M_WIDE}) bf16", xw.to(torch.bfloat16))
+    del xw
+    for n in RADIX_WIDTHS:
         both(f"(9, {n}) f32: every class of bits",
              torch.from_numpy(_radix_rows(rng, np.float32, n)).to(dev))
         both(f"(8, {n}) int32: every class of bits",
@@ -994,7 +1017,7 @@ def bf16_operands(compare, rng, dev, x) -> None:
         compare("sort_partition_kv", f"({rows}, {n}) bf16 edge rows",
                 fused.sort_partition_kv(e, eq),
                 fused.sort_partition_kv_plain(e, eq))
-    for n in (1, 7, 257, 65535):
+    for n in RADIX_WIDTHS:
         rb = torch.from_numpy(_radix_rows(rng, np.float32, n)).to(dev)
         rb = rb.to(torch.bfloat16)     # NaN payloads, +-0, denormals, inf
         compare("radix_sort", f"(9, {n}) bf16: every class of bits",
@@ -1495,7 +1518,18 @@ def phase_wide(smi: str) -> dict:
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
         check_run(path, x, keys, rep, 1)
-        out[path] = {"first_call_s": wall, "k_workload": rep.k_workload,
+        del keys
+        # three more calls, each ending in a synchronize, host clock
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            cluster.sort(x, algorithm=algorithm, seed=SEED, device=DEVICE)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t1)
+        out[path] = {"first_call_s": wall, "next_calls_s": walls,
+                     "median_s": float(np.median(walls)),
+                     "k_workload": rep.k_workload,
                      "k_network": rep.k_network,
                      "max_workload": int(max(rep.workload)),
                      "bound": rep.theoretical_workload_bound,
@@ -1503,10 +1537,51 @@ def phase_wide(smi: str) -> dict:
         print(f"[wide] {algorithm} t={T} m={M_WIDE} ok: k_workload="
               f"{rep.k_workload:.4f} max machine {max(rep.workload)} (bound "
               f"{rep.theoretical_workload_bound:.0f}) first call "
-              f"{wall * 1e3:.1f} ms, peak memory {peak / 2**20:.1f} MiB "
-              f"({smi})")
-        del keys
+              f"{wall * 1e3:.1f} ms, median of the next 3 "
+              f"{np.median(walls) * 1e3:.2f} ms, peak memory "
+              f"{peak / 2**20:.1f} MiB ({smi})")
     return out
+
+
+def phase_nan_keys() -> None:
+    """NaN keys through the front door (ROADMAP C13, C14): t=4 x m=64
+    normal keys with four NaN in row 1 -- the keys-only network leaves
+    them mid-row, SMMS Round 2 searches knots that hold them, and the
+    argsort merge hands a pad's id to the payload gather.  SMMS keys only
+    and both sorts with a (t, m) int32 payload (Terasort on the same
+    draws): keys, values and every report field equal to the CPU run,
+    bitwise, and the boundaries but for the bits of their NaN."""
+    x = np.random.default_rng(SEED).standard_normal((4, 64)).astype(
+        np.float32)
+    x[1, 5:9] = np.nan
+    v = np.arange(x.size, dtype=np.int32).reshape(x.shape) * 7 + 3
+    u = torch.rand(x.shape, generator=torch.Generator().manual_seed(SEED))
+    for algorithm, values in (("smms", None), ("smms", v), ("terasort", v)):
+        kw = {"uniforms": u} if algorithm == "terasort" else {}
+        (keys, vals), rep = cluster.sort(x, algorithm=algorithm,
+                                         values=values, device=DEVICE, **kw)
+        (keys_cpu, vals_cpu), rep_cpu = cluster.sort(
+            x, algorithm=algorithm, values=values, device="cpu", **kw)
+        label = f"NaN keys {algorithm}" + (" with values" if values is not None
+                                           else "")
+        check(keys.device.type == DEVICE and same_bits(keys, keys_cpu),
+              f"{label}: card keys != CPU keys")
+        if values is not None:
+            check(same_bits(vals, vals_cpu), f"{label}: card values != CPU")
+        # a NaN boundary comes out of Round 2's arithmetic, whose NaN
+        # bits are the hardware's own (the CPU passes an operand's NaN
+        # on, the card gives its canonical one): NaN where the CPU has
+        # NaN, every other boundary bitwise
+        b, b_cpu = np.asarray(rep.boundaries), np.asarray(rep_cpu.boundaries)
+        nan = np.isnan(b_cpu)
+        check(np.array_equal(np.isnan(b), nan) and np.array_equal(
+            b[~nan].view(np.int32), b_cpu[~nan].view(np.int32)),
+              f"{label}: card boundaries {b} != CPU boundaries {b_cpu}")
+        _same_report(label, rep, rep_cpu)
+    print("[small] NaN keys (t=4 x 64, four NaN in one row): SMMS keys only, "
+          "SMMS and Terasort with values: keys, values and every report "
+          "field equal to the CPU run, bitwise; the boundaries too but for "
+          "the bits of their NaN")
 
 
 def host_pairs(s, t) -> np.ndarray:
@@ -2125,6 +2200,21 @@ def phase_times(rng, smi: str) -> dict:
            event_ms(lambda: torch.sort(x, dim=-1, stable=True), 20),
            3 * x.numel() * 4,
            x.numel() * (32 // radix.DEFAULT_RADIX_BITS))
+    # the same at the wide paths' (64, 262144), float32 (12 bytes a key)
+    # and bf16 (8); the plain version once
+    xw = torch.from_numpy(uniform_keys(T * M_WIDE, seed=SEED + 7)
+                          .reshape(T, M_WIDE)).to(dev)
+    for suffix, keys in (("wide", xw), ("wide_bf16", xw.to(torch.bfloat16))):
+        record(f"radix_sort@{suffix}",
+               timed_ms(lambda: radix.radix_sort(keys), 10),
+               event_ms(lambda: radix.radix_sort_plain(keys), 1, warm=0),
+               event_ms(lambda: torch.sort(keys, dim=-1, stable=True), 10),
+               keys.numel() * (2 * keys.element_size() + 4),
+               keys.numel() * (8 * keys.element_size()
+                               // radix.DEFAULT_RADIX_BITS))
+    radix_keys = {"f32": x, "bf16": x.to(torch.bfloat16),
+                  "int32": xw.view(torch.int32)[:, :M].contiguous()}
+    del xw, keys
 
     # merge_rows at the small configuration's receive buffers
     cap = flat_receive_capacity(M_SMALL, T_SMALL, cluster.CapacityPolicy.smms(
@@ -2253,7 +2343,8 @@ def phase_times(rng, smi: str) -> dict:
         "merge_rows_kv@bf16": lambda: bitonic.merge_sorted_rows_argsort(rb),
         "merge_rows": lambda: bitonic.merge_sorted_rows(r),
         "searchsorted@ops": lambda: ops.searchsorted(xs, row, valid_len=M)})
-    del xb, bqb                     # out of the end-to-end peaks below
+    radix_launches(smi, radix_keys)
+    del xb, bqb, radix_keys         # out of the end-to-end peaks below
 
     # the end-to-end sorts by both families, in turns: SMMS and
     # Terasort (its draws made on the card from the seed, as a user's
@@ -2324,35 +2415,63 @@ def phase_times(rng, smi: str) -> dict:
 SPIN_BEFORE, SPIN_AFTER = 50_000_000, 1000
 
 
+def profiled_kernels(fn, calls: int = 10) -> collections.Counter:
+    """The device kernels (and memsets) ``calls`` calls of ``fn`` run
+    under torch.profiler, by name, with ``cuda.LAUNCHES`` set to 0 just
+    before them.  ``fn`` runs once before the window, so only the calls'
+    own work is in it; the window's spin kernels
+    (:data:`SPIN_BEFORE`) are left out."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(SPIN_BEFORE)
+        for _ in range(calls):
+            fn()
+        torch.cuda._sleep(SPIN_AFTER)
+        torch.cuda.synchronize()
+    return collections.Counter(
+        ev.name for ev in prof.events()
+        if ev.device_type == torch.autograd.DeviceType.CUDA
+        and "spin_kernel" not in ev.name)
+
+
 def one_launch(smi: str, calls: dict) -> None:
     """Each call is one C call and one kernel on the card: under
     torch.profiler, 10 calls run 10 device kernels, all of one name, and
-    no copy or fill; and ``cuda.LAUNCHES`` counts 10.  Operands are
-    made before the window, so only the call's own work is in it; the
-    window's spin kernels (:data:`SPIN_BEFORE`) are left out of the
-    count."""
-    from torch.profiler import ProfilerActivity, profile
+    no copy or fill; and ``cuda.LAUNCHES`` counts 10."""
     for label, fn in calls.items():
-        fn()
-        torch.cuda.synchronize()
-        cuda.reset_launches()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            torch.cuda._sleep(SPIN_BEFORE)
-            for _ in range(10):
-                fn()
-            torch.cuda._sleep(SPIN_AFTER)
-            torch.cuda.synchronize()
-        kernels = collections.Counter()
-        for ev in prof.events():
-            if (ev.device_type == torch.autograd.DeviceType.CUDA
-                    and "spin_kernel" not in ev.name):
-                kernels[ev.name] += 1
+        kernels = profiled_kernels(fn)
         print(f"[times] {label}: 10 calls ran {dict(kernels)}, "
               f"{dict(cuda.LAUNCHES)} C calls ({smi})")
         check(len(kernels) == 1 and sum(kernels.values()) == 10
               and sum(cuda.LAUNCHES.values()) == 10,
               f"{label}: a call is not one C call and one kernel "
               f"({dict(kernels)}, {dict(cuda.LAUNCHES)})")
+
+
+def radix_launches(smi: str, keys: dict) -> None:
+    """The radix sort's launches a call (``csrc/radix_sort.cu``): under
+    torch.profiler, 10 calls at (64, 65536) run 10 memsets of the
+    scratch, 10 upfront histograms and 10 onesweep passes per 8 key bits
+    (40 for 32-bit keys, 20 for bf16) and nothing else; ``cuda.LAUNCHES``
+    counts 10 C calls."""
+    for dname, x in keys.items():
+        passes = radix.key_bits(x.dtype) // radix.RADIX_KERNEL_BITS
+        kinds = collections.Counter()
+        for name, n in profiled_kernels(lambda: radix.radix_sort(x)).items():
+            kinds["memset" if "emset" in name else
+                  "histogram" if "upfront_histogram" in name else
+                  "pass" if "onesweep_pass" in name else name] += n
+        print(f"[times] radix_sort@{dname}: 10 calls ran {dict(kinds)}, "
+              f"{dict(cuda.LAUNCHES)} C calls ({smi})")
+        check(dict(kinds) == {"memset": 10, "histogram": 10,
+                              "pass": 10 * passes}
+              and dict(cuda.LAUNCHES) == {"radix_sort": 10},
+              f"radix_sort {dname}: a call is not one C call, one memset, "
+              f"one histogram and {passes} passes ({dict(kinds)}, "
+              f"{dict(cuda.LAUNCHES)})")
 
 
 def rank_merge_times(record, operands: dict) -> None:
@@ -2639,6 +2758,7 @@ def main() -> None:
     phase_small_radix()
     runs["bf16"] = phase_bf16(smi)
     runs["wide"] = phase_wide(smi)
+    phase_nan_keys()
     runs["bucketize"] = phase_bucketize(smi)
     phase_serve_smoke()
     serving = phase_serve(smi)

@@ -23,6 +23,7 @@ port computes them once and shares the (t+1,) result.
 from __future__ import annotations
 
 import heapq
+import math
 from typing import Tuple
 
 import numpy as np
@@ -69,17 +70,53 @@ def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return s.float()
 
 
+def _order_key(v: torch.Tensor) -> torch.Tensor:
+    """float32 -> int32 in JAX's sort order on the comparator's classes:
+    denormals and -0.0 fold onto +0.0 (XLA's CPU compare flushes them),
+    the float order elsewhere, and every NaN above +inf."""
+    b = v.view(torch.int32)
+    b = torch.where((b & 0x7F800000) == 0, 0, b)
+    b = torch.where(b < 0, b ^ 0x7FFFFFFF, b)
+    return torch.where(torch.isnan(v), torch.iinfo(torch.int32).max, b)
+
+
+def _searchsorted_right(xp: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``jnp.searchsorted(xp, x, side="right")``, probe for probe.
+
+    JAX bisects exactly ``ceil(log2(K + 1))`` levels from (0, K) with
+    ``mid = (low + high) // 2`` and goes left where ``x < xp[mid]`` in
+    its sort order (:func:`_order_key`).  The keys-only network leaves a
+    NaN inside a sorted row (ROADMAP C12), so Round 2's knot rows need
+    not be monotone, and only this probe sequence gives the reference's
+    interval there (C13).  xp: (..., K), x: (..., q) float32 with the
+    same leading dims (or xp 1-D).  Returns (..., q) int64.  No host
+    sync: six small ops a level.
+    """
+    k = xp.shape[-1]
+    xk = _order_key(x.contiguous())
+    xpk = _order_key(xp.contiguous()).expand(*xk.shape[:-1], k)
+    low = torch.zeros(xk.shape, dtype=torch.int64, device=x.device)
+    high = torch.full_like(low, k)
+    for _ in range(math.ceil(math.log2(k + 1))):
+        mid = (low + high) >> 1
+        go_left = xk < xpk.gather(-1, mid)
+        low = torch.where(go_left, low, mid)
+        high = torch.where(go_left, mid, high)
+    return high
+
+
 def _interp(x, xp, fp, left=None, right=None):
     """``jnp.interp(x, xp, fp, left, right)``, operation for operation.
 
-    xp: (..., K) rows of sorted knots with fp of the same shape (or
-    (K,) shared); x: (..., q).  float32 throughout, with the update
-    fused as XLA fuses it (:func:`_fma`).
+    xp: (..., K) rows of knots, sorted but for NaN that the keys-only
+    network left mid-row, with fp of the same shape (or (K,) shared);
+    x: (..., q).  float32 throughout, with the update fused as XLA fuses
+    it (:func:`_fma`), and the intervals found by JAX's own bisection
+    (:func:`_searchsorted_right`).
     """
     k = xp.shape[-1]
     fp = fp.expand(xp.shape)
-    idx = torch.searchsorted(ftz(xp).contiguous(), ftz(x).contiguous(),
-                             right=True)
+    idx = _searchsorted_right(xp, x)
     i = torch.clamp(idx, 1, k - 1)
     fp_i, fp_im1 = fp.gather(-1, i), fp.gather(-1, i - 1)
     xp_i, xp_im1 = xp.gather(-1, i), xp.gather(-1, i - 1)

@@ -101,7 +101,7 @@ _SORT_SIGNATURES = {
     "merge_ranks": [_P] * 10 + [_I64, _I64, _I64, _P],
     "sort_partition": [_P] * 5 + [_I64, _I64, _I64, _P],
     "sort_partition_kv": [_P] * 7 + [_I64, _I64, _I64, _P],
-    "radix_sort": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _P],
+    "radix_sort": [_P] * 6 + [_I64, _I64, _I64, _P],
     "bucketize_histogram": [_P, _P, _P, _P, _I64, _I64, _I32, _P],
 }
 # every sort-side kernel has one entry point per key dtype

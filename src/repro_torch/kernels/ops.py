@@ -84,17 +84,18 @@ MERGE_TILE_LANES = bitonic.MERGE_TILE_LANES
 # ceil(key_bits / RADIX_BITS) counting passes of RADIX_PASS_SUBSTAGES
 # substages each, on rows of at least RADIX_MIN_LANES.  Fitted on the
 # H100 by chip_smoke.py's crossover table (PERF.md) on float32, bf16 and
-# int32 keys only: at (64, 2^k), k = 13..16, the one-launch bitonic
-# kernel was faster than radix at every width in every dtype, one radix
-# pass costing 33 to 57 of its substages.  34 is the least value with
-# which the model keeps bitonic wherever it was faster: bf16 keys take
-# 4 passes, 4 x 34 = 136 substages, the network's at 2^16; 32-bit keys
-# 8 passes (272).  So the model picks bitonic at every width of the
-# bitonic tile's reach, and past it the reach sends every row to radix.
-# RADIX_MIN_LANES keeps the reference's value.
+# int32 keys, against the 8-bit onesweep radix kernel: at (64, 2^k),
+# k = 13..16, radix was faster on bf16 keys at 2^15 and 2^16 and nowhere
+# else.  The model agrees with that run for values in [27, 30): 27, the
+# least.  bf16 keys take the reference's 4 passes, 4 x 27 = 108 substages,
+# between the network's 105 at 2^14 and 120 at 2^15; 32-bit keys 8 passes
+# (216), past the network's 136 at 2^16.  So bf16 rows of 2^15 and 2^16
+# sort by radix, every other row of the bitonic tile's reach by bitonic,
+# and past the reach every row by radix.  RADIX_MIN_LANES keeps the
+# reference's value.
 RADIX_BITS = radix.DEFAULT_RADIX_BITS
 RADIX_MIN_LANES = 1 << 13
-RADIX_PASS_SUBSTAGES = 34
+RADIX_PASS_SUBSTAGES = 27
 
 SORT_FAMILIES = ("bitonic", "radix")
 _FORCE_SORT_KERNEL: Optional[str] = None
@@ -269,9 +270,19 @@ def sort(x: torch.Tensor, *, prepadded: bool = False) -> torch.Tensor:
 
 
 def _take_rows(values: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
-    """values (rows, n, ...) gathered along axis 1 by order (rows, n')."""
+    """values (rows, n, ...) gathered along axis 1 by order (rows, n').
+
+    Ids out of [0, n) are taken as JAX indexing takes them (the
+    reference's ``vflat[order]``): a negative id counts from the end,
+    then every id is clamped into the row.  The argsort merge leaves a
+    pad's id (>= n) in ``order`` where a landed row holds a NaN key
+    (ROADMAP C14), in the reference too.
+    """
+    n = values.shape[1]
+    idx = order.long()
+    idx = torch.where(idx < 0, idx + n, idx).clamp_(0, n - 1)
     rows = torch.arange(order.shape[0], device=order.device)[:, None]
-    return values[rows, order.long()]
+    return values[rows, idx]
 
 
 def sort_kv(keys: torch.Tensor, values: torch.Tensor, *,

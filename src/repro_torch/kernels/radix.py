@@ -5,20 +5,24 @@ plain PyTorch version beside it:
 
 * :func:`radix_sort` -- stable ascending sort of each row of (rows, n),
   any 1 <= n, returning the sorted rows and the int32 stable argsort;
-  CUDA source ``csrc/radix_sort.cu``.  :func:`radix_sort_plain` runs
-  the reference's passes in torch ops (digit, one-hot, cumsum,
-  exclusive starts, scatter of the permutation, regather of the bits).
+  CUDA source ``csrc/radix_sort.cu``, an onesweep of 8-bit digits (one
+  histogram launch, then one launch a pass with decoupled look-back).
+  :func:`radix_sort_plain` runs the reference's 4-bit passes in torch
+  ops (digit, one-hot, cumsum, exclusive starts, scatter of the
+  permutation, regather of the bits).  The stable argsort of a row is
+  unique, so the two agree bitwise whatever their digit widths.
 
 Keys go through a monotone bijection into sortable unsigned bits
 (:func:`key_to_bits`): int32 ``x ^ 0x80000000``; float32 ``u ^
 0x80000000`` when the sign bit is clear and ``~u`` when it is set;
 bf16 the 16-bit variant of the float fold in [0, 2^16), so a bf16 key
-is a 16-bit key and sorts in 4 passes instead of 8.
+is a 16-bit key and sorts in half the passes.
 Before the passes the bits are folded onto the reference comparator's
 equivalence classes (:func:`sort_ready_bits`): every NaN to all ones,
-the denormal band and -0.0 onto +0.0.  The sorted keys are gathered
-from the *original* input through the order, so NaN payloads, -0.0 and
-denormals keep their bits.
+the denormal band and -0.0 onto +0.0.  The sorted keys are the
+*original* keys in that order (the plain version gathers them through
+the order, the kernel carries them through its passes), so NaN
+payloads, -0.0 and denormals keep their bits.
 
 The bits ride in an int32 carrier, as in the reference's kernel: torch
 has no unsigned 32-bit arithmetic on the CPU.  ``(bits >> shift) & 15``
@@ -33,16 +37,20 @@ import torch
 from . import cuda
 from .bitonic import KEY_DTYPES, _SUFFIX, as_bits
 
-__all__ = ["DEFAULT_RADIX_BITS", "key_bits", "key_to_bits", "bits_to_key",
-           "sort_ready_bits", "pass_positions_plain", "radix_sort",
-           "radix_sort_plain"]
+__all__ = ["DEFAULT_RADIX_BITS", "RADIX_KERNEL_BITS", "RADIX_TILE",
+           "key_bits", "key_to_bits", "bits_to_key", "sort_ready_bits",
+           "pass_positions_plain", "radix_sort", "radix_sort_plain"]
 
-# Digits per counting pass: 16 bins, 8 passes for 32-bit keys and 4 for
-# bf16.  The CUDA kernel is written for this width (csrc/radix_sort.cu
-# kBins).
+# Digits per counting pass of the reference and the plain version: 16
+# bins, 8 passes for 32-bit keys and 4 for bf16.  The cost model counts
+# passes of this width (ops.RADIX_BITS).
 DEFAULT_RADIX_BITS = 4
-# Keys one block of the CUDA kernel ranks at once (csrc/radix_sort.cu
-# kTile): the wrapper sizes the per-tile digit counts with it.
+# The CUDA kernel's own digit width and tile (csrc/radix_sort.cu kBits,
+# kTile): 8-bit digits, 4096 keys a block.  The wrapper sizes the
+# kernel's zeroed scratch with them -- a 64-bit look-back status word per
+# (tile, digit), the (rows, passes, 256) histogram and a ticket counter
+# a pass -- and the kernel refuses a scratch smaller than it needs.
+RADIX_KERNEL_BITS = 8
 RADIX_TILE = 4096
 
 _I32_MIN = -(1 << 31)
@@ -164,11 +172,11 @@ def radix_sort(x: torch.Tensor):
     """Stable row-wise ascending sort.  x: (rows, n), any n >= 1.
 
     Returns ``(sorted, order)``: ``order`` (rows, n) int32 is the stable
-    argsort of each row's canonical bits, and ``sorted`` is gathered
-    from ``x`` through it.  No power-of-two padding.  A CUDA tensor
-    runs the kernel (float32, bfloat16 or int32; anything else raises);
-    a CPU
-    tensor runs :func:`radix_sort_plain`.
+    argsort of each row's canonical bits, and ``sorted`` holds ``x``'s
+    keys, bits and all, in that order.  No power-of-two padding.  A CUDA
+    tensor runs the kernel (float32, bfloat16 or int32; anything else
+    raises): one C call, a memset of the scratch and 1 + key_bits / 8
+    kernel launches.  A CPU tensor runs :func:`radix_sort_plain`.
     """
     if x.dim() != 2:
         raise ValueError(f"radix_sort: expected (rows, n), got "
@@ -181,14 +189,15 @@ def radix_sort(x: torch.Tensor):
     order = torch.empty((rows, n), dtype=torch.int32, device=x.device)
     if rows == 0 or n == 0:
         return out, order
-    bits_a = torch.empty((rows, n), dtype=torch.int32, device=x.device)
-    idx_a = torch.empty_like(bits_a)
-    bits_b = torch.empty_like(bits_a)
-    tiles = -(-n // RADIX_TILE)
-    counts = torch.empty((rows, 1 << DEFAULT_RADIX_BITS, tiles),
-                         dtype=torch.int32, device=x.device)
+    keys_a = torch.empty_like(x)
+    idx_a = torch.empty_like(order)
+    bins = 1 << RADIX_KERNEL_BITS
+    passes = key_bits(x.dtype) // RADIX_KERNEL_BITS
+    nbytes = (rows * -(-n // RADIX_TILE) * bins * 8 + rows * passes * bins * 4
+              + passes * 4)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
     cuda.launch("radix_sort", f"radix_sort_{_SUFFIX[x.dtype]}",
                 x.data_ptr(), out.data_ptr(), order.data_ptr(),
-                bits_a.data_ptr(), idx_a.data_ptr(), bits_b.data_ptr(),
-                counts.data_ptr(), rows, n)
+                keys_a.data_ptr(), idx_a.data_ptr(), scratch.data_ptr(),
+                nbytes, rows, n)
     return out, order

@@ -23,11 +23,16 @@ included.  The sort paths run the bitonic kernel family; each has a
 under ``ops.force_sort_kernel("radix")``.  ``small_sort``,
 ``small_sort_values`` and ``small_terasort_values`` are the t = 8 x
 4,096 sorts (SMMS, SMMS and Terasort with the payload), whose landed
-rows take the in-tile merges; ``searchsorted`` is SMMS's Round-3 cut
+rows take the in-tile merges; ``sort_wide`` and ``terasort_wide`` the
+keys-only sorts at t = 64 x 262,144, past the bitonic tile's reach (the
+radix sort, the search, the rank merge); ``searchsorted`` is SMMS's Round-3 cut
 alone (``ops.searchsorted`` of a (63,) boundary row in (64, 65536)
-sorted rows, ``valid_len``); ``merge_rows_kv`` and
+sorted rows, ``valid_len``); ``round2`` SMMS's Round 2 alone (the
+boundaries from the (64, 129) samples); ``merge_rows_kv`` and
 ``merge_rows_kv_bf16`` the argsort merge alone at SMMS's t = 8 landed
-rows, (8, 8, 1077), float32 and bf16 keys; ``pair_sort``,
+rows, (8, 8, 1077), float32 and bf16 keys; ``radix_sort``,
+``radix_sort_bf16``, ``radix_sort_wide`` and ``radix_sort_wide_bf16`` the
+radix sort alone at (64, 65536) and (64, 262144); ``pair_sort``,
 ``pair_sort_partition`` and ``pair_sort_routing`` the pair sorts alone
 as ``ops`` calls them (:func:`_pair_call`).  ``serve_prefill`` is
 gemma3-12b's prefill of 4 x 2048 tokens and ``serve_decode`` one decode
@@ -37,6 +42,7 @@ made on the card from a seed.
 from __future__ import annotations
 
 import argparse
+import importlib
 import subprocess
 import time
 
@@ -46,11 +52,11 @@ import torch
 from repro_torch import cluster
 from repro_torch.configs import get_arch
 from repro_torch.data import uniform_keys
-from repro_torch.kernels import bitonic, cuda, fused, ops
+from repro_torch.kernels import bitonic, cuda, fused, ops, radix
 from repro_torch.models import model
-from repro_torch.workloads import (JOIN_T, JOINS, M, M_SMALL, SERVE_ARCH,
-                                   SERVE_B, SERVE_NEW, SERVE_PROMPT, T,
-                                   T_SMALL, make_payload)
+from repro_torch.workloads import (JOIN_T, JOINS, M, M_SMALL, M_WIDE,
+                                   SERVE_ARCH, SERVE_B, SERVE_NEW,
+                                   SERVE_PROMPT, T, T_SMALL, make_payload)
 
 __all__ = ["PATHS"]
 
@@ -108,6 +114,26 @@ def _pair_call(kind: str):
                                            ops._query_rows(keys, bounds))
 
 
+def _radix_call(m: int, dtype: torch.dtype):
+    """The radix sort alone (``radix.radix_sort``: the sorted keys and
+    the order) of (64, m) uniform keys, float32 or bf16: m = 65,536, the
+    bitonic tile's reach, or the wide paths' 262,144."""
+    keys = torch.from_numpy(uniform_keys(T * m, seed=0).reshape(T, m))
+    keys = keys.cuda().to(dtype)
+    return lambda: radix.radix_sort(keys)
+
+
+def _round2_call():
+    """SMMS's Round 2 alone (``core/boundaries.py:boundaries``) on the
+    (64, 129) equi-depth samples (s = 2t) of (64, 65536) sorted uniform
+    keys: the knots' interpolation and the inverted sum, torch ops."""
+    bounds = importlib.import_module("repro_torch.core.boundaries")
+    keys = torch.from_numpy(uniform_keys(T * M, seed=0).reshape(T, M))
+    lam = bounds.equidepth_samples(torch.sort(keys.cuda(), dim=-1).values,
+                                   2 * T)
+    return lambda: bounds.boundaries(lam, M, 2 * T)
+
+
 def _join_call(name: str):
     cfg = JOINS[name]
     s, t = cfg.tables()
@@ -155,12 +181,19 @@ PATHS = {
        for name, payload, algorithm in (
            ("small_sort", False, "smms"), ("small_sort_values", True, "smms"),
            ("small_terasort_values", True, "terasort"))},
+    **{name: (lambda a=algorithm: _sort_call(False, a, "radix", T, M_WIDE))
+       for name, algorithm in (("sort_wide", "smms"),
+                               ("terasort_wide", "terasort"))},
     "searchsorted": _search_call,
+    "round2": _round2_call,
     "merge_rows_kv": lambda: _merge_call(torch.float32),
     "pair_sort": lambda: _pair_call("sort"),
     "pair_sort_partition": lambda: _pair_call("partition"),
     "pair_sort_routing": lambda: _pair_call("routing"),
     "merge_rows_kv_bf16": lambda: _merge_call(torch.bfloat16),
+    **{"radix_sort" + wide + suffix: (lambda m=m, d=dtype: _radix_call(m, d))
+       for wide, m in (("", M), ("_wide", M_WIDE))
+       for suffix, dtype in (("", torch.float32), ("_bf16", torch.bfloat16))},
     **{name: (lambda n=name: _join_call(n)) for name in JOINS}}
 
 

@@ -270,9 +270,10 @@ def test_sort_kernel_choice_on_the_card_is_the_fitted_cost_model():
         assert want16 == ("radix" if n in FITTED_RADIX_WIDTHS_BF16
                           else "bitonic")
     assert choice(1 << 16, torch.float64) == "bitonic"
-    # the formula itself crosses one octave past the bitonic tile's reach
-    # for bf16 keys (4 passes), later for 32-bit ones
-    assert 17 * 18 // 2 > 4 * ops.RADIX_PASS_SUBSTAGES >= 16 * 17 // 2
+    # the formula crosses at 2^15 for bf16 keys (4 passes), past the
+    # bitonic tile's reach for 32-bit ones (8 passes)
+    assert 15 * 16 // 2 > 4 * ops.RADIX_PASS_SUBSTAGES >= 14 * 15 // 2
+    assert 8 * ops.RADIX_PASS_SUBSTAGES >= 16 * 17 // 2
     # past the reach (C10) every row sorts by radix, on either device,
     # whatever is forced
     for n in (65537, 1 << 17):
@@ -288,13 +289,12 @@ def test_sort_kernel_choice_on_the_card_is_the_fitted_cost_model():
                                                         dtype=torch.float64))
 
 
-# The widths (64, 2^k), k = 10..16, at which the radix kernel measured
-# faster than the bitonic one on keys only, on the card (PERF.md, the
-# crossover table), float32 and bf16: none, so the fitted model keeps
-# bitonic for both throughout; for bf16 it would first pick radix at
-# 2^17, past the bitonic tile's reach.
+# The widths (64, 2^k), k = 10..16, at which the radix kernel (the 8-bit
+# onesweep) measured faster than the bitonic one on keys only, on the
+# card (PERF.md, the crossover table), float32 and bf16: none in
+# float32, 2^15 and 2^16 in bf16.
 FITTED_RADIX_WIDTHS = ()
-FITTED_RADIX_WIDTHS_BF16 = ()
+FITTED_RADIX_WIDTHS_BF16 = (1 << 15, 1 << 16)
 
 
 # ---------------------------------------------------------------------------
