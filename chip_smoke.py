@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's front doors on the card after building the eleven
+Drives the port's front doors on the card after building the twelve
 hand-written CUDA kernels of their paths from seven sources in
 ``src/repro_torch/csrc`` and holding each against its plain PyTorch
 version there:
@@ -83,7 +83,14 @@ without printing a result:
      NaN keys   t=4 x 64 with four NaN in one row (ROADMAP C13, C14):
                 SMMS keys only, SMMS and Terasort with values equal to
                 the CPU run: keys, values, report (boundaries but for
-                their NaN's bits)
+                their NaN's bits); the rank merge on NaN rows (C15): the
+                replay kernel against its plain version and the CPU run
+                at C15's (4, 16500) (blocked) and (64, 1500) (whole
+                rows), f32 and bf16, a clean entry beside, at SMMS's
+                landed rows with one NaN entry, and the ranks' contract
+                with bound_block None and 2048; SMMS (t=2 x 32,768) and
+                Terasort (t=2 x 16,384) with values and NaN keys whose
+                Round 3 takes the rank merge, equal to the CPU run
   6. serving    bucketize_histogram through its entry point against
                 numpy; gemma3-12b's smoke config on the card against the
                 CPU (logits within 2e-3, the same tokens); generate at
@@ -102,11 +109,14 @@ without printing a result:
                 buffers, the search also as SMMS's Round 3 calls it
                 through ops, the pair sorts also as ops calls them,
                 the keys-only sort also on rows whose keys fold to zero
-                and on rows with NaN keys);
+                and on rows with NaN keys; the rank merge's NaN
+                replay alone at C15's rows and at SMMS's landed rows
+                with one NaN entry);
                 each sort at (64, 65536) (the keys-only ones also in
                 bf16) and the pair sorts at (64, 2048), each in-tile
-                merge and the ops search one C call and one kernel a
-                call, the radix sort one C call, one memset, one
+                merge, the ops search and the bucketize histogram (f32
+                and bf16) one C call and one kernel a call (no memset),
+                the radix sort one C call, one memset, one
                 histogram and one kernel a pass (torch.profiler); the
                 radix sort also at (64, 262144), f32 and bf16; the
                 bitonic/radix crossover at
@@ -194,17 +204,20 @@ FAMILIES = ("bitonic", "radix")
 # the radix family sorts, then searches (no fused radix+search, as in
 # the reference): its t = 64 paths launch the reference's smms_radix /
 # terasort_radix budget of a radix sort, a search and a merge
-RADIX_MAIN = {"radix_sort", "searchsorted", "merge_ranks"}
+# the rank merge: the merge, then (float keys) the NaN replay, which
+# returns at once on entries without a NaN (ROADMAP C15)
+RANK_MERGE = {"merge_ranks", "merge_ranks_replay"}
+RADIX_MAIN = {"radix_sort", "searchsorted"} | RANK_MERGE
 # path -> the kernels one run of it launches, and no others.  A join's
 # entry is the bitonic family's set until the kernels phase has seen the
 # widths its sorts get (join_kernels): the cost model may pick radix
 # for some of them.
 LOCAL_JOIN = {"bitonic_sort_kv", "searchsorted"}
 PATH_KERNELS = {
-    "sort": {"bitonic_sort", "searchsorted", "merge_ranks"},
-    "sort_payload": {"bitonic_sort_kv", "searchsorted", "merge_ranks"},
-    "terasort": {"sort_partition", "merge_ranks"},
-    "terasort_payload": {"sort_partition_kv", "merge_ranks"},
+    "sort": {"bitonic_sort", "searchsorted"} | RANK_MERGE,
+    "sort_payload": {"bitonic_sort_kv", "searchsorted"} | RANK_MERGE,
+    "terasort": {"sort_partition"} | RANK_MERGE,
+    "terasort_payload": {"sort_partition_kv"} | RANK_MERGE,
     "sort_radix": RADIX_MAIN,
     "sort_payload_radix": RADIX_MAIN,
     "terasort_radix": RADIX_MAIN,
@@ -442,11 +455,10 @@ def _ranked(keys: torch.Tensor):
     return kp, ip.expand(batch, tp2, cp2).contiguous()
 
 
-def phase_kernels(rng) -> dict:
-    """Each kernel against its plain version, both on the card."""
-    dev = torch.device(DEVICE)
-    errs = {}
-
+def comparer(errs: dict):
+    """compare(name, label, kernel_out, plain_out): holds a kernel's
+    output bitwise against its plain version's, keeping the largest
+    error per kernel in ``errs``."""
     def compare(name, label, kernel_out, plain_out):
         ok = same_bits(kernel_out, plain_out)
         err = max_abs_err(kernel_out, plain_out)
@@ -454,6 +466,14 @@ def phase_kernels(rng) -> dict:
         check(ok, f"{name} {label}: kernel differs from its plain version "
                   f"(max abs err {err})")
         errs[name] = max(errs.get(name, 0.0), err)
+    return compare
+
+
+def phase_kernels(rng) -> dict:
+    """Each kernel against its plain version, both on the card."""
+    dev = torch.device(DEVICE)
+    errs = {}
+    compare = comparer(errs)
 
     # bitonic_sort: the main path's (64, 65536) plus edge cases
     x = torch.from_numpy(uniform_keys(T * M, seed=SEED).reshape(T, M)).to(dev)
@@ -1059,6 +1079,66 @@ def bucketize_operands(compare, rng, dev, x) -> None:
                     f"({n},) {keys_np.dtype} t={t}, dups/inf/NaN/denormals",
                     bucketize.bucketize_histogram(kt, bt, t),
                     bucketize.bucketize_histogram_plain(kt, bt, t))
+    bucketize_edges(compare, rng, dev)
+
+
+def bucketize_edges(compare, rng, dev) -> None:
+    """The histogram kernel's own edges, f32, bf16 and int32, every key
+    class above: a NaN boundary (f32, bf16); every n from 0 to 33 and
+    T * M + 1 (no whole 16-byte
+    vector, a tail past the vectors), views at offsets 1 and 3 of a
+    T * M + 4 row (a data_ptr off 16 bytes: a scalar head, ids stored
+    one by one), and t = 2, 3, 64, 257, 384 (each warp's counters),
+    385, 1,025, 4,097 (one block histogram), 12,289 and 20,000 (the
+    grid's counters in device memory) at 300,001 keys, in an order that
+    goes up and down past SHARED_HIST_MAX on one stream."""
+    x = rng.standard_normal(T * M + 4).astype(np.float32)
+    special = np.float32([np.inf, -np.inf, np.nan, 0.0, -0.0, 1e-40])
+    x[::7] = special[rng.integers(0, len(special), len(x[::7]))]
+    rows = {torch.float32: torch.from_numpy(x),
+            torch.bfloat16: torch.from_numpy(x).to(torch.bfloat16),
+            torch.int32: torch.from_numpy(np.nan_to_num(
+                x * 100, posinf=2e9, neginf=-2e9).astype(np.int32))}
+    for dtype, row in rows.items():
+        dname = str(dtype)[6:]
+        row = row.to(dev)
+        finite = torch.sort(row[torch.isfinite(row.float())]).values
+
+        def bounds(t):
+            b = finite[torch.linspace(0, len(finite) - 1, t + 1,
+                                      device=dev)[1:-1].long()].clone()
+            if t > 3:
+                b[1] = b[2]                              # a duplicate
+            return b.contiguous()
+
+        b64 = bounds(T)
+        for n in [*range(34), T * M + 1]:
+            compare("bucketize_histogram", f"({n},) {dname} t={T}",
+                    bucketize.bucketize_histogram(row[:n], b64, T),
+                    bucketize.bucketize_histogram_plain(row[:n], b64, T))
+        if dtype != torch.int32:                 # a NaN boundary
+            bn = b64.clone()
+            bn[10] = math.nan
+            compare("bucketize_histogram", f"({T * M},) {dname} t={T}, a "
+                    f"NaN boundary", bucketize.bucketize_histogram(
+                        row[:T * M], bn, T),
+                    bucketize.bucketize_histogram_plain(row[:T * M], bn, T))
+        for off in (1, 3):
+            view = row[off:]
+            check(view.data_ptr() % 16 != 0, "the view is 16-byte aligned")
+            compare("bucketize_histogram",
+                    f"({len(view)},) {dname} view at offset {off}",
+                    bucketize.bucketize_histogram(view, b64, T),
+                    bucketize.bucketize_histogram_plain(view, b64, T))
+        # on one stream, so the calls share the kernel's workspace: t
+        # past SHARED_HIST_MAX up and down, across the reach of the
+        # counters' 128-byte lines (384) and back
+        for t in (2, 3, 64, 257, 4097, 12289, 20000, 12289, 20000, 385,
+                  384, 1025):
+            keys, b = row[:300_001], bounds(t)
+            compare("bucketize_histogram", f"(300001,) {dname} t={t}",
+                    bucketize.bucketize_histogram(keys, b, t),
+                    bucketize.bucketize_histogram_plain(keys, b, t))
 
 
 def flash_operands(close, dev) -> None:
@@ -1278,6 +1358,75 @@ def _main_rank_operands(rng, dev):
     recv[..., 2048:] = math.inf
     recv = recv.to(dev)
     return (*_ranked(recv), recv)
+
+
+# ROADMAP C15's reproduction (padded rows of 32,768 slots: the blocked
+# searches) and the widest whole-row case, (64, 1500) in 2,048 slots:
+# name -> (seed, t, c, the places of the NaN)
+C15_CASES = {
+    "C15 (4, 16500), blocked": (1, 4, 16500, ((1, 5), (2, 9000),
+                                              (3, 16499))),
+    "(64, 1500), whole rows": (3, 64, 1500, ((0, 0), (13, 700), (40, 1499),
+                                             (63, 1499), (63, 3)))}
+
+
+def c15_rows(case: str, dtype=torch.float32) -> torch.Tensor:
+    """(2, t, c) rows of :data:`C15_CASES`: ``np.sort`` of normal keys,
+    entry 0 clean, entry 1 the same rows with a NaN put at each place,
+    as the keys-only network leaves one (a bf16 NaN the quiet 0x7fc0)."""
+    seed, t, c, where = C15_CASES[case]
+    x = np.sort(np.random.default_rng(seed).standard_normal((t, c))
+                .astype(np.float32), axis=1)
+    y = x.copy()
+    for r, col in where:
+        y[r, col] = np.nan
+    rows = torch.from_numpy(np.stack([x, y]))
+    if dtype == torch.bfloat16:
+        rows = rows.to(torch.bfloat16)
+        rows.view(torch.int16)[torch.isnan(rows)] = 0x7fc0
+    return rows
+
+
+def smms_nan_rows(dev) -> torch.Tensor:
+    """SMMS's landed uniform rows (64, 64, 2152) with NaN in entry 5 at
+    the first, a middle and the last real slot of three rows."""
+    keys = RANK_OPERANDS["smms_uniform"].clone()
+    keys[5, 0, 0] = keys[5, 31, 1000] = keys[5, 63, 2047] = math.nan
+    return keys.to(dev)
+
+
+def replay_operands(compare, dev) -> None:
+    """The rank merge on entries whose keys hold a NaN (ROADMAP C15),
+    the merge kernel then the replay kernel: at each of
+    :data:`C15_CASES` in f32 and bf16, a clean entry beside, the merged
+    keys and order against the plain version on the card and against
+    the CPU run, bitwise, the call one C call of each; SMMS's landed
+    rows with one NaN entry; and the ranks' contract on C15's rows
+    padded as the reference pads them, bound_block None and 2048."""
+    for case in C15_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            keys = c15_rows(case, dtype)
+            kd = keys.to(dev)
+            cuda.reset_launches()
+            got = fused.rank_merge(kd)
+            check(dict(cuda.LAUNCHES) == {"merge_ranks": 1,
+                                          "merge_ranks_replay": 1},
+                  f"{case}: launched {dict(cuda.LAUNCHES)}")
+            label = f"{case} {str(dtype)[6:]}, clean entry beside"
+            compare("merge_ranks_replay", label, got,
+                    fused.rank_merge_plain(kd))
+            check(same_bits(got, fused.rank_merge_plain(keys)),
+                  f"{label}: card != the CPU run")
+            print(f"[kernels] merge_ranks_replay {label}: equal to the CPU "
+                  f"run, bitwise")
+    kd = smms_nan_rows(dev)
+    compare("merge_ranks_replay", f"SMMS landed {tuple(kd.shape)}, NaN in "
+            f"entry 5", fused.rank_merge(kd), fused.rank_merge_plain(kd))
+    kp, ip = _ranked(c15_rows("C15 (4, 16500), blocked")[1:].to(dev))
+    for bb in (None, ops.RANK_MERGE_BOUND_BLOCK):
+        compare("merge_ranks_replay", f"C15 padded {tuple(kp.shape)}, "
+                f"ranks, bound_block={bb}", fused.merge_ranks(kp, ip, bb),
+                fused.merge_ranks_plain(kp, ip, bb))
 
 
 # ---------------------------------------------------------------------------
@@ -1543,14 +1692,39 @@ def phase_wide(smi: str) -> dict:
     return out
 
 
-def phase_nan_keys() -> None:
-    """NaN keys through the front door (ROADMAP C13, C14): t=4 x m=64
-    normal keys with four NaN in row 1 -- the keys-only network leaves
-    them mid-row, SMMS Round 2 searches knots that hold them, and the
-    argsort merge hands a pad's id to the payload gather.  SMMS keys only
-    and both sorts with a (t, m) int32 payload (Terasort on the same
-    draws): keys, values and every report field equal to the CPU run,
-    bitwise, and the boundaries but for the bits of their NaN."""
+def _same_nan_run(label: str, out, rep, out_cpu, rep_cpu,
+                  values: bool) -> None:
+    """A sort of NaN keys on the card against the CPU run: keys, values
+    and every report field bitwise, the boundaries but for their NaN's
+    bits.  A NaN boundary comes out of Round 2's arithmetic, whose NaN
+    bits are the hardware's own (the CPU passes an operand's NaN on, the
+    card gives its canonical one): NaN where the CPU has NaN, every
+    other boundary bitwise."""
+    (keys, vals), (keys_cpu, vals_cpu) = out, out_cpu
+    check(keys.device.type == DEVICE and same_bits(keys, keys_cpu),
+          f"{label}: card keys != CPU keys")
+    if values:
+        check(same_bits(vals, vals_cpu), f"{label}: card values != CPU")
+    b, b_cpu = np.asarray(rep.boundaries), np.asarray(rep_cpu.boundaries)
+    nan = np.isnan(b_cpu)
+    check(np.array_equal(np.isnan(b), nan) and np.array_equal(
+        b[~nan].view(np.int32), b_cpu[~nan].view(np.int32)),
+          f"{label}: card boundaries {b} != CPU boundaries {b_cpu}")
+    _same_report(label, rep, rep_cpu)
+
+
+def phase_nan_keys(errs: dict) -> None:
+    """NaN keys through the front door (ROADMAP C13, C14, C15): t=4 x
+    m=64 normal keys with four NaN in row 1 -- the keys-only network
+    leaves them mid-row, SMMS Round 2 searches knots that hold them, and
+    the argsort merge hands a pad's id to the payload gather.  SMMS keys
+    only and both sorts with a (t, m) int32 payload (Terasort on the
+    same draws): keys, values and every report field equal to the CPU
+    run, bitwise, and the boundaries but for the bits of their NaN.
+    Then the rank merge on NaN rows (C15): :func:`replay_operands`, and
+    SMMS (t=2 x 32,768) and Terasort (t=2 x 16,384) with values and
+    three NaN among the keys, whose Round 3 lands rows past one tile
+    that hold a NaN, equal to the CPU run the same way."""
     x = np.random.default_rng(SEED).standard_normal((4, 64)).astype(
         np.float32)
     x[1, 5:9] = np.nan
@@ -1558,30 +1732,51 @@ def phase_nan_keys() -> None:
     u = torch.rand(x.shape, generator=torch.Generator().manual_seed(SEED))
     for algorithm, values in (("smms", None), ("smms", v), ("terasort", v)):
         kw = {"uniforms": u} if algorithm == "terasort" else {}
-        (keys, vals), rep = cluster.sort(x, algorithm=algorithm,
-                                         values=values, device=DEVICE, **kw)
-        (keys_cpu, vals_cpu), rep_cpu = cluster.sort(
-            x, algorithm=algorithm, values=values, device="cpu", **kw)
+        out, rep = cluster.sort(x, algorithm=algorithm, values=values,
+                                device=DEVICE, **kw)
+        out_cpu, rep_cpu = cluster.sort(x, algorithm=algorithm,
+                                        values=values, device="cpu", **kw)
         label = f"NaN keys {algorithm}" + (" with values" if values is not None
                                            else "")
-        check(keys.device.type == DEVICE and same_bits(keys, keys_cpu),
-              f"{label}: card keys != CPU keys")
-        if values is not None:
-            check(same_bits(vals, vals_cpu), f"{label}: card values != CPU")
-        # a NaN boundary comes out of Round 2's arithmetic, whose NaN
-        # bits are the hardware's own (the CPU passes an operand's NaN
-        # on, the card gives its canonical one): NaN where the CPU has
-        # NaN, every other boundary bitwise
-        b, b_cpu = np.asarray(rep.boundaries), np.asarray(rep_cpu.boundaries)
-        nan = np.isnan(b_cpu)
-        check(np.array_equal(np.isnan(b), nan) and np.array_equal(
-            b[~nan].view(np.int32), b_cpu[~nan].view(np.int32)),
-              f"{label}: card boundaries {b} != CPU boundaries {b_cpu}")
-        _same_report(label, rep, rep_cpu)
+        _same_nan_run(label, out, rep, out_cpu, rep_cpu, values is not None)
     print("[small] NaN keys (t=4 x 64, four NaN in one row): SMMS keys only, "
           "SMMS and Terasort with values: keys, values and every report "
           "field equal to the CPU run, bitwise; the boundaries too but for "
           "the bits of their NaN")
+
+    replay_operands(comparer(errs), torch.device(DEVICE))
+    merge = fused.rank_merge
+    for algorithm, m in (("smms", 32768), ("terasort", 16384)):
+        x = np.random.default_rng(SEED).standard_normal((2, m)).astype(
+            np.float32)
+        x[0, 100] = x[1, 7] = x[1, m - 1] = np.nan
+        v = np.arange(x.size, dtype=np.int32).reshape(x.shape)
+        kw = ({"uniforms": torch.rand(x.shape, generator=torch.Generator()
+                                      .manual_seed(SEED))}
+              if algorithm == "terasort" else {})
+        landed = []
+
+        def tapped(keys):
+            landed.append((tuple(keys.shape), bool(torch.isnan(keys).any())))
+            return merge(keys)
+
+        fused.rank_merge = tapped
+        try:
+            out, rep = cluster.sort(x, algorithm=algorithm, values=v,
+                                    device=DEVICE, **kw)
+        finally:
+            fused.rank_merge = merge
+        out_cpu, rep_cpu = cluster.sort(x, algorithm=algorithm, values=v,
+                                        device="cpu", **kw)
+        label = f"NaN keys {algorithm} t=2 x {m} with values"
+        check(len(landed) == 1 and landed[0][1]
+              and not ops._merge_fits_one_tile(*landed[0][0][-2:]),
+              f"{label}: the rank merge saw {landed}, not NaN rows past "
+              f"one tile")
+        _same_nan_run(label, out, rep, out_cpu, rep_cpu, True)
+        print(f"[small] {label}: landed {landed[0][0]} with NaN (the rank "
+              f"merge and its replay); keys, values and every report field "
+              f"equal to the CPU run, bitwise (boundaries but for NaN bits)")
 
 
 def host_pairs(s, t) -> np.ndarray:
@@ -2055,9 +2250,11 @@ def phase_times(rng, smi: str) -> dict:
                      "bound_by": "bytes" if bytes_ms >= ops_ms
                      else "operations",
                      "bytes": nbytes, "ops": nops}
+        library = ("none" if library_ms is None
+                   else f"{library_ms:.4f} ms")
         print(f"[times] {name:15s} kernel {ms:.4f} ms (host issues a call "
               f"in {host_ms:.4f} ms) | plain {plain_ms:.4f} "
-              f"ms | library {library_ms:.4f} ms | bound "
+              f"ms | library {library} | bound "
               f"{max(bytes_ms, ops_ms):.5f} ms "
               f"({res[name]['bound_by']}) ({smi})")
 
@@ -2252,20 +2449,25 @@ def phase_times(rng, smi: str) -> dict:
            (kp.numel() + ip.numel() + kp.numel()) * 4,
            kp.numel() * math.ceil(math.log2(kp.shape[-2])))
     rank_merge_times(record, {"4096": kp, **RANK_OPERANDS})
+    replay_times(record, dev)
 
     # bucketize_histogram at SMMS's shape: 4,194,304 f32 keys into 64
     # buckets.  Keys and boundaries in, int32 ids and counts out; a
     # binary search of ceil(log2 t) compares a key.  The yardstick:
     # torch.bucketize (right side), then torch.bincount.
-    bk = x.reshape(-1)
-    bb = torch.sort(bk).values[M::M].contiguous()
+    hist_keys = x.reshape(-1)
+    hist_bounds = torch.sort(hist_keys).values[M::M].contiguous()
     record("bucketize_histogram",
-           timed_ms(lambda: bucketize.bucketize_histogram(bk, bb, T), 50),
-           event_ms(lambda: bucketize.bucketize_histogram_plain(bk, bb, T), 5),
+           timed_ms(lambda: bucketize.bucketize_histogram(
+               hist_keys, hist_bounds, T), 50),
+           event_ms(lambda: bucketize.bucketize_histogram_plain(
+               hist_keys, hist_bounds, T), 5),
            event_ms(lambda: torch.bincount(torch.bucketize(
-               bk, bb, right=True), minlength=T), 50),
-           2 * bk.numel() * 4 + (bb.numel() + T) * 4,
-           bk.numel() * math.ceil(math.log2(T)))
+               hist_keys, hist_bounds, right=True), minlength=T), 50),
+           2 * hist_keys.numel() * 4 + (hist_bounds.numel() + T) * 4,
+           hist_keys.numel() * math.ceil(math.log2(T)))
+    hist_keys_bf16 = hist_keys.to(torch.bfloat16)
+    hist_bounds_bf16 = torch.sort(hist_keys_bf16).values[M::M].contiguous()
 
     # flash_attention at gemma3-12b's prefill: B = 4, 16 q / 8 kv heads,
     # S = 2048, d = 256, bf16 (the tensor-core kernel), causal.  q, k, v
@@ -2330,7 +2532,7 @@ def phase_times(rng, smi: str) -> dict:
         with ops.force_sort_kernel("bitonic"):
             return ops.sort(keys)
 
-    one_launch(smi, {
+    device = one_launch(smi, {
         "bitonic_sort@ops": lambda: sort_bitonic(x),
         "bitonic_sort@ops_bf16": lambda: sort_bitonic(xb),
         "sort_partition": lambda: fused.sort_partition(x, bq),
@@ -2342,9 +2544,19 @@ def phase_times(rng, smi: str) -> dict:
         "merge_rows_kv": lambda: bitonic.merge_sorted_rows_argsort(r),
         "merge_rows_kv@bf16": lambda: bitonic.merge_sorted_rows_argsort(rb),
         "merge_rows": lambda: bitonic.merge_sorted_rows(r),
-        "searchsorted@ops": lambda: ops.searchsorted(xs, row, valid_len=M)})
+        "searchsorted@ops": lambda: ops.searchsorted(xs, row, valid_len=M),
+        "bucketize_histogram": lambda: bucketize.bucketize_histogram(
+            hist_keys, hist_bounds, T),
+        "bucketize_histogram@bf16": lambda: bucketize.bucketize_histogram(
+            hist_keys_bf16, hist_bounds_bf16, T)})
+    # the card's own time a call beside the back-to-back time, which the
+    # host's issue time bounds for the histogram
+    for label, ms in device.items():
+        if label in res:
+            res[label]["device_ms"] = ms
     radix_launches(smi, radix_keys)
-    del xb, bqb, radix_keys         # out of the end-to-end peaks below
+    # out of the end-to-end peaks below
+    del xb, bqb, radix_keys, hist_keys_bf16, hist_bounds_bf16
 
     # the end-to-end sorts by both families, in turns: SMMS and
     # Terasort (its draws made on the card from the seed, as a user's
@@ -2415,12 +2627,14 @@ def phase_times(rng, smi: str) -> dict:
 SPIN_BEFORE, SPIN_AFTER = 50_000_000, 1000
 
 
-def profiled_kernels(fn, calls: int = 10) -> collections.Counter:
+def profiled_kernels(fn, calls: int = 10, durations: Optional[dict] = None
+                     ) -> collections.Counter:
     """The device kernels (and memsets) ``calls`` calls of ``fn`` run
     under torch.profiler, by name, with ``cuda.LAUNCHES`` set to 0 just
     before them.  ``fn`` runs once before the window, so only the calls'
     own work is in it; the window's spin kernels
-    (:data:`SPIN_BEFORE`) are left out."""
+    (:data:`SPIN_BEFORE`) are left out.  ``durations``, where given,
+    gets each name's device ms a call."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -2431,24 +2645,35 @@ def profiled_kernels(fn, calls: int = 10) -> collections.Counter:
             fn()
         torch.cuda._sleep(SPIN_AFTER)
         torch.cuda.synchronize()
-    return collections.Counter(
-        ev.name for ev in prof.events()
-        if ev.device_type == torch.autograd.DeviceType.CUDA
-        and "spin_kernel" not in ev.name)
+    events = [ev for ev in prof.events()
+              if ev.device_type == torch.autograd.DeviceType.CUDA
+              and "spin_kernel" not in ev.name]
+    if durations is not None:
+        for ev in events:
+            durations[ev.name] = (durations.get(ev.name, 0.0)
+                                  + ev.device_time / 1e3 / calls)
+    return collections.Counter(ev.name for ev in events)
 
 
-def one_launch(smi: str, calls: dict) -> None:
+def one_launch(smi: str, calls: dict) -> dict:
     """Each call is one C call and one kernel on the card: under
     torch.profiler, 10 calls run 10 device kernels, all of one name, and
-    no copy or fill; and ``cuda.LAUNCHES`` counts 10."""
+    no copy or fill; and ``cuda.LAUNCHES`` counts 10.  Returns label ->
+    the kernel's device ms a call (the profiler's), the card's own time
+    where the host issues calls slower than the card runs them."""
+    device = {}
     for label, fn in calls.items():
-        kernels = profiled_kernels(fn)
+        durations = {}
+        kernels = profiled_kernels(fn, durations=durations)
+        device[label] = sum(durations.values())
         print(f"[times] {label}: 10 calls ran {dict(kernels)}, "
-              f"{dict(cuda.LAUNCHES)} C calls ({smi})")
+              f"{dict(cuda.LAUNCHES)} C calls, {device[label]:.5f} ms of "
+              f"device time a call ({smi})")
         check(len(kernels) == 1 and sum(kernels.values()) == 10
               and sum(cuda.LAUNCHES.values()) == 10,
               f"{label}: a call is not one C call and one kernel "
               f"({dict(kernels)}, {dict(cuda.LAUNCHES)})")
+    return device
 
 
 def radix_launches(smi: str, keys: dict) -> None:
@@ -2493,6 +2718,36 @@ def rank_merge_times(record, operands: dict) -> None:
                event_ms(lambda: torch.sort(flat, dim=-1, stable=True), 10),
                n * (2 * keys.element_size() + 4),
                n * math.ceil(math.log2(t)))
+
+
+def replay_times(record, dev) -> None:
+    """The NaN replay alone (``merge_ranks_replay``, ROADMAP C15): one
+    merge call leaves the entries' flags, merged keys and order, then
+    the replay's C call is timed over them (it rewrites the flagged
+    entries the same way each time): at C15's rows in f32, a clean entry
+    beside, which it skips; and at SMMS's landed rows (64, 64, 2152)
+    with one NaN entry (``@smms``: a (64, 4096) padded entry).  Plain:
+    the plain replay of the flagged entries.  Bound: their keys read
+    once, their merged keys and order written once; operations: one
+    compare a probe, at the reference's fixed step count.  No library
+    call computes it."""
+    for name, keys in (("merge_ranks_replay",
+                        c15_rows("C15 (4, 16500), blocked").to(dev)),
+                       ("merge_ranks_replay@smms", smms_nan_rows(dev))):
+        batch, t, c = keys.shape
+        merged, order, flags = fused._launch_merge(keys, None, None)
+        bb = fused._rank_merge_block(c)
+        nan = fused._nan_entries(keys)
+        dirty = keys[nan]
+        tp2, cp2 = bitonic._next_pow2(t), max(2, bitonic._next_pow2(c))
+        width = bb or cp2
+        probes = (len(dirty) * tp2 * cp2 * tp2 * (cp2 // width)
+                  * math.ceil(math.log2(width + 1)))
+        record(name,
+               timed_ms(lambda: fused._launch_replay(
+                   keys, None, flags, merged, order, None, bb), 10),
+               event_ms(lambda: fused._merge_replay(dirty), 1, warm=0),
+               None, dirty.numel() * (2 * keys.element_size() + 4), probes)
 
 
 def bf16_times(record, rng, x, xs) -> None:
@@ -2758,7 +3013,7 @@ def main() -> None:
     phase_small_radix()
     runs["bf16"] = phase_bf16(smi)
     runs["wide"] = phase_wide(smi)
-    phase_nan_keys()
+    phase_nan_keys(errs)
     runs["bucketize"] = phase_bucketize(smi)
     phase_serve_smoke()
     serving = phase_serve(smi)
@@ -2776,11 +3031,15 @@ def main() -> None:
                 "bound_ms": times[name]["bound_ms"],
                 "bound_by": times[name]["bound_by"],
                 "library_ms": times[name]["library_ms"],
+                **({"device_ms": times[name]["device_ms"]}
+                   if "device_ms" in times[name] else {}),
                 # the other key dtype's kernel at the same shape: bf16
                 # for the sort side, the f32 CUDA-core kernel for attention
                 "other_dtype": {key.split("@")[1]: {
                     f: times[key][f] for f in ("ms", "plain_ms", "bound_ms",
-                                               "bound_by", "library_ms")}
+                                               "bound_by", "library_ms",
+                                               "device_ms")
+                    if f in times[key]}
                     for key in (f"{name}@bf16", f"{name}@f32")
                     if key in times},
                 # the same kernel at other shapes: the paths' own

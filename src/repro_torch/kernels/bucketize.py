@@ -148,6 +148,28 @@ def bucketize_histogram_plain(keys: torch.Tensor, boundaries: torch.Tensor,
     return ids, counts
 
 
+# (device index, raw stream) -> (the histogram kernel's workspace, the
+# largest t it serves): int32, the ticket the grid's last block takes
+# and the grid's counts (the counts' size past 12,288 buckets, 48 KiB
+# below), both zero between calls (the last block leaves them so).
+# Made with zeros once, grown when a call asks for more buckets; calls
+# on one stream run in order, so they share it.
+_WORKSPACE: dict = {}
+
+
+def _workspace(device: torch.device, t: int) -> torch.Tensor:
+    key = cuda.stream_key()
+    if device.index != key[0]:
+        raise ValueError(f"bucketize_histogram: keys on {device} but the "
+                         f"current device is cuda:{key[0]}")
+    ws = _WORKSPACE.get(key)
+    if ws is None or ws[1] < t:
+        ints = cuda.library("searchsorted").bucketize_histogram_workspace(t)
+        ws = _WORKSPACE[key] = (torch.zeros((ints,), dtype=torch.int32,
+                                            device=device), t)
+    return ws[0]
+
+
 def bucketize_histogram(keys: torch.Tensor, boundaries: torch.Tensor,
                         t: int):
     """keys (n,), boundaries (t-1,) ascending -> (ids (n,), counts (t,)).
@@ -157,7 +179,8 @@ def bucketize_histogram(keys: torch.Tensor, boundaries: torch.Tensor,
     -- and counts[i] is the number of keys with id i, both int32.
     Duplicate boundaries leave their middle buckets empty; t need not
     be a power of two, nor below 2^16.  A CUDA tensor runs the kernel
-    (float32, bfloat16 or int32, one dtype for both operands); a CPU
+    (float32, bfloat16 or int32, one dtype for both operands; keys may
+    be a view at any offset): one launch a call, no memset; a CPU
     tensor the plain version.
     """
     _check_buckets(keys, boundaries, t)
@@ -173,5 +196,6 @@ def bucketize_histogram(keys: torch.Tensor, boundaries: torch.Tensor,
     cuda.launch("bucketize_histogram",
                 f"bucketize_histogram_{_SUFFIX[keys.dtype]}",
                 keys.data_ptr(), boundaries.data_ptr(), ids.data_ptr(),
-                counts.data_ptr(), n, t, _steps(t - 1))
+                counts.data_ptr(), _workspace(keys.device, t).data_ptr(), n,
+                t)
     return ids, counts

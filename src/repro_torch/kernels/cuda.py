@@ -35,7 +35,7 @@ from typing import Dict, Iterable, NamedTuple, Optional
 
 __all__ = ["SOURCES", "Kernel", "KERNELS", "LAUNCHES", "BUILD_LOG",
            "reset_launches", "build_all", "library", "launch",
-           "check_cuda_tensor"]
+           "stream_key", "check_cuda_tensor"]
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
@@ -70,6 +70,10 @@ KERNELS = {
     "merge_rows": Kernel("merge_rows", "src/repro/kernels/bitonic.py:313"),
     "merge_rows_kv": Kernel("merge_rows", "src/repro/kernels/bitonic.py:321"),
     "merge_ranks": Kernel("merge_ranks", "src/repro/kernels/fused.py:286"),
+    # the reference's ranks replayed on batch entries whose keys hold a
+    # NaN, where the merge's order is not the reference's (ROADMAP C15)
+    "merge_ranks_replay": Kernel("merge_ranks",
+                                 "src/repro/kernels/fused.py:272"),
     "sort_partition": Kernel("sort_partition",
                              "src/repro/kernels/fused.py:87"),
     "sort_partition_kv": Kernel("sort_partition",
@@ -98,30 +102,36 @@ _SORT_SIGNATURES = {
     "bitonic_sort_kv": [_P] * 6 + [_I64, _I64, _P],
     "merge_rows": [_P, _P, _P, _I64, _I64, _I64, _P],
     "merge_rows_kv": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _P],
-    "merge_ranks": [_P] * 10 + [_I64, _I64, _I64, _P],
+    "merge_ranks": [_P] * 11 + [_I64, _I64, _I64, _P],
     "sort_partition": [_P] * 5 + [_I64, _I64, _I64, _P],
     "sort_partition_kv": [_P] * 7 + [_I64, _I64, _I64, _P],
     "radix_sort": [_P] * 6 + [_I64, _I64, _I64, _P],
-    "bucketize_histogram": [_P, _P, _P, _P, _I64, _I64, _I32, _P],
+    "bucketize_histogram": [_P] * 5 + [_I64, _I64, _P],
 }
 # every sort-side kernel has one entry point per key dtype
 SIGNATURES = {f"{fn}_{suffix}": args
               for fn, args in _SORT_SIGNATURES.items()
               for suffix in ("f32", "bf16", "i32")}
+# the NaN replay: float keys only (int32 keys hold no NaN)
+SIGNATURES.update({f"merge_ranks_replay_{suffix}": [_P] * 6 + [_I64] * 4
+                   + [_P] for suffix in ("f32", "bf16")})
 SIGNATURES.update({"flash_attention_f32": _FLASH,
                    "flash_attention_bf16": _FLASH,
                    "merge_ranks_cuts": [_I64, _I64, _I64],
+                   "bucketize_histogram_workspace": [_I64],
                    "merge_rows_launch_lanes": [_I32, _I32]})
 # entry points that return something other than a cudaError_t
 RESTYPES = {"merge_ranks_cuts": ctypes.c_longlong,
+            "bucketize_histogram_workspace": ctypes.c_longlong,
             "merge_rows_launch_lanes": ctypes.c_longlong}
 
 # kernel name -> calls of its C entry point made through launch(); the
 # counts the chip smoke run reads to show the main path went through each
-# kernel.  A call is one launch for every kernel but two, each of which
+# kernel.  A call is one launch for every kernel but three, each of which
 # counts once a call: the rank merge launches its phases one after
-# another (merge_ranks.cu: phase A, then a cut and a merge kernel a
-# level), and the in-tile merge launches its global passes when a padded
+# another (merge_ranks.cu: a memset of its NaN flags, phase A, then a
+# cut and a merge kernel a level), the radix sort a memset and a kernel
+# a pass, and the in-tile merge launches its global passes when a padded
 # entry outgrows one block's shared memory (merge_rows.cu).
 LAUNCHES: collections.Counter = collections.Counter()
 # kernel name -> {"seconds": build time, "ptxas": nvcc's -Xptxas -v}
@@ -222,6 +232,14 @@ def _stream_accessor():
     import torch
 
     return torch._C._cuda_getDevice, torch._C._cuda_getCurrentRawStream
+
+
+def stream_key() -> tuple:
+    """(device index, raw handle) of the current stream: what a
+    wrapper keys state by that calls on one stream must share."""
+    device, raw_stream = _stream_accessor()
+    index = device()
+    return index, raw_stream(index)
 
 
 def _entry(name: str, fn: str):

@@ -69,14 +69,14 @@ __all__ = [
 # landed rows merge by the rank merge once their padded t * c passes
 # it; that crossover is still the TPU's, not fitted on the H100).
 # RANK_MERGE_BOUND_BLOCK is the reference's bound-row block (its
-# _rank_merge blocks rows wider than it); the dispatch here no longer
-# reads it: the CUDA rank merge merges the landed rows at their own
-# width and sizes its shared-memory tiles itself (csrc/merge_ranks.cu),
-# and the plain ranks are the same blocked or not.  It stays the block
-# a caller hands fused.merge_ranks to run the reference's blocked
-# variant.
+# _rank_merge blocks rows wider than it): the CUDA rank merge merges the
+# landed rows at their own width and sizes its shared-memory tiles
+# itself (csrc/merge_ranks.cu); the block matters only where an entry's
+# keys hold a NaN, and fused.rank_merge replays the reference's blocked
+# searches there.  It is also the block a caller hands fused.merge_ranks
+# to run the reference's blocked variant.
 MAX_KERNEL_LANES = 1 << 16
-RANK_MERGE_BOUND_BLOCK = 1 << 11
+RANK_MERGE_BOUND_BLOCK = fused.RANK_MERGE_BOUND_BLOCK
 MERGE_TILE_LANES = bitonic.MERGE_TILE_LANES
 
 # The sort-family split (reference ops.py:116-135): radix wins once the
@@ -460,15 +460,20 @@ def _merge_fits_one_tile(t: int, c: int) -> bool:
 
 
 def _rank_merge(keys: torch.Tensor, with_order: bool = False):
-    """Scale-out merge of (batch, t, c) sorted rows at their own width.
+    """Scale-out merge of (batch, t, c) sorted rows: the reference's
+    ``_rank_merge`` of each batch entry.
 
-    ``fused.rank_merge``: the keys in the lexicographic (key, flat id)
-    order, ids ``row * c + col`` -- exactly the real part of the
-    reference's padded rows, whose pads rank above every real pair --
-    and the flat ids in that order, the stable flat argsort.  On the
-    card both come out of the merge kernel's last level; on the CPU from
-    the plain ranks and a scatter.  Returns (merged (batch, t*c), order
-    (batch, t*c) int32, or None without ``with_order``).
+    ``fused.rank_merge``.  Where an entry's keys hold no NaN: the keys
+    in the lexicographic (key, flat id) order, ids ``row * c + col`` --
+    the real part of the reference's padded rows, whose pads rank above
+    every real pair -- and the flat ids in that order, the stable flat
+    argsort; on the card from the merge kernel's last level, on the CPU
+    from the plain ranks of the unpadded rows and a scatter.  Where they
+    hold a NaN (ROADMAP C15): the reference's padded ranks, blocked as
+    it blocks them, and its last-wins scatter into zeros, from the
+    replay kernel on the card and the plain replay on the CPU.  Returns
+    (merged (batch, t*c), order (batch, t*c) int32, or None without
+    ``with_order``).
     """
     merged, order = fused.rank_merge(keys.contiguous())
     return merged, (order if with_order else None)

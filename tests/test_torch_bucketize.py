@@ -141,3 +141,86 @@ def test_bucketize_kernel_matches_plain_on_the_card(card, rng, dtype, t):
     assert cuda.LAUNCHES["bucketize_histogram"] == (t > 1)
     want_ids, want_counts = bucketize.bucketize_histogram_plain(kt, bt, t)
     assert torch.equal(ids, want_ids) and torch.equal(counts, want_counts)
+
+
+def card_keys(rng, dtype, n):
+    """Keys of every class (NaN, +-inf, +-0, denormals, int32 extremes)
+    as a torch operand of ``dtype``, and the keys the bounds come from."""
+    np_dtype = np.int32 if dtype == torch.int32 else np.float32
+    keys, _ = keys_and_bounds(rng, np_dtype, n, 2)
+    kt = torch.from_numpy(keys)
+    return kt.to(torch.bfloat16) if dtype == torch.bfloat16 else kt
+
+
+def card_bounds(keys: torch.Tensor, t: int) -> torch.Tensor:
+    """t - 1 ascending boundaries drawn from the finite keys, with a
+    duplicate where t > 3."""
+    finite = torch.sort(keys[torch.isfinite(keys.float())]).values
+    b = finite[torch.linspace(0, len(finite) - 1, t + 1)[1:-1].long()]
+    if t > 3:
+        b[1] = b[2]
+    return b.contiguous()
+
+
+CARD_DTYPES = [torch.float32, torch.bfloat16, torch.int32]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", CARD_DTYPES, ids=str)
+def test_bucketize_kernel_tails_and_views_on_the_card(card, rng, dtype):
+    """Every n from 0 to 33 and 4,194,305 (no whole 16-byte vector, and
+    a tail past the vectors), and views at offsets 1 and 3 (a data_ptr
+    off 16 bytes: the kernel's scalar head): ids and counts bitwise the
+    plain version's, one launch a call."""
+    keys = card_keys(rng, dtype, 4_194_305 + 3).to(card)
+    bounds = card_bounds(keys, 64)
+    views = [keys[:n] for n in [*range(34), 4_194_305]]
+    views += [keys[1:], keys[3:]]
+    assert keys[1:].data_ptr() % 16 and keys[3:].data_ptr() % 16
+    for view in views:
+        cuda.reset_launches()
+        ids, counts = bucketize.bucketize_histogram(view, bounds, 64)
+        assert dict(cuda.LAUNCHES) == {"bucketize_histogram": 1}
+        want_ids, want_counts = bucketize.bucketize_histogram_plain(
+            view, bounds, 64)
+        assert torch.equal(ids, want_ids) and torch.equal(counts, want_counts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [2, 3, 64, 257, 4097, 12289])
+@pytest.mark.parametrize("dtype", CARD_DTYPES, ids=str)
+def test_bucketize_kernel_bucket_counts_on_the_card(card, rng, dtype, t):
+    """Each warp's own counters (t up to 384), one block histogram
+    (4,097) and device-memory counters past SHARED_HIST_MAX (12,289),
+    with NaN keys and a duplicate bound, then a NaN bound: bitwise the
+    plain version's."""
+    keys = card_keys(rng, dtype, 300_001).to(card)
+    bounds = card_bounds(keys, t)
+    ids, counts = bucketize.bucketize_histogram(keys, bounds, t)
+    want_ids, want_counts = bucketize.bucketize_histogram_plain(
+        keys, bounds, t)
+    assert torch.equal(ids, want_ids) and torch.equal(counts, want_counts)
+    if dtype != torch.int32 and t > 2:       # a NaN among the boundaries
+        bounds[t // 3] = float("nan")
+        ids, counts = bucketize.bucketize_histogram(keys, bounds, t)
+        want_ids, want_counts = bucketize.bucketize_histogram_plain(
+            keys, bounds, t)
+        assert torch.equal(ids, want_ids)
+        assert torch.equal(counts, want_counts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", CARD_DTYPES, ids=str)
+def test_bucketize_kernel_calls_of_changing_t_on_the_card(card, rng, dtype):
+    """Calls on one stream share the kernel's workspace whatever their t:
+    past SHARED_HIST_MAX (20,000, 12,289, 16,000), across the 128-byte
+    counter lines' reach (385, 384) and back, each call's ids and
+    counts bitwise the plain version's."""
+    keys = card_keys(rng, dtype, 300_001).to(card)
+    for t in (20000, 12289, 20000, 16000, 385, 384, 64, 1025, 20000):
+        bounds = card_bounds(keys, t)
+        ids, counts = bucketize.bucketize_histogram(keys, bounds, t)
+        want_ids, want_counts = bucketize.bucketize_histogram_plain(
+            keys, bounds, t)
+        assert torch.equal(ids, want_ids), t
+        assert torch.equal(counts, want_counts), t
