@@ -17,6 +17,10 @@ version there:
   ``ops.force_sort_kernel`` where the cost model would pick the other);
   with bf16 keys at both sizes; and at t = 64 x m = 262,144, rows past
   the bitonic tile's reach;
+* the same sorts with ``exchange="staged"`` -- the two-level exchange
+  over the 8 x 8 factorization of t = 64 -- and with
+  ``algorithm="auto", exchange="auto"`` (the planner's sketch round on
+  the card, then the winner), traced once through ``repro_torch.obs``;
 * ``repro_torch.cluster.join(...)`` -- StatJoin (paper §4.3) on the
   paper's §5.2 Zipf tables (2^17 x 2^17, theta 0.5) and scalar-skew
   tables (2^20 rows, a hot key 2048 x 2048), RandJoin (§4.2) on the same
@@ -91,6 +95,22 @@ without printing a result:
                 with bound_block None and 2048; SMMS (t=2 x 32,768) and
                 Terasort (t=2 x 16,384) with values and NaN keys whose
                 Round 3 takes the rank merge, equal to the CPU run
+     staged     SMMS and Terasort at t=64 x 65,536 with exchange="staged"
+                (8 x 8), keys only and with the records, on the four
+                inputs: keys, records (in (key, row id) order), workload
+                and every report field the topologies share equal to
+                the flat run on the card, alpha one more; the medians
+                and peaks of both on the uniform keys; the rank merge at
+                the staged shapes (phase 3); one traced sort a topology,
+                its phase spans equal to the report's phases, and
+                obs.timeit against the host clock; t=16 (4 x 4) with
+                values equal to the CPU run on the same draws
+     auto       algorithm="auto" (exchange="auto") on the uniform and
+                Zipf t=64 keys, and on the Zipf and scalar-skew join
+                tables at t=64: the plan equal to the CPU's (the sketch
+                profile bitwise), the output equal to the call naming
+                the winner, a second call served from the plan cache
+                with no sketch; the planner's cold and cached times
   6. serving    bucketize_histogram through its entry point against
                 numpy; gemma3-12b's smoke config on the card against the
                 CPU (logits within 2e-3, the same tokens); generate at
@@ -132,6 +152,7 @@ limit.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import importlib
 import json
@@ -248,6 +269,23 @@ PATH_KERNELS = {
     # rows of 2^18, past the bitonic tile's reach
     "sort_wide": RADIX_MAIN,
     "terasort_wide": RADIX_MAIN,
+    # the staged exchange at t = 64 (8 x 8): Round 3's cut, then the
+    # restage's per-row search; every merge past one tile
+    "sort_staged": {"bitonic_sort", "searchsorted"} | RANK_MERGE,
+    "sort_staged_payload": {"bitonic_sort_kv", "searchsorted"} | RANK_MERGE,
+    "terasort_staged": {"sort_partition", "searchsorted"} | RANK_MERGE,
+    "terasort_staged_payload": ({"sort_partition_kv", "searchsorted"}
+                                | RANK_MERGE),
+    "small_sort_staged_values": {"bitonic_sort_kv", "searchsorted",
+                                 "merge_rows_kv"},
+    "small_terasort_staged_values": {"sort_partition_kv", "searchsorted",
+                                     "merge_rows_kv"},
+    # algorithm="auto": the sketch's kernels and the winner's, set by
+    # phase_auto from the plan
+    "sort_auto_uniform": set(),
+    "sort_auto_zipf": set(),
+    "join_auto_zipf": set(),
+    "join_auto_scalar_skew": set(),
     "bucketize": {"bucketize_histogram"},
     "serve_gemma3_12b": {"flash_attention"},
     "serve_gemma3_smoke": {"flash_attention"},
@@ -613,6 +651,7 @@ def phase_kernels(rng) -> dict:
                 fused.merge_ranks(ke, ie, bb),
                 fused.merge_ranks_plain(ke, ie, bb))
     rank_operands(compare, rng, dev)
+    staged_and_auto_operands(compare)
 
     def close(name, label, kernel_out, plain_out, tol):
         a, b = kernel_out.float(), plain_out.float()
@@ -1195,23 +1234,79 @@ def join_kernels(name: str, sorts) -> set:
     return want
 
 
+# the kernel wrappers a sort path, a join or the planner's sketch hands
+# operands: (module, wrapper, kernel name in cuda.KERNELS, plain version)
+TAPPED_WRAPPERS = (
+    (bitonic, "bitonic_sort", "bitonic_sort", bitonic.bitonic_sort_plain),
+    (bitonic, "bitonic_sort_kv", "bitonic_sort_kv",
+     bitonic.bitonic_sort_kv_plain),
+    (radix, "radix_sort", "radix_sort", radix.radix_sort_plain),
+    (bucketize, "searchsorted", "searchsorted", bucketize.searchsorted_plain),
+    (fused, "sort_partition", "sort_partition", fused.sort_partition_plain),
+    (fused, "sort_partition_kv", "sort_partition_kv",
+     fused.sort_partition_kv_plain),
+    (bitonic, "merge_sorted_rows", "merge_rows",
+     bitonic.merge_sorted_rows_plain),
+    (bitonic, "merge_sorted_rows_argsort", "merge_rows_kv",
+     bitonic.merge_sorted_rows_argsort_plain),
+    (fused, "rank_merge", "merge_ranks", fused.rank_merge_plain),
+)
+
+
+@contextlib.contextmanager
+def kernel_taps(compare, label: str, calls: list, keep=None):
+    """Every wrapper of :data:`TAPPED_WRAPPERS` tapped while the block
+    runs: each call runs the kernel, then its plain version on the same
+    card tensors, and the two are held bitwise equal.  ``calls`` gets
+    (kernel, operands) of each call; ``keep(kernel, args)`` sees the
+    operands.  Runs under taps are not main-path runs: the counts are
+    reset before each of those."""
+    saved = [(mod, attr, getattr(mod, attr))
+             for mod, attr, _, _ in TAPPED_WRAPPERS]
+
+    def tap(name, kernel, plain):
+        def tapped(*args, **kw):
+            out = kernel(*args, **kw)
+            ts = [a for a in args if isinstance(a, torch.Tensor)]
+            what = (" x ".join(str(tuple(a.shape)) for a in ts)
+                    + f" {str(ts[0].dtype)[6:]}"
+                    + "".join(f", {v}" for v in list(args[len(ts):])
+                              + list(kw.values()) if isinstance(v, str)))
+            compare(name, f"{label}: {what}", out, plain(*args, **kw))
+            calls.append((name, what))
+            if keep is not None:
+                keep(name, args)
+            return out
+        return tapped
+
+    for (mod, attr, name, plain), (_, _, kernel) in zip(TAPPED_WRAPPERS,
+                                                        saved):
+        setattr(mod, attr, tap(name, kernel, plain))
+    try:
+        yield calls
+    finally:
+        for mod, attr, kernel in saved:
+            setattr(mod, attr, kernel)
+
+
+def _called(calls, name: str, part: str) -> bool:
+    return any(n == name and part in what for n, what in calls)
+
+
 def join_operands(compare) -> None:
     """The fused pair sort, the pair sort, the radix sort and the
     searches at the joins' own operands.
 
-    Each join of :data:`JOINS` runs once with its kernel wrappers
-    tapped: every call runs the kernel, then the plain version on the
-    same card tensors, and the two are held bitwise equal.  So every
-    shape and dtype the main path's joins hand a kernel is checked:
-    RandJoin's int32 draws sorted with their order, the int32 T sides
-    with MASKED_KEY tails, the S keys searched into them, and the int32
-    ``cum`` rows searched by every output slot.  The widths each join's
-    sorts get set its entry of :data:`PATH_KERNELS` (:func:`join_kernels`).
-    These runs are not main-path runs: the counts are reset before each
-    of those.
+    Each join of :data:`JOINS` runs once under :func:`kernel_taps`:
+    every kernel call is held bitwise against its plain version on the
+    same card tensors.  So every shape and dtype the main path's joins
+    hand a kernel is checked: RandJoin's int32 draws sorted with their
+    order, the int32 T sides with MASKED_KEY tails, the S keys searched
+    into them, and the int32 ``cum`` rows searched by every output slot.
+    The widths each join's sorts get set its entry of
+    :data:`PATH_KERNELS` (:func:`join_kernels`).  These runs are not
+    main-path runs: the counts are reset before each of those.
     """
-    sort_kv, search = bitonic.bitonic_sort_kv, bucketize.searchsorted
-    fused_kv, radix_sort = fused.sort_partition_kv, radix.radix_sort
     ops_sort_kv, ops_partition_kv = ops.sort_kv, ops.sort_partition_kv
     for name, cfg in JOINS.items():
         sorts = []
@@ -1224,51 +1319,16 @@ def join_operands(compare) -> None:
             sorts.append(("sort_partition_kv", keys.shape[-1]))
             return ops_partition_kv(keys, values, interior)
 
-        def tapped_radix(keys):
-            out = radix_sort(keys)
-            compare("radix_sort", f"{name}: {tuple(keys.shape)} "
-                    f"{str(keys.dtype)[6:]}", out,
-                    radix.radix_sort_plain(keys))
-            return out
-
-        def tapped_sort_kv(keys, values=None):
-            out = sort_kv(keys, values)
-            compare("bitonic_sort_kv", f"{name}: {tuple(keys.shape)} "
-                    f"{str(keys.dtype)[6:]}, order generated"
-                    if values is None else "+ values",
-                    out, bitonic.bitonic_sort_kv_plain(keys, values))
-            return out
-
-        def tapped_search(rows, queries, side="left", valid_len=None):
-            out = search(rows, queries, side, valid_len)
-            compare("searchsorted", f"{name}: {tuple(rows.shape)} x "
-                    f"{tuple(queries.shape)} {str(rows.dtype)[6:]}, {side}",
-                    out, bucketize.searchsorted_plain(rows, queries, side,
-                                                      valid_len))
-            return out
-
-        def tapped_fused_kv(keys, queries):
-            out = fused_kv(keys, queries)
-            compare("sort_partition_kv", f"{name}: {tuple(keys.shape)} "
-                    f"{str(keys.dtype)[6:]} x {queries.shape[1]}", out,
-                    fused.sort_partition_kv_plain(keys, queries))
-            return out
-
         s, t = cfg.tables()
-        bitonic.bitonic_sort_kv = tapped_sort_kv
-        bucketize.searchsorted = tapped_search
-        fused.sort_partition_kv = tapped_fused_kv
-        radix.radix_sort = tapped_radix
         ops.sort_kv, ops.sort_partition_kv = (tapped_ops_sort_kv,
                                               tapped_ops_partition_kv)
         try:
-            cluster.join(s, np.arange(len(s), dtype=np.int32),
-                         t, np.arange(len(t), dtype=np.int32),
-                         algorithm=cfg.algorithm, t_machines=JOIN_T,
-                         seed=SEED, device=DEVICE, **cfg.options)
+            with kernel_taps(compare, name, []):
+                cluster.join(s, np.arange(len(s), dtype=np.int32),
+                             t, np.arange(len(t), dtype=np.int32),
+                             algorithm=cfg.algorithm, t_machines=JOIN_T,
+                             seed=SEED, device=DEVICE, **cfg.options)
         finally:
-            bitonic.bitonic_sort_kv, bucketize.searchsorted = sort_kv, search
-            fused.sort_partition_kv, radix.radix_sort = fused_kv, radix_sort
             ops.sort_kv, ops.sort_partition_kv = (ops_sort_kv,
                                                   ops_partition_kv)
         PATH_KERNELS[name] = join_kernels(name, sorts)
@@ -2232,6 +2292,536 @@ def phase_serve_smoke() -> None:
 
 
 # ---------------------------------------------------------------------------
+# 6b. the staged exchange, the planner and tracing
+# ---------------------------------------------------------------------------
+
+# (algorithm, exchange) -> the name of the keys-only path that runs it
+TOPOLOGY_PATHS = {("smms", "flat"): "sort", ("terasort", "flat"): "terasort",
+                  ("smms", "staged"): "sort_staged",
+                  ("terasort", "staged"): "terasort_staged"}
+# the planner's sketch round: a keys-only sort of each sampled shard
+# (512 keys) and two searches of it against itself
+SKETCH_KERNELS = {"bitonic_sort", "searchsorted"}
+T_STAGED_SMALL = 16         # 4 x 4: the small staged runs against the CPU
+
+
+def staged_path(algorithm: str, payload: bool) -> str:
+    return (TOPOLOGY_PATHS[(algorithm, "staged")]
+            + ("_payload" if payload else ""))
+
+
+def staged_and_auto_operands(compare) -> None:
+    """The kernels at the operands the staged exchange and the planner
+    hand them, every call held bitwise against its plain version on the
+    same card tensors (:func:`kernel_taps`).
+
+    SMMS and Terasort staged at t = 64 (8 x 8) on uniform keys, keys
+    only, as f32 and as bf16: the rank merges of the stage-1 landed
+    rows, the two stage-2 chunks and the cross-chunk merge; the
+    restage's per-row (64, 7) searches of the merged rows; the sorts
+    and cuts of Rounds 1-3.  The f32 runs' first merge of each shape is
+    kept in :data:`RANK_OPERANDS` (timed in phase 8), and SMMS's stage-1
+    rows are held again with a NaN in entry 5 (the merge, then its
+    replay).  Then ``algorithm="auto"`` on the uniform and Zipf sorts
+    and the Zipf and scalar-skew joins, the plan cache cleared: the
+    sketch's sort of the (64, 512) sampled shards and its two
+    self-searches, left and right, and the winner's kernels."""
+    from repro_torch import planner
+    from repro_torch.launch import factor_shards
+    _, t2 = factor_shards(T)
+    inputs = sort_inputs(SEED)
+    x = inputs["uniform"][0]
+    names = ("s1", "chunk", "chunk", "cross")
+    for algorithm in PATHS:
+        for dtype in ("f32", "bf16"):
+            merges, calls = [], []
+
+            def keep(name, args):
+                if name != "merge_ranks":
+                    return
+                if dtype == "f32":
+                    label = f"{algorithm}_staged_{names[min(len(merges), 3)]}"
+                    RANK_OPERANDS.setdefault(label, args[0].cpu())
+                merges.append(tuple(args[0].shape))
+
+            xin = x if dtype == "f32" else torch.from_numpy(x).to(
+                torch.bfloat16)
+            with kernel_taps(compare, f"{algorithm} staged {dtype}", calls,
+                             keep):
+                cluster.sort(xin, algorithm=algorithm, seed=SEED,
+                             exchange="staged", device=DEVICE)
+            print(f"[kernels] {algorithm} staged {dtype} at t={T}: rank "
+                  f"merges of {merges}")
+            check(len(merges) == 4, f"{algorithm} staged {dtype}: "
+                  f"{len(merges)} rank merges, expected 4 (s1, 2 chunks, "
+                  f"cross)")
+            check(_called(calls, "searchsorted", f"x ({T}, {t2 - 1}) "),
+                  f"{algorithm} staged {dtype}: no per-row ({T}, {t2 - 1}) "
+                  f"restage search among {calls}")
+    keys = RANK_OPERANDS["smms_staged_s1"].clone()
+    e, r, c = keys.shape[0] // 2, keys.shape[1] - 1, keys.shape[2]
+    keys[e, 0, 0] = keys[e, r // 2, c // 4] = keys[e, r, c // 2] = math.nan
+    keys = keys.to(torch.device(DEVICE))
+    compare("merge_ranks_replay", f"smms_staged_s1 {tuple(keys.shape)}, "
+            f"NaN in entry {e}", fused.rank_merge(keys),
+            fused.rank_merge_plain(keys))
+    sample = f"({T}, {planner.sketch.SKETCH_SAMPLE})"
+    runs = [(f"sort auto {name}", lambda x=inputs[name][0]: cluster.sort(
+        x, algorithm="auto", exchange="auto", seed=SEED, device=DEVICE))
+        for name in ("uniform", "zipf")]
+    for name in ("zipf", "scalar_skew"):
+        s, t = JOINS[f"statjoin_{name}"].tables()
+        runs.append((f"join auto {name}", lambda s=s, t=t: cluster.join(
+            s, np.arange(len(s), dtype=np.int32), t,
+            np.arange(len(t), dtype=np.int32), algorithm="auto",
+            t_machines=JOIN_T, seed=SEED, device=DEVICE)))
+    for label, run in runs:
+        calls = []
+        planner.clear_plan_cache()
+        with kernel_taps(compare, label, calls):
+            run()
+        sorts = [w for n, w in calls if n in ("bitonic_sort", "radix_sort")
+                 and w.startswith(sample)]
+        check(any(all(_called(calls, "searchsorted",
+                              f"{sample} x {sample} {w.split()[-1]}, {side}")
+                      for side in ("left", "right")) for w in sorts),
+              f"{label}: the sketch's sort and self-searches of the "
+              f"{sample} shards not seen among {calls}")
+        print(f"[kernels] {label}: sketch calls {sorted(set(sorts))}, "
+              f"{len(calls)} kernel calls held against their plain "
+              f"versions")
+    planner.clear_plan_cache()
+
+
+def _same_pairs(label: str, keys, vals, keys_flat, vals_flat) -> None:
+    """Staged against flat with values: the same keys, and the same
+    records for each key -- equal keys may order their records otherwise
+    (in the reference too), so both sides are put in (key, row id) order
+    first (column 0 of the payload is the row's global id)."""
+    check(same_bits(keys, keys_flat), f"{label}: keys differ from flat")
+
+    def in_id_order(k, v):
+        order = torch.argsort(v[:, 0], stable=True)
+        order = order[torch.argsort(k[order], stable=True)]
+        return v[order]
+
+    check(torch.equal(in_id_order(keys, vals),
+                      in_id_order(keys_flat, vals_flat)),
+          f"{label}: records differ from the flat run's")
+
+
+def _staged_report(label: str, rep, rep_flat, t2: int) -> None:
+    """Every report field the two topologies share, equal: algorithm,
+    sizes, workload, k_workload, the Round-2 phase, the boundaries and
+    the theorem's bound; alpha one more; the samples gathered in two
+    hops (each machine sends its count, then t2 times it); stage 2
+    landing each machine's workload; stage 1 and 2 landing n in all.
+    The capacity schedule (cap_factor, attempts) is each topology's own:
+    the staged tiles hold m/t1- and m/t2-scale pair loads."""
+    for field in ("algorithm", "n_in", "n_out", "k_workload",
+                  "theoretical_workload_bound"):
+        check(getattr(rep, field) == getattr(rep_flat, field),
+              f"{label}: {field} differs from the flat run")
+    check(np.array_equal(rep.workload, rep_flat.workload),
+          f"{label}: workload differs from the flat run")
+    check(np.array_equal(rep.boundaries.view(np.int32),
+                         rep_flat.boundaries.view(np.int32)),
+          f"{label}: boundaries differ from the flat run")
+    check(rep.alpha == rep_flat.alpha + 1 == 4,
+          f"{label}: alpha {rep.alpha}, flat {rep_flat.alpha}")
+    check(rep.exchange_topology == "staged", f"{label}: ran flat")
+    ph, fl = ({p.name: p for p in r.phases} for r in (rep, rep_flat))
+    check(set(ph) == {"round1->2 samples", "round2 boundaries",
+                      "round3 shuffle s1", "round3 shuffle s2"},
+          f"{label}: phases {sorted(ph)}")
+    for f in ("sent", "received"):
+        check(np.array_equal(getattr(ph["round2 boundaries"], f),
+                             getattr(fl["round2 boundaries"], f)),
+              f"{label}: round 2 differs from the flat run")
+    s, fs = ph["round1->2 samples"], fl["round1->2 samples"]
+    t = len(fs.sent)
+    check(np.array_equal(s.sent, fs.sent * (1 + t2))
+          and np.array_equal(s.received, fs.sent * (t2 + t)),
+          f"{label}: the two-hop sample gather's counts")
+    n = rep.n_in
+    check(np.array_equal(ph["round3 shuffle s2"].received, rep.workload)
+          and ph["round3 shuffle s1"].received.sum() == n,
+          f"{label}: the stages' landed counts")
+
+
+def phase_staged(smi: str) -> dict:
+    """The staged exchange at t = 64 x 65,536 (8 x 8): SMMS and Terasort,
+    keys only and with the 100-byte records, by the cost model's family,
+    on the four inputs, held against the flat run on the card (keys,
+    records, workload and every shared report field; alpha one more);
+    the medians and peaks of both topologies on the uniform keys; a
+    traced run of each topology with its phase spans against the report
+    and ``obs.timeit`` against the host clock; then t = 16 (4 x 4) with
+    values against the CPU run on the same draws."""
+    from repro_torch.launch import factor_shards
+    _, t2 = factor_shards(T)
+    out = {}
+    for algorithm in PATHS:
+        for payload in (False, True):
+            path = staged_path(algorithm, payload)
+            for i, (name, (x, _, _)) in enumerate(sort_inputs(SEED).items()):
+                vals = (make_payload(T, M, SEED + i, device=DEVICE)
+                        if payload else None)
+                kw = dict(algorithm=algorithm, seed=SEED, values=vals,
+                          device=DEVICE)
+                (kf, vf), rf = cluster.sort(x, **kw)
+                (ks, vs), rs = on_path(path, lambda: cluster.sort(
+                    x, exchange="staged", **kw))
+                label = f"{path} {name}"
+                if payload:
+                    _same_pairs(label, ks, vs, kf, vf)
+                else:
+                    check(same_bits(ks, kf), f"{label}: keys differ from "
+                                             f"the flat run")
+                _staged_report(label, rs, rf, t2)
+                print(f"[staged] {label:36s} ok: keys"
+                      f"{', records' if payload else ''}, workload and the "
+                      f"shared report fields equal to the flat run; alpha "
+                      f"{rs.alpha}; capacity attempts staged "
+                      f"{rs.capacity_attempts} / flat {rf.capacity_attempts}"
+                      f", k_network {rs.k_network:.4f} / {rf.k_network:.4f}")
+                if name == "uniform":
+                    run = lambda ex: cluster.sort(x, exchange=ex, **kw)
+                    out[path] = {ex: e2e(f"{path} uniform {ex}",
+                                         lambda: run(ex), smi, reps=5)
+                                 for ex in ("flat", "staged")}
+                del vals, kf, vf, ks, vs
+    out["tracing"] = phase_tracing(smi)
+    phase_small_staged()
+    return out
+
+
+def phase_tracing(smi: str) -> dict:
+    """One traced SMMS sort by each topology at t = 64: the span tree's
+    ``phase:*`` children equal to the report's phases, bitwise; then
+    ``obs.timeit`` of the flat sort (it synchronizes the card) against
+    the host-clock medians of the same call."""
+    from repro_torch import obs
+    x = sort_inputs(SEED)["uniform"][0]
+    for exchange in ("flat", "staged"):
+        tracer = obs.Tracer(enabled=True)
+        with tracer.trace("q") as root:
+            _, rep = cluster.sort(x, exchange=exchange, device=DEVICE)
+        runs = [s for s in root.walk() if s.name == "substrate.run"]
+        kids = runs[-1].children
+        check([c.name for c in kids] == [f"phase:{p.name}"
+                                         for p in rep.phases]
+              and all(np.array_equal(c.attrs["sent"], p.sent)
+                      and np.array_equal(c.attrs["received"], p.received)
+                      for c, p in zip(kids, rep.phases)),
+              f"traced {exchange} sort: phase spans != the report's phases")
+        ops_seq = [e.attrs["op"] for s in root.walk() for e in s.events
+                   if e.name == "kernel_dispatch"]
+        print(f"[staged] traced SMMS {exchange}: {len(runs)} substrate.run, "
+              f"phase spans {[c.name for c in kids]} equal to the report, "
+              f"bitwise; dispatches {ops_seq}")
+    fn = lambda: cluster.sort(x, device=DEVICE)
+    walls = e2e("sort uniform flat (beside obs.timeit)", fn, smi, reps=5)
+    res = obs.timeit(fn, reps=5, warmup=1)
+    lo, hi = min(walls["ms"]), max(walls["ms"])
+    best = res.best_s * 1e3
+    check(lo / 1.5 <= best <= hi * 1.5,
+          f"obs.timeit best {best:.3f} ms outside the host clock's "
+          f"[{lo:.3f}, {hi:.3f}] ms (x 1.5)")
+    print(f"[staged] obs.timeit best {best:.3f} ms, mean "
+          f"{res.mean_s * 1e3:.3f} ms of 5; host clock + synchronize "
+          f"{lo:.3f}-{hi:.3f} ms ({smi})")
+    return {"timeit_best_ms": best, "timeit_ms": [s * 1e3
+                                                  for s in res.times_s],
+            "host_clock_ms": walls["ms"],
+            "hooks_off": hook_costs(x, walls["median_ms"], smi)}
+
+
+def _per_call_us(fn, n: int = 20000, reps: int = 5) -> float:
+    """Best of ``reps`` host-clock means of ``n`` back-to-back calls."""
+    best = math.inf
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        best = min(best, (time.perf_counter() - t0) / n)
+    return best * 1e6
+
+
+def hook_costs(x, sort_ms: float, smi: str) -> dict:
+    """What the observability hooks add to an untraced flat SMMS sort,
+    on the host: ``ops._tick`` on a card tensor against its dispatch
+    count alone (all the tick did before the hooks), and
+    ``BatchedSubstrate.run`` of an empty body against the body called
+    on a fresh tape, each the mean of 20,000 calls; times one sort's
+    dispatches and runs.  The probe's dispatch count is taken out
+    again."""
+    from repro_torch.cluster import BatchedSubstrate, CollectiveTape
+    probe = torch.zeros(1, device=DEVICE)
+    key = ("obs_probe", "cuda")
+
+    def count_only():
+        with ops._COUNTS_LOCK:
+            ops.DISPATCH_COUNTS[key] += 1
+
+    def body(*, tape):
+        return None
+
+    sub = BatchedSubstrate(T)
+    tick_us = _per_call_us(lambda: ops._tick("obs_probe", probe))
+    count_us = _per_call_us(count_only)
+    run_us = _per_call_us(lambda: sub.run(body))
+    bare_us = _per_call_us(lambda: body(tape=CollectiveTape()))
+    ops.DISPATCH_COUNTS.pop(key, None)
+    before = collections.Counter(ops.DISPATCH_COUNTS)
+    _, rep = cluster.sort(x, device=DEVICE)
+    dispatches = sum((ops.DISPATCH_COUNTS - before).values())
+    runs = rep.capacity_attempts
+    added_us = (dispatches * (tick_us - count_us)
+                + runs * (run_us - bare_us))
+    print(f"[staged] tracing off, host: ops._tick {tick_us:.3f} us against "
+          f"{count_us:.3f} us for the count alone; substrate.run "
+          f"{run_us:.3f} us against {bare_us:.3f} us for the body; one "
+          f"flat SMMS sort: {dispatches} dispatches, {runs} run(s), "
+          f"{added_us:.2f} us added = {added_us / 10 / sort_ms:.4f}% of "
+          f"its {sort_ms:.3f} ms median ({smi})")
+    return {"tick_us": tick_us, "count_only_us": count_us,
+            "substrate_run_us": run_us, "bare_body_us": bare_us,
+            "dispatches_per_sort": dispatches, "runs_per_sort": runs,
+            "added_us_per_sort": added_us, "sort_median_ms": sort_ms}
+
+
+def phase_small_staged() -> None:
+    """SMMS and Terasort staged at t = 16 x 4,096 (4 x 4: the in-tile
+    merges) with (t, m, 3) values: keys, values, boundaries and every
+    report field equal to the CPU run on the same draws."""
+    t, m = T_STAGED_SMALL, M_SMALL
+    x = lidar_like(t * m, seed=SEED + 5).reshape(t, m)
+    u = torch.rand((t, m), generator=torch.Generator().manual_seed(SEED))
+    v = np.random.default_rng(SEED + 5).integers(
+        0, 1 << 30, (t, m, 3)).astype(np.int32)
+    for algorithm in PATHS:
+        path = f"small_{TOPOLOGY_PATHS[(algorithm, 'staged')]}_values"
+        kw = dict(algorithm=algorithm, values=v, exchange="staged",
+                  uniforms=u if algorithm == "terasort" else None)
+        with ops.force_sort_kernel(forced_family("bitonic", m)):
+            (keys, vals), rep = on_path(path, lambda: cluster.sort(
+                x, device=DEVICE, **kw))
+        (kc, vc), rc = cluster.sort(x, device="cpu", **kw)
+        check(same_bits(keys, kc) and same_bits(vals, vc),
+              f"{path}: card keys or values != CPU")
+        check(np.array_equal(rep.boundaries.view(np.int32),
+                             rc.boundaries.view(np.int32))
+              and rep.exchange_topology == rc.exchange_topology == "staged",
+              f"{path}: boundaries or topology differ from the CPU run")
+        _same_report(path, rep, rc)
+        print(f"[small] {algorithm} staged t={t} (4 x 4) m={m} with values: "
+              f"keys, values, boundaries and every report field equal to "
+              f"the CPU run on the same draws, bitwise")
+
+
+def _same_profile(label: str, got, want) -> None:
+    """A sketch profile of the card against the CPU's, field by field."""
+    for f in dataclasses.fields(want):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        if dataclasses.is_dataclass(b):
+            _same_profile(label, a, b)
+        elif isinstance(b, np.ndarray):
+            check(a.dtype == b.dtype and np.array_equal(a, b),
+                  f"{label}: profile field {f.name} differs from the CPU's")
+        else:
+            check(a == b, f"{label}: profile field {f.name} {a} != {b}")
+
+
+def _same_plan(label: str, plan, plan_cpu) -> None:
+    check((plan.algorithm, plan.exchange) == (plan_cpu.algorithm,
+                                              plan_cpu.exchange)
+          and dataclasses.asdict(plan.predicted)
+          == dataclasses.asdict(plan_cpu.predicted),
+          f"{label}: the card's plan differs from the CPU's")
+    _same_profile(label, plan.profile, plan_cpu.profile)
+
+
+def _ms_since(t0: float) -> float:
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def phase_auto(smi: str) -> dict:
+    """``algorithm="auto"`` at full size.  Sorts (``exchange="auto"``)
+    on the uniform and Zipf t = 64 x 65,536 keys; joins on
+    ``workloads.JOINS``' Zipf 2^17 x 2^17 and scalar-skew 2^20 tables at
+    t = 64.  Each: the first call (the sketch round on the card, then
+    the winner), its plan equal to the CPU's on the same input (the
+    profile bitwise, so the same choice), the output equal to the call
+    naming the winner, and a second call that hits the plan cache and
+    runs no sketch; the planner alone cold and cached."""
+    from repro_torch import planner
+    out = {}
+    inputs = sort_inputs(SEED)
+    for name in ("uniform", "zipf"):
+        x = inputs[name][0]
+        path = f"sort_auto_{name}"
+        kw = dict(seed=SEED, device=DEVICE)
+        planner.clear_plan_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (keys, _), rep = on_path(path, lambda: cluster.sort(
+            x, algorithm="auto", exchange="auto", **kw))
+        first = _ms_since(t0)
+        plan = rep.query_plan
+        t0 = time.perf_counter()
+        (keys2, _), rep2 = cluster.sort(x, algorithm="auto",
+                                        exchange="auto", **kw)
+        cached = _ms_since(t0)
+        stats = planner.planner_stats()
+        check(not plan.cached and rep2.query_plan.cached
+              and stats["sketch_runs"] == 1 and stats["cache_hits"] == 1
+              and rep2.sketch_phases == [] and same_bits(keys2, keys),
+              f"{path}: the second call did not hit the plan cache: {stats}")
+        (kw_keys, _), rep_w = cluster.sort(x, algorithm=plan.algorithm,
+                                           exchange=plan.exchange, **kw)
+        check(same_bits(keys, kw_keys)
+              and rep.exchange_topology == rep_w.exchange_topology,
+              f"{path}: output differs from the call naming the winner")
+        _same_report(path, rep, rep_w)
+        PATH_KERNELS[path] = SKETCH_KERNELS | PATH_KERNELS[
+            TOPOLOGY_PATHS[(plan.algorithm, rep.exchange_topology)]]
+        t0 = time.perf_counter()
+        planner.plan_sort_query(x, t=T, device=DEVICE)   # cached
+        plan_cached = _ms_since(t0)
+        planner.clear_plan_cache()
+        t0 = time.perf_counter()
+        planner.plan_sort_query(x, t=T, device=DEVICE)
+        plan_first = _ms_since(t0)
+        planner.clear_plan_cache()
+        plan_cpu, _ = planner.plan_sort_query(x, t=T, device="cpu")
+        planner.clear_plan_cache()
+        _same_plan(path, plan, plan_cpu)
+        out[path] = {"algorithm": plan.algorithm, "exchange": plan.exchange,
+                     "first_call_ms": first, "cached_call_ms": cached,
+                     "plan_first_ms": plan_first,
+                     "plan_cached_ms": plan_cached,
+                     "predicted_k": rep.predicted_k,
+                     "k_workload": rep.k_workload,
+                     **plan_cache_costs(path, x, plan, kw, smi)}
+        print(f"[auto] {path}: {plan.algorithm} / {plan.exchange} (the CPU's "
+              f"plan, profile bitwise); predicted k {rep.predicted_k:.4f}, "
+              f"measured {rep.k_workload:.4f}; first call {first:.2f} ms, "
+              f"cached {cached:.2f} ms; the planner alone {plan_first:.2f} "
+              f"ms cold, {plan_cached:.2f} ms cached ({smi})")
+    for name in ("zipf", "scalar_skew"):
+        s, t = JOINS[f"statjoin_{name}"].tables()
+        s_rows = np.arange(len(s), dtype=np.int32)
+        t_rows = np.arange(len(t), dtype=np.int32)
+        path = f"join_auto_{name}"
+        kw = dict(t_machines=JOIN_T, seed=SEED, device=DEVICE)
+        planner.clear_plan_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, rep = on_path(path, lambda: cluster.join(
+            s, s_rows, t, t_rows, algorithm="auto", **kw))
+        first = _ms_since(t0)
+        plan = rep.query_plan
+        check_join(path, res, rep, host_pairs(s, t))
+        t0 = time.perf_counter()
+        res2, rep2 = cluster.join(s, s_rows, t, t_rows, algorithm="auto",
+                                  **kw)
+        cached = _ms_since(t0)
+        stats = planner.planner_stats()
+        check(rep2.query_plan.cached and stats["sketch_runs"] == 1
+              and rep2.sketch_phases == [],
+              f"{path}: the second call did not hit the plan cache: {stats}")
+        sorts = []
+        ops_sort_kv, ops_partition_kv = ops.sort_kv, ops.sort_partition_kv
+
+        def tapped_sort_kv(keys, values, **k):
+            sorts.append(("sort_kv", keys.shape[-1]))
+            return ops_sort_kv(keys, values, **k)
+
+        def tapped_partition_kv(keys, values, interior):
+            sorts.append(("sort_partition_kv", keys.shape[-1]))
+            return ops_partition_kv(keys, values, interior)
+
+        ops.sort_kv, ops.sort_partition_kv = (tapped_sort_kv,
+                                              tapped_partition_kv)
+        try:
+            res_w, rep_w = cluster.join(s, s_rows, t, t_rows,
+                                        algorithm=plan.algorithm, **kw)
+        finally:
+            ops.sort_kv, ops.sort_partition_kv = (ops_sort_kv,
+                                                  ops_partition_kv)
+        for field in res._fields:
+            check(same_bits(getattr(res, field), getattr(res_w, field))
+                  and same_bits(getattr(res2, field), getattr(res, field)),
+                  f"{path}: {field} differs from the call naming the winner")
+        _same_report(path, rep, rep_w)
+        PATH_KERNELS[path] = SKETCH_KERNELS | join_kernels(path, sorts)
+        planner.clear_plan_cache()
+        plan_cpu, _ = planner.plan_join_query(s, t, t_machines=JOIN_T,
+                                              device="cpu")
+        planner.clear_plan_cache()
+        _same_plan(path, plan, plan_cpu)
+        out[path] = {"algorithm": plan.algorithm, "first_call_ms": first,
+                     "cached_call_ms": cached,
+                     "predicted_k": rep.predicted_k,
+                     "k_workload": rep.k_workload}
+        print(f"[auto] {path}: {plan.algorithm} (the CPU's plan, profile "
+              f"bitwise); predicted k {rep.predicted_k:.4f}, measured "
+              f"{rep.k_workload:.4f}; first call {first:.2f} ms, cached "
+              f"{cached:.2f} ms ({smi})")
+        del res, res2, res_w
+    return out
+
+
+def plan_cache_costs(path: str, x, plan, kw: dict, smi: str) -> dict:
+    """Does the plan cache pay on a sort?  Medians of 5, one after the
+    other: the fingerprint alone of the rows on the card (its weighted
+    sums there), one blake2b of the same bytes on the host (the
+    fingerprint before), the plan with no cache (upload, sketch,
+    scores), and three whole calls: the winner named, ``auto`` served
+    from the cache, and ``auto`` with the cache bypassed (the uncached
+    plan, then the winner on the rows it uploaded)."""
+    import hashlib
+    from repro_torch import planner
+    from repro_torch.planner.plan import fingerprint_arrays, sketch_sort_plan
+    extra = f"sort|t={T}|r=2"
+
+    def bypassed():
+        xt = torch.as_tensor(x).to(DEVICE)
+        p, _ = sketch_sort_plan(xt, t=T)
+        return cluster.sort(xt, algorithm=p.algorithm, exchange=p.exchange,
+                            **kw)
+
+    planner.plan_sort_query(x, t=T, device=DEVICE)          # warm the cache
+    xt = torch.as_tensor(x).to(DEVICE)
+    times = {
+        "fingerprint_ms": e2e(f"{path} fingerprint of the rows on the "
+                              f"card", lambda: fingerprint_arrays(
+                                  xt, extra=extra), smi),
+        "serial_blake2b_ms": e2e(f"{path} blake2b of the bytes on the host",
+                                 lambda: hashlib.blake2b(
+                                     np.ascontiguousarray(x).tobytes(),
+                                     digest_size=16).hexdigest(), smi),
+        "plan_uncached_ms": e2e(f"{path} plan with no cache",
+                                lambda: sketch_sort_plan(
+                                    torch.as_tensor(x).to(DEVICE), t=T),
+                                smi),
+        "named_call_ms": e2e(f"{path} {plan.algorithm} / {plan.exchange} "
+                             f"named", lambda: cluster.sort(
+                                 x, algorithm=plan.algorithm,
+                                 exchange=plan.exchange, **kw), smi),
+        "auto_cached_call_ms": e2e(f"{path} auto, cached", lambda:
+                                   cluster.sort(x, algorithm="auto",
+                                                exchange="auto", **kw), smi),
+        "auto_bypassed_call_ms": e2e(f"{path} auto, cache bypassed",
+                                     bypassed, smi),
+    }
+    planner.clear_plan_cache()
+    return {k: v["median_ms"] for k, v in times.items()}
+
+
+# ---------------------------------------------------------------------------
 # 8. times
 # ---------------------------------------------------------------------------
 
@@ -3014,6 +3604,8 @@ def main() -> None:
     runs["bf16"] = phase_bf16(smi)
     runs["wide"] = phase_wide(smi)
     phase_nan_keys(errs)
+    runs["staged"] = phase_staged(smi)
+    runs["auto"] = phase_auto(smi)
     runs["bucketize"] = phase_bucketize(smi)
     phase_serve_smoke()
     serving = phase_serve(smi)

@@ -7,11 +7,17 @@
                                t_machines=8)
 
 Counterpart of ``src/repro/cluster/api.py`` (``sort`` :86, ``join``
-:195): SMMS and Terasort with the flat exchange, with or without
-values, and the joins -- StatJoin (the paper's §4.3), RandJoin (§4.2)
-and the baselines, repartition and broadcast.  The staged exchange and
-the planner (``"auto"``) are later slices of the port and raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+:195): SMMS and Terasort, with or without values, over the flat or the
+staged exchange (``exchange="flat" | "staged" | "auto"``), and the
+joins -- StatJoin (the paper's §4.3), RandJoin (§4.2) and the
+baselines, repartition and broadcast.  ``algorithm="auto"`` hands the
+choice to the planner (``repro_torch.planner``): a sketch round
+profiles the input, the theorem cost model scores every candidate, and
+the call dispatches to the winner -- bitwise the call that names it.
+The report then carries the plan (``report.query_plan``), the predicted
+alpha and k beside the measured ones, and the sketch round's phases
+(``report.sketch_phases``); a repeated query over the same data hits
+the plan cache and runs no sketch.
 
 Terasort and RandJoin draw random numbers: from ``seed`` by a
 ``torch.Generator`` on the run's device, or the caller's own draws
@@ -33,11 +39,12 @@ import torch
 
 from .capacity import CapacityPolicy, run_with_capacity
 
-__all__ = ["sort", "join", "SORT_ALGORITHMS", "JOIN_ALGORITHMS",
+__all__ = ["sort", "join", "SORT_ALGORITHMS", "JOIN_ALGORITHMS", "AUTO",
            "resolve_device"]
 
 SORT_ALGORITHMS = ("smms", "terasort")
 JOIN_ALGORITHMS = ("statjoin", "randjoin", "repartition", "broadcast")
+AUTO = "auto"
 
 
 def resolve_device(device=None) -> torch.device:
@@ -73,9 +80,19 @@ def _as_tensor(a) -> torch.Tensor:
     return a if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a))
 
 
+def _attach_plan(report, plan, sketch_phases) -> None:
+    """Put the planner's decision and prediction on an AlphaKReport."""
+    report.query_plan = plan
+    report.predicted_alpha = plan.predicted.alpha
+    report.predicted_k = plan.predicted.k_workload
+    report.predicted_k_network = plan.predicted.k_network
+    report.sketch_phases = list(sketch_phases)
+
+
 def sort(x, *, algorithm: str = "smms", r: int = 2, seed: int = 0,
          cap_factor: Optional[float] = None, policy=None, values=None,
-         exchange: str = "flat", uniforms=None, device=None):
+         exchange: str = "flat", overlap_chunks: int = 2, uniforms=None,
+         device=None):
     """Distributed sort of x: (t, m), one row per machine.
 
     x: a numpy array or a tensor (float32, bfloat16 or int32 keys; a
@@ -88,18 +105,21 @@ def sort(x, *, algorithm: str = "smms", r: int = 2, seed: int = 0,
     sorted keys as a tensor on the run's device, the values in the
     keys' stable order (or None), and the AlphaKReport, as the
     reference's front door returns them.
+
+    ``algorithm="auto"`` lets the planner sketch the rows and pick (the
+    dispatched call is bitwise the call naming the winner).
+    ``exchange``: "flat" (one t-way all-to-all), "staged" (two
+    ~sqrt(t)-way hops over the t1 x t2 factorization of t, stage 2 in
+    ``overlap_chunks`` slices; one more round, the same keys; a t that
+    does not factor warns and runs flat) or "auto" (the planner's
+    topology model); ``report.exchange_topology`` says which ran.
     """
-    if algorithm == "auto":
-        raise NotImplementedError(
-            "algorithm='auto' is not ported yet (the planner is ROADMAP "
-            "queue A item 9)")
-    if algorithm not in SORT_ALGORITHMS:
+    if exchange not in ("flat", "staged", AUTO):
+        raise ValueError(f"unknown exchange topology {exchange!r}; "
+                         f"expected 'flat', 'staged' or '{AUTO}'")
+    if algorithm != AUTO and algorithm not in SORT_ALGORITHMS:
         raise ValueError(f"unknown sort algorithm {algorithm!r}; "
-                         f"expected one of {SORT_ALGORITHMS}")
-    if exchange != "flat":
-        raise NotImplementedError(
-            f"exchange={exchange!r} is not ported yet (the staged exchange "
-            f"is ROADMAP queue A item 6); the port runs 'flat'")
+                         f"expected one of {SORT_ALGORITHMS + (AUTO,)}")
     if np.ndim(x) != 2:
         raise ValueError(
             f"sort expects x of shape (t, m) -- one row per machine -- got "
@@ -107,24 +127,47 @@ def sort(x, *, algorithm: str = "smms", r: int = 2, seed: int = 0,
     if values is not None and tuple(np.shape(values)[:2]) != np.shape(x):
         raise ValueError(f"values of shape {tuple(np.shape(values))} do not "
                          f"align with x of shape {tuple(np.shape(x))}")
+    t, m = (int(d) for d in np.shape(x))
     dev = resolve_device(device)
     xt = torch.as_tensor(_x32(x)).to(dev).contiguous()
     vt = None if values is None else torch.as_tensor(_x32(values)).to(dev)
+    if algorithm == AUTO:
+        from ..planner import plan_sort_query
+        # the fingerprint reads the caller's host array; the sketch the
+        # rows already on the device
+        plan, sketch_phases = plan_sort_query(x, t=t, r=r, device=dev,
+                                              x_device=xt)
+        out, report = sort(
+            xt, algorithm=plan.algorithm, r=r, seed=seed,
+            cap_factor=cap_factor, policy=policy, values=vt,
+            exchange=plan.exchange if exchange == AUTO else exchange,
+            overlap_chunks=overlap_chunks, uniforms=uniforms, device=dev)
+        _attach_plan(report, plan, sketch_phases)
+        return out, report
+    if exchange == AUTO:
+        from ..planner import choose_exchange
+        exchange, _ = choose_exchange(t, m, algorithm=algorithm, r=r,
+                                      cap_factor=cap_factor,
+                                      overlap_chunks=overlap_chunks)
     if algorithm == "terasort":
         from ..core.terasort import terasort_sort
         ut = None if uniforms is None else _as_tensor(uniforms).to(dev)
         return terasort_sort(xt, seed=seed, cap_factor=cap_factor,
-                             policy=policy, values=vt, uniforms=ut)
+                             policy=policy, values=vt, uniforms=ut,
+                             exchange=exchange,
+                             overlap_chunks=overlap_chunks)
     from ..core.smms import smms_sort
     return smms_sort(xt, r=r, cap_factor=cap_factor, policy=policy,
-                     values=vt)
+                     values=vt, exchange=exchange,
+                     overlap_chunks=overlap_chunks)
 
 
 def join(s_keys, s_rows, t_keys, t_rows, *, algorithm: str = "statjoin",
          t_machines: int, out_capacity: Optional[int] = None, seed: int = 0,
          in_cap_factor: float = 4.0, out_cap_factor: float = 1.05,
          ab: Optional[Tuple[int, int]] = None, stats=None,
-         small_side: Optional[str] = None, assignments=None, device=None):
+         small_side: Optional[str] = None, assignments=None,
+         mem_budget: Optional[int] = None, device=None):
     """Distributed equi-join of S and T.  Returns (JoinOutput, report).
 
     Keys and row ids are host arrays (int32 keys below MASKED_KEY);
@@ -143,15 +186,28 @@ def join(s_keys, s_rows, t_keys, t_rows, *, algorithm: str = "statjoin",
     own by Theorem 6.  RandJoin's machine matrix is ``ab=(a, b)`` or
     the §4.2.1 choice; its draws come from ``seed``, or are
     ``assignments=(rows, columns)``, (t, ms) and (t, mt) int32.
+
+    ``algorithm="auto"`` sketches both tables in one round, scores the
+    four algorithms by the theorem cost model and dispatches to the
+    winner; ``mem_budget`` (objects) caps broadcast's small side there.
     """
-    if algorithm == "auto":
-        raise NotImplementedError(
-            "algorithm='auto' is not ported yet (the planner is ROADMAP "
-            "queue A item 9)")
+    dev = resolve_device(device)
+    if algorithm == AUTO:
+        from ..planner import plan_join_query
+        plan, sketch_phases = plan_join_query(
+            s_keys, t_keys, t_machines=t_machines, mem_budget=mem_budget,
+            device=dev)
+        out, report = join(
+            s_keys, s_rows, t_keys, t_rows, algorithm=plan.algorithm,
+            t_machines=t_machines, out_capacity=out_capacity, seed=seed,
+            in_cap_factor=in_cap_factor, out_cap_factor=out_cap_factor,
+            ab=ab, stats=stats, small_side=small_side,
+            assignments=assignments, mem_budget=mem_budget, device=dev)
+        _attach_plan(report, plan, sketch_phases)
+        return out, report
     if algorithm not in JOIN_ALGORITHMS:
         raise ValueError(f"unknown join algorithm {algorithm!r}; "
-                         f"expected one of {JOIN_ALGORITHMS}")
-    dev = resolve_device(device)
+                         f"expected one of {JOIN_ALGORITHMS + (AUTO,)}")
     if algorithm == "statjoin":
         from ..core.statjoin import statjoin
         return statjoin(s_keys, s_rows, t_keys, t_rows, t_machines,

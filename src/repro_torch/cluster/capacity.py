@@ -1,9 +1,8 @@
 """Static receive capacities from theorem bounds + retry-on-overflow.
 
 A copy of ``src/repro/cluster/capacity.py`` (the port imports nothing
-of the reference package).  The reference's retry loop also emits an
-observability event per retry; the port has no observability layer yet,
-so that call is left out.
+of the reference package); each retry is a ``capacity_retry`` event on
+the open trace span, as in the reference.
 
 The exchange's receive tile is sized from the algorithm's workload
 theorem (Theorem 1 for SMMS, Theorem 3 for Terasort); an adversarial initial placement can
@@ -15,6 +14,8 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Iterator, Tuple
+
+from ..obs import trace as obs_trace
 
 __all__ = ["CapacityPolicy", "CapacityOverflowError", "run_with_capacity"]
 
@@ -82,6 +83,9 @@ def run_with_capacity(attempt: Callable[[float], Tuple[object, int]],
     result, dropped, factor = None, 0, policy.first_factor
     for factor in policy.factors():
         attempts += 1
+        if attempts > 1:    # an actual retry (the first try is not one)
+            obs_trace.event("capacity_retry", attempt=attempts,
+                            cap_factor=float(factor), dropped=int(dropped))
         result, dropped = attempt(factor)
         if int(dropped) == 0:
             return result, factor, attempts

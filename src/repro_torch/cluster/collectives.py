@@ -17,6 +17,10 @@ first, and a collective is a tensor operation on that axis.
 Either takes ``track=False`` for a payload that rides along an
 exchange already counted (the paper counts objects: a key and its
 payload are one object).
+* ``all_gather_multi`` / ``staged_all_to_all`` -- the staged
+  exchange's two-hop collectives over a (t1, t2) grid (machine
+  g = i1*t2 + i2 at (i1, i2); sub-axis "i1" is ``axis=0``, "i2"
+  ``axis=1``), each hop recorded on its own.
 * ``psum``        -- a sum over the machine axis; O(1) control scalars
   are not counted.
 
@@ -104,9 +108,7 @@ class CollectiveTape:
         """
         t, c = x.shape[:2]
         if track:
-            sent = torch.as_tensor(c if count is None else count)
-            sent = sent.expand(t) if sent.dim() == 0 else sent
-            self.record(sent=sent, received=_line_sum(sent, grid, axis))
+            self._record_gather(c if count is None else count, t, grid, axis)
         if grid is None:
             return x
         a, b = grid
@@ -117,6 +119,97 @@ class CollectiveTape:
         else:                         # (i, j) sees (i, *): row i
             out = xr.unsqueeze(1).expand(a, b, b, *x.shape[1:])
         return out.reshape(t, grid[axis], *x.shape[1:])
+
+    def _record_gather(self, count, t: int,
+                       grid: Optional[Tuple[int, int]], axis: int):
+        """Record a gather of ``count`` objects a machine (scalar or
+        (t,)); each receives the sum over its line.  Returns the (t,)
+        sent counts."""
+        sent = torch.as_tensor(count)
+        sent = sent.expand(t) if sent.dim() == 0 else sent
+        self.record(sent=sent, received=_line_sum(sent, grid, axis))
+        return sent
+
+    def all_gather_multi(self, x: torch.Tensor, *,
+                         grid: Tuple[int, int]) -> torch.Tensor:
+        """The staged gather: over i2 (``axis=1``), then over i1
+        (``axis=0``).  Returns what the flat gather returns, the (t, c,
+        ...) operand itself in global machine order.  Each hop is
+        recorded on its own -- the relayed copies transit the network
+        twice -- the second with each machine's count times t2 (what it
+        relays), as the reference's ``c * lax.psum(1, name)``."""
+        t, c = x.shape[:2]
+        sent = self._record_gather(c, t, grid, 1)
+        self._record_gather(sent * grid[1], t, grid, 0)
+        return x
+
+    def staged_all_to_all(self, keys_buf: torch.Tensor, *,
+                          grid: Tuple[int, int], values_buf=None, sent=None,
+                          pad=None, restage=None, chunks: int = 1,
+                          chunk_fn=None, phase_prefix: str = "shuffle"):
+        """Two-hop exchange over the (t1, t2) grid (AMS-style staging).
+
+        Stage 1 is one all-to-all over i1: tile g of each machine's
+        (t1, C1) ``keys_buf`` goes to machine group g.  Between the hops
+        ``restage(landed_keys, landed_values)`` maps the (t, t1, C1)
+        landing to ``(buf2, vals2, sent2)``, buf2 (t, t2, C2) with tile d
+        addressed to machine (i1, d).  Without ``restage`` a pure relay
+        runs: ``keys_buf`` is then (t, t1, t2, C), block [g, d]
+        addressed to machine (g, d), and the stage-2 landing, reassembled
+        source-major, equals the flat all-to-all of the same buffer.
+
+        Stage 2 runs in ``chunks`` column slices of buf2 (``chunks``
+        divides C2); ``chunk_fn(keys, values)`` runs on each landed
+        chunk, between the chunked exchanges.  Each stage records into
+        its own phase, ``"<prefix> s1"`` / ``"<prefix> s2"``; a chunk
+        after the first sends nothing new.  Returns ``(chunk_outputs,
+        sent2)``.
+        """
+        with self.phase(f"{phase_prefix} s1"):
+            rk = self.all_to_all(keys_buf, sent=sent, pad=pad, grid=grid,
+                                 axis=0)
+            rv = (None if values_buf is None else
+                  self.all_to_all(values_buf, track=False, grid=grid,
+                                  axis=0))
+        t = keys_buf.shape[0]
+        if restage is not None:
+            buf2, vals2, sent2 = restage(rk, rv)
+        else:
+            if rk.dim() < 4:
+                raise ValueError("relay staging needs a (t, t1, t2, ...) "
+                                 "buffer; pass restage= for other layouts")
+
+            def swap(y):        # (t, t1, t2, C, ...) -> (t, t2, t1*C, ...)
+                y = y.transpose(1, 2)
+                return y.reshape(t, y.shape[1], -1, *y.shape[4:])
+
+            buf2 = swap(rk)
+            vals2 = None if rv is None else swap(rv)
+            if pad is not None:
+                vrow = (buf2 < pad).reshape(t, buf2.shape[1], -1).sum(dim=2)
+                own = torch.arange(t, device=buf2.device) % grid[1]
+                sent2 = vrow.sum(dim=1) - vrow[torch.arange(t), own]
+            else:
+                sent2 = torch.tensor(
+                    (buf2.shape[1] - 1) * int(np.prod(buf2.shape[2:])))
+        chunks = max(1, int(chunks))
+        width = buf2.shape[2]
+        if width % chunks != 0:
+            raise ValueError(f"chunks={chunks} must divide the stage-2 "
+                             f"row length {width}")
+        cc = width // chunks
+        outs = []
+        with self.phase(f"{phase_prefix} s2"):
+            for j in range(chunks):
+                ck = buf2[:, :, j * cc:(j + 1) * cc]
+                cv = None if vals2 is None else vals2[:, :, j * cc:(j + 1) * cc]
+                s = sent2 if j == 0 else torch.zeros(t)
+                ok = self.all_to_all(ck, sent=s, pad=pad, grid=grid, axis=1)
+                ov = (None if cv is None else
+                      self.all_to_all(cv, track=False, grid=grid, axis=1))
+                outs.append(chunk_fn(ok, ov) if chunk_fn is not None
+                            else (ok, ov))
+        return outs, sent2
 
     def all_to_all(self, x: torch.Tensor, *, sent=None, pad=None,
                    track: bool = True, grid: Optional[Tuple[int, int]] = None,

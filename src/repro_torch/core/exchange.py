@@ -13,6 +13,14 @@ landed buffers carry the machine axis first.
 
 Dropped objects (a segment longer than C) are counted, not hidden: the
 caller's capacity-retry loop re-runs with a larger factor.
+
+``staged_shape=(t1, t2)`` runs the shuffle as the reference's two-level
+staged exchange (``_staged_exchange``): each machine's segments travel
+to their machine group over i1, are merged and re-cut against the
+group's t2-1 boundaries, and travel to their machine over i2 in
+``overlap_chunks`` slices, each merged as it lands, then merged across
+slices.  The boundaries are global, so every machine ends with the flat
+path's keys.
 """
 from __future__ import annotations
 
@@ -25,8 +33,8 @@ from ..cluster.collectives import CollectiveTape
 from ..kernels import ops
 
 __all__ = ["PAD", "partition_sorted", "build_send_buffer", "static_exchange",
-           "flat_receive_capacity", "ExchangeResult",
-           "exchange_sorted_segments"]
+           "flat_receive_capacity", "staged_receive_capacities",
+           "ExchangeResult", "exchange_sorted_segments"]
 
 # Sentinel key for padded slots.  Keys must be finite floats or ints
 # strictly below it; sorts push pads to the end.
@@ -56,8 +64,10 @@ def build_send_buffer(x_sorted: torch.Tensor, starts: torch.Tensor,
                       valid_len: Optional[int] = None):
     """Pack each machine's t segments into a (t, C) tile, sentinel-padded.
 
-    x_sorted: (t, n); starts/lens: (t, t); values: (t, n, ...) or None.
-    Returns (keys_buf (t, t, C), values_buf (t, t, C, ...) with zeros in
+    x_sorted: (t, n); starts/lens: (t, k) (k = t, or the t1 machine
+    groups of the staged exchange); values: (t, n, ...) or None.
+    ``valid_len`` is an int, or a (t,) tensor of each row's own length.
+    Returns (keys_buf (t, k, C), values_buf (t, k, C, ...) with zeros in
     the pad slots or None, dropped (t,)) where dropped counts each
     machine's objects beyond the per-pair capacity.
     """
@@ -65,9 +75,15 @@ def build_send_buffer(x_sorted: torch.Tensor, starts: torch.Tensor,
     m = valid_len if valid_len is not None else x_sorted.shape[1]
     cols = torch.arange(cap_per_pair, dtype=torch.int32,
                         device=x_sorted.device)
-    idx = starts[:, :, None] + cols                           # (t, t, C)
+    idx = starts[:, :, None] + cols                           # (t, k, C)
     valid = cols < lens[:, :, None]
-    safe = torch.clamp(idx, 0, m - 1).long().reshape(t, -1)
+    if isinstance(m, torch.Tensor):
+        # per-row lengths: a row of none gathers slot 0, masked below
+        hi = (m.long() - 1).clamp_min(0)[:, None, None]
+        safe = torch.minimum(idx.long().clamp_min(0), hi)
+    else:
+        safe = torch.clamp(idx, 0, m - 1).long()
+    safe = safe.reshape(t, -1)
     gathered = torch.gather(x_sorted, 1, safe).reshape(idx.shape)
     keys = torch.where(valid, gathered, torch.full_like(gathered, PAD))
     vals = None
@@ -106,6 +122,98 @@ def flat_receive_capacity(m: int, t: int, cap_factor: float) -> int:
     return int(-(-int(cap_factor * m) // t) * t)
 
 
+def staged_receive_capacities(m: int, t1: int, t2: int, cap_factor: float,
+                              overlap_chunks: int = 2) -> Tuple[int, int]:
+    """(stage-1, stage-2) receive-buffer slots of the staged exchange.
+
+    Stage 1 lands (t1, C1) with C1 = ceil(cap_factor*m / t1); stage 2
+    lands (t2, C2) with C2 rounded up so ``overlap_chunks`` divides it.
+    """
+    c1, c2 = _staged_pair_capacities(m, t1, t2, cap_factor, overlap_chunks)
+    return t1 * c1, t2 * c2
+
+
+def _staged_pair_capacities(m: int, t1: int, t2: int, cap_factor: float,
+                            overlap_chunks: int) -> Tuple[int, int]:
+    chunks = max(1, int(overlap_chunks))
+    c1 = -(-int(cap_factor * m) // t1)
+    c2 = -(-int(cap_factor * m) // t2)
+    return c1, -(-c2 // chunks) * chunks
+
+
+def _merge(keys: torch.Tensor, values: Optional[torch.Tensor]):
+    """Merge (batch, rows, c) sorted rows, with their values or not."""
+    if values is None:
+        return ops.merge_sorted_rows(keys), None
+    return ops.merge_sorted_rows_kv(keys, values)
+
+
+def _staged_exchange(x_sorted, interior, starts, lens, *, t1: int, t2: int,
+                     m: int, cap_factor: float, values, valid_len,
+                     overlap_chunks: int, tape: CollectiveTape,
+                     phase_prefix: str) -> "ExchangeResult":
+    """Two-level exchange: group hop, merge, re-cut, final hop with a
+    merge a landed chunk, then a merge across the chunks.
+
+    Counterpart of the reference's ``_staged_exchange``
+    (``src/repro/core/exchange.py:284``), batched over the machines:
+    machine g sits at (g // t2, g % t2) of the (t1, t2) grid.  Group j's
+    segment is the flat segments [j*t2, (j+1)*t2), so a machine sends
+    one contiguous segment a group, of up to C1 = ceil(cap_factor*m/t1)
+    objects.  A machine merges the t1 rows it receives and cuts the
+    merged row against its own group's t2-1 interior boundaries -- a
+    query row of its own, so the search takes (t, t2-1) queries -- then
+    sends tiles of C2 = ceil(cap_factor*m/t2) slots (rounded up to a
+    multiple of ``overlap_chunks``) over i2.
+    """
+    grid = (t1, t2)
+    t = t1 * t2
+    c1, c2 = _staged_pair_capacities(m, t1, t2, cap_factor, overlap_chunks)
+    dev = starts.device
+    me = torch.arange(t, device=dev)
+    i1, i2 = me // t2, me % t2
+    g_starts = starts[:, ::t2]                                  # (t, t1)
+    g_ends = torch.cat([starts[:, t2::t2],
+                        torch.full((t, 1), m, dtype=starts.dtype,
+                                   device=dev)], dim=1)
+    g_lens = g_ends - g_starts
+    kbuf1, vbuf1, drop1 = build_send_buffer(x_sorted, g_starts, g_lens, c1,
+                                            values, valid_len=valid_len)
+    sent1 = m - g_lens[me, i1]
+    local = interior[(i1 * t2)[:, None]
+                     + torch.arange(t2 - 1, device=dev)]        # (t, t2-1)
+    aux = {}
+
+    def restage(rk, rv):
+        # merge the t1 landed rows, re-cut by my group's boundaries with
+        # the flat partition's side='left' rule, clamped to the merged
+        # row's real keys, as the reference's valid_len=count1
+        merged, merged_v = _merge(rk, rv)
+        count1 = (merged < PAD).sum(dim=1).to(torch.int32)
+        cuts = torch.minimum(ops.searchsorted(merged, local, side="left"),
+                             count1[:, None])
+        s2_starts = torch.cat([torch.zeros_like(cuts[:, :1]), cuts], dim=1)
+        s2_lens = torch.cat([cuts, count1[:, None]], dim=1) - s2_starts
+        kbuf2, vbuf2, aux["drop2"] = build_send_buffer(
+            merged, s2_starts, s2_lens, c2, merged_v, valid_len=count1)
+        return kbuf2, vbuf2, count1 - s2_lens[me, i2]
+
+    outs, sent2 = tape.staged_all_to_all(
+        kbuf1, grid=grid, values_buf=vbuf1, sent=sent1, pad=PAD,
+        restage=restage, chunks=overlap_chunks,
+        chunk_fn=_merge, phase_prefix=phase_prefix)
+    if len(outs) == 1:
+        final_k, final_v = outs[0]
+    else:       # the chunks' merged runs, merged across the chunks
+        final_k, final_v = _merge(
+            torch.stack([ck for ck, _ in outs], dim=1),
+            None if values is None else torch.stack([cv for _, cv in outs],
+                                                    dim=1))
+    count = (final_k < PAD).sum(dim=1).to(torch.int32)
+    dropped = tape.psum(drop1 + aux["drop2"]).to(torch.int32)
+    return ExchangeResult(final_k, final_v, count, sent1 + sent2, dropped)
+
+
 class ExchangeResult(NamedTuple):
     keys: torch.Tensor      # (t, capacity) sorted ascending, pads last
     values: Optional[torch.Tensor]
@@ -119,7 +227,10 @@ def exchange_sorted_segments(x_sorted: torch.Tensor, interior: torch.Tensor,
                              values: Optional[torch.Tensor] = None,
                              valid_len: Optional[int] = None,
                              sort_input: bool = False,
-                             tape: Optional[CollectiveTape] = None
+                             tape: Optional[CollectiveTape] = None,
+                             staged_shape: Optional[Tuple[int, int]] = None,
+                             overlap_chunks: int = 2,
+                             phase_prefix: str = "shuffle"
                              ) -> ExchangeResult:
     """Round-3 shuffle: deliver bucket k of every machine to machine k.
 
@@ -133,10 +244,21 @@ def exchange_sorted_segments(x_sorted: torch.Tensor, interior: torch.Tensor,
     lands sorted, so the landed rows are merged (the reference's
     ``merge=True``) rather than sorted -- with values, by the stable
     argsort merge.
+
+    ``staged_shape=(t1, t2)`` runs the two-level staged exchange over a
+    (t1, t2) grid of the machines (:func:`_staged_exchange`); its stages
+    record into their own phases (``"<phase_prefix> s1"`` / ``"s2"``),
+    so a staged caller must not wrap the call in a phase of its own.
+    The keys come out bitwise the flat path's.
     """
     if sort_input and valid_len is not None:
         raise ValueError("sort_input=True takes unpadded input; "
                          "valid_len cannot be combined with it")
+    if staged_shape is not None:
+        t1, t2 = int(staged_shape[0]), int(staged_shape[1])
+        if t1 * t2 != t or min(t1, t2) < 2:
+            raise ValueError(f"staged_shape {staged_shape} must factor "
+                             f"t={t} with both sub-axes >= 2")
     tape = tape if tape is not None else CollectiveTape()
     m = valid_len if valid_len is not None else x_sorted.shape[1]
     cap_pair = flat_receive_capacity(m, t, cap_factor) // t
@@ -148,6 +270,12 @@ def exchange_sorted_segments(x_sorted: torch.Tensor, interior: torch.Tensor,
     else:
         starts, lens = partition_sorted(x_sorted, interior,
                                         valid_len=valid_len)
+    if staged_shape is not None:
+        return _staged_exchange(
+            x_sorted, interior, starts, lens, t1=t1, t2=t2, m=m,
+            cap_factor=cap_factor, values=values, valid_len=valid_len,
+            overlap_chunks=overlap_chunks, tape=tape,
+            phase_prefix=phase_prefix)
     me = torch.arange(t, device=lens.device)
     sent = m - lens[me, me]                      # objects leaving each machine
     keys_buf, vals_buf, local_drop = build_send_buffer(

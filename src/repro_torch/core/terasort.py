@@ -20,6 +20,8 @@ per object, or ``seed`` for :func:`~repro_torch.core.sampling.draw_uniforms`
 (ROADMAP C3).  Guarantee (Theorems 3-4): every machine receives at most
 5m + 1 objects w.p. >= 1 - 1/n, so the receive capacity starts at
 (5 + 1/m) x 1.1 and the retry loop recovers from the rare overflow.
+``exchange="staged"`` gathers the samples in two hops and runs Round 3
+as the staged exchange, as in SMMS (alpha 4, the same keys).
 """
 from __future__ import annotations
 
@@ -35,7 +37,7 @@ from ..kernels.bitonic import ftz
 from .alpha_k import terasort_workload_bound
 from .exchange import exchange_sorted_segments
 from .sampling import algorithm_s, draw_uniforms, terasort_sample_count
-from .smms import SortResult, received_objects
+from .smms import SortResult, received_objects, resolve_exchange_topology
 
 __all__ = ["boundary_index", "terasort_shard", "terasort_sort"]
 
@@ -57,10 +59,13 @@ def boundary_index(t: int, s_tot: int, device) -> torch.Tensor:
 def terasort_shard(x: torch.Tensor, uniforms: torch.Tensor, *, t: int,
                    q: int, cap_factor: float = 5.5,
                    values: Optional[torch.Tensor] = None,
+                   staged_shape: Optional[tuple] = None,
+                   overlap_chunks: int = 2,
                    tape: Optional[CollectiveTape] = None) -> SortResult:
     """The Terasort body for all t machines.  x: (t, m) unsorted keys;
     uniforms: (t, m) float32 Algorithm-S draws; values: (t, m, ...) or
-    None."""
+    None.  ``staged_shape=(t1, t2)`` runs Round 3 as the staged
+    exchange."""
     if tape is None:
         tape = CollectiveTape()
 
@@ -68,7 +73,11 @@ def terasort_shard(x: torch.Tensor, uniforms: torch.Tensor, *, t: int,
     # sort is a library sort in the reference too (jnp.sort): stable,
     # comparing with denormals folded.
     with tape.phase("round1->2 samples"):
-        samples = tape.all_gather(algorithm_s(x, q, uniforms))   # (t, q)
+        samples = algorithm_s(x, q, uniforms)                    # (t, q)
+        if staged_shape is not None:
+            samples = tape.all_gather_multi(samples, grid=staged_shape)
+        else:
+            samples = tape.all_gather(samples)
         flat = samples.reshape(-1)
         all_samples = flat[torch.sort(ftz(flat), stable=True).indices]
 
@@ -77,11 +86,18 @@ def terasort_shard(x: torch.Tensor, uniforms: torch.Tensor, *, t: int,
         idx = boundary_index(t, all_samples.shape[0], x.device)
         interior = all_samples[idx.long()]                       # (t-1,)
 
-    # Round 3: fused sort and cut, exchange, merge.
-    with tape.phase("round3 shuffle"):
-        ex = exchange_sorted_segments(x, interior, t=t, cap_factor=cap_factor,
-                                      values=values, sort_input=True,
-                                      tape=tape)
+    # Round 3: fused sort and cut, exchange, merge; the staged exchange
+    # declares its own phases.
+    if staged_shape is not None:
+        ex = exchange_sorted_segments(
+            x, interior, t=t, cap_factor=cap_factor, values=values,
+            sort_input=True, tape=tape, staged_shape=staged_shape,
+            overlap_chunks=overlap_chunks, phase_prefix="round3 shuffle")
+    else:
+        with tape.phase("round3 shuffle"):
+            ex = exchange_sorted_segments(
+                x, interior, t=t, cap_factor=cap_factor, values=values,
+                sort_input=True, tape=tape)
     b = torch.cat([all_samples[:1], interior, all_samples[-1:]])
     return SortResult(ex.keys, ex.values, ex.count, ex.sent, ex.dropped, b)
 
@@ -90,7 +106,8 @@ def terasort_sort(x: torch.Tensor, seed: int = 0,
                   cap_factor: Optional[float] = None,
                   policy: Optional[CapacityPolicy] = None,
                   values: Optional[torch.Tensor] = None,
-                  uniforms: Optional[torch.Tensor] = None):
+                  uniforms: Optional[torch.Tensor] = None,
+                  exchange: str = "flat", overlap_chunks: int = 2):
     """Sort x of shape (t, m) across t machines, on x's device.
 
     ``uniforms`` (t, m) float32 are the Algorithm-S draws; None draws
@@ -100,11 +117,13 @@ def terasort_sort(x: torch.Tensor, seed: int = 0,
     (Theorem 3), ``cap_factor``, ``capacity_attempts`` and the
     boundaries.  An explicit ``cap_factor`` pins the capacity (no
     retry); otherwise Theorem 3 sizes it, with slack 1.1, and the
-    policy retries on overflow.
+    policy retries on overflow.  ``exchange`` and ``overlap_chunks`` as
+    in :func:`~repro_torch.core.smms.smms_sort`.
     """
     t, m = x.shape
     n = t * m
     q = terasort_sample_count(n, t)
+    staged_shape = resolve_exchange_topology(t, exchange)
     if uniforms is None:
         uniforms = draw_uniforms(t, m, seed, x.device)
     elif tuple(uniforms.shape) != (t, m):
@@ -119,7 +138,9 @@ def terasort_sort(x: torch.Tensor, seed: int = 0,
     def attempt(factor):
         res, tape = substrate.run(
             functools.partial(terasort_shard, t=t, q=q,
-                              cap_factor=float(factor), values=values),
+                              cap_factor=float(factor), values=values,
+                              staged_shape=staged_shape,
+                              overlap_chunks=int(overlap_chunks)),
             x, uniforms)
         return (res, tape), int(res.dropped)    # the one host read per attempt
 
@@ -127,7 +148,7 @@ def terasort_sort(x: torch.Tensor, seed: int = 0,
     flat, vals = received_objects(res)
     report = tape.report(algorithm="Terasort+AlgS", t=t, n_in=n, n_out=n,
                          workload=res.count.cpu().numpy())
-    report.exchange_topology = "flat"
+    report.exchange_topology = "flat" if staged_shape is None else "staged"
     report.theoretical_workload_bound = terasort_workload_bound(n, t)
     report.total_dropped = 0
     report.cap_factor = factor

@@ -36,7 +36,12 @@ is t machines' rows, and every call handles all of them at once.
 ``DISPATCH_COUNTS[(op, path)]`` counts calls per path: "cuda" or
 "plain" for the bitonic family and the other ops, "radix-cuda" or
 "radix-plain" for the radix family; the kernels' own launch counts are
-``cuda.LAUNCHES``.
+``cuda.LAUNCHES``.  Each dispatch also ticks the obs registry's
+``kernel_dispatch_traces_total{op, path}`` counter and lands a
+``kernel_dispatch`` event on the open trace span, as the reference's
+``_tick`` does.  The reference counts a compiled program's executions
+apart from its traces; the port compiles nothing, so a dispatch is an
+execution and these counts are both.
 """
 from __future__ import annotations
 
@@ -47,6 +52,8 @@ from typing import Optional
 
 import torch
 
+from ..obs import trace as obs_trace
+from ..obs.metrics import REGISTRY
 from . import bitonic, bucketize, fused, radix
 from . import flash_attention as fa
 
@@ -117,6 +124,8 @@ def _tick(op: str, x: torch.Tensor, family: str = "bitonic") -> None:
         path = "radix-" + path
     with _COUNTS_LOCK:
         DISPATCH_COUNTS[(op, path)] += 1
+    REGISTRY.counter("kernel_dispatch_traces_total", op=op, path=path).inc()
+    obs_trace.event("kernel_dispatch", op=op, path=path)
 
 
 def _key_dtype_ok(x) -> bool:

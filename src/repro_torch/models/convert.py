@@ -5,7 +5,8 @@ under ``params["periods"][str(pos)]`` carry a leading ``n_periods``
 axis (the axis its ``lax.scan`` runs over).  The port keeps one dict
 per period (``models/model.py``).  :func:`params_from_reference` takes
 that pytree with numpy arrays as leaves (``np.asarray`` of each jax
-array) and returns the port's parameters on ``device`` in
+array) and returns the port's parameters on ``device`` (None: the card,
+raising without one, as every entry point of the port) in
 ``cfg.param_dtype``: the periods unstacked, ``unembed`` present only
 without tied embeddings, the embedding at the padded vocab as the
 reference holds it.  bfloat16 leaves (numpy's ``ml_dtypes`` type) go
@@ -18,6 +19,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from ..cluster.api import resolve_device
 from ..configs.base import ArchConfig
 from .model import check_dense
 
@@ -40,8 +42,9 @@ def tree_map(fn, tree):
 
 
 def params_from_reference(tree: Dict[str, Any], cfg: ArchConfig,
-                          device="cpu") -> Dict[str, Any]:
+                          device=None) -> Dict[str, Any]:
     check_dense(cfg)
+    device = resolve_device(device)
     want = {"embed", "final_norm", "periods"} | (
         set() if cfg.tie_embeddings else {"unembed"})
     if set(tree) != want:

@@ -351,10 +351,8 @@ def test_cuda_key_sorts_equal_plain(card, rng, dtype, m):
 def test_cuda_key_sort_is_one_kernel_a_call(card, shape, dtype):
     """Under torch.profiler, 5 calls of each keys-only sort run 5 kernels
     of one name: no global pass, no fill, no copy, no padded clone."""
-    x = torch.randn(shape, device=card).to(dtype)
-    q = torch.sort(x[:, :63]).values[:1].expand(shape[0], 63).contiguous()
-    for fn in (lambda: bitonic.bitonic_sort(x),
-               lambda: fused.sort_partition(x, q)):
-        names, c_calls = profiled_kernels(fn, 5)
+    for which in (0, 1):        # bitonic_sort, sort_partition
+        names, c_calls = profiled_kernels("keys", which, shape, 5,
+                                          str(dtype).split(".")[1])
         assert len(names) == 5 and len(set(names)) == 1, names
         assert c_calls == 5

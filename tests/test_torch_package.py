@@ -1,4 +1,5 @@
 """The port as a package: what it imports, where it runs, what it refuses."""
+import dataclasses
 import subprocess
 import sys
 import textwrap
@@ -12,6 +13,7 @@ import jax.numpy as jnp
 import repro_torch
 from repro import cluster as jcluster
 from repro_torch import cluster
+from repro_torch.configs.base import MoEConfig
 from repro_torch.kernels import ops
 
 
@@ -26,6 +28,7 @@ def test_port_imports_neither_jax_nor_the_reference():
         import repro_torch.configs, repro_torch.models, repro_torch.serve
         import repro_torch.models.model, repro_torch.models.convert
         import repro_torch.serve.engine, repro_torch.kernels.flash_attention
+        import repro_torch.launch, repro_torch.obs, repro_torch.planner
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "repro" or m.startswith("repro."))
@@ -55,18 +58,29 @@ def _tables():
     return keys, rows, keys, rows
 
 
-@pytest.mark.parametrize("entry, kw, item", [
-    ("sort", {"algorithm": "auto"}, "item 9"),
-    ("sort", {"exchange": "staged"}, "item 6"),
-    ("sort", {"algorithm": "terasort", "exchange": "staged"}, "item 6"),
-    ("join", {"algorithm": "auto"}, "item 9"),
+def _unported(entry, change):
+    from repro_torch.configs import ARCHS, smoke_config
+    from repro_torch.models import model
+    from repro_torch.planner import plan_moe_query
+    if entry == "plan_moe_query":
+        plan_moe_query(np.zeros((4, 2), np.float32),
+                       np.zeros((2, 2), np.float32), t_machines=2,
+                       num_experts=2, top_k=1, extra_slots=0)
+    else:
+        model.check_dense(dataclasses.replace(
+            smoke_config(ARCHS[entry]), **change))
+
+
+@pytest.mark.parametrize("entry, change, item", [
+    ("plan_moe_query", None, "A8"),
+    ("gemma3-12b", {"moe": MoEConfig(num_experts=4, top_k=1,
+                                      d_ff_expert=8)}, "A8"),
+    ("gemma3-12b", {"frontend": "vision"}, "A12"),
+    ("llama3-405b", {"kv_quant": True}, "A12"),
 ])
-def test_unported_options_name_their_roadmap_item(entry, kw, item):
+def test_unported_options_name_their_roadmap_item(entry, change, item):
     with pytest.raises(NotImplementedError, match=item):
-        if entry == "sort":
-            cluster.sort(np.ones((2, 8), np.float32), device="cpu", **kw)
-        else:
-            cluster.join(*_tables(), t_machines=2, device="cpu", **kw)
+        _unported(entry, change)
 
 
 def test_generate_defaults_to_the_card(monkeypatch):

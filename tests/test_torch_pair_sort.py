@@ -31,7 +31,7 @@ import torch
 
 from repro.kernels import bitonic as jbitonic
 from repro.kernels import fused as jfused
-from repro_torch.kernels import bitonic, cuda, fused
+from repro_torch.kernels import bitonic, fused
 
 # the kernel's constants (csrc/sort_tiles.cuh)
 LOG_SLICE = 13          # kRowLogSlice: slots a CTA holds
@@ -519,28 +519,73 @@ def test_cuda_pair_sorts_equal_plain(card, rng, dtype, m):
         assert torch.equal(key_bits(g.cpu()), key_bits(w))
 
 
-def profiled_kernels(fn, calls: int):
-    """The device kernels ``calls`` calls of ``fn`` run under
-    torch.profiler (names, in order) and the C calls ``cuda.LAUNCHES``
-    counts.  The calls run between two spin kernels
-    (``torch.cuda._sleep``), ~25 ms before them so that they run once
-    the profiler records: on the card a window with nothing around the
-    calls lost some or all of their kernels' events (0 or 4 of 5).  The
-    spins are left out of the names."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
+# The sorts' profiled windows run in a child process each, as chip_smoke.py
+# opens its windows in a process of its own: in the process that runs
+# every card-only file, earlier windows (other files', and this one's
+# other cases) left a later window short of one of its kernel events.
+# The calls run between two spin kernels (``torch.cuda._sleep``), ~25 ms
+# before them so that they run once the profiler records: on the card a
+# window with nothing around the calls lost some or all of their
+# kernels' events (0 or 4 of 5).  The spins are left out of the names.
+PROFILE_CHILD = """
+import json, sys
+import torch
+from torch.profiler import ProfilerActivity, profile
+from repro_torch.kernels import bitonic, cuda, fused
+sort, which, rows, m, calls = sys.argv[1], int(sys.argv[2]), \\
+    int(sys.argv[3]), int(sys.argv[4]), int(sys.argv[5])
+dtype = getattr(torch, sys.argv[6])
+torch.manual_seed(0)
+if sort == "pairs":
+    x = torch.randint(0, 1 << 20, (rows, m), dtype=torch.int32,
+                      device="cuda")
+    q = torch.arange(1, 8, dtype=torch.int32, device="cuda").expand(
+        rows, 7).contiguous() * (1 << 17)
+    fn = (lambda: bitonic.bitonic_sort_kv(x),
+          lambda: fused.sort_partition_kv(x, q))[which]
+else:
+    x = torch.randn((rows, m), device="cuda").to(dtype)
+    q = torch.sort(x[:, :63]).values[:1].expand(rows, 63).contiguous()
+    fn = (lambda: bitonic.bitonic_sort(x),
+          lambda: fused.sort_partition(x, q))[which]
+fn()
+torch.cuda.synchronize()
+cuda.reset_launches()
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    torch.cuda._sleep(50_000_000)
+    for _ in range(calls):
+        fn()
+    torch.cuda._sleep(1000)
     torch.cuda.synchronize()
-    cuda.reset_launches()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(50_000_000)
-        for _ in range(calls):
-            fn()
-        torch.cuda._sleep(1000)
-        torch.cuda.synchronize()
-    names = [ev.name for ev in prof.events()
-             if ev.device_type == torch.autograd.DeviceType.CUDA
-             and "spin_kernel" not in ev.name]
-    return names, sum(cuda.LAUNCHES.values())
+names = [ev.name for ev in prof.events()
+         if ev.device_type == torch.autograd.DeviceType.CUDA
+         and "spin_kernel" not in ev.name]
+print(json.dumps({"names": names, "launches": sum(cuda.LAUNCHES.values())}))
+"""
+
+
+def profiled_kernels(sort: str, which: int, shape, calls: int,
+                     dtype: str = "float32"):
+    """The device kernels ``calls`` calls of a sort run under
+    torch.profiler (names, in order) and the C calls ``cuda.LAUNCHES``
+    counts, in a child process (:data:`PROFILE_CHILD`).  ``sort``:
+    "pairs" (``which`` 0 ``bitonic_sort_kv``, 1 ``sort_partition_kv``,
+    on int32 keys) or "keys" (``bitonic_sort``, ``sort_partition``, on
+    ``dtype`` keys)."""
+    import json
+    import os
+    import pathlib
+    import subprocess
+    import sys
+    src = pathlib.Path(__file__).resolve().parents[1] / "src"
+    env = dict(os.environ, PYTHONPATH=f"{src}{os.pathsep}"
+               + os.environ.get("PYTHONPATH", ""))
+    run = subprocess.run(
+        [sys.executable, "-c", PROFILE_CHILD, sort, str(which),
+         str(shape[0]), str(shape[1]), str(calls), dtype],
+        capture_output=True, text=True, env=env, timeout=600, check=True)
+    out = json.loads(run.stdout.strip().splitlines()[-1])
+    return out["names"], out["launches"]
 
 
 @pytest.mark.cuda
@@ -548,11 +593,7 @@ def profiled_kernels(fn, calls: int):
 def test_cuda_pair_sort_is_one_kernel_a_call(card, shape):
     """Under torch.profiler, 5 calls of each pair sort run 5 kernels of
     one name: no global pass, no fill, no copy, no iota."""
-    x = torch.randint(0, 1 << 20, shape, dtype=torch.int32, device=card)
-    q = torch.arange(1, 8, dtype=torch.int32, device=card).expand(
-        shape[0], 7).contiguous() * (1 << 17)
-    for fn in (lambda: bitonic.bitonic_sort_kv(x),
-               lambda: fused.sort_partition_kv(x, q)):
-        names, c_calls = profiled_kernels(fn, 5)
+    for which in (0, 1):        # bitonic_sort_kv, sort_partition_kv
+        names, c_calls = profiled_kernels("pairs", which, shape, 5)
         assert len(names) == 5 and len(set(names)) == 1, names
         assert c_calls == 5

@@ -117,7 +117,7 @@ def test_params_carry_over_unstacks_the_periods():
     cfg = smoke_config(ARCHS["gemma3-12b"])
     tree = jax.tree_util.tree_map(
         np.asarray, jmodel.init_params(jcfg, jax.random.key(0)))
-    params = params_from_reference(tree, cfg)
+    params = params_from_reference(tree, cfg, device="cpu")
     assert len(params["periods"]) == cfg.n_periods == 2
     assert "unembed" not in params               # tied embeddings
     assert params["embed"].shape == (cfg.padded_vocab, cfg.d_model)
@@ -129,7 +129,8 @@ def test_params_carry_over_unstacks_the_periods():
     llama = smoke_config(ARCHS["llama3-405b"])
     jllama = jsmoke_config(JARCHS["llama3-405b"])
     p = params_from_reference(jax.tree_util.tree_map(
-        np.asarray, jmodel.init_params(jllama, jax.random.key(0))), llama)
+        np.asarray, jmodel.init_params(jllama, jax.random.key(0))), llama,
+        device="cpu")
     assert p["unembed"].shape == (llama.d_model, llama.padded_vocab)
 
 

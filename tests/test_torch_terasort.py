@@ -173,9 +173,10 @@ def test_terasort_refuses_what_the_reference_refuses():
     with pytest.raises(ValueError, match="uniforms"):
         cluster.sort(x, algorithm="terasort", uniforms=np.zeros((2, 7)),
                      device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        cluster.sort(x, algorithm="terasort", exchange="staged",
-                     device="cpu")
+    with pytest.raises(ValueError, match="unknown exchange topology"):
+        cluster.sort(x, algorithm="terasort", exchange="ring", device="cpu")
+    with pytest.raises(ValueError, match="unknown exchange topology"):
+        jcluster.sort(x, algorithm="terasort", exchange="ring")
 
 
 # ---------------------------------------------------------------------------
