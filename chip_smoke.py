@@ -26,6 +26,13 @@ version there:
   tables (2^20 rows, a hot key 2048 x 2048), RandJoin (§4.2) on the same
   Zipf and scalar-skew tables, repartition on the scalar-skew tables
   and broadcast on Zipf tables of 2^14 x 2^17 rows, all at t = 64;
+* ``repro_torch.serve.QueryEngine`` and ``EngineReplicas`` -- the
+  query-serving tier: a 64-request trace drawn from ten distinct sorts
+  and joins of the sizes above (Zipf-weighted, a 10/30/60 high / normal
+  / low class mix) through one engine, four workers fed by four
+  threads, and two replicas sharing one pool and one result cache, each
+  result bitwise the one-shot call's; and an overload burst of small
+  sorts;
 * ``repro_torch.kernels.ops.bucketize_histogram`` -- SMMS's Round-3
   planning, 4,194,304 keys into 64 buckets;
 * ``repro_torch.serve.generate`` -- greedy generation on gemma3-12b at
@@ -111,6 +118,23 @@ without printing a result:
                 profile bitwise), the output equal to the call naming
                 the winner, a second call served from the plan cache
                 with no sketch; the planner's cold and cached times
+     serve      the query engine at t = 64: ten distinct queries (SMMS and
+                Terasort on uniform and Zipf keys, SMMS with the records,
+                auto on Zipf keys; StatJoin, RandJoin 8 x 8, auto and
+                broadcast on the Zipf tables) one-shot, checked against
+                the host; a 64-request trace of them (a) as a loop of
+                one-shot calls, (b) through QueryEngine(workers=1), (c)
+                workers=4 from 4 submitter threads, (d) EngineReplicas(2)
+                sharing pool and result cache: every result bitwise the
+                one-shot call's (keys, values, join fields; k_workload,
+                k_network, alpha, capacity attempts), executions +
+                coalesced + cache hits = 64, each execution's exec_s at
+                least half its one-shot wall time; QPS, latency per
+                class, cache hits and bytes, peak memory; an overload
+                burst of 96 small sorts (t = 8 x 4,096) at 2x the rate
+                the engine sustains on them, max_pending=8: no
+                high-class request shed or rejected while a lower one is
+                queued, every shed typed
   6. serving    bucketize_histogram through its entry point against
                 numpy; gemma3-12b's smoke config on the card against the
                 CPU (logits within 2e-3, the same tokens); generate at
@@ -160,6 +184,7 @@ import math
 import pathlib
 import subprocess
 import sys
+import threading
 import time
 from typing import Optional
 
@@ -286,6 +311,11 @@ PATH_KERNELS = {
     "sort_auto_zipf": set(),
     "join_auto_zipf": set(),
     "join_auto_scalar_skew": set(),
+    # the query engine: the kernels the trace's ten distinct queries
+    # launch one-shot, set by phase_serve_queries; the overload burst's
+    # small SMMS sorts (the cost model's family at 4,096 lanes)
+    "serve_queries": set(),
+    "serve_overload": set(),
     "bucketize": {"bucketize_histogram"},
     "serve_gemma3_12b": {"flash_attention"},
     "serve_gemma3_smoke": {"flash_attention"},
@@ -2554,8 +2584,10 @@ def hook_costs(x, sort_ms: float, smi: str) -> dict:
     count alone (all the tick did before the hooks), and
     ``BatchedSubstrate.run`` of an empty body against the body called
     on a fresh tape, each the mean of 20,000 calls; times one sort's
-    dispatches and runs.  The probe's dispatch count is taken out
-    again."""
+    dispatches and runs.  Beside them what counting a launch under
+    ``cuda._COUNT_LOCK`` (the query engine launches from several
+    threads) costs against the bare count, times one sort's launches.
+    The probes' counts are taken out again."""
     from repro_torch.cluster import BatchedSubstrate, CollectiveTape
     probe = torch.zeros(1, device=DEVICE)
     key = ("obs_probe", "cuda")
@@ -2563,6 +2595,13 @@ def hook_costs(x, sort_ms: float, smi: str) -> dict:
     def count_only():
         with ops._COUNTS_LOCK:
             ops.DISPATCH_COUNTS[key] += 1
+
+    def launch_count_locked():
+        with cuda._COUNT_LOCK:
+            cuda.LAUNCHES["obs_probe"] += 1
+
+    def launch_count_bare():
+        cuda.LAUNCHES["obs_probe"] += 1
 
     def body(*, tape):
         return None
@@ -2572,23 +2611,40 @@ def hook_costs(x, sort_ms: float, smi: str) -> dict:
     count_us = _per_call_us(count_only)
     run_us = _per_call_us(lambda: sub.run(body))
     bare_us = _per_call_us(lambda: body(tape=CollectiveTape()))
+    locked_us = _per_call_us(launch_count_locked)
+    unlocked_us = _per_call_us(launch_count_bare)
     ops.DISPATCH_COUNTS.pop(key, None)
+    cuda.LAUNCHES.pop("obs_probe", None)
     before = collections.Counter(ops.DISPATCH_COUNTS)
+    torch.cuda.synchronize()
+    launches_before = sum(cuda.LAUNCHES.values())
     _, rep = cluster.sort(x, device=DEVICE)
+    torch.cuda.synchronize()
+    launches = sum(cuda.LAUNCHES.values()) - launches_before
     dispatches = sum((ops.DISPATCH_COUNTS - before).values())
     runs = rep.capacity_attempts
     added_us = (dispatches * (tick_us - count_us)
                 + runs * (run_us - bare_us))
+    lock_added_us = launches * (locked_us - unlocked_us)
     print(f"[staged] tracing off, host: ops._tick {tick_us:.3f} us against "
           f"{count_us:.3f} us for the count alone; substrate.run "
           f"{run_us:.3f} us against {bare_us:.3f} us for the body; one "
           f"flat SMMS sort: {dispatches} dispatches, {runs} run(s), "
           f"{added_us:.2f} us added = {added_us / 10 / sort_ms:.4f}% of "
           f"its {sort_ms:.3f} ms median ({smi})")
+    print(f"[staged] a launch counted under cuda._COUNT_LOCK: "
+          f"{locked_us:.3f} us against {unlocked_us:.3f} us bare; one flat "
+          f"SMMS sort counts {launches} launches: {lock_added_us:.3f} us "
+          f"added = {lock_added_us / 10 / sort_ms:.5f}% of its "
+          f"{sort_ms:.3f} ms median ({smi})")
     return {"tick_us": tick_us, "count_only_us": count_us,
             "substrate_run_us": run_us, "bare_body_us": bare_us,
             "dispatches_per_sort": dispatches, "runs_per_sort": runs,
-            "added_us_per_sort": added_us, "sort_median_ms": sort_ms}
+            "added_us_per_sort": added_us, "sort_median_ms": sort_ms,
+            "launch_count_locked_us": locked_us,
+            "launch_count_bare_us": unlocked_us,
+            "launches_per_sort": launches,
+            "lock_added_us_per_sort": lock_added_us}
 
 
 def phase_small_staged() -> None:
@@ -2819,6 +2875,425 @@ def plan_cache_costs(path: str, x, plan, kw: dict, smi: str) -> dict:
     }
     planner.clear_plan_cache()
     return {k: v["median_ms"] for k, v in times.items()}
+
+
+# ---------------------------------------------------------------------------
+# serve_queries: the query-serving tier on the card
+# ---------------------------------------------------------------------------
+
+SERVE_TRACE_N = 64                  # requests in the trace
+SERVE_CLASS_MIX = (0.1, 0.3, 0.6)   # high / normal / low, bench_serve.py's
+SERVE_WORKERS = 4
+SERVE_REPLICAS = 2
+SERVE_WAIT_S = 300.0                # any one result, bounded
+OVERLOAD_N = 96                     # small sorts in the burst
+OVERLOAD_PENDING = 8                # its admission bound
+OVERLOAD_RATE = 2.0                 # offered load over the sustained rate
+# an execution's exec_s against its query's one-shot wall time: below
+# this share the engine's clock stopped before the card was done
+SERVE_EXEC_FLOOR = 0.5
+
+
+def serve_specs() -> dict:
+    """name -> the ten distinct queries of the serving trace: SMMS and
+    Terasort on the uniform and Zipf t = 64 x 65,536 keys, SMMS with the
+    24 x int32 payload, ``auto`` on the Zipf keys; StatJoin, RandJoin (8 x
+    8) and ``auto`` on the Zipf 2^17 x 2^17 tables, broadcast on the Zipf
+    2^14 x 2^17 ones, all at t = 64."""
+    from repro_torch.serve import join_query, sort_query
+    inputs = sort_inputs(SEED)
+    xu, xz = inputs["uniform"][0], inputs["zipf"][0]
+    specs = {
+        "smms_uniform": sort_query(xu, algorithm="smms"),
+        "smms_zipf": sort_query(xz, algorithm="smms"),
+        "terasort_uniform": sort_query(xu, algorithm="terasort", seed=SEED),
+        "terasort_zipf": sort_query(xz, algorithm="terasort", seed=SEED),
+        "smms_records": sort_query(xu, algorithm="smms", values=make_payload(
+            T, M, SEED, device=DEVICE)),
+        "auto_zipf": sort_query(xz, algorithm="auto"),
+    }
+    for name, algorithm in (("statjoin_zipf", "statjoin"),
+                            ("randjoin_zipf", "randjoin"),
+                            ("auto_join_zipf", "auto"),
+                            ("broadcast_zipf", "broadcast")):
+        cfg = JOINS[name if algorithm != "auto" else "statjoin_zipf"]
+        s, t = cfg.tables()
+        s_rows = np.arange(len(s), dtype=np.int32)
+        t_rows = np.arange(len(t), dtype=np.int32)
+        kw = dict(cfg.options)
+        if algorithm == "randjoin":
+            kw.update(seed=SEED, ab=(8, 8))
+        specs[name] = join_query(s, s_rows, t, t_rows, t_machines=JOIN_T,
+                                 algorithm=algorithm, **kw)
+    return specs
+
+
+def serve_trace(specs: dict) -> list:
+    """(name, spec) x SERVE_TRACE_N: each distinct query once, the rest
+    a Zipf-weighted draw (the popularity skew of benchmarks/
+    bench_serve.py's trace), shuffled; each request's class drawn from
+    SERVE_CLASS_MIX."""
+    rng = np.random.default_rng(SEED)
+    names = list(specs)
+    ranks = np.arange(1, len(names) + 1, dtype=np.float64)
+    p = (1.0 / ranks) / (1.0 / ranks).sum()
+    picks = list(range(len(names))) + list(
+        rng.choice(len(names), SERVE_TRACE_N - len(names), p=p))
+    picks = [picks[i] for i in rng.permutation(len(picks))]
+    classes = rng.choice(3, len(picks), p=SERVE_CLASS_MIX)
+    return [(names[i], dataclasses.replace(specs[names[i]], priority=int(c),
+                                           tag=f"{names[i]}#{k}"))
+            for k, (i, c) in enumerate(zip(picks, classes))]
+
+
+def _value_tensors(value) -> list:
+    return [v for v in value if v is not None]
+
+
+def _same_result(label: str, res, want) -> None:
+    """A served result against the one-shot call's: every tensor of the
+    value bitwise (sort keys and values; every JoinOutput field), and the
+    report's k_workload, k_network, alpha and capacity attempts."""
+    check(res.ok, f"{label}: failed: {res.error}")
+    value, rep = want
+    check(len(res.value) == len(value)
+          and all((a is None) == (b is None)
+                  for a, b in zip(res.value, value))
+          and all(same_bits(a, b) for a, b in zip(
+              _value_tensors(res.value), _value_tensors(value))),
+          f"{label}: value differs from the one-shot call's")
+    for field in ("k_workload", "k_network", "alpha"):
+        check(getattr(res.report, field) == getattr(rep, field),
+              f"{label}: {field} differs from the one-shot call's")
+    check(getattr(res.report, "capacity_attempts", None)
+          == getattr(rep, "capacity_attempts", None),
+          f"{label}: capacity attempts differ from the one-shot call's")
+
+
+def _check_one_shot(name: str, spec, value, rep) -> None:
+    """The one-shot results against the host: sorted keys equal to
+    np.sort, the records in stable key order, join pairs equal to a
+    host join."""
+    if spec.kind == "sort":
+        x = spec.arrays[0]
+        keys, vals = value
+        check(np.array_equal(keys.cpu().numpy().view(np.int32),
+                             np.sort(x.reshape(-1)).view(np.int32)),
+              f"serve {name}: keys differ from np.sort of the input")
+        if vals is not None:
+            order = torch.from_numpy(np.argsort(x.reshape(-1), kind="stable"))
+            rows = spec.arrays[1].reshape(-1, PAYLOAD_COLS)
+            check(torch.equal(vals, rows[order.to(rows.device)]),
+                  f"serve {name}: records differ from the input's rows in "
+                  f"stable key order")
+    else:
+        s, _, t, _ = spec.arrays
+        check_join(f"serve {name}", value, rep, host_pairs(s, t))
+
+
+def _serve_run(label: str, trace: list, want: dict, run, smi: str) -> dict:
+    """One engine run of the trace on the path ``serve_queries``: every
+    result equal to its query's one-shot result, the counts of
+    executions, coalesced twins and result-cache hits adding up, each
+    execution's ``exec_s`` at least half its one-shot call's wall
+    time."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results, stats, extra = on_path("serve_queries", run)
+    wall = time.perf_counter() - t0
+    executed = 0
+    for (name, _), res in zip(trace, results):
+        _same_result(f"serve {label} {res.spec.tag}", res, want[name][:2])
+        if not (res.coalesced or res.cached):
+            executed += 1
+            check(res.exec_s * 1e3 >= SERVE_EXEC_FLOOR * want[name][2],
+                  f"serve {label} {res.spec.tag}: exec_s "
+                  f"{res.exec_s * 1e3:.3f} ms under {SERVE_EXEC_FLOOR:g} x the "
+                  f"one-shot "
+                  f"call's {want[name][2]:.3f} ms: the clock stopped at the "
+                  f"launch")
+    n = len(trace)
+    check(stats.served == n and stats.failed == 0
+          and stats.executed == executed
+          and stats.coalesced + stats.result_cache_hits == n - executed,
+          f"serve {label}: served {stats.served}, executed "
+          f"{stats.executed} ({executed} counted), coalesced "
+          f"{stats.coalesced}, result-cache hits {stats.result_cache_hits} "
+          f"of {n}")
+    out = {"qps": n / wall, "wall_s": wall, "engine_qps": stats.qps,
+           "executed": executed, "coalesced": stats.coalesced,
+           "result_cache_hits": stats.result_cache_hits,
+           "plan_cache_hits": stats.plan_cache_hits,
+           "plan_cache_misses": stats.plan_cache_misses,
+           "latency_by_class_ms": {
+               cls: {q: v * 1e3 for q, v in lat.items()}
+               for cls, lat in sorted(stats.latency_by_class.items())},
+           "p50_ms": stats.p50_latency_s * 1e3,
+           "p99_ms": stats.p99_latency_s * 1e3,
+           "batches": stats.batches, **extra}
+    lat = ", ".join(f"{cls} p50 {v['p50']:.2f} / p99 {v['p99']:.2f} ms"
+                    for cls, v in out["latency_by_class_ms"].items())
+    print(f"[serve] ({label}) {n} requests in {wall * 1e3:.1f} ms: "
+          f"{out['qps']:.1f} QPS; executed {executed}, coalesced "
+          f"{stats.coalesced}, result-cache hits {stats.result_cache_hits}, "
+          f"plan-cache hits {stats.plan_cache_hits}; {lat}; every result "
+          f"bitwise the one-shot call's ({smi})")
+    del results
+    return out
+
+
+def _submit_from_threads(eng, trace: list, threads: int) -> list:
+    """The trace from ``threads`` submitters, request i from thread
+    i % threads; every thread joined within SERVE_WAIT_S."""
+    results, errors = [None] * len(trace), []
+
+    def submitter(k):
+        try:
+            tickets = [(i, eng.submit(trace[i][1]))
+                       for i in range(k, len(trace), threads)]
+            for i, tk in tickets:
+                results[i] = tk.result(timeout=SERVE_WAIT_S)
+        except Exception as exc:
+            errors.append(exc)
+
+    pool = [threading.Thread(target=submitter, args=(k,), daemon=True)
+            for k in range(threads)]
+    for th in pool:
+        th.start()
+    for th in pool:
+        th.join(timeout=SERVE_WAIT_S)
+        check(not th.is_alive(), "a submitter thread never finished")
+    check(not errors, f"submitters raised {errors!r}")
+    return results
+
+
+def _prepare_ms(spec, smi: str) -> float:
+    """Median of 5 of the engine's per-request upload and digest of one
+    spec's operands (``serve.query._prepare``), synchronized."""
+    from repro_torch.serve import query as serve_query
+    dev = torch.device(DEVICE)
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        serve_query._prepare(spec, dev)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(walls))
+
+
+def phase_serve_queries(smi: str) -> dict:
+    """The query-serving tier (``repro_torch.serve.QueryEngine``) on the
+    card: the ten distinct queries of :func:`serve_specs` (a) one-shot
+    through ``run_spec``, checked against the host, then the 64-request
+    trace of :func:`serve_trace` (a) as a loop of one-shot calls, (b)
+    through ``QueryEngine(workers=1)``, (c) through ``workers=4`` from 4
+    submitter threads and (d) through ``EngineReplicas(2)`` sharing one
+    pool and one result cache: every result of (b)-(d) bitwise the
+    one-shot result of its query (keys, values, every join field;
+    k_workload, k_network, alpha, capacity attempts), executions,
+    coalesced twins and cache hits adding up to 64, and each
+    execution's ``exec_s`` at least half the one-shot call's wall time.
+    Then an overload burst of small sorts."""
+    from repro_torch import planner
+    from repro_torch.serve import EngineReplicas, QueryEngine, run_spec
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    planner.clear_plan_cache()
+    specs = serve_specs()
+    trace = serve_trace(specs)
+    # (a) each distinct query once: the one-shot results (the plan cache
+    # then holds the auto queries' plans, as it does for the engines)
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    one = {name: run_spec(spec, device=DEVICE)
+           for name, spec in specs.items()}
+    torch.cuda.synchronize()
+    PATH_KERNELS["serve_queries"] = {k for k, n in cuda.LAUNCHES.items()
+                                     if n > 0}
+    for name, (value, rep) in one.items():
+        _check_one_shot(name, specs[name], value, rep)
+    # (a) the trace as a loop of one-shot calls, each synchronized
+    walls = collections.defaultdict(list)
+    t_loop = time.perf_counter()
+    for name, spec in trace:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_spec(spec, device=DEVICE)
+        torch.cuda.synchronize()
+        walls[name].append((time.perf_counter() - t0) * 1e3)
+    loop_s = time.perf_counter() - t_loop
+    want = {name: (*one[name], float(np.median(walls[name])))
+            for name in specs}
+    out = {"one_shot": {"qps": len(trace) / loop_s, "wall_s": loop_s,
+                        "median_ms": {k: v[2] for k, v in want.items()},
+                        "calls": {k: len(v) for k, v in walls.items()}}}
+    print(f"[serve] (a) one-shot loop: {len(trace)} requests in "
+          f"{loop_s * 1e3:.1f} ms, {out['one_shot']['qps']:.1f} QPS; "
+          f"median ms a call: " + ", ".join(
+              f"{k} {v[2]:.2f} (x{len(walls[k])})" for k, v in want.items())
+          + f" ({smi})")
+    out["prepare_ms"] = {name: _prepare_ms(specs[name], smi)
+                         for name in ("smms_uniform", "smms_records",
+                                      "statjoin_zipf")}
+    print(f"[serve] the engine's upload + digest a request, median of 5: "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in out["prepare_ms"].items())
+          + f" ({smi})")
+
+    def single():
+        with QueryEngine(max_batch=8, workers=1, device=DEVICE) as eng:
+            res = eng.run([s for _, s in trace], timeout=SERVE_WAIT_S)
+            torch.cuda.synchronize()
+            return res, eng.stats(), {"cache_bytes": eng.results.nbytes()}
+
+    def threaded():
+        with QueryEngine(max_batch=8, workers=SERVE_WORKERS,
+                         device=DEVICE) as eng:
+            res = _submit_from_threads(eng, trace, SERVE_WORKERS)
+            torch.cuda.synchronize()
+            return res, eng.stats(), {"cache_bytes": eng.results.nbytes()}
+
+    def replicas():
+        with EngineReplicas(SERVE_REPLICAS, max_batch=8,
+                            device=DEVICE) as fleet:
+            check(fleet.engines[0].pool is fleet.engines[1].pool
+                  and fleet.engines[0].results is fleet.engines[1].results,
+                  "replicas do not share their pool and result cache")
+            res = fleet.run([s for _, s in trace], timeout=SERVE_WAIT_S)
+            torch.cuda.synchronize()
+            stats = fleet.stats()
+            # per class, the worst replica's (the fleet's own p50 / p99)
+            for one in fleet.replica_stats():
+                for cls, lat in one.latency_by_class.items():
+                    mine = stats.latency_by_class.setdefault(cls, {})
+                    for q, v in lat.items():
+                        mine[q] = max(mine.get(q, 0.0), v)
+            return res, stats, {
+                "cache_bytes": fleet.results.nbytes(),
+                "suggested_replicas": fleet.suggest_replicas()}
+
+    out["single"] = _serve_run("b, workers=1", trace, want, single, smi)
+    out["workers"] = _serve_run(f"c, workers={SERVE_WORKERS}", trace, want,
+                                threaded, smi)
+    out["replicas"] = _serve_run(f"d, EngineReplicas({SERVE_REPLICAS})",
+                                 trace, want, replicas, smi)
+    for key in ("single", "workers", "replicas"):
+        print(f"[serve] ({key}) the result cache holds "
+              f"{out[key]['cache_bytes']} bytes (operands and values) "
+              f"after the trace")
+    out["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    del one, want, specs, trace
+    out["overload"] = serve_overload(smi)
+    print(f"[serve] peak memory of the phase "
+          f"{out['max_memory_allocated_bytes'] / 2**20:.1f} MiB; launches "
+          f"on the path: {dict(PATH_LAUNCHES['serve_queries'])} ({smi})")
+    return out
+
+
+def serve_overload(smi: str) -> dict:
+    """An overload burst of small SMMS sorts (t = 8 x 4,096, each its own
+    keys): the rate one engine sustains on them, then OVERLOAD_N of them
+    offered at OVERLOAD_RATE x that rate by one paced submitter, with
+    ``max_pending=OVERLOAD_PENDING``, classes drawn from
+    SERVE_CLASS_MIX and a deadline on the low class.  No high-class
+    request is shed or rejected while a lower-class one is queued;
+    every shed is a typed ``ShedError`` or ``DeadlineExceededError``;
+    every served result is the one-shot call's."""
+    from repro_torch.serve import (PRIORITY_HIGH, PRIORITY_LOW,
+                                   AdmissionError, DeadlineExceededError,
+                                   QueryEngine, ShedError, run_spec,
+                                   sort_query)
+    PATH_KERNELS["serve_overload"] = PATH_KERNELS[
+        "small_sort" if cost_model_family(M_SMALL) == "bitonic"
+        else "small_sort_radix"]
+    rng = np.random.default_rng(SEED + 11)
+    xs = [uniform_keys(T_SMALL * M_SMALL, seed=SEED + 100 + i)
+          .reshape(T_SMALL, M_SMALL) for i in range(OVERLOAD_N + 16)]
+    calib = [sort_query(x, algorithm="smms") for x in xs[OVERLOAD_N:]]
+    with QueryEngine(max_batch=8, workers=1, device=DEVICE) as eng:
+        eng.run(calib[:4], timeout=SERVE_WAIT_S)          # warm
+        t0 = time.perf_counter()
+        eng.run(calib[4:], timeout=SERVE_WAIT_S)
+        sustained = len(calib[4:]) / (time.perf_counter() - t0)
+        service = eng.metrics.histogram("serve_exec_seconds").mean
+    classes = rng.choice(3, OVERLOAD_N, p=SERVE_CLASS_MIX)
+    specs = [sort_query(x, algorithm="smms", priority=int(c),
+                        tag=f"burst#{i}",
+                        deadline_s=(20 * service if c == PRIORITY_LOW
+                                    else None))
+             for i, (x, c) in enumerate(zip(xs, classes))]
+    interval = 1.0 / (OVERLOAD_RATE * sustained)
+    outcome = collections.Counter()
+    inversions = []
+
+    def burst():
+        tickets = []
+        with QueryEngine(max_pending=OVERLOAD_PENDING, max_batch=8,
+                         workers=1, device=DEVICE) as eng:
+            start = time.perf_counter()
+            for i, spec in enumerate(specs):
+                delay = start + i * interval - time.perf_counter()
+                if delay > 0:
+                    time.sleep(delay)
+                try:
+                    tickets.append((spec, eng.submit(spec, block=False)))
+                except AdmissionError as exc:
+                    check(not isinstance(exc, ShedError),
+                          "a submit raised ShedError")
+                    outcome[("rejected", spec.priority)] += 1
+                    if spec.priority == PRIORITY_HIGH:
+                        worse = {c: d for c, d in eng._admit.depths().items()
+                                 if c > PRIORITY_HIGH}
+                        if worse:
+                            inversions.append((spec.tag, worse))
+            results = []
+            for spec, tk in tickets:
+                try:
+                    results.append((spec, tk.result(timeout=SERVE_WAIT_S)))
+                    outcome[("served", spec.priority)] += 1
+                except ShedError:
+                    outcome[("shed", spec.priority)] += 1
+                except DeadlineExceededError:
+                    outcome[("expired", spec.priority)] += 1
+            torch.cuda.synchronize()
+            return results, eng.stats()
+
+    results, stats = on_path("serve_overload", burst)
+    check(not inversions, f"high-class submits rejected while lower-class "
+                          f"requests were queued: {inversions}")
+    check(outcome[("shed", PRIORITY_HIGH)] == 0
+          and stats.shed_by_class.get("high", 0) == 0,
+          "a high-class request was shed")
+    shed = sum(n for (kind, _), n in outcome.items()
+               if kind in ("shed", "expired"))
+    refused = sum(n for (kind, _), n in outcome.items() if kind == "rejected")
+    check(shed + refused > 0, f"the burst never overloaded the engine: "
+                              f"{dict(outcome)}")
+    check(shed == stats.shed + stats.expired
+          and sum(outcome.values()) == OVERLOAD_N,
+          f"sheds {shed} against the engine's {stats.shed} + "
+          f"{stats.expired}; outcomes {dict(outcome)}")
+    for spec, res in results:
+        check(res.ok, f"{spec.tag}: failed: {res.error}")
+    for spec, res in results[:8]:
+        (keys, _), _ = run_spec(spec, device=DEVICE)
+        check(same_bits(res.value[0], keys),
+              f"{spec.tag}: keys differ from the one-shot call's")
+    names = {0: "high", 1: "normal", 2: "low"}
+    table = {names[c]: {kind: outcome[(kind, c)] for kind in
+                        ("served", "shed", "expired", "rejected")}
+             for c in range(3)}
+    lat = {cls: {q: v * 1e3 for q, v in d.items()}
+           for cls, d in stats.latency_by_class.items()}
+    print(f"[serve] overload: {OVERLOAD_N} small sorts (t={T_SMALL} x "
+          f"{M_SMALL}) offered at {OVERLOAD_RATE:g} x the sustained "
+          f"{sustained:.1f} QPS (one every {interval * 1e3:.3f} ms), "
+          f"max_pending={OVERLOAD_PENDING}: {table}; served latency ms "
+          f"{lat}; no high-class request shed; every shed typed ({smi})")
+    return {"sustained_qps": sustained, "offered_qps":
+            OVERLOAD_RATE * sustained, "service_ms": service * 1e3,
+            "by_class": table, "latency_by_class_ms": lat,
+            "peak_pending": stats.peak_pending}
 
 
 # ---------------------------------------------------------------------------
@@ -3606,6 +4081,7 @@ def main() -> None:
     phase_nan_keys(errs)
     runs["staged"] = phase_staged(smi)
     runs["auto"] = phase_auto(smi)
+    runs["serve_queries"] = phase_serve_queries(smi)
     runs["bucketize"] = phase_bucketize(smi)
     phase_serve_smoke()
     serving = phase_serve(smi)

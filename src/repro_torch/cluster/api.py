@@ -25,6 +25,14 @@ Terasort and RandJoin draw random numbers: from ``seed`` by a
 RandJoin), which is how the tests hand the port the reference's
 ``jax.random`` draws.
 
+Every algorithm runs on a substrate: ``substrate=`` takes a
+``BatchedSubstrate``, a provider -- any callable mapping an axis spec
+to one, a ``SubstratePool`` above all -- or None, the process-wide
+pool (``substrate.default_pool``).  A provider is called with the axes
+each algorithm needs: ``(t,)`` for the flat sorts, the sketch and the
+1D joins, the staged grid's two named axes, RandJoin's ``(("a", a),
+("b", b))``; the query engine hands its pool in this way.
+
 The run happens on the card unless the caller asks otherwise:
 ``device=None`` means ``"cuda"``, and raises when no card is present --
 it never falls back to the CPU.  ``device="cpu"`` runs the kernels'
@@ -92,7 +100,7 @@ def _attach_plan(report, plan, sketch_phases) -> None:
 def sort(x, *, algorithm: str = "smms", r: int = 2, seed: int = 0,
          cap_factor: Optional[float] = None, policy=None, values=None,
          exchange: str = "flat", overlap_chunks: int = 2, uniforms=None,
-         device=None):
+         substrate=None, device=None):
     """Distributed sort of x: (t, m), one row per machine.
 
     x: a numpy array or a tensor (float32, bfloat16 or int32 keys; a
@@ -113,6 +121,8 @@ def sort(x, *, algorithm: str = "smms", r: int = 2, seed: int = 0,
     ``overlap_chunks`` slices; one more round, the same keys; a t that
     does not factor warns and runs flat) or "auto" (the planner's
     topology model); ``report.exchange_topology`` says which ran.
+    ``substrate``: see the module docstring (a 2-axis substrate runs
+    staged over its own grid).
     """
     if exchange not in ("flat", "staged", AUTO):
         raise ValueError(f"unknown exchange topology {exchange!r}; "
@@ -136,12 +146,14 @@ def sort(x, *, algorithm: str = "smms", r: int = 2, seed: int = 0,
         # the fingerprint reads the caller's host array; the sketch the
         # rows already on the device
         plan, sketch_phases = plan_sort_query(x, t=t, r=r, device=dev,
-                                              x_device=xt)
+                                              x_device=xt,
+                                              substrate=substrate)
         out, report = sort(
             xt, algorithm=plan.algorithm, r=r, seed=seed,
             cap_factor=cap_factor, policy=policy, values=vt,
             exchange=plan.exchange if exchange == AUTO else exchange,
-            overlap_chunks=overlap_chunks, uniforms=uniforms, device=dev)
+            overlap_chunks=overlap_chunks, uniforms=uniforms,
+            substrate=substrate, device=dev)
         _attach_plan(report, plan, sketch_phases)
         return out, report
     if exchange == AUTO:
@@ -155,11 +167,12 @@ def sort(x, *, algorithm: str = "smms", r: int = 2, seed: int = 0,
         return terasort_sort(xt, seed=seed, cap_factor=cap_factor,
                              policy=policy, values=vt, uniforms=ut,
                              exchange=exchange,
-                             overlap_chunks=overlap_chunks)
+                             overlap_chunks=overlap_chunks,
+                             substrate=substrate)
     from ..core.smms import smms_sort
     return smms_sort(xt, r=r, cap_factor=cap_factor, policy=policy,
                      values=vt, exchange=exchange,
-                     overlap_chunks=overlap_chunks)
+                     overlap_chunks=overlap_chunks, substrate=substrate)
 
 
 def join(s_keys, s_rows, t_keys, t_rows, *, algorithm: str = "statjoin",
@@ -167,7 +180,7 @@ def join(s_keys, s_rows, t_keys, t_rows, *, algorithm: str = "statjoin",
          in_cap_factor: float = 4.0, out_cap_factor: float = 1.05,
          ab: Optional[Tuple[int, int]] = None, stats=None,
          small_side: Optional[str] = None, assignments=None,
-         mem_budget: Optional[int] = None, device=None):
+         mem_budget: Optional[int] = None, substrate=None, device=None):
     """Distributed equi-join of S and T.  Returns (JoinOutput, report).
 
     Keys and row ids are host arrays (int32 keys below MASKED_KEY);
@@ -190,19 +203,21 @@ def join(s_keys, s_rows, t_keys, t_rows, *, algorithm: str = "statjoin",
     ``algorithm="auto"`` sketches both tables in one round, scores the
     four algorithms by the theorem cost model and dispatches to the
     winner; ``mem_budget`` (objects) caps broadcast's small side there.
+    ``substrate``: see the module docstring.
     """
     dev = resolve_device(device)
     if algorithm == AUTO:
         from ..planner import plan_join_query
         plan, sketch_phases = plan_join_query(
             s_keys, t_keys, t_machines=t_machines, mem_budget=mem_budget,
-            device=dev)
+            device=dev, substrate=substrate)
         out, report = join(
             s_keys, s_rows, t_keys, t_rows, algorithm=plan.algorithm,
             t_machines=t_machines, out_capacity=out_capacity, seed=seed,
             in_cap_factor=in_cap_factor, out_cap_factor=out_cap_factor,
             ab=ab, stats=stats, small_side=small_side,
-            assignments=assignments, mem_budget=mem_budget, device=dev)
+            assignments=assignments, mem_budget=mem_budget,
+            substrate=substrate, device=dev)
         _attach_plan(report, plan, sketch_phases)
         return out, report
     if algorithm not in JOIN_ALGORITHMS:
@@ -212,7 +227,8 @@ def join(s_keys, s_rows, t_keys, t_rows, *, algorithm: str = "statjoin",
         from ..core.statjoin import statjoin
         return statjoin(s_keys, s_rows, t_keys, t_rows, t_machines,
                         out_cap_factor=out_cap_factor, stats=stats,
-                        out_capacity=out_capacity, device=dev)
+                        out_capacity=out_capacity, device=dev,
+                        substrate=substrate)
 
     defaulted_capacity = out_capacity is None
     if defaulted_capacity:
@@ -228,7 +244,8 @@ def join(s_keys, s_rows, t_keys, t_rows, *, algorithm: str = "statjoin",
     if algorithm == "repartition":
         from ..core.repartition import repartition_join
         return repartition_join(s_keys, s_rows, t_keys, t_rows, t_machines,
-                                out_capacity, device=dev)
+                                out_capacity, device=dev,
+                                substrate=substrate)
     if algorithm == "randjoin":
         from ..core.randjoin import choose_ab, randjoin
         a, b = ab if ab is not None else choose_ab(
@@ -240,7 +257,7 @@ def join(s_keys, s_rows, t_keys, t_rows, *, algorithm: str = "statjoin",
                                 in_cap_factor=in_cap_factor
                                 * (cap / out_capacity),
                                 ab=(a, b), assignments=assignments,
-                                device=dev)
+                                device=dev, substrate=substrate)
             return (out, rep), int(out.dropped.max())
 
         if not defaulted_capacity:
@@ -257,7 +274,7 @@ def join(s_keys, s_rows, t_keys, t_rows, *, algorithm: str = "statjoin",
     def attempt(cap):
         out, rep = broadcast_join(s_keys, s_rows, t_keys, t_rows, t_machines,
                                   int(cap), small_side=small_side,
-                                  device=dev)
+                                  device=dev, substrate=substrate)
         return (out, rep), int(out.dropped.max())
 
     if not defaulted_capacity:

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ..cluster.collectives import CollectiveTape
-from ..cluster.substrate import default_pool
+from ..cluster.substrate import resolve_substrate
 from .localjoin import MASKED_KEY, local_equijoin
 
 __all__ = ["broadcast_join"]
@@ -52,12 +52,15 @@ def _deal_round_robin(keys: np.ndarray, rows: np.ndarray, t: int, device):
 def broadcast_join(s_keys: np.ndarray, s_rows: np.ndarray,
                    t_keys: np.ndarray, t_rows: np.ndarray,
                    t_machines: int, out_capacity: int,
-                   small_side: Optional[str] = None, device="cuda"):
+                   small_side: Optional[str] = None, device="cuda",
+                   substrate=None):
     """All-gather the small table, join locally.  Returns (JoinOutput, report).
 
     small_side: "s" or "t" forces which table is replicated; default the
     shorter one (ties go to S).  Output pairs keep the (s_row, t_row)
-    orientation whichever side was broadcast.
+    orientation whichever side was broadcast.  ``substrate``: a
+    substrate, a provider (called with ``(t,)``) or None, the
+    process-wide pool.
     """
     t = t_machines
     s_keys = np.asarray(s_keys, np.int32)
@@ -72,7 +75,8 @@ def broadcast_join(s_keys: np.ndarray, s_rows: np.ndarray,
                                           else (t_side, s_side))
     body = functools.partial(_broadcast_body, small_side=small_side,
                              out_capacity=out_capacity)
-    out, tape = default_pool()(t).run(body, big_k, big_r, small_k, small_r)
+    out, tape = resolve_substrate(substrate, t).run(body, big_k, big_r,
+                                                    small_k, small_r)
     counts = out.count.cpu().numpy()
     n_in = len(s_keys) + len(t_keys)
     report = tape.report(

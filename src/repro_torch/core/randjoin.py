@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from ..cluster.collectives import CollectiveTape
-from ..cluster.substrate import default_pool
+from ..cluster.substrate import resolve_substrate
 from ..kernels import ops
 from .exchange import PAD, build_send_buffer, static_exchange
 from .localjoin import MASKED_KEY, JoinOutput, local_equijoin
@@ -139,7 +139,7 @@ def randjoin(s_keys: np.ndarray, s_rows: np.ndarray,
              t_machines: int, out_capacity: int,
              seed: int = 0, in_cap_factor: float = 2.0,
              ab: Optional[Tuple[int, int]] = None,
-             assignments=None, device="cuda"):
+             assignments=None, device="cuda", substrate=None):
     """Deal the tables to the a x b machines and join them on ``device``.
 
     Tables are flat host arrays, dealt in order to the t machines (the
@@ -149,7 +149,9 @@ def randjoin(s_keys: np.ndarray, s_rows: np.ndarray,
     draws them from ``seed``.  Returns (JoinOutput, report), the
     output's fields (t, capacity) or (t,), machine-major as the port's
     other joins (the reference's are (a, b, ...), the same machines in
-    the same order).
+    the same order).  ``substrate``: a substrate of a x b machines, a
+    provider (called with the reference's axes ``(("a", a), ("b",
+    b))``) or None, the process-wide pool.
     """
     a, b = ab if ab is not None else choose_ab(
         t_machines, s_keys.shape[0], t_keys.shape[0])
@@ -182,8 +184,11 @@ def randjoin(s_keys: np.ndarray, s_rows: np.ndarray,
     body = functools.partial(randjoin_shard, a=a, b=b,
                              out_capacity=int(out_capacity),
                              in_cap_factor=float(in_cap_factor))
-    out, tape = default_pool()(t).run(body, sk, sr, tk, tr, i_assign,
-                                      j_assign)
+    sub = resolve_substrate(substrate, ("a", a), ("b", b))
+    if sub.t != t:
+        raise ValueError(f"{sub!r} runs {sub.t} machines; RandJoin's "
+                         f"matrix has {a} x {b}")
+    out, tape = sub.run(body, sk, sr, tk, tr, i_assign, j_assign)
     counts = out.count.cpu().numpy()
     n_in = s_keys.shape[0] + t_keys.shape[0]
     report = tape.report(algorithm=f"RandJoin(a={a},b={b})", t=t,

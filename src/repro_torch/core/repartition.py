@@ -15,7 +15,7 @@ import functools
 import numpy as np
 import torch
 
-from ..cluster.substrate import default_pool
+from ..cluster.substrate import resolve_substrate
 from .localjoin import MASKED_KEY, local_equijoin
 
 __all__ = ["repartition_join"]
@@ -46,10 +46,12 @@ def _shard(keys: np.ndarray, rows: np.ndarray, t: int, device):
 
 def repartition_join(s_keys: np.ndarray, s_rows: np.ndarray,
                      t_keys: np.ndarray, t_rows: np.ndarray,
-                     t_machines: int, out_capacity: int, device="cuda"):
+                     t_machines: int, out_capacity: int, device="cuda",
+                     substrate=None):
     """Hash-partition both tables by key; join per machine on ``device``.
 
-    Returns (JoinOutput, report).
+    Returns (JoinOutput, report).  ``substrate``: a substrate, a
+    provider (called with ``(t,)``) or None, the process-wide pool.
     """
     t = t_machines
     s_keys = np.asarray(s_keys, np.int64)
@@ -57,7 +59,7 @@ def repartition_join(s_keys: np.ndarray, s_rows: np.ndarray,
     sk, sr = _shard(s_keys, np.asarray(s_rows), t, device)
     tk, tr = _shard(t_keys, np.asarray(t_rows), t, device)
     body = functools.partial(_repartition_body, out_capacity=out_capacity)
-    out, tape = default_pool()(t).run(body, sk, sr, tk, tr)
+    out, tape = resolve_substrate(substrate, t).run(body, sk, sr, tk, tr)
     counts = out.count.cpu().numpy()
     n_in = len(s_keys) + len(t_keys)
     report = tape.report(algorithm="RepartitionJoin", t=t, n_in=n_in,

@@ -33,7 +33,7 @@ import torch
 
 from ..cluster.capacity import CapacityPolicy, run_with_capacity
 from ..cluster.collectives import CollectiveTape
-from ..cluster.substrate import default_pool
+from ..cluster.substrate import BatchedSubstrate, resolve_substrate
 from ..kernels import ops
 from .alpha_k import smms_workload_bound
 from .boundaries import boundaries, equidepth_samples
@@ -43,21 +43,51 @@ __all__ = ["smms_shard", "smms_sort", "SortResult", "default_cap_factor",
            "received_objects", "resolve_exchange_topology"]
 
 
-def resolve_exchange_topology(t: int, exchange: str = "flat"):
-    """The staged grid (t1, t2) for a t-machine sort, or None (flat).
+def resolve_exchange_topology(substrate, t: int, exchange: str = "flat"):
+    """Resolve ``(substrate, staged_shape)`` for a t-machine sort.
 
     The reference's ``resolve_exchange_topology``
-    (``src/repro/core/smms.py:43``) reduced to what the port's front
-    door has: no ``substrate=``, so no 2-axis or caller-pinned
-    substrate.  ``"staged"`` gives the balanced factorization of t; a t
-    without one warns and runs flat.
+    (``src/repro/core/smms.py:43``).  ``substrate`` is what the front
+    door takes (a substrate, a provider such as a ``SubstratePool``, or
+    None, the process-wide pool):
+
+    * a 2-axis substrate always runs staged over its own (t1, t2) shape;
+    * ``exchange="staged"`` with a provider (or None) resolves a 2-axis
+      substrate over the balanced factorization of t -- a t without one
+      warns and runs flat;
+    * ``exchange="staged"`` with an explicit 1-axis substrate warns and
+      stays flat.
+
+    ``staged_shape=None`` in the result means the flat exchange.
     """
-    from ..launch.mesh import factor_shards
+    import warnings
+
+    from ..launch.mesh import STAGED_AXIS_NAMES, factor_shards
 
     if exchange not in ("flat", "staged"):
         raise ValueError(f"unknown exchange topology {exchange!r}; "
                          "expected 'flat' or 'staged'")
-    return factor_shards(t, warn=True) if exchange == "staged" else None
+    explicit = isinstance(substrate, BatchedSubstrate)
+    if explicit and len(substrate.axes) == 2:
+        t1, t2 = substrate.shape
+        if min(t1, t2) < 2:
+            raise ValueError(f"2-axis substrate {substrate.shape} cannot "
+                             "stage the exchange: both sub-axes must be "
+                             ">= 2")
+        return substrate, (t1, t2)
+    if exchange == "staged":
+        if explicit:
+            warnings.warn(
+                "explicit single-axis substrate cannot run the staged "
+                "exchange; falling back to the flat topology",
+                stacklevel=2)
+            return substrate, None
+        fs = factor_shards(t, warn=True)
+        if fs is None:
+            return resolve_substrate(substrate, t), None
+        return resolve_substrate(substrate, (STAGED_AXIS_NAMES[0], fs[0]),
+                                 (STAGED_AXIS_NAMES[1], fs[1])), fs
+    return resolve_substrate(substrate, t), None
 
 
 class SortResult(NamedTuple):
@@ -135,7 +165,8 @@ def smms_shard(x: torch.Tensor, *, t: int, r: int = 2,
 def smms_sort(x: torch.Tensor, r: int = 2, cap_factor: Optional[float] = None,
               policy: Optional[CapacityPolicy] = None,
               values: Optional[torch.Tensor] = None,
-              exchange: str = "flat", overlap_chunks: int = 2):
+              exchange: str = "flat", overlap_chunks: int = 2,
+              substrate=None):
     """Sort x of shape (t, m) across t machines, on x's device.
 
     Returns ``((sorted_keys, sorted_values), report)``: the n sorted
@@ -148,12 +179,16 @@ def smms_sort(x: torch.Tensor, r: int = 2, cap_factor: Optional[float] = None,
     retries on overflow.  ``exchange="staged"`` runs Round 3 over the
     (t1, t2) factorization of t, its stage 2 in ``overlap_chunks``
     slices (a t that does not factor warns and runs flat);
-    ``report.exchange_topology`` says which ran.
+    ``report.exchange_topology`` says which ran.  ``substrate`` as
+    :func:`resolve_exchange_topology` takes it.
     """
     t, m = x.shape
     n = t * m
-    staged_shape = resolve_exchange_topology(t, exchange)
-    substrate = default_pool()(t)
+    substrate, staged_shape = resolve_exchange_topology(substrate, t,
+                                                        exchange)
+    if substrate.t != t:
+        raise ValueError(f"{substrate!r} runs {substrate.t} machines; "
+                         f"x has {t} rows")
     if policy is None:
         policy = (CapacityPolicy.fixed(cap_factor) if cap_factor is not None
                   else CapacityPolicy.smms(n, t, r))

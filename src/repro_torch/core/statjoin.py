@@ -33,7 +33,7 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 import torch
 
-from ..cluster.substrate import default_pool
+from ..cluster.substrate import resolve_substrate
 from .alpha_k import statjoin_workload_bound
 from .localjoin import MASKED_KEY, local_equijoin
 
@@ -235,11 +235,14 @@ def statjoin(s_keys: np.ndarray, s_rows: np.ndarray,
              t_keys: np.ndarray, t_rows: np.ndarray, t_machines: int,
              out_cap_factor: float = 1.05,
              stats: Optional[JoinStatistics] = None,
-             out_capacity: Optional[int] = None, device="cuda"):
+             out_capacity: Optional[int] = None, device="cuda",
+             substrate=None):
     """Plan on statistics (host), then join on ``device``, batched.
 
     Returns (JoinOutput, report).  ``out_capacity`` overrides the
     Theorem-6 output slots per machine, ceil(out_cap_factor * 2W/t).
+    ``substrate``: a substrate, a provider (called with ``(t,)``) or
+    None, the process-wide pool.
     """
     t = t_machines
     s_keys = np.asarray(s_keys, np.int32)
@@ -265,7 +268,7 @@ def statjoin(s_keys: np.ndarray, s_rows: np.ndarray,
     n_in = len(s_keys) + len(t_keys)
     body = functools.partial(_statjoin_body, n_in=n_in, n_stat=len(stats.keys),
                              t=t, capacity=capacity)
-    out, tape = default_pool()(t).run(body, sk, sr, tk, tr)
+    out, tape = resolve_substrate(substrate, t).run(body, sk, sr, tk, tr)
     report = tape.report(algorithm="StatJoin", t=t, n_in=n_in, n_out=w,
                          workload=out.count.cpu().numpy())
     report.theoretical_workload_bound = statjoin_workload_bound(w, t)

@@ -32,7 +32,6 @@ import torch
 
 from ..cluster.capacity import CapacityPolicy, run_with_capacity
 from ..cluster.collectives import CollectiveTape
-from ..cluster.substrate import default_pool
 from ..kernels.bitonic import ftz
 from .alpha_k import terasort_workload_bound
 from .exchange import exchange_sorted_segments
@@ -107,7 +106,8 @@ def terasort_sort(x: torch.Tensor, seed: int = 0,
                   policy: Optional[CapacityPolicy] = None,
                   values: Optional[torch.Tensor] = None,
                   uniforms: Optional[torch.Tensor] = None,
-                  exchange: str = "flat", overlap_chunks: int = 2):
+                  exchange: str = "flat", overlap_chunks: int = 2,
+                  substrate=None):
     """Sort x of shape (t, m) across t machines, on x's device.
 
     ``uniforms`` (t, m) float32 are the Algorithm-S draws; None draws
@@ -117,20 +117,23 @@ def terasort_sort(x: torch.Tensor, seed: int = 0,
     (Theorem 3), ``cap_factor``, ``capacity_attempts`` and the
     boundaries.  An explicit ``cap_factor`` pins the capacity (no
     retry); otherwise Theorem 3 sizes it, with slack 1.1, and the
-    policy retries on overflow.  ``exchange`` and ``overlap_chunks`` as
-    in :func:`~repro_torch.core.smms.smms_sort`.
+    policy retries on overflow.  ``exchange``, ``overlap_chunks`` and
+    ``substrate`` as in :func:`~repro_torch.core.smms.smms_sort`.
     """
     t, m = x.shape
     n = t * m
     q = terasort_sample_count(n, t)
-    staged_shape = resolve_exchange_topology(t, exchange)
+    substrate, staged_shape = resolve_exchange_topology(substrate, t,
+                                                        exchange)
+    if substrate.t != t:
+        raise ValueError(f"{substrate!r} runs {substrate.t} machines; "
+                         f"x has {t} rows")
     if uniforms is None:
         uniforms = draw_uniforms(t, m, seed, x.device)
     elif tuple(uniforms.shape) != (t, m):
         raise ValueError(f"uniforms of shape {tuple(uniforms.shape)}; "
                          f"Algorithm S draws one per object, ({t}, {m})")
     uniforms = uniforms.to(device=x.device, dtype=torch.float32)
-    substrate = default_pool()(t)
     if policy is None:
         policy = (CapacityPolicy.fixed(cap_factor) if cap_factor is not None
                   else CapacityPolicy.terasort(n, t, slack=1.1))

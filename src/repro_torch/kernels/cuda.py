@@ -132,8 +132,11 @@ RESTYPES = {"merge_ranks_cuts": ctypes.c_longlong,
 # another (merge_ranks.cu: a memset of its NaN flags, phase A, then a
 # cut and a merge kernel a level), the radix sort a memset and a kernel
 # a pass, and the in-tile merge launches its global passes when a padded
-# entry outgrows one block's shared memory (merge_rows.cu).
+# entry outgrows one block's shared memory (merge_rows.cu).  The query
+# engine launches from several threads at once: a count is bumped under
+# _COUNT_LOCK, as a Counter's += is not atomic across threads.
 LAUNCHES: collections.Counter = collections.Counter()
+_COUNT_LOCK = threading.Lock()
 # kernel name -> {"seconds": build time, "ptxas": nvcc's -Xptxas -v}
 BUILD_LOG: Dict[str, dict] = {}
 
@@ -147,7 +150,8 @@ _device = _raw_stream = None
 
 
 def reset_launches() -> None:
-    LAUNCHES.clear()
+    with _COUNT_LOCK:
+        LAUNCHES.clear()
 
 
 def _nvcc() -> str:
@@ -266,7 +270,8 @@ def launch(name: str, fn: str, *args) -> None:
         lib = library(KERNELS[name].library)
         raise RuntimeError(f"{fn}: CUDA error {rc} "
                            f"({lib.error_string(rc).decode()})")
-    LAUNCHES[name] += 1
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
 
 
 def check_cuda_tensor(name: str, x, dtypes) -> None:

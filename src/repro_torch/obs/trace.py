@@ -4,7 +4,8 @@ A copy of ``src/repro/obs/trace.py`` (pure Python; the port imports
 nothing of the reference package).  A traced ``cluster.sort`` gives a
 tree of spans:
 
-    q                                  (the caller's root: Tracer.trace)
+    q                                  (the caller's root: Tracer.trace;
+                                        "query" under the query engine)
     ├─ plan.sort                       (algorithm="auto": cache hit OR
     │  ├─ planner.sketch                sketch + score)
     │  │  └─ substrate.run             (the sketch body)
@@ -27,7 +28,8 @@ The trace context is an explicit object (:class:`Span`) carried in a
 module-level :func:`span` / :func:`event`, which attach to the current
 span **in the same thread** and are no-ops (one ContextVar read + a
 None check) when no trace is active.  A span is only ever mutated by
-the thread that opened it.
+the thread that opened it; the query engine opens each request's root
+in the worker thread that runs it, so the whole tree lives there.
 
 Leaf **phase spans** are attached after the substrate run from the
 ``CollectiveTape``: their per-machine ``sent``/``received`` arrays are
@@ -36,9 +38,10 @@ reconcile bitwise with the report.  Phase time is not observed (the
 phases' work is queued on the device together), so phase spans are
 instants at the run's end carrying the traffic attributes.
 
-Overhead contract: with no active trace every instrumentation point
-short-circuits before allocating anything, and no device counter is
-read.
+Overhead contract: with no active trace (the default: the process-global
+tracer, :func:`get_tracer`, starts disabled) every instrumentation
+point short-circuits before allocating anything, and no device counter
+is read.
 """
 from __future__ import annotations
 
@@ -51,7 +54,8 @@ import time
 from collections import deque
 from typing import Any, Dict, Iterator, List, Optional
 
-__all__ = ["Span", "SpanEvent", "Tracer", "current", "span", "event"]
+__all__ = ["Span", "SpanEvent", "Tracer", "get_tracer", "set_tracer",
+           "enable", "disable", "current", "span", "event"]
 
 _IDS = itertools.count(1)
 
@@ -225,3 +229,34 @@ class Tracer:
     def __repr__(self) -> str:
         return (f"Tracer(enabled={self.enabled}, "
                 f"captured={len(self.traces)})")
+
+
+# ---------------------------------------------------------------------------
+# The process-global tracer: disabled by default (tracing is opt-in).
+# ---------------------------------------------------------------------------
+_GLOBAL = Tracer(enabled=False)
+_GLOBAL_LOCK = threading.Lock()
+
+
+def get_tracer() -> Tracer:
+    """The process-global tracer (what ``QueryEngine`` defaults to)."""
+    return _GLOBAL
+
+
+def set_tracer(tracer: Tracer) -> Tracer:
+    global _GLOBAL
+    with _GLOBAL_LOCK:
+        _GLOBAL = tracer
+    return tracer
+
+
+def enable() -> Tracer:
+    """Turn the global tracer on (one-shot calls outside an engine can
+    then open traces via ``get_tracer().trace(...)``)."""
+    _GLOBAL.enabled = True
+    return _GLOBAL
+
+
+def disable() -> Tracer:
+    _GLOBAL.enabled = False
+    return _GLOBAL

@@ -26,7 +26,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ..cluster.substrate import BatchedSubstrate
+from ..cluster.substrate import BatchedSubstrate, resolve_substrate
 from ..obs import trace as obs_trace
 from .cost import CostEstimate, choose_exchange, join_costs, select, sort_costs
 from .sketch import profile_join_tables, profile_sorted_shards
@@ -168,14 +168,24 @@ def _cache_put(key: str, plan: QueryPlan) -> None:
             _STATS["cache_evictions"] += 1
 
 
-def plan_sort_query(x, *, t: int, r: int = 2, device="cpu", x_device=None):
+def _sketch_substrate(substrate, t: int) -> BatchedSubstrate:
+    """The substrate the sketch round runs on: the resolved one where
+    it is a single axis of t machines (a pool's ``(t,)`` substrate, so
+    its run counters see the sketch), else a fresh one."""
+    sub = resolve_substrate(substrate, t)
+    return sub if sub.t == t and len(sub.axes) == 1 else BatchedSubstrate(t)
+
+
+def plan_sort_query(x, *, t: int, r: int = 2, device="cpu", x_device=None,
+                    substrate=None):
     """Sketch -> score -> choose for ``cluster.sort(algorithm="auto")``.
 
     ``x`` is what the caller handed in; ``x_device``, when given, the
     same rows already on ``device``, else ``x`` is moved there.  The
-    rows on the device are fingerprinted and sketched.  Returns
-    ``(QueryPlan, sketch_phases)``; the phases are [] on a cache hit
-    (no sketch ran)."""
+    rows on the device are fingerprinted and sketched, on ``substrate``
+    (a substrate, a provider or None, as ``cluster.sort`` takes it).
+    Returns ``(QueryPlan, sketch_phases)``; the phases are [] on a
+    cache hit (no sketch ran)."""
     if x_device is None:
         x_device = (x if isinstance(x, torch.Tensor)
                     else torch.as_tensor(np.asarray(x))).to(device)
@@ -185,18 +195,20 @@ def plan_sort_query(x, *, t: int, r: int = 2, device="cpu", x_device=None):
         if plan is not None:
             obs_trace.event("plan.cache_hit", fingerprint=key[:12])
             return plan, []
-        plan, phases = sketch_sort_plan(x_device, t=t, r=r, fingerprint=key)
+        plan, phases = sketch_sort_plan(x_device, t=t, r=r, fingerprint=key,
+                                        substrate=substrate)
         _cache_put(key, plan)
         return plan, phases
 
 
 def sketch_sort_plan(x_device: torch.Tensor, *, t: int, r: int = 2,
-                     fingerprint: str = ""):
+                     fingerprint: str = "", substrate=None):
     """The sort plan with no cache: the sketch round on ``x_device``'s
     device, then the scores.  Returns ``(QueryPlan, sketch_phases)``."""
     _tick("sketch_runs")
     with obs_trace.span("planner.sketch"):
-        profile, tape = profile_sorted_shards(x_device, BatchedSubstrate(t))
+        profile, tape = profile_sorted_shards(
+            x_device, _sketch_substrate(substrate, t))
     with obs_trace.span("planner.score"):
         costs = sort_costs(profile, t, r=r)
         chosen = select(costs)
@@ -211,9 +223,11 @@ def sketch_sort_plan(x_device: torch.Tensor, *, t: int, r: int = 2,
 
 
 def plan_join_query(s_keys, t_keys, *, t_machines: int,
-                    mem_budget: Optional[int] = None, device="cpu"):
+                    mem_budget: Optional[int] = None, device="cpu",
+                    substrate=None):
     """Sketch -> score -> choose for ``cluster.join(algorithm="auto")``.
 
+    The sketch runs on ``substrate`` as in :func:`plan_sort_query`.
     Returns ``(QueryPlan, sketch_phases)``."""
     from ..core.localjoin import MASKED_KEY
 
@@ -229,8 +243,8 @@ def plan_join_query(s_keys, t_keys, *, t_machines: int,
         _tick("sketch_runs")
         with obs_trace.span("planner.sketch"):
             profile, tape = profile_join_tables(
-                s32, t32, t, BatchedSubstrate(t), masked=int(MASKED_KEY),
-                device=device)
+                s32, t32, t, _sketch_substrate(substrate, t),
+                masked=int(MASKED_KEY), device=device)
         with obs_trace.span("planner.score"):
             costs = join_costs(profile, t, mem_budget=mem_budget)
             chosen = select(costs)

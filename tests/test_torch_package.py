@@ -29,9 +29,31 @@ def test_port_imports_neither_jax_nor_the_reference():
         import repro_torch.models.model, repro_torch.models.convert
         import repro_torch.serve.engine, repro_torch.kernels.flash_attention
         import repro_torch.launch, repro_torch.obs, repro_torch.planner
+        import repro_torch.serve.query, repro_torch.serve.batching
+        import repro_torch.obs.export
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "repro" or m.startswith("repro."))
+        print(",".join(bad))
+    """)
+    src = str(__import__("pathlib").Path(repro_torch.__file__).parents[1])
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True, env={"PYTHONPATH": src},
+                         timeout=120)
+    assert out.stdout.strip() == ""
+
+
+def test_query_engine_imports_neither_jax_nor_the_models():
+    """``repro_torch.serve.query`` alone: no jax, no reference, and the
+    LM stack stays unloaded (``serve.generate`` is lazy)."""
+    code = textwrap.dedent("""
+        import sys
+        import repro_torch.serve.query
+        from repro_torch.serve import QueryEngine, EngineReplicas
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.")
+                     or m == "repro" or m.startswith("repro.")
+                     or m.startswith("repro_torch.models"))
         print(",".join(bad))
     """)
     src = str(__import__("pathlib").Path(repro_torch.__file__).parents[1])
