@@ -39,8 +39,18 @@ version there:
   full width and depth (48 layers, bf16, random weights from a seed made
   on the card): 4 prompts of 2048 tokens, 16 new tokens; its prefill
   goes through the flash-attention kernel (bf16: the tensor-core
-  kernel), its decode through dense rows.  Matmuls run in full float32
-  where they are float32 (TF32 off).
+  kernel), its decode through dense rows; and the same on the MoE
+  decoder granite-moe-3b-a800m at full width and depth (32 layers of 40
+  experts, top-8, 3.30 G bf16 parameters), every FFN its dense alpha_k
+  dispatch;
+* ``repro_torch.cluster.moe_dispatch`` -- one MoE layer with its
+  token->expert routing run as a skew join -- on a granite layer (8192
+  tokens) and a dbrx-132b layer (d 6144, 16 experts of 10752, 2048
+  tokens) at full width over t = 8 machines, in the dense ``capacity``
+  and ``alpha_k`` modes, the ``cluster`` mode (the routed exchange:
+  the owner pair sort and its cut) and ``auto`` (the planner's sketch
+  of the routing ids).  Matmuls run in full float32 where they are
+  float32 (TF32 off).
 
 Phases, in order; any failure raises and the script exits non-zero
 without printing a result:
@@ -143,6 +153,18 @@ without printing a result:
                 tokens, and prefill over the prompt and the tokens so far
                 against two decode steps' logits (relative L2 <= 5e-2);
                 prefill and decode-step times, peak memory
+     MoE        granite-moe-3b-a800m's smoke config on the card against
+                the CPU; its generate at full size (tokens, flash
+                attention once per layer, the teacher-forced steps,
+                prefill against every decode step within rel. L2 5e-2
+                where neither dropped an assignment; each prefill
+                layer's drops and largest slot load); moe_dispatch on
+                the granite and dbrx layers: every mode against a dense
+                per-token oracle (2e-4), expert counts a host recount,
+                capacity and attempts the policy's, auto's plan the
+                CPU's, each kernel call held against its plain version;
+                at the smoke width every mode's report equal to the
+                CPU's; medians of 5 a mode, peak memory
   7. launches   per path of phases 4-6 (each run's counts set to 0 just
                 before it, read just after): each path launched exactly
                 the kernels of PATH_KERNELS, and every kernel ran
@@ -178,6 +200,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import importlib
 import json
 import math
@@ -204,11 +227,13 @@ from repro_torch.kernels import (bitonic, bucketize, cuda, fused,  # noqa: E402
                                  ops, radix)
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.models import model as lm  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.convert import tree_map  # noqa: E402
 from repro_torch.workloads import (JOIN_T, JOINS, M, M_SMALL,  # noqa: E402
-                                   M_WIDE, PAYLOAD_COLS, SERVE_ARCH, SERVE_B,
-                                   SERVE_NEW, SERVE_PROMPT, T, T_SMALL,
-                                   TERASORT_ATTEMPTS, make_payload,
+                                   M_WIDE, MOE_ARCH, MOE_T, MOE_TOKENS,
+                                   MOE_WIDE_ARCH, PAYLOAD_COLS, SERVE_ARCH,
+                                   SERVE_B, SERVE_NEW, SERVE_PROMPT, T,
+                                   T_SMALL, TERASORT_ATTEMPTS, make_payload,
                                    sort_inputs)
 
 # the module, not the function of the same name repro_torch.core exports
@@ -319,6 +344,20 @@ PATH_KERNELS = {
     "bucketize": {"bucketize_histogram"},
     "serve_gemma3_12b": {"flash_attention"},
     "serve_gemma3_smoke": {"flash_attention"},
+    # the MoE decoder: flash attention in the prefill; its MoE layers
+    # (the dense alpha_k dispatch) run no hand kernel
+    "serve_granite": {"flash_attention"},
+    "serve_granite_smoke": {"flash_attention"},
+    # cluster.moe_dispatch on one layer at full width, the plan cache
+    # cleared: the sketch's sort and self-searches of the (t, m*k) int32
+    # routing ids, the owner pair sort and its cut; mode="auto" the
+    # sketch, then the winner's (none for a dense mode).  Set by
+    # phase_moe_cluster from the cost model's families at those widths
+    "moe_cluster_granite_uniform": set(),
+    "moe_cluster_granite_hot": set(),
+    "moe_auto_granite_uniform": set(),
+    "moe_auto_granite_hot": set(),
+    "moe_cluster_dbrx_uniform": set(),
 }
 # path -> kernel -> launches, summed over the path's runs
 PATH_LAUNCHES = {path: collections.Counter() for path in PATH_KERNELS}
@@ -1213,8 +1252,9 @@ def bucketize_edges(compare, rng, dev) -> None:
 def flash_operands(close, dev) -> None:
     """Flash attention against its plain version at gemma3-12b's prefill
     shape (B = 4, 16 q heads over 8 kv heads, S = 2048, head_dim 256),
-    global and with its 1024-token window, and at musicgen-medium's
-    (MHA, 24 heads of 64), in bf16 (the tensor-core kernel) and f32 (the
+    global and with its 1024-token window, at musicgen-medium's (MHA, 24
+    heads of 64) and at granite-moe-3b-a800m's (GQA, 24 q heads over 8
+    kv heads of 64), in bf16 (the tensor-core kernel) and f32 (the
     CUDA-core one); and at edge shapes: S = 17, S a multiple of no tile
     with fewer queries than keys, MQA, and a head_dim (48) that the
     kernel pads."""
@@ -1228,10 +1268,12 @@ def flash_operands(close, dev) -> None:
     cfg = get_arch(SERVE_ARCH)
     full = (SERVE_B, cfg.n_heads, cfg.n_kv_heads, SERVE_PROMPT, SERVE_PROMPT,
             cfg.head_dim_)
-    mg = get_arch("musicgen-medium")
+    mg, gr = get_arch("musicgen-medium"), get_arch(MOE_ARCH)
     shapes = [(full, None), (full, cfg.sliding_window),
               ((SERVE_B, mg.n_heads, mg.n_kv_heads, SERVE_PROMPT,
                 SERVE_PROMPT, mg.head_dim_), None),
+              ((SERVE_B, gr.n_heads, gr.n_kv_heads, SERVE_PROMPT,
+                SERVE_PROMPT, gr.head_dim_), None),
               ((2, 4, 2, 17, 17, 256), None),
               ((2, 4, 2, 1000, 1300, 128), 333),
               ((1, 8, 1, 777, 777, 64), None),
@@ -2290,12 +2332,15 @@ def serve_faults(params, cfg, prompts, dev_tokens, prefilled) -> dict:
     return readings
 
 
-def phase_serve_smoke() -> None:
-    """gemma3-12b's smoke configuration (2 periods of 6 layers, window
-    16, float32) on the card against the same call on the CPU: the same
-    weights, a 48-token prompt (the kernel path and the window), prefill
-    and decode logits within 2e-3 and the same generated tokens."""
-    cfg = smoke_config(get_arch(SERVE_ARCH))
+def phase_serve_smoke(arch: str = SERVE_ARCH,
+                      path: str = "serve_gemma3_smoke") -> None:
+    """``arch``'s smoke configuration (gemma3-12b's: 2 periods of 6
+    layers, window 16; granite-moe-3b-a800m's: 2 layers of 8 experts,
+    top-2; float32) on the card against the same call on the CPU: the
+    same weights, a 48-token prompt (the kernel path and the window),
+    prefill and decode logits within 2e-3 and the same generated
+    tokens."""
+    cfg = smoke_config(get_arch(arch))
     params = lm.init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
     on_card = tree_map(lambda w: w.to(DEVICE), params)
     prompts = np.random.default_rng(SEED + 1).integers(
@@ -2305,8 +2350,8 @@ def phase_serve_smoke() -> None:
         cache = lm.init_cache(cfg, 2, 52, device=device)
         run = lambda: lm.prefill(p, cfg, torch.from_numpy(prompts).to(  # noqa: E731
             device), cache)
-        logits, cache = (on_path("serve_gemma3_smoke", run)
-                         if device == DEVICE else run())
+        logits, cache = (on_path(path, run) if device == DEVICE
+                         else run())
         step, _ = lm.decode_step(p, cfg, torch.from_numpy(
             prompts[:, :1]).to(device), cache)
         toks = serve.generate(p, cfg, prompts, 4, device=device)
@@ -2319,6 +2364,528 @@ def phase_serve_smoke() -> None:
     print(f"[small] {cfg.name} on the card: prefill and decode logits within "
           f"{max_abs_err(lg, lc):.3g} / {max_abs_err(sg, sc):.3g} of the CPU "
           f"run (bound 2e-3), tokens equal {tg.tolist()}")
+
+
+# ---------------------------------------------------------------------------
+# 6a. MoE: granite-moe-3b-a800m's generate and cluster.moe_dispatch
+# ---------------------------------------------------------------------------
+
+# a float32 MoE layer against the dense per-token oracle: the
+# reference's own bound (tests/test_moe_cluster.py)
+MOE_TOL = (2e-4, 2e-4)
+MOE_MODES = ("capacity", "alpha_k", "cluster", "auto")
+MOE_SMOKE_D, MOE_SMOKE_TOKENS = 64, 512
+
+
+@contextlib.contextmanager
+def moe_stats_tap(stats: list):
+    """Every MoE layer's ``MoEStats`` appended to ``stats`` while the
+    block runs (the model calls ``moe.moe_layer`` through its module);
+    nothing is read back until the caller reads it."""
+    real = moe_mod.moe_layer
+
+    def tapped(*args, **kw):
+        y, st = real(*args, **kw)
+        stats.append(st)
+        return y, st
+
+    moe_mod.moe_layer = tapped
+    try:
+        yield stats
+    finally:
+        moe_mod.moe_layer = real
+
+
+def _dropped(stats) -> int:
+    return int(sum(int(st.dropped) for st in stats))
+
+
+def _last_routes(stats) -> torch.Tensor:
+    """(layers, B, k): the experts each layer routed each row's last
+    position to, sorted (the set, which decides the layer's output)."""
+    return torch.stack([st.ids[:, -1].sort(dim=-1).values
+                        for st in stats]).cpu()
+
+
+def _rows_dropped(stats) -> torch.Tensor:
+    """(B,) bool: the batch rows with an assignment dropped in any layer
+    (``MoEStats.keep`` is (B, S, K))."""
+    return torch.stack([~st.keep.reshape(st.keep.shape[0], -1).all(dim=1)
+                        for st in stats]).any(dim=0).cpu()
+
+
+def moe_prefill_vs_decode(params, cfg, prompts: torch.Tensor,
+                          tokens: torch.Tensor, label: str,
+                          teacher: bool) -> dict:
+    """A prefill over the prompts, then decode steps teacher-forced by
+    ``tokens`` (with ``teacher``, each step's argmax must be the next
+    token), then at every step a prefill over the prompt and the tokens
+    so far against that step's logits, within SERVE_REL_L2 on the rows
+    where the comparison is one of the attention paths alone: no run
+    (the prefill that filled the cache, this prefill, the decode step)
+    dropped one of the row's assignments in any layer -- a slot past
+    its capacity drops, as in the reference -- and both routed the row's
+    last position to the same experts in every layer -- roundings that
+    tip a near tie of the k-th and (k+1)-th logits swap an expert, a
+    jump the attention paths' agreement does not bound.  Returns the
+    readings, the (step, rows) where the bound held, the prefill's
+    per-layer drops and loads, and the times."""
+    b = prompts.shape[0]
+    vocab = cfg.vocab_size
+    cache = lm.init_cache(cfg, b, prompts.shape[1] + SERVE_NEW,
+                          device=DEVICE)
+    pre_stats = []
+    with moe_stats_tap(pre_stats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = lm.prefill(params, cfg, prompts, cache)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+    if teacher:
+        check(torch.equal(torch.argmax(logits[:, :vocab], -1),
+                          tokens[:, 0].long()),
+              f"{label}: the prefill's token differs from generate's")
+    pre_rows = _rows_dropped(pre_stats)
+    steps = []
+    for j in range(SERVE_NEW):
+        stats = []
+        with moe_stats_tap(stats):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = lm.decode_step(params, cfg, tokens[:, j:j + 1],
+                                           cache)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        steps.append((logits[:, :vocab].float(), _dropped(stats),
+                      _rows_dropped(stats), _last_routes(stats), ms))
+        if teacher and j + 1 < SERVE_NEW:
+            check(torch.equal(torch.argmax(logits[:, :vocab], -1),
+                              tokens[:, j + 1].long()),
+                  f"{label}: decode step {j}'s token differs from "
+                  f"generate's")
+    del cache
+    checked, readings = [], {}
+    for j, (want, step_drop, step_rows, step_routes, _) in enumerate(steps):
+        seq = torch.cat([prompts, tokens[:, :j + 1]], dim=1)
+        c = lm.init_cache(cfg, b, seq.shape[1], device=DEVICE)
+        stats = []
+        with moe_stats_tap(stats):
+            got, c = lm.prefill(params, cfg, seq, c)
+        del c
+        got = got[:, :vocab].float()
+        flipped = (_last_routes(stats) != step_routes).any(dim=2).any(dim=0)
+        clean = ~(_rows_dropped(stats) | step_rows | pre_rows | flipped)
+        rows = clean.nonzero().reshape(-1).tolist()
+        per_row = [rel_l2(got[r], want[r]) for r in range(b)]
+        err_clean = (rel_l2(got[clean.to(DEVICE)], want[clean.to(DEVICE)])
+                     if rows else None)
+        readings[j] = {"rel_l2": rel_l2(got, want), "rel_l2_by_row": per_row,
+                       "rel_l2_clean_rows": err_clean, "clean_rows": rows,
+                       "routed_apart_rows": flipped.nonzero().reshape(-1)
+                       .tolist(),
+                       "decode_dropped": step_drop,
+                       "prefill_dropped": _dropped(stats),
+                       "argmax_agree": float((got.argmax(-1)
+                                              == want.argmax(-1)).float()
+                                             .mean())}
+        print(f"[moe] {label} decode step {j}: a prefill over {seq.shape[1]} "
+              f"tokens gives its logits within relative L2 "
+              f"{[float(f'{e:.4g}') for e in per_row]} by row; rows routed "
+              f"apart "
+              f"{readings[j]['routed_apart_rows']}; dropped: decode "
+              f"{step_drop}, prefill {readings[j]['prefill_dropped']}; "
+              + (f"{err_clean:.4g} on the clean rows {rows} (bound "
+                 f"{SERVE_REL_L2})" if rows else "no clean row"))
+        if rows:
+            checked.append((j, rows))
+            check(err_clean <= SERVE_REL_L2,
+                  f"{label}: prefill vs decode step {j}, rows {rows}: "
+                  f"relative L2 {err_clean} > {SERVE_REL_L2}")
+    print(f"[moe] {label}: the prefill-vs-decode bound held on "
+          f"{sum(len(r) for _, r in checked)} of {SERVE_NEW * b} (step, row) "
+          f"pairs, at {len(checked)} of {SERVE_NEW} steps; rows with drops "
+          f"in the prefill that filled the cache "
+          f"{pre_rows.nonzero().reshape(-1).tolist()}")
+    return {"prefill_ms": prefill_ms,
+            "prefill_dropped_by_layer": [int(st.dropped) for st in pre_stats],
+            "prefill_max_slot_load_by_layer": [int(st.max_slot_load)
+                                               for st in pre_stats],
+            "decode_step_ms": [st[-1] for st in steps],
+            "decode_dropped_by_step": [st[1] for st in steps],
+            "prefill_vs_decode": readings, "checked": checked}
+
+
+def phase_serve_granite(smi: str) -> dict:
+    """``serve.generate`` for granite-moe-3b-a800m at full width and
+    depth, bf16, B = 4 prompts of 2048 tokens, 16 new tokens: the MoE
+    serving path (every layer's FFN the dense alpha_k dispatch).
+
+    Checks: the tokens' shape, type and range; flash attention once per
+    layer; the teacher-forced prefill and decode steps give generate's
+    tokens; prefill against decode (:func:`moe_prefill_vs_decode`)
+    within SERVE_REL_L2 on the rows without drops or routing apart --
+    in bf16 where such rows occur, and on the same weights in float32
+    (13.2 GB), where roundings rarely swap an expert, on at least one
+    (step, row).  Prints each prefill layer's dropped count and largest
+    slot load, each step's drops and readings, the bf16 prefill and
+    decode-step times, peak memory."""
+    cfg = get_arch(MOE_ARCH)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, gen, DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    sizes = []
+    tree_map(lambda w: sizes.append(w.numel()), params)
+    n_params = sum(sizes)
+    moe = cfg.moe
+    print(f"[moe] {MOE_ARCH}: {n_params / 1e9:.3f} G parameters "
+          f"(param_count {cfg.param_count() / 1e9:.3f} G, active "
+          f"{cfg.active_param_count() / 1e9:.3f} G) in bf16 made on the card "
+          f"in {init_s:.1f} s; {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} q / {cfg.n_kv_heads} kv heads of {cfg.head_dim_}; "
+          f"{moe.num_experts} experts of {moe.d_ff_expert}, top-{moe.top_k}, "
+          f"{moe.extra_slots} extra slots, dispatch {moe.dispatch}")
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (SERVE_B, SERVE_PROMPT)).astype(np.int32)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tokens = on_path("serve_granite", lambda: serve.generate(
+        params, cfg, prompts, SERVE_NEW, device=DEVICE))
+    generate_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(tokens.shape == (SERVE_B, SERVE_NEW) and tokens.dtype == np.int32
+          and tokens.min() >= 0 and tokens.max() < cfg.vocab_size,
+          f"serve_granite: tokens {tokens.shape} {tokens.dtype} out of shape "
+          f"or range")
+    launched = PATH_LAUNCHES["serve_granite"]["flash_attention"]
+    check(launched == cfg.n_layers,
+          f"serve_granite: {launched} flash_attention launches, want one per "
+          f"layer ({cfg.n_layers})")
+    capacity = math.ceil(
+        cluster.CapacityPolicy.moe_dispatch().first_factor * SERVE_B
+        * SERVE_PROMPT * moe.top_k / (moe.num_experts + moe.extra_slots))
+    dev_prompts = torch.from_numpy(prompts).to(DEVICE)
+    dev_tokens = torch.from_numpy(tokens).to(DEVICE)
+    with torch.inference_mode():
+        bf16 = moe_prefill_vs_decode(params, cfg, dev_prompts, dev_tokens,
+                                     "serve_granite bf16", teacher=True)
+        print(f"[moe] prefill {SERVE_B} x {SERVE_PROMPT}, bf16: dropped "
+              f"assignments by layer {bf16['prefill_dropped_by_layer']}; "
+              f"largest slot load by layer "
+              f"{bf16['prefill_max_slot_load_by_layer']} (capacity "
+              f"{capacity} a slot); decode steps' drops "
+              f"{bf16['decode_dropped_by_step']}")
+        params = tree_map(lambda w: w.float(), params)
+        cfg32 = dataclasses.replace(cfg, param_dtype=torch.float32,
+                                    compute_dtype=torch.float32)
+        f32 = moe_prefill_vs_decode(params, cfg32, dev_prompts, dev_tokens,
+                                    "serve_granite f32", teacher=False)
+        check(f32["checked"], "serve_granite f32: every (step, row) dropped "
+              "or routed apart; the prefill-vs-decode check held nowhere")
+    decode_ms = float(np.median(bf16["decode_step_ms"]))
+    print(f"[moe] generate {SERVE_B} x {SERVE_PROMPT} + {SERVE_NEW}: "
+          f"{generate_s:.2f} s first call; prefill "
+          f"{bf16['prefill_ms']:.1f} ms, a decode step {decode_ms:.2f} ms "
+          f"(median of {SERVE_NEW}; host clock + synchronize), peak memory "
+          f"{peak / 2**30:.2f} GiB (generate, bf16); tokens "
+          f"{tokens[:, :6].tolist()} ... ({smi})")
+    del params
+    torch.cuda.empty_cache()
+    return {"parameters": n_params, "init_s": init_s,
+            "generate_first_call_s": generate_s,
+            "decode_step_median_ms": decode_ms,
+            "max_memory_allocated_bytes": peak, "bf16": bf16, "f32": f32}
+
+
+def moe_layer_params(cfg_moe, d: int, dtype, device, gen) -> dict:
+    """One MoE layer's weights (``init_moe``) and a second router, the
+    hot one of tests/test_moe_cluster.py:_setup (expert 0's column
+    biased by linspace(0.3, 0.8, d)): {"uniform": params, "hot": params},
+    sharing the experts."""
+    p = moe_mod.init_moe(gen, d, cfg_moe, dtype, device)
+    hot = p["router"] * 0.01
+    hot[:, 0] += torch.linspace(0.3, 0.8, d, device=device)
+    return {"uniform": p, "hot": {**p, "router": hot}}
+
+
+def moe_oracle(p: dict, x: torch.Tensor, k: int) -> torch.Tensor:
+    """The dense per-token evaluation in float32: every token through its
+    own top-k experts (grouped by expert), gate-weighted."""
+    gate_vals, ids = moe_mod.route(x, p["router"], k)
+    gates = torch.softmax(gate_vals, dim=-1)
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for e in range(p["router"].shape[1]):
+        tok, col = (ids == e).nonzero(as_tuple=True)
+        if tok.numel():
+            xe = x[tok].float()
+            h = (torch.nn.functional.silu(xe @ p["w_gate"][e].float())
+                 * (xe @ p["w_up"][e].float()))
+            out.index_add_(0, tok, (h @ p["w_down"][e].float())
+                           * gates[tok, col][:, None])
+    return out
+
+
+def moe_path_kernels(width: int, winner: str = "cluster") -> set:
+    """The kernels one moe_dispatch call launches on (t, ``width``)
+    routing rows with the plan cache cleared: the sketch's sort of the
+    int32 ids and its searches, and, where the cluster dispatch runs,
+    the float32 owner pair sort (the radix sort's order where the cost
+    model picks radix) and its cut."""
+    ids = ops.sort_kernel_choice(torch.empty((1, width), dtype=torch.int32,
+                                             device=DEVICE))
+    want = {"searchsorted", "radix_sort" if ids == "radix" else
+            "bitonic_sort"}
+    if winner == "cluster":
+        want.add("radix_sort" if cost_model_family(width) == "radix"
+                 else "bitonic_sort_kv")
+    return want
+
+
+def _check_moe_run(label: str, rep, ids: torch.Tensor, tokens: int,
+                   cfg_moe) -> None:
+    """The report of one dispatch against the host: the expert counts
+    bitwise a recount of the routing ids the run computed, every
+    assignment in a slot, and the cluster's capacity and plan from
+    CapacityPolicy.moe_dispatch and its slots."""
+    e, k = cfg_moe.num_experts, cfg_moe.top_k
+    n_slots = e + cfg_moe.extra_slots
+    recount = np.bincount(ids.cpu().numpy().reshape(-1), minlength=e)
+    check(np.array_equal(rep.expert_workload, recount),
+          f"{label}: expert_workload differs from a recount of the ids")
+    check(int(np.asarray(rep.slot_workload).sum()) == tokens * k,
+          f"{label}: slot counts sum to {int(rep.slot_workload.sum())}, not "
+          f"{tokens * k}")
+    if rep.dispatch_mode == "cluster":
+        pol = cluster.CapacityPolicy.moe_dispatch()
+        factor = pol.first_factor * pol.growth ** (rep.capacity_attempts - 1)
+        check(rep.cap_factor == factor and rep.capacity == max(
+            1, math.ceil(factor * tokens * k / n_slots)),
+            f"{label}: capacity {rep.capacity} at factor {rep.cap_factor} "
+            f"after {rep.capacity_attempts} attempts is not the policy's")
+        regroup = np.bincount(rep.slot2expert, weights=rep.slot_workload,
+                              minlength=e).astype(np.int64)
+        check(np.array_equal(regroup, recount),
+              f"{label}: slot counts regrouped to experts != the recount")
+
+
+def _same_moe_report(label: str, rep, rep_cpu) -> None:
+    _same_report(label, rep, rep_cpu)
+    for f in ("dispatch_mode", "k_slot", "k_expert", "total_dropped",
+              "capacity"):
+        check(getattr(rep, f, None) == getattr(rep_cpu, f, None),
+              f"{label}: {f} differs from the CPU run")
+    for f in ("slot_workload", "expert_workload", "slot2expert",
+              "slot_replicas"):
+        check(np.array_equal(np.asarray(getattr(rep, f, 0)),
+                             np.asarray(getattr(rep_cpu, f, 0))),
+              f"{label}: {f} differs from the CPU run")
+    if hasattr(rep_cpu, "query_plan"):
+        _same_plan(label, rep.query_plan, rep_cpu.query_plan)
+
+
+def moe_small_vs_cpu() -> None:
+    """cluster.moe_dispatch at granite's smoke width (d 64, 8 experts,
+    top-2, 4 extra slots), 512 tokens over t = 8, both routers, every
+    mode, on the card against the CPU on the same weights: every report
+    field and the plan equal, y within MOE_TOL."""
+    cfg_s = smoke_config(get_arch(MOE_ARCH)).moe
+    from repro_torch import planner
+    routers = moe_layer_params(cfg_s, MOE_SMOKE_D, torch.float32, "cpu",
+                               torch.Generator().manual_seed(SEED + 2))
+    x = torch.randn((MOE_SMOKE_TOKENS, MOE_SMOKE_D),
+                    generator=torch.Generator().manual_seed(SEED + 3))
+    for name, p in routers.items():
+        on_card = {n: w.to(DEVICE) for n, w in p.items()}
+        for mode in MOE_MODES:
+            out = {}
+            for dev, pp in (("cpu", p), (DEVICE, on_card)):
+                planner.clear_plan_cache()
+                out[dev] = cluster.moe_dispatch(pp, x.to(dev), cfg_s,
+                                                mode=mode, t_machines=MOE_T,
+                                                device=dev)
+            (y_c, r_c), (y_g, r_g) = out["cpu"], out[DEVICE]
+            label = f"moe small {name} {mode}"
+            _same_moe_report(label, r_g, r_c)
+            rtol, atol = MOE_TOL
+            check(torch.allclose(y_g.cpu(), y_c, rtol=rtol, atol=atol),
+                  f"{label}: y differs from the CPU run by "
+                  f"{max_abs_err(y_g, y_c)}")
+            print(f"[moe] {label}: {r_g.algorithm} report equal to the CPU "
+                  f"run, y within {max_abs_err(y_g.cpu(), y_c):.3g}, "
+                  f"attempts {getattr(r_g, 'capacity_attempts', None)}, "
+                  f"dropped {r_g.total_dropped}")
+    planner.clear_plan_cache()
+
+
+def _moe_plan_vs_cpu(label: str, p: dict, x: torch.Tensor, cfg_moe) -> dict:
+    """mode="auto"'s plan on the card against the CPU's on the same
+    tokens and router.  The float32 router products of the two devices
+    may round a near tie of the k-th and (k+1)-th logits apart; where no
+    routing id differs the plans must be equal, else the sketch of the
+    card's ids on the CPU must give the card's plan."""
+    from repro_torch import planner
+    kw = dict(t_machines=MOE_T, num_experts=cfg_moe.num_experts,
+              top_k=cfg_moe.top_k, extra_slots=cfg_moe.extra_slots,
+              capacity_factor=cfg_moe.capacity_factor)
+    ids = planner.plan.routing_ids(x, p["router"], t=MOE_T,
+                                   top_k=cfg_moe.top_k)
+    ids_cpu = planner.plan.routing_ids(x.cpu(), p["router"].cpu(), t=MOE_T,
+                                       top_k=cfg_moe.top_k)
+    flips = int((ids.cpu() != ids_cpu).sum())
+    planner.clear_plan_cache()
+    plan, _ = planner.plan_moe_query(x, p["router"], device=DEVICE, **kw)
+    planner.clear_plan_cache()
+    plan_cpu, _ = planner.plan_moe_query(x.cpu(), p["router"].cpu(),
+                                         device="cpu", **kw)
+    skw = {n: v for n, v in kw.items() if n != "t_machines"}
+    if flips == 0:
+        _same_plan(label, plan, plan_cpu)
+    else:
+        _same_plan(label, planner.plan.sketch_moe_plan(ids, **skw)[0],
+                   planner.plan.sketch_moe_plan(ids.cpu(), **skw)[0])
+    print(f"[moe] {label}: routing ids differing between the card and the "
+          f"CPU: {flips} of {ids.numel()}; "
+          + ("the plans are equal" if flips == 0 else
+             "the sketch of the card's ids on both devices gives one plan")
+          + f" ({plan.algorithm}; CPU {plan_cpu.algorithm})")
+    planner.clear_plan_cache()
+    return {"id_flips": flips, "plan": plan.algorithm,
+            "plan_cpu": plan_cpu.algorithm}
+
+
+def _moe_taps(compare, label: str, run, width: int) -> None:
+    """One dispatch with the plan cache cleared under kernel_taps: every
+    kernel call held bitwise against its plain version, the sketch's and
+    the owner sort's (t, width) rows seen."""
+    from repro_torch import planner
+    calls = []
+    planner.clear_plan_cache()
+    with kernel_taps(compare, label, calls):
+        run()
+    rows = f"({MOE_T}, {width}) "
+    check(any(n in ("bitonic_sort", "radix_sort")
+              and w.startswith(rows + "int32") for n, w in calls),
+          f"{label}: no sort of the {rows}int32 routing ids among {calls}")
+    check(any(n in ("bitonic_sort_kv", "radix_sort")
+              and w.startswith(rows + "float32") for n, w in calls),
+          f"{label}: no {rows}float32 owner sort among {calls}")
+    check(_called(calls, "searchsorted", rows),
+          f"{label}: no search of the {rows}rows among {calls}")
+    print(f"[kernels] {label}: {len(calls)} kernel calls held against "
+          f"their plain versions: {sorted(set(calls))}")
+    planner.clear_plan_cache()
+
+
+def phase_moe_cluster(smi: str, errs: dict) -> dict:
+    """``cluster.moe_dispatch`` on one granite-moe-3b-a800m MoE layer at
+    full width (d 1536, 40 experts of 512, top-8, bf16 experts, float32
+    tokens), 8192 tokens over t = 8, a uniform and a hot router, in
+    every mode (``auto`` first, cached and with the cache bypassed), and
+    one dbrx-132b layer (d 6144, 16 experts of 10752, top-4) in
+    ``cluster`` mode on 2048 tokens.  Checks: cluster and alpha_k (and
+    capacity where it drops nothing) against the dense oracle within
+    MOE_TOL; expert counts bitwise a host recount; capacity and attempts
+    the policy's; ``auto``'s plan the CPU's; every kernel call held
+    against its plain version (kernel_taps); the launches of each path.
+    Then the smoke width on the card against the CPU.  Times: median of
+    5 per mode, peak memory."""
+    from repro_torch import planner
+    compare = comparer(errs)
+    out = {}
+    for arch in (MOE_ARCH, MOE_WIDE_ARCH):
+        cfg = get_arch(arch)
+        cfg_moe, d = cfg.moe, cfg.d_model
+        tokens = MOE_TOKENS[arch]
+        width = tokens // MOE_T * cfg_moe.top_k
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        routers = moe_layer_params(cfg_moe, d, cfg.param_dtype, DEVICE, gen)
+        x = torch.randn((tokens, d), generator=gen, device=DEVICE)
+        tag = "granite" if arch == MOE_ARCH else "dbrx"
+        # dbrx: one router, the cluster mode (the dense modes gather every
+        # slot's 0.4 GB of weights at once)
+        modes = MOE_MODES if arch == MOE_ARCH else ("cluster",)
+        names = ("uniform", "hot") if arch == MOE_ARCH else ("uniform",)
+        print(f"[moe] {arch} layer: d {d}, {cfg_moe.num_experts} experts of "
+              f"{cfg_moe.d_ff_expert}, top-{cfg_moe.top_k}, "
+              f"{cfg_moe.extra_slots} extra slots; {tokens} tokens over t = "
+              f"{MOE_T} (routing rows ({MOE_T}, {width})); experts "
+              f"{3 * cfg_moe.num_experts * d * cfg_moe.d_ff_expert * 2 / 1e9:.2f}"
+              f" GB in {str(cfg.param_dtype)[6:]}")
+        for name in names:
+            p = routers[name]
+            label = f"{tag} {name}"
+            kw = dict(t_machines=MOE_T, device=DEVICE)
+            ids_dense = moe_mod.route(x, p["router"], cfg_moe.top_k)[1]
+            ids_cluster = planner.plan.routing_ids(
+                x, p["router"], t=MOE_T, top_k=cfg_moe.top_k)
+            oracle = moe_oracle(p, x, cfg_moe.top_k)
+            runs = {}
+            for mode in modes:
+                planner.clear_plan_cache()
+                torch.cuda.reset_peak_memory_stats()
+                path = (f"moe_{mode}_{tag}_{name}"
+                        if mode in ("cluster", "auto") else None)
+                call = functools.partial(cluster.moe_dispatch, p, x, cfg_moe,
+                                         mode=mode, **kw)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                y, rep = on_path(path, call) if path else call()
+                first_ms = _ms_since(t0)
+                peak = torch.cuda.max_memory_allocated()
+                if path is not None:
+                    PATH_KERNELS[path] = moe_path_kernels(
+                        width, rep.dispatch_mode)
+                ids = (ids_cluster if rep.dispatch_mode == "cluster"
+                       else ids_dense)
+                _check_moe_run(f"moe {label} {mode}", rep, ids, tokens,
+                               cfg_moe)
+                err = max_abs_err(y, oracle)
+                if rep.total_dropped == 0:
+                    rtol, atol = MOE_TOL
+                    check(torch.allclose(y, oracle, rtol=rtol, atol=atol),
+                          f"moe {label} {mode}: y differs from the dense "
+                          f"oracle by {err}")
+                else:
+                    check(mode == "capacity", f"moe {label} {mode} dropped "
+                          f"{rep.total_dropped} assignments")
+                runs[mode] = {"algorithm": rep.algorithm,
+                              "dropped": rep.total_dropped,
+                              "max_abs_err_vs_oracle": err,
+                              "k_slot": rep.k_slot, "k_expert": rep.k_expert,
+                              "capacity": getattr(rep, "capacity", None),
+                              "attempts": getattr(rep, "capacity_attempts",
+                                                  None),
+                              "first_call_peak_bytes": peak}
+                print(f"[moe] {label} {mode}: {rep.algorithm}, dropped "
+                      f"{rep.total_dropped}, k_slot {rep.k_slot:.3f}, "
+                      f"k_expert {rep.k_expert:.3f}, capacity "
+                      f"{getattr(rep, 'capacity', '-')}, attempts "
+                      f"{getattr(rep, 'capacity_attempts', '-')}, max abs "
+                      f"err vs the oracle {err:.3g}"
+                      + ("" if rep.total_dropped == 0 else " (not held: drops)"))
+                runs[mode]["first_call_ms"] = first_ms
+                runs[mode]["times"] = e2e(
+                    f"moe {label} {mode}" + (" (plan cached)" if mode in (
+                        "cluster", "auto") else ""), call, smi)
+                if mode == "auto":
+                    def bypassed(call=call):
+                        planner.clear_plan_cache()
+                        return call()
+                    runs["auto"]["bypassed"] = e2e(
+                        f"moe {label} auto (cache bypassed)", bypassed, smi)
+            if "auto" in modes:
+                runs["plan_vs_cpu"] = _moe_plan_vs_cpu(f"moe {label} auto",
+                                                       p, x, cfg_moe)
+            _moe_taps(compare, f"moe {label} cluster", functools.partial(
+                cluster.moe_dispatch, p, x, cfg_moe, mode="cluster", **kw),
+                width)
+            out[f"{tag}_{name}"] = runs
+        del routers, x
+        torch.cuda.empty_cache()
+    moe_small_vs_cpu()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4085,6 +4652,9 @@ def main() -> None:
     runs["bucketize"] = phase_bucketize(smi)
     phase_serve_smoke()
     serving = phase_serve(smi)
+    phase_serve_smoke(MOE_ARCH, "serve_granite_smoke")
+    serving_moe = phase_serve_granite(smi)
+    moe_runs = phase_moe_cluster(smi, errs)
     launches = phase_launches()
 
     times = phase_times(rng, smi)
@@ -4119,7 +4689,8 @@ def main() -> None:
                     and key.split("@")[1] not in ("bf16", "f32")}}
                for name, k in cuda.KERNELS.items()]
     print(json.dumps({"build": build, "runs": runs, "joins": join_runs,
-                      "serve": serving, "times": times,
+                      "serve": serving, "serve_granite": serving_moe,
+                      "moe": moe_runs, "times": times,
                       "crossover": crossover}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

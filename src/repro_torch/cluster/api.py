@@ -5,12 +5,15 @@
     (keys, _), report = cluster.sort(x, algorithm="terasort", seed=0)
     out, report = cluster.join(sk, sr, tk, tr, algorithm="statjoin",
                                t_machines=8)
+    y, report = cluster.moe_dispatch(params, x, cfg, mode="cluster",
+                                     t_machines=8)
 
 Counterpart of ``src/repro/cluster/api.py`` (``sort`` :86, ``join``
-:195): SMMS and Terasort, with or without values, over the flat or the
-staged exchange (``exchange="flat" | "staged" | "auto"``), and the
-joins -- StatJoin (the paper's §4.3), RandJoin (§4.2) and the
-baselines, repartition and broadcast.  ``algorithm="auto"`` hands the
+:195, ``moe_dispatch`` :339): SMMS and Terasort, with or without
+values, over the flat or the staged exchange (``exchange="flat" |
+"staged" | "auto"``), the joins -- StatJoin (the paper's §4.3),
+RandJoin (§4.2) and the baselines, repartition and broadcast -- and one
+MoE layer with its token->expert dispatch run as a skew join.  ``algorithm="auto"`` hands the
 choice to the planner (``repro_torch.planner``): a sketch round
 profiles the input, the theorem cost model scores every candidate, and
 the call dispatches to the winner -- bitwise the call that names it.
@@ -40,6 +43,7 @@ plain versions (what the tests do).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import numpy as np
@@ -47,11 +51,12 @@ import torch
 
 from .capacity import CapacityPolicy, run_with_capacity
 
-__all__ = ["sort", "join", "SORT_ALGORITHMS", "JOIN_ALGORITHMS", "AUTO",
-           "resolve_device"]
+__all__ = ["sort", "join", "moe_dispatch", "SORT_ALGORITHMS",
+           "JOIN_ALGORITHMS", "MOE_DISPATCH_MODES", "AUTO", "resolve_device"]
 
 SORT_ALGORITHMS = ("smms", "terasort")
 JOIN_ALGORITHMS = ("statjoin", "randjoin", "repartition", "broadcast")
+MOE_DISPATCH_MODES = ("capacity", "alpha_k", "cluster")
 AUTO = "auto"
 
 
@@ -284,3 +289,105 @@ def join(s_keys, s_rows, t_keys, t_rows, *, algorithm: str = "statjoin",
     rep.cap_factor = factor
     rep.capacity_attempts = attempts
     return out, rep
+
+
+def moe_dispatch(params, x, cfg, *, mode: Optional[str] = None,
+                 t_machines: int = 8, substrate=None, policy=None,
+                 act: str = "swiglu", rng: Optional[torch.Generator] = None,
+                 draws=None, device=None):
+    """One MoE layer with its dispatch as a cluster workload.
+
+    Token->expert routing is the skew-join problem (tokens keyed by
+    expert id; a hot expert is Join Product Skew), so it dispatches like
+    :func:`join`.  params: ``router`` (d, E) float32 and ``w_gate`` /
+    ``w_up`` (E, d, ff), ``w_down`` (E, ff, d) (``models.moe.init_moe``),
+    tensors or host arrays; x: (..., d) tokens.  Both are moved to the
+    run's device.  Returns ``(y, report)``: y shaped like x on the
+    device, and an AlphaKReport whose ``slot_workload`` /
+    ``expert_workload`` are the measured dispatch balance.
+
+    mode (default ``cfg.dispatch``):
+
+    * ``"capacity"`` -- the dense capacity-factor layer
+      (``models.moe.moe_layer``); hot experts drop assignments
+      (``report.total_dropped``), the Standard Repartition Join's
+      failure;
+    * ``"alpha_k"`` -- the dense StatJoin-planned layer: hot-expert
+      replicas and Theorem 6's slot capacity
+      (``CapacityPolicy.moe_dispatch()``);
+    * ``"cluster"`` -- the tokens routed through the instrumented
+      exchange over ``t_machines`` (``core.moe_dispatch``): counts taped
+      by the collectives, ``plan_slots`` driven by the planner's sketch
+      of the routing ids, capacities from ``policy`` with retry on
+      overflow; the token count must divide over ``t_machines``;
+    * ``"auto"`` -- sketch the routing ids once
+      (``planner.plan_moe_query``), score the three modes, run the
+      winner; the report carries the plan as ``sort`` / ``join``'s do.
+
+    The dense modes' report counts the slots as its "machines" (one
+    program: no taped exchange, alpha 0).  ``rng`` (a generator on the
+    device) or ``draws`` (injected draws) serve
+    ``replica_choice="random"`` in the dense ``alpha_k`` layer.
+    ``substrate``: see the module docstring.
+    """
+    from ..models.moe import moe_layer, route
+
+    mode = cfg.dispatch if mode is None else mode
+    if mode not in MOE_DISPATCH_MODES + (AUTO,):
+        raise ValueError(f"unknown dispatch mode {mode!r}; expected one "
+                         f"of {MOE_DISPATCH_MODES + (AUTO,)}")
+    dev = resolve_device(device)
+    xt = _as_tensor(_x32(x)).to(dev)
+    p = {name: _as_tensor(_x32(w)).to(dev) for name, w in params.items()}
+    d = int(xt.shape[-1])
+    tt = xt.numel() // d
+    e, k = int(cfg.num_experts), int(cfg.top_k)
+
+    plan = sketch_phases = None
+    if mode in (AUTO, "cluster"):
+        if tt % t_machines:
+            raise ValueError(
+                f"moe_dispatch mode {mode!r} shards tokens over machines: "
+                f"token count {tt} must divide over t_machines={t_machines}")
+        from ..planner import plan_moe_query
+        plan, sketch_phases = plan_moe_query(
+            xt.reshape(tt, d), p["router"], t_machines=t_machines,
+            num_experts=e, top_k=k, extra_slots=cfg.extra_slots,
+            capacity_factor=cfg.capacity_factor, device=dev,
+            substrate=substrate)
+        if mode == AUTO:
+            mode = plan.algorithm
+
+    if mode == "cluster":
+        from ..core.moe_dispatch import cluster_moe_dispatch
+        from ..planner import expert_counts_estimate
+        y, report = cluster_moe_dispatch(
+            p, xt, cfg, t_machines=t_machines,
+            counts=expert_counts_estimate(plan.profile, e),
+            substrate=substrate, policy=policy, act=act)
+        _attach_plan(report, plan, sketch_phases)
+        return y, report
+
+    from ..core.alpha_k import AlphaKReport
+    cfg_run = (cfg if cfg.dispatch == mode
+               else dataclasses.replace(cfg, dispatch=mode))
+    y, stats = moe_layer(p, xt, cfg_run, act=act, rng=rng, draws=draws)
+    slot_load = stats.slot_load.cpu().numpy().astype(np.int64)
+    n_slots = int(slot_load.shape[0])
+    # the routing histogram recounted on the host from the ids the
+    # layer computed (the same expression)
+    ids = route(xt.reshape(tt, d), p["router"], k)[1]
+    expert_workload = np.bincount(ids.cpu().numpy().reshape(-1),
+                                  minlength=e)
+    report = AlphaKReport(algorithm=f"moe[{mode}]", t=n_slots,
+                          n_in=tt * k, n_out=tt * k, workload=slot_load,
+                          phases=[])
+    report.dispatch_mode = mode
+    report.slot_workload = slot_load
+    report.expert_workload = expert_workload
+    report.k_slot = float(slot_load.max() / max(1.0, tt * k / n_slots))
+    report.k_expert = float(expert_workload.max() / max(1.0, tt * k / e))
+    report.total_dropped = int(stats.dropped)
+    if plan is not None:
+        _attach_plan(report, plan, sketch_phases)
+    return y, report

@@ -5,7 +5,8 @@ of the reference package); each retry is a ``capacity_retry`` event on
 the open trace span, as in the reference.
 
 The exchange's receive tile is sized from the algorithm's workload
-theorem (Theorem 1 for SMMS, Theorem 3 for Terasort); an adversarial initial placement can
+theorem (Theorem 1 for SMMS, Theorem 3 for Terasort, Theorem 6 for the
+MoE dispatch's slots); an adversarial initial placement can
 still overflow one (source, destination) pair, which the exchange
 detects as dropped objects.  The recovery re-runs the deterministic
 body with a geometrically larger factor.
@@ -68,6 +69,13 @@ class CapacityPolicy:
     @classmethod
     def randjoin(cls, **kw) -> "CapacityPolicy":
         """Cor. 3: per-machine output < 2 MN/t w.p. >= 1 - 1.2e-9."""
+        return cls(base_factor=2.0, **kw)
+
+    @classmethod
+    def moe_dispatch(cls, **kw) -> "CapacityPolicy":
+        """Theorem 6 applied to expert routing: the StatJoin slot plan
+        splits a hot expert's tokens evenly over its replicas, so no slot
+        receives more than 2 * T * K / n_slots assignments."""
         return cls(base_factor=2.0, **kw)
 
 

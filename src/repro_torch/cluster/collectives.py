@@ -12,7 +12,8 @@ first, and a collective is a tensor operation on that axis.
 * ``all_to_all``  -- the (t_src, t_dst, C) send tiles become the
   (t_dst, t_src, C) landed tiles: a transpose of the first two axes.
   sent is the caller's off-machine count; received counts the landed
-  slots below ``pad`` (sentinel-aware), per machine.
+  slots below ``pad`` (sentinel-aware), per machine, or the caller's
+  ``received`` count.
 
 Either takes ``track=False`` for a payload that rides along an
 exchange already counted (the paper counts objects: a key and its
@@ -212,7 +213,8 @@ class CollectiveTape:
         return outs, sent2
 
     def all_to_all(self, x: torch.Tensor, *, sent=None, pad=None,
-                   track: bool = True, grid: Optional[Tuple[int, int]] = None,
+                   received=None, track: bool = True,
+                   grid: Optional[Tuple[int, int]] = None,
                    axis: int = 0) -> torch.Tensor:
         """x: (t_src, t_dst, ...) send tiles; returns (t_dst, t_src, ...).
 
@@ -220,6 +222,10 @@ class CollectiveTape:
         goes to the k-th member of its line, and lands at the sender's
         place in the line.  ``sent`` defaults to every element of a
         machine's tile; ``pad`` makes the received count sentinel-aware.
+        ``received`` ((t,) or a scalar) gives the landed count of tiles
+        with no sentinel (the MoE return trip's dense payload rows: only
+        the caller knows how many carry real objects); it wins over
+        ``pad``.
         """
         if grid is None:
             out = x.transpose(0, 1).contiguous()
@@ -233,8 +239,12 @@ class CollectiveTape:
         t = x.shape[0]
         per_machine = int(np.prod(x.shape[1:]))
         s = sent if sent is not None else torch.full((t,), per_machine)
-        r = (out < pad).reshape(t, -1).sum(dim=1) if pad is not None \
-            else torch.full((t,), per_machine)
+        if received is not None:
+            r = received
+        elif pad is not None:
+            r = (out < pad).reshape(t, -1).sum(dim=1)
+        else:
+            r = torch.full((t,), per_machine)
         self.record(sent=s, received=r)
         return out
 

@@ -1,11 +1,11 @@
 """Architecture configuration schema (one instance per assigned arch).
 
 The port's own copy of ``src/repro/configs/base.py``, field for field,
-with torch dtypes in place of the reference's.  ``MoEConfig`` and
-``SSMConfig`` are kept so that a config's shape (``param_count``,
-``kind``, ``is_moe``) reads as the reference's does; the port's model
-serves the dense configurations only and raises on the others
-(``models/model.py``).
+with torch dtypes in place of the reference's.  The port's model serves
+the dense and the MoE configurations (``MoEConfig``: ``models/moe.py``,
+``cluster.moe_dispatch``); ``SSMConfig`` is kept so that a config's
+shape (``param_count``, ``kind``) reads as the reference's does, and
+the model raises on SSM layers (``models/model.py``).
 """
 from __future__ import annotations
 

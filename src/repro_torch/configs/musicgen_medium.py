@@ -5,7 +5,7 @@
 vocab=2048.  The port's copy of ``src/repro/configs/musicgen_medium.py``:
 the EnCodec front end is a stub there, the model consumes precomputed
 audio codes directly, so both serve it as a plain dense decoder
-(``models/model.py:check_dense``).  MusicGen's MLP is plain GELU; the
+(``models/model.py:check_served``).  MusicGen's MLP is plain GELU; the
 reference's gated GeGLU at the same d_ff stands in for it.
 """
 from .base import ArchConfig

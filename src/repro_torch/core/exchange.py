@@ -21,6 +21,11 @@ group's t2-1 boundaries, and travel to their machine over i2 in
 ``overlap_chunks`` slices, each merged as it lands, then merged across
 slices.  The boundaries are global, so every machine ends with the flat
 path's keys.
+
+:func:`exchange_routed_rows` / :func:`return_routed_rows` (the
+reference's ``:188`` / ``:229``) deliver payload rows to the machine
+each names and ship the processed rows home: the MoE dispatch's
+shuffle, on the same sort, cut, pack and all-to-all.
 """
 from __future__ import annotations
 
@@ -34,7 +39,8 @@ from ..kernels import ops
 
 __all__ = ["PAD", "partition_sorted", "build_send_buffer", "static_exchange",
            "flat_receive_capacity", "staged_receive_capacities",
-           "ExchangeResult", "exchange_sorted_segments"]
+           "ExchangeResult", "exchange_sorted_segments", "RoutedRows",
+           "exchange_routed_rows", "return_routed_rows"]
 
 # Sentinel key for padded slots.  Keys must be finite floats or ints
 # strictly below it; sorts push pads to the end.
@@ -290,3 +296,82 @@ def exchange_sorted_segments(x_sorted: torch.Tensor, interior: torch.Tensor,
                               sent, dropped)
     merged, merged_v = ops.merge_sorted_rows_kv(recv2d, recv_v2d)
     return ExchangeResult(merged, merged_v, count, sent, dropped)
+
+
+class RoutedRows(NamedTuple):
+    """Landed state of :func:`exchange_routed_rows`: what the receivers
+    need to unpack the tiles, and what the senders need to invert the
+    routing for the return trip.  Machine axis first throughout."""
+    recv_keys: torch.Tensor     # (t, t, cap_pair) owner keys; PAD = empty
+    recv_payload: torch.Tensor  # (t, t, cap_pair, w) rows, zeros on pads
+    perm: torch.Tensor          # (t, n) stable argsort of owner (send order)
+    dest_sorted: torch.Tensor   # (t, n) int32 destination of each sorted row
+    starts: torch.Tensor        # (t, t) first sorted row addressed to dest k
+    lens: torch.Tensor          # (t, t) rows addressed to dest k
+    cap_pair: int               # per-(src, dst) tile capacity
+    local_drop: torch.Tensor    # (t,) rows dropped at send (pair overflow)
+
+
+def exchange_routed_rows(owner: torch.Tensor, payload: torch.Tensor, *,
+                         t: int, cap_pair: int,
+                         tape: Optional[CollectiveTape] = None) -> RoutedRows:
+    """Deliver payload row i of each machine to machine ``owner[i]``
+    through the flat static exchange.
+
+    owner: (t, n) int destinations in [0, t); payload: (t, n, w) rows.
+    Each machine's rows are stably sorted by owner as float32 keys with
+    their positions as values (``ops.sort_kv``: the pair sort, or the
+    radix sort's order), cut at 1..t-1 (``partition_sorted``), packed
+    into a (t, cap_pair) tile and exchanged.  Rows past a pair's
+    capacity are counted in ``local_drop``; the caller's capacity retry
+    recovers, as for the sort shuffles.  The staged topology is not
+    offered: payload rows do not merge.
+    """
+    tape = tape if tape is not None else CollectiveTape()
+    n = owner.shape[1]
+    dev = owner.device
+    iota = torch.arange(n, dtype=torch.int32, device=dev).expand(t, n)
+    owner_sorted, perm = ops.sort_kv(owner.float().contiguous(), iota)
+    rows = torch.arange(t, device=dev)[:, None]
+    pay_sorted = payload[rows, perm.long()]
+    interior = torch.arange(1, t, dtype=torch.float32, device=dev)
+    starts, lens = partition_sorted(owner_sorted, interior)
+    keys_buf, vals_buf, local_drop = build_send_buffer(
+        owner_sorted, starts, lens, cap_pair, pay_sorted)
+    me = torch.arange(t, device=dev)
+    recv_k, recv_v = static_exchange(keys_buf, tape, n - lens[me, me],
+                                     vals_buf)
+    return RoutedRows(recv_k, recv_v, perm, owner_sorted.to(torch.int32),
+                      starts, lens, cap_pair, local_drop)
+
+
+def return_routed_rows(back_tiles: torch.Tensor, routed: RoutedRows, *,
+                       tape: Optional[CollectiveTape] = None, sent=None,
+                       received=None) -> torch.Tensor:
+    """Invert :func:`exchange_routed_rows`: ship processed rows home.
+
+    back_tiles: (t, t, cap_pair, w_out), tile [j, i] on machine j the
+    processed rows machine i landed there, in landed order.  The
+    all-to-all of them lands tile i on i in the (dst, col) layout i
+    packed, so each sender finds its rows where it put them; rows that
+    overflowed a pair tile on the way out come back as zeros.  Returns
+    (t, n, w_out) rows in each machine's original (pre-sort) order.
+    ``sent`` / ``received`` (t,) feed the tape: the tiles are dense
+    payload with no sentinel, so the caller gives the true counts.
+    """
+    tape = tape if tape is not None else CollectiveTape()
+    ret = tape.all_to_all(back_tiles, sent=sent, received=received)
+    t, n = routed.perm.shape
+    dev = ret.device
+    rows = torch.arange(t, device=dev)[:, None]
+    dest = routed.dest_sorted.long()
+    offset = (torch.arange(n, dtype=torch.int32, device=dev)
+              - torch.gather(routed.starts, 1, dest))
+    ok = offset < routed.cap_pair
+    safe = offset.clamp(0, routed.cap_pair - 1).long()
+    got = ret[rows, dest, safe]                          # (t, n, w_out)
+    got = torch.where(ok[..., None], got, torch.zeros((), dtype=ret.dtype,
+                                                      device=dev))
+    out = torch.zeros_like(got)
+    out[rows, routed.perm.long()] = got
+    return out

@@ -7,9 +7,10 @@ per period (``models/model.py``).  :func:`params_from_reference` takes
 that pytree with numpy arrays as leaves (``np.asarray`` of each jax
 array) and returns the port's parameters on ``device`` (None: the card,
 raising without one, as every entry point of the port) in
-``cfg.param_dtype``: the periods unstacked, ``unembed`` present only
-without tied embeddings, the embedding at the padded vocab as the
-reference holds it.  bfloat16 leaves (numpy's ``ml_dtypes`` type) go
+``cfg.param_dtype`` (a MoE router in float32, as the reference holds
+it): the periods unstacked, ``unembed`` present only without tied
+embeddings, the embedding at the padded vocab as the reference holds
+it.  bfloat16 leaves (numpy's ``ml_dtypes`` type) go
 through float32, which holds them exactly.
 """
 from __future__ import annotations
@@ -21,14 +22,24 @@ import torch
 
 from ..cluster.api import resolve_device
 from ..configs.base import ArchConfig
-from .model import check_dense
+from .model import check_served
 
 __all__ = ["params_from_reference", "tree_map"]
 
 
-def _tensor(a, cfg: ArchConfig, device) -> torch.Tensor:
+def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
     return torch.from_numpy(np.asarray(a).astype(np.float32)).to(
-        device=device, dtype=cfg.param_dtype)
+        device=device, dtype=dtype)
+
+
+def _block(block: Dict[str, Any], i: int, cfg: ArchConfig, device):
+    """Period ``i`` of one in-period position's stacked leaves."""
+    out = tree_map(lambda a: _tensor(np.asarray(a)[i], cfg.param_dtype,
+                                     device), block)
+    if "moe" in block:
+        out["moe"]["router"] = _tensor(np.asarray(block["moe"]["router"])[i],
+                                       torch.float32, device)
+    return out
 
 
 def tree_map(fn, tree):
@@ -43,7 +54,7 @@ def tree_map(fn, tree):
 
 def params_from_reference(tree: Dict[str, Any], cfg: ArchConfig,
                           device=None) -> Dict[str, Any]:
-    check_dense(cfg)
+    check_served(cfg)
     device = resolve_device(device)
     want = {"embed", "final_norm", "periods"} | (
         set() if cfg.tie_embeddings else {"unembed"})
@@ -55,12 +66,10 @@ def params_from_reference(tree: Dict[str, Any], cfg: ArchConfig,
         raise ValueError(f"{cfg.name}: embed {embed.shape}, expected "
                          f"{(cfg.padded_vocab, cfg.d_model)}")
     params: Dict[str, Any] = {
-        name: _tensor(tree[name], cfg, device)
+        name: _tensor(tree[name], cfg.param_dtype, device)
         for name in sorted(want - {"periods"})}
     params["periods"] = [
-        {str(pos): tree_map(
-            lambda a, i=i: _tensor(np.asarray(a)[i], cfg, device),
-            tree["periods"][str(pos)])
+        {str(pos): _block(tree["periods"][str(pos)], i, cfg, device)
          for pos in range(cfg.period)}
         for i in range(cfg.n_periods)]
     return params

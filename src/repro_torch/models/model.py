@@ -2,7 +2,11 @@
 
 Counterpart of ``src/repro/models/model.py`` (``init_params``,
 ``init_cache``, ``prefill``, ``decode_step``, ``_attn_sub``,
-``_ffn_sub``) for the dense configurations.  What differs:
+``_ffn_sub``) for the dense and the MoE configurations.  A MoE layer
+(``cfg.is_moe(pos)``) holds ``ln2`` and ``moe`` in place of ``mlp`` and
+runs ``models/moe.py:moe_layer`` in its config's dense dispatch mode,
+one dispatch group (the reference's group count without a mesh).
+What differs:
 
 * Parameters are plain dictionaries of tensors with the reference's
   names.  The reference stacks each in-period position's weights on a
@@ -22,9 +26,9 @@ Counterpart of ``src/repro/models/model.py`` (``init_params``,
 * Prefill attends through the flash-attention kernel
   (``models/attention.py``); decode through the dense rows.
 
-A configuration with MoE layers, SSM (mamba) layers, a vision front
-end, or an int8 KV cache raises ``NotImplementedError`` naming the
-ROADMAP item that brings it.  The audio front end (musicgen-medium) is
+A configuration with SSM (mamba) layers, a vision front end, or an
+int8 KV cache raises ``NotImplementedError`` naming the ROADMAP item
+that brings it (A12).  The audio front end (musicgen-medium) is
 a stub in the reference, whose model branches only on ``"vision"``: it
 consumes audio codes as tokens, and so does the port.
 """
@@ -35,18 +39,17 @@ from typing import Any, Dict, Optional
 import torch
 
 from ..configs.base import ArchConfig
+from . import moe
 from .attention import attention
 from .layers import gated_mlp, init_dense, init_mlp, rms_norm, rope
 
-__all__ = ["check_dense", "init_params", "init_cache", "prefill",
+__all__ = ["check_served", "init_params", "init_cache", "prefill",
            "decode_step"]
 
 
-def check_dense(cfg: ArchConfig) -> None:
-    """Raise unless ``cfg`` is a dense decoder the port serves."""
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: MoE layers are not ported "
-                                  f"yet (ROADMAP A8)")
+def check_served(cfg: ArchConfig) -> None:
+    """Raise unless ``cfg`` is a decoder the port serves: dense or MoE
+    layers over tokens (the audio stub's codes count as tokens)."""
     if cfg.ssm is not None or any(cfg.kind(p) == "mamba"
                                   for p in range(cfg.period)):
         raise NotImplementedError(f"{cfg.name}: SSM (mamba) layers are not "
@@ -64,7 +67,8 @@ def check_dense(cfg: ArchConfig) -> None:
 # init
 # ---------------------------------------------------------------------------
 
-def _init_block(generator: torch.Generator, cfg: ArchConfig, device):
+def _init_block(generator: torch.Generator, cfg: ArchConfig, pos: int,
+                device):
     d, dtype, hd = cfg.d_model, cfg.param_dtype, cfg.head_dim_
     zeros = lambda: torch.zeros((d,), dtype=dtype, device=device)  # noqa: E731
     p: Dict[str, Any] = {"ln1": zeros()}
@@ -72,7 +76,10 @@ def _init_block(generator: torch.Generator, cfg: ArchConfig, device):
     p["wk"] = init_dense(generator, (d, cfg.n_kv_heads * hd), dtype, device)
     p["wv"] = init_dense(generator, (d, cfg.n_kv_heads * hd), dtype, device)
     p["wo"] = init_dense(generator, (cfg.n_heads * hd, d), dtype, device)
-    if cfg.d_ff > 0:
+    if cfg.is_moe(pos):
+        p["ln2"] = zeros()
+        p["moe"] = moe.init_moe(generator, d, cfg.moe, dtype, device)
+    elif cfg.d_ff > 0:
         p["ln2"] = zeros()
         p["mlp"] = init_mlp(generator, d, cfg.d_ff, dtype, device)
     return p
@@ -81,7 +88,7 @@ def _init_block(generator: torch.Generator, cfg: ArchConfig, device):
 def init_params(cfg: ArchConfig, generator: torch.Generator, device):
     """Random weights with the reference's shapes and scales, drawn from
     ``generator`` (which must live on ``device``)."""
-    check_dense(cfg)
+    check_served(cfg)
     d, v, dtype = cfg.d_model, cfg.padded_vocab, cfg.param_dtype
     params: Dict[str, Any] = {
         # 1/sqrt(d) embeddings: unit-variance hidden state after the
@@ -93,7 +100,7 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device):
     if not cfg.tie_embeddings:
         params["unembed"] = init_dense(generator, (d, v), dtype, device)
     params["periods"] = [
-        {str(pos): _init_block(generator, cfg, device)
+        {str(pos): _init_block(generator, cfg, pos, device)
          for pos in range(cfg.period)}
         for _ in range(cfg.n_periods)]
     return params
@@ -142,7 +149,12 @@ def _attn_sub(bp, x: torch.Tensor, cfg: ArchConfig, pos: int,
     return o @ bp["wo"]
 
 
-def _ffn_sub(bp, x: torch.Tensor, cfg: ArchConfig) -> Optional[torch.Tensor]:
+def _ffn_sub(bp, x: torch.Tensor, cfg: ArchConfig,
+             pos: int) -> Optional[torch.Tensor]:
+    if cfg.is_moe(pos):
+        h = rms_norm(x, bp["ln2"], cfg.rms_eps)
+        y, _stats = moe.moe_layer(bp["moe"], h, cfg.moe, act=cfg.act)
+        return y
     if cfg.d_ff > 0:
         h = rms_norm(x, bp["ln2"], cfg.rms_eps)
         return gated_mlp(h, bp["mlp"]["w_gate"], bp["mlp"]["w_up"],
@@ -158,7 +170,7 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, dtype=None,
                device=None) -> Dict[str, Any]:
     """Zeroed k/v buffers (B, Hkv, max_seq, hd) for every attention
     layer, and the next position, ``pos``."""
-    check_dense(cfg)
+    check_served(cfg)
     dtype = dtype or cfg.compute_dtype
     shape = (batch, cfg.n_kv_heads, max_seq, cfg.head_dim_)
     return {"pos": 0, "periods": [
@@ -177,7 +189,7 @@ def _serve_forward(params, cfg: ArchConfig, x: torch.Tensor,
             bp = period_params[str(pos)]
             x = x + _attn_sub(bp, x, cfg, pos, cache_period[str(pos)],
                               q_offset)
-            f = _ffn_sub(bp, x, cfg)
+            f = _ffn_sub(bp, x, cfg, pos)
             if f is not None:
                 x = x + f
     cache["pos"] = q_offset + x.shape[1]
@@ -203,7 +215,7 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
     """Run the prompt (B, S) through the model, filling the cache.
 
     Returns (last-position logits (B, V_padded), cache)."""
-    check_dense(cfg)
+    check_served(cfg)
     x = _serve_forward(params, cfg, _embed_in(params, cfg, tokens), cache)
     return _logits(params, cfg, x), cache
 
@@ -212,6 +224,6 @@ def decode_step(params, cfg: ArchConfig, token: torch.Tensor,
                 cache: Dict[str, Any]):
     """One autoregressive step.  token: (B, 1) -> (logits (B, V_padded),
     cache)."""
-    check_dense(cfg)
+    check_served(cfg)
     x = _serve_forward(params, cfg, _embed_in(params, cfg, token), cache)
     return _logits(params, cfg, x), cache

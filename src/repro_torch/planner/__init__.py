@@ -9,18 +9,21 @@ predicted (alpha, k, bytes shuffled, peak receive) per algorithm; and
 :mod:`repro_torch.planner.plan` scores the candidates, caches the
 decision under a fingerprint of the input, and hands ``cluster.sort``
 / ``cluster.join`` the winner when the caller says
-``algorithm="auto"``.
+``algorithm="auto"``, and ``cluster.moe_dispatch`` its mode under
+``mode="auto"`` (the routing ids sketched, the dispatch modes scored).
 """
 from .cost import (CostEstimate, choose_exchange, exchange_costs, join_costs,
-                   select, sort_costs)
+                   moe_dispatch_costs, select, select_dispatch, sort_costs)
 from .plan import (QueryPlan, clear_plan_cache, plan_join_query,
                    plan_moe_query, plan_sort_query, planner_stats)
-from .sketch import (DataProfile, TableProfile, countmin_query, misra_gries,
+from .sketch import (DataProfile, TableProfile, countmin_query,
+                     expert_counts_estimate, misra_gries,
                      profile_join_tables, profile_sorted_shards,
                      shard_sketch, sketch_table)
 
 __all__ = [
     "CostEstimate", "sort_costs", "join_costs", "select",
+    "moe_dispatch_costs", "select_dispatch", "expert_counts_estimate",
     "choose_exchange", "exchange_costs",
     "QueryPlan", "plan_sort_query", "plan_join_query", "plan_moe_query",
     "clear_plan_cache", "planner_stats",

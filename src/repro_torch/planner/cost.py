@@ -1,9 +1,7 @@
 """The (alpha, k) cost model — theorem bounds turned into predictions.
 
 A copy of ``src/repro/planner/cost.py`` (pure Python; the port imports
-nothing of the reference package) without the MoE dispatch model
-(``moe_dispatch_costs``, ``select_dispatch``), which waits for the MoE
-dispatch itself (ROADMAP A8).
+nothing of the reference package).
 
 Every candidate algorithm gets a :class:`CostEstimate`: predicted alpha
 (rounds), predicted k (workload and network), total bytes shuffled and
@@ -31,11 +29,14 @@ import dataclasses
 import math
 from typing import Dict, Optional
 
+import numpy as np
+
 from ..core.sampling import terasort_sample_count
 
 __all__ = [
     "ROUND_COST_OBJECTS", "BROADCAST_MEM_BUDGET", "TERASORT_EXPECTED_K",
     "CostEstimate", "sort_costs", "join_costs", "select",
+    "moe_dispatch_costs", "select_dispatch",
     "exchange_costs", "choose_exchange",
 ]
 
@@ -198,6 +199,109 @@ def join_costs(profile, t: int,
 
     return {"repartition": repart, "statjoin": stat, "randjoin": rand,
             "broadcast": bcast}
+
+
+# ---------------------------------------------------------------------------
+# MoE dispatch: capacity (repartition analogue) vs alpha_k (StatJoin plan)
+# vs cluster (the instrumented exchange)
+# ---------------------------------------------------------------------------
+
+# Deterministic MoE tie-break: the cheapest machinery that does the job
+# -- plain capacity dispatch, then the planned dense layer, then the
+# cluster exchange (which buys per-machine buffers with extra rounds).
+_DISPATCH_PREFERENCE = ("capacity", "alpha_k", "cluster")
+
+
+def _greedy_replicas(counts, extra_slots: int):
+    """Host mirror of ``plan_slots``' greedy loop: split the expert with
+    the largest per-replica load, one extra slot at a time."""
+    counts = np.asarray(counts, np.float64)
+    rep = np.ones(len(counts), np.int64)
+    for _ in range(int(extra_slots)):
+        rep[np.argmax(counts / rep)] += 1
+    return rep
+
+
+def moe_dispatch_costs(counts, *, tokens: int, top_k: int,
+                       num_experts: int, extra_slots: int, t_machines: int,
+                       capacity_factor: float = 1.25,
+                       alpha_k_factor: Optional[float] = None
+                       ) -> Dict[str, CostEstimate]:
+    """Candidate costs for MoE token dispatch from estimated per-expert
+    counts (the planner's sketch histogram).
+
+    The workload normalizer is the per-slot mean T*K/n_slots -- per-slot
+    ``k_workload`` is the balance metric all three modes report.  The
+    ``peak_receive`` column prices each mode's static landing buffer:
+    the dense modes materialize every slot's capacity on one (logical)
+    machine, the cluster mode only its n_slots/t share -- that factor-t
+    smaller buffer is what the two extra rounds buy.
+    """
+    counts = np.asarray(counts, np.float64)
+    e, k, t = int(num_experts), int(top_k), int(t_machines)
+    tk = float(max(tokens * k, 1))
+    n_slots = e + int(extra_slots)
+    if alpha_k_factor is None:
+        from ..cluster.capacity import CapacityPolicy
+        alpha_k_factor = CapacityPolicy.moe_dispatch().first_factor
+
+    def mk(mode, alpha, peak_slot, peak_receive, moved, drops, note=""):
+        mean_slot = tk / (e if mode == "capacity" else n_slots)
+        return CostEstimate(
+            algorithm=mode, alpha=alpha,
+            k_workload=peak_slot / max(mean_slot, 1.0),
+            k_network=peak_receive / max(tk / t, 1.0),
+            bytes_shuffled=OBJECT_BYTES * moved,
+            peak_receive=peak_receive, peak_workload=peak_slot,
+            w_seq=tk, feasible=drops <= 0,
+            note=note + ("" if drops <= 0
+                         else f" [drops ~{int(drops)} assignments]"))
+
+    # capacity: one bucket per expert, hot experts overflow and DROP --
+    # the Standard-Repartition-Join failure mode, priced as infeasible
+    # whenever the estimated histogram exceeds the capacity.
+    cap_e = math.ceil(capacity_factor * tk / e)
+    cap_drops = float(np.maximum(counts - cap_e, 0.0).sum())
+    capacity = mk("capacity", 1,
+                  peak_slot=float(np.minimum(counts, cap_e).max(initial=0.0)),
+                  peak_receive=float(e * cap_e),
+                  moved=tk, drops=cap_drops,
+                  note=f"cap={cap_e}/expert")
+
+    # alpha_k / cluster share the StatJoin plan: greedy replica split of
+    # the estimated histogram, Theorem-6 per-slot capacity.
+    rep = _greedy_replicas(np.maximum(counts, 1.0), extra_slots)
+    slot_peak = float(np.ceil(np.asarray(counts) / rep).max(initial=0.0))
+    cap_s = max(1, math.ceil(alpha_k_factor * tk / n_slots))
+    ak_drops = float(np.maximum(np.ceil(counts / rep) - cap_s,
+                                0.0).sum() * rep.min(initial=1))
+    alpha_k = mk("alpha_k", 2,
+                 peak_slot=min(slot_peak, float(cap_s)),
+                 peak_receive=float(n_slots * cap_s),
+                 moved=tk, drops=ak_drops,
+                 note=f"Thm 6 cap={cap_s}/slot, "
+                      f"max replicas={int(rep.max(initial=1))}")
+
+    s_local = -(-n_slots // t)
+    cluster = mk("cluster", 3,
+                 peak_slot=min(slot_peak, float(cap_s)),
+                 peak_receive=float(s_local * cap_s),
+                 moved=2.0 * tk + t * (e + n_slots), drops=ak_drops,
+                 note=f"Thm 6 cap={cap_s}/slot, "
+                      f"{s_local} slots/machine")
+    return {"capacity": capacity, "alpha_k": alpha_k, "cluster": cluster}
+
+
+def select_dispatch(costs: Dict[str, CostEstimate]) -> CostEstimate:
+    """Argmin of the score over feasible dispatch modes; when every mode
+    is predicted to drop (capacity exhausted everywhere), alpha_k wins --
+    its retry loop recovers where plain capacity dispatch cannot."""
+    feasible = [c for c in costs.values() if c.feasible]
+    if not feasible:
+        return costs["alpha_k"]
+    return min(feasible, key=lambda c: (c.score,
+                                        _DISPATCH_PREFERENCE.index(
+                                            c.algorithm)))
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,9 @@
 """Plan selection + the plan cache -- the planner's front half.
 
 Counterpart of ``src/repro/planner/plan.py``.  ``plan_sort_query`` /
-``plan_join_query`` run the sketch round on a substrate, score every
-candidate through the cost model and return a :class:`QueryPlan`.
+``plan_join_query`` / ``plan_moe_query`` run the sketch round on a
+substrate, score every candidate through the cost model and return a
+:class:`QueryPlan`.
 Plans are cached under a **fingerprint** -- a content hash of (dtype,
 shape, bytes) of the inputs plus the query parameters -- so a repeated
 query over the same data skips the sketch.  The bytes are hashed where
@@ -28,13 +29,16 @@ import torch
 
 from ..cluster.substrate import BatchedSubstrate, resolve_substrate
 from ..obs import trace as obs_trace
-from .cost import CostEstimate, choose_exchange, join_costs, select, sort_costs
-from .sketch import profile_join_tables, profile_sorted_shards
+from .cost import (CostEstimate, choose_exchange, join_costs,
+                   moe_dispatch_costs, select, select_dispatch, sort_costs)
+from .sketch import (expert_counts_estimate, profile_join_tables,
+                     profile_sorted_shards, sketch_table)
 
 __all__ = [
     "QueryPlan", "fingerprint_arrays", "plan_sort_query", "sketch_sort_plan",
-    "plan_join_query", "plan_moe_query", "clear_plan_cache", "planner_stats",
-    "PLAN_CACHE_MAX", "FINGERPRINT_LANES", "tensor_digest",
+    "plan_join_query", "plan_moe_query", "sketch_moe_plan", "routing_ids",
+    "clear_plan_cache", "planner_stats", "PLAN_CACHE_MAX",
+    "FINGERPRINT_LANES", "tensor_digest",
 ]
 
 PLAN_CACHE_MAX = 128
@@ -49,7 +53,7 @@ _LOCK = threading.RLock()
 @dataclasses.dataclass
 class QueryPlan:
     """One planning decision: profile, all candidate costs, the winner."""
-    kind: str                        # "sort" | "join"
+    kind: str                        # "sort" | "join" | "moe"
     algorithm: str                   # the chosen algorithm
     t: int
     fingerprint: str
@@ -255,8 +259,76 @@ def plan_join_query(s_keys, t_keys, *, t_machines: int,
         return plan, tape.phases(t)
 
 
-def plan_moe_query(*args, **kwargs):
-    """The MoE dispatch planner waits for the MoE dispatch itself."""
-    raise NotImplementedError(
-        "plan_moe_query is not ported yet (MoE dispatch is ROADMAP "
-        "queue A item A8)")
+def routing_ids(x: torch.Tensor, router: torch.Tensor, *, t: int,
+                top_k: int) -> torch.Tensor:
+    """The (t, m * top_k) int32 expert ids the cluster dispatch's Round 1
+    computes for x (tokens, d) dealt to t machines in contiguous blocks:
+    the same routing expression (``models.moe.route``), so the sketched
+    ids are the run's ids."""
+    from ..models.moe import route
+    return route(x.reshape(t, -1, x.shape[-1]), router,
+                 top_k)[1].reshape(t, -1)
+
+
+def plan_moe_query(x, router, *, t_machines: int, num_experts: int,
+                   top_k: int, extra_slots: int,
+                   capacity_factor: float = 1.25, device="cpu",
+                   substrate=None):
+    """Sketch -> score -> choose for ``cluster.moe_dispatch(mode="auto")``
+    (and the cluster mode's counts).
+
+    The sketched table is the router's top-k expert-id stream: routing
+    is a join keyed by expert id, so the heavy-hitter / CountMin
+    machinery that prices skew joins prices dispatch skew.  x (tokens,
+    d) and the router are moved to ``device`` (tensors already there
+    are not copied), fingerprinted there (:func:`tensor_digest`) and the
+    ids sketched there, on ``substrate``.  Returns ``(QueryPlan,
+    sketch_phases)``; ``plan.profile`` is the ids' TableProfile, and
+    ``sketch.expert_counts_estimate`` re-derives the per-expert counts
+    from it.  The phases are [] on a cache hit.
+    """
+    t = t_machines
+    xd, rd = (a if isinstance(a, torch.Tensor)
+              else torch.from_numpy(np.array(a)) for a in (x, router))
+    xd, rd = xd.to(device), rd.to(device)
+    key = fingerprint_arrays(
+        xd, rd, extra=f"moe|t={t}|e={num_experts}|k={top_k}"
+                      f"|r={extra_slots}|cf={capacity_factor}")
+    with obs_trace.span("plan.moe", t=t):
+        plan = _cache_get(key)
+        if plan is not None:
+            obs_trace.event("plan.cache_hit", fingerprint=key[:12])
+            return plan, []
+        plan, phases = sketch_moe_plan(
+            routing_ids(xd, rd, t=t, top_k=top_k), num_experts=num_experts,
+            top_k=top_k, extra_slots=extra_slots,
+            capacity_factor=capacity_factor, fingerprint=key,
+            substrate=substrate)
+        _cache_put(key, plan)
+        return plan, phases
+
+
+def sketch_moe_plan(ids: torch.Tensor, *, num_experts: int, top_k: int,
+                    extra_slots: int, capacity_factor: float = 1.25,
+                    fingerprint: str = "", substrate=None):
+    """The MoE plan with no cache, from the (t, m * top_k) int32 routing
+    ids (:func:`routing_ids`): the sketch round on their device, every
+    id counted (no subsampling), then the dispatch costs.  Returns
+    ``(QueryPlan, sketch_phases)``."""
+    t = ids.shape[0]
+    _tick("sketch_runs")
+    with obs_trace.span("planner.sketch"):
+        profile, tape = sketch_table(ids.to(torch.int32),
+                                     _sketch_substrate(substrate, t),
+                                     sample=None)
+    with obs_trace.span("planner.score"):
+        counts = expert_counts_estimate(profile, num_experts)
+        costs = moe_dispatch_costs(
+            counts, tokens=ids.numel() // top_k, top_k=top_k,
+            num_experts=num_experts, extra_slots=extra_slots, t_machines=t,
+            capacity_factor=capacity_factor)
+        chosen = select_dispatch(costs)
+    plan = QueryPlan(kind="moe", algorithm=chosen.algorithm, t=t,
+                     fingerprint=fingerprint, predicted=chosen,
+                     candidates=costs, profile=profile)
+    return plan, tape.phases(t)

@@ -46,7 +46,7 @@ __all__ = [
     "ShardSketch", "TableProfile", "DataProfile",
     "misra_gries", "shard_sketch", "sketch_size", "countmin_query",
     "merge_shard_sketches", "build_data_profile", "sketch_table",
-    "profile_sorted_shards", "profile_join_tables",
+    "profile_sorted_shards", "profile_join_tables", "expert_counts_estimate",
 ]
 
 HH_K = 8          # heavy-hitter slots per shard
@@ -418,6 +418,30 @@ def profile_sorted_shards(x: torch.Tensor, substrate, *,
                           sample: Optional[int] = SKETCH_SAMPLE):
     """Profile a dense (t, m) sort input.  Returns (TableProfile, tape)."""
     return sketch_table(x, substrate, sample=sample)
+
+
+def expert_counts_estimate(profile: TableProfile,
+                           num_experts: int) -> np.ndarray:
+    """Estimated assignments an expert from a routing-id profile.
+
+    The expert ids' domain is tiny ([0, E)), so the whole histogram is a
+    CountMin point-query sweep -- an upper bound, inflated by colliding
+    mass -- refined by the Misra-Gries heavy hitters wherever one of
+    the top keys is that expert (``min`` of the two, as the profile's
+    merge refines them).  The sweep is rescaled so the total matches the
+    exact assignment count ``profile.n``: ``plan_slots`` reads only
+    ratios, but the capacity test reads absolute loads.
+    """
+    keys = np.arange(num_experts, dtype=np.int32)
+    est = countmin_query(profile.countmin, keys).astype(np.float64)
+    for key, cnt in zip(np.asarray(profile.heavy_keys).astype(np.int64),
+                        np.asarray(profile.heavy_counts, np.float64)):
+        if 0 <= key < num_experts:
+            est[key] = min(est[key], cnt) if est[key] > 0 else cnt
+    total = est.sum()
+    if total > 0 and profile.n > 0:
+        est = est * (profile.n / total)
+    return np.maximum(est, 0.0)
 
 
 def _deal(keys: torch.Tensor, t: int, masked) -> torch.Tensor:

@@ -37,7 +37,10 @@ radix sort alone at (64, 65536) and (64, 262144); ``pair_sort``,
 as ``ops`` calls them (:func:`_pair_call`).  ``serve_prefill`` is
 gemma3-12b's prefill of 4 x 2048 tokens and ``serve_decode`` one decode
 step after it (:data:`repro_torch.workloads.SERVE_ARCH`), bf16 weights
-made on the card from a seed.
+made on the card from a seed; ``serve_granite_prefill`` and
+``serve_granite_decode`` the same on granite-moe-3b-a800m; and
+``moe_capacity``, ``moe_alpha_k`` and ``moe_cluster`` one granite MoE
+layer through ``cluster.moe_dispatch`` (8192 float32 tokens, t = 8).
 """
 from __future__ import annotations
 
@@ -55,8 +58,9 @@ from repro_torch.data import uniform_keys
 from repro_torch.kernels import bitonic, cuda, fused, ops, radix
 from repro_torch.models import model
 from repro_torch.workloads import (JOIN_T, JOINS, M, M_SMALL, M_WIDE,
-                                   SERVE_ARCH, SERVE_B, SERVE_NEW,
-                                   SERVE_PROMPT, T, T_SMALL, make_payload)
+                                   MOE_ARCH, MOE_T, MOE_TOKENS, SERVE_ARCH,
+                                   SERVE_B, SERVE_NEW, SERVE_PROMPT, T,
+                                   T_SMALL, make_payload)
 
 __all__ = ["PATHS"]
 
@@ -144,8 +148,8 @@ def _join_call(name: str):
                                 **cfg.options)
 
 
-def _serve_call(kind: str):
-    cfg = get_arch(SERVE_ARCH)
+def _serve_call(kind: str, arch: str = SERVE_ARCH):
+    cfg = get_arch(arch)
     params = model.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     prompts = torch.from_numpy(np.random.default_rng(0).integers(
@@ -166,9 +170,26 @@ def _serve_call(kind: str):
     return decode
 
 
+def _moe_call(mode: str):
+    """``cluster.moe_dispatch`` on one granite-moe-3b-a800m MoE layer:
+    bf16 experts, 8192 float32 tokens over t = 8, the plan cached."""
+    from repro_torch.models.moe import init_moe
+    cfg = get_arch(MOE_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_moe(gen, cfg.d_model, cfg.moe, cfg.param_dtype, "cuda")
+    x = torch.randn((MOE_TOKENS[MOE_ARCH], cfg.d_model), generator=gen,
+                    device="cuda")
+    return lambda: cluster.moe_dispatch(params, x, cfg.moe, mode=mode,
+                                        t_machines=MOE_T)[0]
+
+
 PATHS = {
     "serve_prefill": lambda: _serve_call("prefill"),
     "serve_decode": lambda: _serve_call("decode"),
+    "serve_granite_prefill": lambda: _serve_call("prefill", MOE_ARCH),
+    "serve_granite_decode": lambda: _serve_call("decode", MOE_ARCH),
+    **{f"moe_{mode}": (lambda mode=mode: _moe_call(mode))
+       for mode in ("capacity", "alpha_k", "cluster")},
     **{name + ("_radix" if family == "radix" else ""):
        (lambda p=payload, a=algorithm, f=family: _sort_call(p, a, f))
        for name, payload, algorithm in (

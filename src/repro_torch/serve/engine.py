@@ -17,7 +17,7 @@ import torch
 
 from ..cluster.api import resolve_device
 from ..configs.base import ArchConfig
-from ..models.model import check_dense, decode_step, init_cache, prefill
+from ..models.model import check_served, decode_step, init_cache, prefill
 
 __all__ = ["generate"]
 
@@ -27,7 +27,7 @@ def generate(params, cfg: ArchConfig, prompts, max_new_tokens: int = 16,
     """Greedy generation.  prompts: (B, S) int token ids (numpy or a
     tensor) -> (B, max_new_tokens) int32 numpy.  ``params`` must live on
     the run's device (``models.model.init_params``)."""
-    check_dense(cfg)
+    check_served(cfg)
     dev = resolve_device(device)
     if params["embed"].device.type != dev.type:
         raise ValueError(f"generate: parameters on {params['embed'].device}, "

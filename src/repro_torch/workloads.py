@@ -16,7 +16,14 @@ One table for both ``chip_smoke.py`` and :mod:`repro_torch.profile_port`:
   d_model 3840, 16 q / 8 kv heads of 256, d_ff 15360, vocab 262,144),
   bf16, random weights from a seed; :data:`SERVE_B` prompts of
   :data:`SERVE_PROMPT` tokens (past the 1024-token window of its local
-  layers) and :data:`SERVE_NEW` new tokens.
+  layers) and :data:`SERVE_NEW` new tokens; and the same for the MoE
+  decoder :data:`MOE_ARCH` (granite-moe-3b-a800m, 32 layers of 40
+  experts, top-8: 3.30 G parameters, all of them on one card);
+* the MoE dispatch (``cluster.moe_dispatch``): one MoE layer of
+  :data:`MOE_ARCH` and one of :data:`MOE_WIDE_ARCH` (dbrx-132b, 16
+  experts of 6144 x 10752, top-4: one layer's 6.3 GB of bf16 experts;
+  the whole model's 263 GB does not fit a card) at full width, over
+  :data:`MOE_T` machines, :data:`MOE_TOKENS` tokens each.
 """
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ from .data import (lidar_like, scalar_skew_tables, uniform_keys, zipf_keys,
 __all__ = ["T", "M", "T_SMALL", "M_SMALL", "M_WIDE", "JOIN_T",
            "PAYLOAD_COLS",
            "SERVE_ARCH", "SERVE_B", "SERVE_PROMPT", "SERVE_NEW",
+           "MOE_ARCH", "MOE_WIDE_ARCH", "MOE_T", "MOE_TOKENS",
            "JoinConfig", "JOINS", "TERASORT_ATTEMPTS", "sort_inputs",
            "adversarial_shards", "make_payload"]
 
@@ -41,6 +49,11 @@ JOIN_T = 64
 PAYLOAD_COLS = 24           # 4-byte key + 24 x 4-byte payload = 100 bytes
 SERVE_ARCH = "gemma3-12b"
 SERVE_B, SERVE_PROMPT, SERVE_NEW = 4, 2048, 16
+MOE_ARCH = "granite-moe-3b-a800m"
+MOE_WIDE_ARCH = "dbrx-132b"
+MOE_T = 8
+# tokens a layer call: granite's a prefill's 4 x 2048; dbrx's a quarter
+MOE_TOKENS = {MOE_ARCH: 8192, MOE_WIDE_ARCH: 2048}
 
 
 class JoinConfig(NamedTuple):

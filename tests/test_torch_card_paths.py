@@ -1,4 +1,5 @@
-"""The staged exchange, the planner and ``obs.timeit`` on the card.
+"""The staged exchange, the planner, ``obs.timeit`` and the MoE dispatch
+on the card.
 
 Card-only (``-m cuda``; they skip without a card), in a file that does
 not import JAX: the card's run is held against the same call on the
@@ -104,3 +105,33 @@ def test_timeit_synchronizes_a_result_on_the_card(card, monkeypatch):
     x = np.random.default_rng(7).normal(size=(8, 4096)).astype(np.float32)
     res = obs.timeit(lambda: cluster.sort(x), reps=2, warmup=1)
     assert len(synced) == 3 and res.last_result[0][0].is_cuda
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["capacity", "alpha_k", "cluster", "auto"])
+def test_moe_dispatch_on_the_card_equals_the_cpu(card, mode):
+    """One MoE layer (d 64, 8 experts, top-2) over t = 8 on the card
+    against the CPU on the same weights: the report's counts, capacity,
+    attempts and phases equal, y within the reference's 2e-4."""
+    from repro_torch.configs import MoEConfig
+    from repro_torch.models.moe import init_moe
+    cfg = MoEConfig(num_experts=8, top_k=2, d_ff_expert=64, extra_slots=4)
+    p = init_moe(torch.Generator().manual_seed(0), 64, cfg, torch.float32,
+                 "cpu")
+    x = torch.randn((512, 64), generator=torch.Generator().manual_seed(1))
+    planner.clear_plan_cache()
+    yg, got = cluster.moe_dispatch(p, x, cfg, mode=mode, t_machines=8)
+    planner.clear_plan_cache()
+    yc, want = cluster.moe_dispatch(p, x, cfg, mode=mode, t_machines=8,
+                                    device="cpu")
+    assert yg.is_cuda
+    torch.testing.assert_close(yg.cpu(), yc, rtol=2e-4, atol=2e-4)
+    assert got.algorithm == want.algorithm
+    for f in ("slot_workload", "expert_workload", "workload"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+    for f in ("total_dropped", "k_slot", "capacity", "capacity_attempts"):
+        assert getattr(got, f, None) == getattr(want, f, None), f
+    for a, b in zip(got.phases, want.phases):
+        assert a.name == b.name
+        np.testing.assert_array_equal(a.sent, b.sent)
+        np.testing.assert_array_equal(a.received, b.received)

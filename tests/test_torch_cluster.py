@@ -80,6 +80,24 @@ def test_tape_phases_and_counts():
     assert rep.alpha == 3
 
 
+def test_tape_all_to_all_takes_a_received_count():
+    """``received=`` gives the landed count of tiles with no sentinel
+    (the MoE return trip's dense rows) and wins over ``pad``, as in the
+    reference's tape."""
+    t = 3
+    tape = CollectiveTape()
+    tiles = torch.zeros((t, t, 2, 4))
+    with tape.phase("return"):
+        back = tape.all_to_all(tiles, sent=torch.tensor([2, 0, 1]),
+                               received=torch.tensor([1, 1, 1]))
+        tape.all_to_all(tiles, sent=torch.tensor([0, 0, 0]), pad=PAD,
+                        received=torch.tensor([4, 0, 0]))
+    assert torch.equal(back, tiles.transpose(0, 1))
+    (phase,) = tape.phases(t)
+    np.testing.assert_array_equal(phase.sent, [2, 0, 1])
+    np.testing.assert_array_equal(phase.received, [5, 1, 1])
+
+
 # ---------------------------------------------------------------------------
 # Round 1 samples and Round 2 boundaries
 # ---------------------------------------------------------------------------

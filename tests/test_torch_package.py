@@ -13,7 +13,7 @@ import jax.numpy as jnp
 import repro_torch
 from repro import cluster as jcluster
 from repro_torch import cluster
-from repro_torch.configs.base import MoEConfig
+from repro_torch.configs.base import SSMConfig
 from repro_torch.kernels import ops
 
 
@@ -31,6 +31,7 @@ def test_port_imports_neither_jax_nor_the_reference():
         import repro_torch.launch, repro_torch.obs, repro_torch.planner
         import repro_torch.serve.query, repro_torch.serve.batching
         import repro_torch.obs.export
+        import repro_torch.models.moe, repro_torch.core.moe_dispatch
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "repro" or m.startswith("repro."))
@@ -83,20 +84,13 @@ def _tables():
 def _unported(entry, change):
     from repro_torch.configs import ARCHS, smoke_config
     from repro_torch.models import model
-    from repro_torch.planner import plan_moe_query
-    if entry == "plan_moe_query":
-        plan_moe_query(np.zeros((4, 2), np.float32),
-                       np.zeros((2, 2), np.float32), t_machines=2,
-                       num_experts=2, top_k=1, extra_slots=0)
-    else:
-        model.check_dense(dataclasses.replace(
-            smoke_config(ARCHS[entry]), **change))
+    model.check_served(dataclasses.replace(smoke_config(ARCHS[entry]),
+                                           **change))
 
 
 @pytest.mark.parametrize("entry, change, item", [
-    ("plan_moe_query", None, "A8"),
-    ("gemma3-12b", {"moe": MoEConfig(num_experts=4, top_k=1,
-                                      d_ff_expert=8)}, "A8"),
+    ("mistral-large-123b", {"ssm": SSMConfig()}, "A12"),
+    ("granite-moe-3b-a800m", {"attn_positions": (0,), "period": 2}, "A12"),
     ("gemma3-12b", {"frontend": "vision"}, "A12"),
     ("llama3-405b", {"kv_quant": True}, "A12"),
 ])

@@ -436,8 +436,28 @@ def test_sketch_sort_plan_is_the_uncached_plan():
     planner.clear_plan_cache()
 
 
-def test_moe_planner_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="A8"):
-        planner.plan_moe_query(np.zeros((4, 2)), np.zeros((2, 2)),
-                               t_machines=2, num_experts=2, top_k=1,
-                               extra_slots=0)
+def test_moe_planner_matches_reference():
+    """``plan_moe_query`` on routing ids with a hot expert: the plan,
+    its candidates and the sketch round equal the reference's, and the
+    hot expert prices plain capacity dispatch as infeasible."""
+    import jax
+    from repro.configs.base import MoEConfig as JMoEConfig
+    from repro.models.moe import init_moe
+    d, e = 16, 4
+    p = init_moe(jax.random.key(2), d, JMoEConfig(num_experts=e, top_k=1,
+                                                   d_ff_expert=8),
+                 jnp.float32)
+    router = np.array(p["router"]) * 0.01
+    router[:, 0] += np.linspace(0.3, 0.8, d)
+    x = np.random.default_rng(4).standard_normal((256, d)).astype(np.float32)
+    kw = dict(t_machines=4, num_experts=e, top_k=1, extra_slots=2)
+    want, want_phases = jplanner.plan_moe_query(x, jnp.asarray(router), **kw)
+    got, got_phases = planner.plan_moe_query(x, router, **kw)
+    assert (got.kind, got.algorithm) == ("moe", want.algorithm)
+    assert {n: dataclasses.asdict(c) for n, c in got.candidates.items()} == {
+        n: dataclasses.asdict(c) for n, c in want.candidates.items()}
+    assert not got.candidates["capacity"].feasible
+    assert [(ph.name, ph.sent.tolist(), ph.received.tolist())
+            for ph in got_phases] == [
+        (ph.name, ph.sent.tolist(), ph.received.tolist())
+        for ph in want_phases]

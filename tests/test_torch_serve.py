@@ -31,7 +31,7 @@ from repro.configs import ARCHS as JARCHS
 from repro.configs import smoke_config as jsmoke_config
 from repro.models import model as jmodel
 from repro.serve.engine import generate as jgenerate
-from repro_torch.configs import ARCHS, MoEConfig, smoke_config
+from repro_torch.configs import ARCHS, SSMConfig, smoke_config
 from repro_torch.kernels import cuda, ops
 from repro_torch.models import model
 from repro_torch.models.convert import params_from_reference, tree_map
@@ -135,7 +135,7 @@ def test_params_carry_over_unstacks_the_periods():
 
 
 @pytest.mark.parametrize("change, item", [
-    ({"moe": MoEConfig(num_experts=4, top_k=1, d_ff_expert=8)}, "A8"),
+    ({"ssm": SSMConfig()}, "A12"),
     ({"frontend": "vision"}, "A12"),
     ({"kv_quant": True}, "A12"),
     ({"attn_positions": (0,), "period": 2}, "A12"),
