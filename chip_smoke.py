@@ -49,8 +49,20 @@ version there:
   tokens) at full width over t = 8 machines, in the dense ``capacity``
   and ``alpha_k`` modes, the ``cluster`` mode (the routed exchange:
   the owner pair sort and its cut) and ``auto`` (the planner's sketch
-  of the routing ids).  Matmuls run in full float32 where they are
-  float32 (TF32 off).
+  of the routing ids);
+* ``repro_torch.serve.generate`` on the rest of the reference's
+  configurations: pixtral-12b at full width and depth (40 layers, 256
+  front-end embeddings of 1024 before 2048-token prompts) with the bf16
+  and the int8 KV cache, mamba2-130m at full width and depth (24 Mamba-2
+  layers; also one prompt of 32,768 tokens), and jamba-1.5-large-398b
+  at full width cut to one attention and one mamba position (the MoE
+  after the mamba one), each with its smoke configuration (and
+  gemma-2b's with the int8 cache) against the CPU; the flash kernel
+  against the blockwise attention backend at pixtral's prefill shape
+  and at gemma3-12b's window; SMMS and Terasort at t = 7, where the
+  reference's float32 index arithmetic moves samples (ROADMAP C18),
+  against the CPU.  Matmuls run in full float32 where they are float32
+  (TF32 off).
 
 Phases, in order; any failure raises and the script exits non-zero
 without printing a result:
@@ -165,13 +177,31 @@ without printing a result:
                 CPU's, each kernel call held against its plain version;
                 at the smoke width every mode's report equal to the
                 CPU's; medians of 5 a mode, peak memory
+     LM rest    pixtral-12b, mamba2-130m and gemma-2b (int8 cache)
+                smoke configs on the card against the CPU (logits within
+                2e-3, the same tokens), jamba's too; pixtral-12b at full
+                size with the bf16 and the int8 cache (tokens, flash
+                attention once per layer, teacher-forced steps, prefill
+                against decode within 5e-2, int8 against bf16 within the
+                reference's 0.05 / 0.8 bounds, cache bytes), flash
+                against the blockwise backend (f32) at its first layer's
+                q/k/v and at gemma3's window, where a window one key too
+                wide is rejected; mamba2-130m at full size (no kernel
+                launched; teacher-forced steps; prefill against decode;
+                a 32,768-token prompt; the SSD scan against its float64
+                recurrence within 2e-4); the jamba cut (its peak worked
+                out first; flash attention once; prefill against decode
+                on the steps without drops or routing apart); C18:
+                SMMS t = 7 x 1,000 and Terasort t = 7 x 1,024 equal to
+                the CPU run (keys, boundaries, workload, report)
   7. launches   per path of phases 4-6 (each run's counts set to 0 just
                 before it, read just after): each path launched exactly
                 the kernels of PATH_KERNELS, and every kernel ran
   8. times      per kernel: CUDA-event time, plain version, one PyTorch
                 library call, bound (each sort-side kernel also on bf16
-                keys, flash attention also in f32 and at musicgen's
-                shape, the rank merge also at each path's landed
+                keys, flash attention also in f32 and at musicgen's,
+                pixtral's and the jamba cut's shapes, the rank merge
+                also at each path's landed
                 buffers, the search also as SMMS's Round 3 calls it
                 through ops, the pair sorts also as ops calls them,
                 the keys-only sort also on rows whose keys fold to zero
@@ -220,7 +250,8 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch import cluster, serve  # noqa: E402
 from repro_torch.configs import get_arch, smoke_config  # noqa: E402
 from repro_torch.core import (MASKED_KEY, choose_ab,  # noqa: E402
-                              draw_assignments, flat_receive_capacity)
+                              draw_assignments, flat_receive_capacity,
+                              terasort_sample_count)
 from repro_torch.data import (lidar_like, scalar_skew_tables,  # noqa: E402
                               uniform_keys, zipf_keys, zipf_tables)
 from repro_torch.kernels import (bitonic, bucketize, cuda, fused,  # noqa: E402
@@ -228,13 +259,17 @@ from repro_torch.kernels import (bitonic, bucketize, cuda, fused,  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.models import model as lm  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models.attention import attention  # noqa: E402
+from repro_torch.models.ssm import ssd_chunked  # noqa: E402
 from repro_torch.models.convert import tree_map  # noqa: E402
 from repro_torch.workloads import (JOIN_T, JOINS, M, M_SMALL,  # noqa: E402
                                    M_WIDE, MOE_ARCH, MOE_T, MOE_TOKENS,
                                    MOE_WIDE_ARCH, PAYLOAD_COLS, SERVE_ARCH,
                                    SERVE_B, SERVE_NEW, SERVE_PROMPT, T,
                                    T_SMALL, TERASORT_ATTEMPTS, make_payload,
-                                   sort_inputs)
+                                   sort_inputs, VLM_ARCH, SSM_ARCH,
+                                   SSM_LONG_PROMPT, HYBRID_ARCH, HYBRID_B,
+                                   HYBRID_PROMPT, HYBRID_NEW, hybrid_cut)
 
 # the module, not the function of the same name repro_torch.core exports
 statjoin_mod = importlib.import_module("repro_torch.core.statjoin")
@@ -263,7 +298,7 @@ SERVE_REL_L2 = 5e-2
 SERVE_FAULTS = {"decode without the window": None,
                 "decode with the window off by one": 1025}
 # kernel vs plain tolerances (allclose rtol, atol): f32 sums in another
-# order over up to 2048 keys x 256 dims; bf16 one ulp where a rounding
+# order over up to 2304 keys x 256 dims; bf16 one ulp where a rounding
 # of the f32 result tips (an ulp is at most 2^-7 of the value, so rtol
 # 8e-3; atol 1e-3 for values near 0)
 FLASH_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (8e-3, 1e-3)}
@@ -348,6 +383,21 @@ PATH_KERNELS = {
     # (the dense alpha_k dispatch) run no hand kernel
     "serve_granite": {"flash_attention"},
     "serve_granite_smoke": {"flash_attention"},
+    # the rest of the LM stack: flash attention in every attention
+    # layer's prefill; the SSD scan, the causal conv and the int8
+    # quantization run no hand kernel, so mamba2-130m's paths launch none
+    "serve_pixtral": {"flash_attention"},
+    "serve_pixtral_int8": {"flash_attention"},
+    "serve_mamba2": set(),
+    "serve_mamba2_long": set(),
+    "serve_jamba": {"flash_attention"},
+    "serve_pixtral_smoke": {"flash_attention"},
+    "serve_mamba2_smoke": set(),
+    "serve_jamba_smoke": {"flash_attention"},
+    "serve_gemma2b_int8_smoke": {"flash_attention"},
+    # ROADMAP C18 at t = 7 (the small paths' kernels)
+    "c18_smms": {"bitonic_sort", "searchsorted", "merge_rows"},
+    "c18_terasort": {"sort_partition", "merge_rows"},
     # cluster.moe_dispatch on one layer at full width, the plan cache
     # cleared: the sketch's sort and self-searches of the (t, m*k) int32
     # routing ids, the owner pair sort and its cut; mode="auto" the
@@ -1254,10 +1304,13 @@ def flash_operands(close, dev) -> None:
     shape (B = 4, 16 q heads over 8 kv heads, S = 2048, head_dim 256),
     global and with its 1024-token window, at musicgen-medium's (MHA, 24
     heads of 64) and at granite-moe-3b-a800m's (GQA, 24 q heads over 8
-    kv heads of 64), in bf16 (the tensor-core kernel) and f32 (the
-    CUDA-core one); and at edge shapes: S = 17, S a multiple of no tile
-    with fewer queries than keys, MQA, and a head_dim (48) that the
-    kernel pads."""
+    kv heads of 64), at pixtral-12b's (4 x 32 q heads over 8 kv heads of
+    128, S = 2304: 256 front-end positions and 2048 tokens) and at the
+    jamba-1.5-large cut's attention layer (1 x 64 q heads over 8 kv
+    heads of 128, S = 1024), in bf16 (the tensor-core kernel) and f32
+    (the CUDA-core one); and at edge shapes: S = 17, S a multiple of no
+    tile with fewer queries than keys, MQA, and a head_dim (48) that
+    the kernel pads."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
     def qkv(b, hq, hkv, sq, sk, d, dtype):
@@ -1269,11 +1322,17 @@ def flash_operands(close, dev) -> None:
     full = (SERVE_B, cfg.n_heads, cfg.n_kv_heads, SERVE_PROMPT, SERVE_PROMPT,
             cfg.head_dim_)
     mg, gr = get_arch("musicgen-medium"), get_arch(MOE_ARCH)
+    px, jb = get_arch(VLM_ARCH), get_arch(HYBRID_ARCH)
+    px_s = px.n_frontend_tokens + SERVE_PROMPT
     shapes = [(full, None), (full, cfg.sliding_window),
               ((SERVE_B, mg.n_heads, mg.n_kv_heads, SERVE_PROMPT,
                 SERVE_PROMPT, mg.head_dim_), None),
               ((SERVE_B, gr.n_heads, gr.n_kv_heads, SERVE_PROMPT,
                 SERVE_PROMPT, gr.head_dim_), None),
+              ((SERVE_B, px.n_heads, px.n_kv_heads, px_s, px_s,
+                px.head_dim_), None),
+              ((HYBRID_B, jb.n_heads, jb.n_kv_heads, HYBRID_PROMPT,
+                HYBRID_PROMPT, jb.head_dim_), None),
               ((2, 4, 2, 17, 17, 256), None),
               ((2, 4, 2, 1000, 1300, 128), 333),
               ((1, 8, 1, 777, 777, 64), None),
@@ -2191,6 +2250,76 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
 
 
+def lm_params(cfg, label: str) -> tuple:
+    """Random bf16 weights for ``cfg`` made on the card from SEED:
+    (params, parameter count, parameter bytes, seconds)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, gen, DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    sizes = []
+    tree_map(lambda w: sizes.append((w.numel(), w.element_size())), params)
+    n_params = sum(n for n, _ in sizes)
+    n_bytes = sum(n * e for n, e in sizes)
+    print(f"[{label}] {cfg.name}: {n_params / 1e9:.3f} G parameters, "
+          f"{n_bytes / 1e9:.2f} GB (param_count {cfg.param_count() / 1e9:.3f} "
+          f"G), made on the card in {init_s:.1f} s; {cfg.n_layers} layers "
+          f"{[cfg.kind(p) for p in range(cfg.period)]} x {cfg.n_periods}, "
+          f"d_model {cfg.d_model}, {cfg.n_heads} q / {cfg.n_kv_heads} kv "
+          f"heads of {cfg.head_dim_ if cfg.n_heads else 0}, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab_size}"
+          + (f", SSM d_inner {cfg.ssm.d_inner(cfg.d_model)}, "
+             f"{cfg.ssm.n_heads(cfg.d_model)} heads of {cfg.ssm.head_dim}, "
+             f"d_state {cfg.ssm.d_state}, chunk {cfg.ssm.chunk}"
+             if cfg.ssm is not None else "")
+          + (f", window {cfg.sliding_window}" if cfg.sliding_window else "")
+          + (f", {cfg.moe.num_experts} experts of {cfg.moe.d_ff_expert} "
+             f"top-{cfg.moe.top_k}, {cfg.moe.extra_slots} extra slots, "
+             f"dispatch {cfg.moe.dispatch} (active "
+             f"{cfg.active_param_count() / 1e9:.3f} G)"
+             if cfg.moe is not None else "")
+          + (f", {cfg.n_frontend_tokens} front-end tokens of "
+             f"{cfg.frontend_dim}" if cfg.frontend == "vision" else ""))
+    return params, n_params, n_bytes, init_s
+
+
+def cache_bytes(cfg, batch: int, max_seq: int) -> dict:
+    """Bytes of ``init_cache``'s buffers by name (laid out on the meta
+    device: nothing allocated)."""
+    cache = lm.init_cache(cfg, batch, max_seq, device="meta")
+    out = collections.Counter()
+    for period in cache["periods"]:
+        for layer in period.values():
+            for name, buf in layer.items():
+                out[name] += buf.numel() * buf.element_size()
+    return dict(out)
+
+
+def served(path: str, params, cfg, prompts: np.ndarray, n_new: int,
+           embeds=None) -> tuple:
+    """``serve.generate`` as one run of ``path``: the tokens (checked for
+    shape, type and range), the seconds and the peak memory."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tokens = on_path(path, lambda: serve.generate(
+        params, cfg, prompts, n_new, embeds=embeds, device=DEVICE))
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(tokens.shape == (prompts.shape[0], n_new)
+          and tokens.dtype == np.int32 and tokens.min() >= 0
+          and tokens.max() < cfg.vocab_size,
+          f"{path}: tokens {tokens.shape} {tokens.dtype} out of shape or "
+          f"range")
+    attn = cfg.n_periods * sum(cfg.kind(p) != "mamba"
+                               for p in range(cfg.period))
+    launched = PATH_LAUNCHES[path]["flash_attention"]
+    check(launched == attn, f"{path}: {launched} flash_attention launches, "
+                            f"want one per attention layer ({attn})")
+    return tokens, seconds, peak
+
+
 def phase_serve(smi: str) -> dict:
     """``serve.generate`` for gemma3-12b at full width and depth, bf16,
     B = 4 prompts of 2048 tokens, 16 new tokens: the serving path.
@@ -2205,87 +2334,21 @@ def phase_serve(smi: str) -> dict:
     reading taken against planted faults (:func:`serve_faults`).  Times:
     the prefill, a decode step, generate end to end; peak memory."""
     cfg = get_arch(SERVE_ARCH)
-    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    params = lm.init_params(cfg, gen, DEVICE)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    sizes = []
-    tree_map(lambda w: sizes.append(w.numel()), params)
-    n_params = sum(sizes)
-    print(f"[serve] {SERVE_ARCH}: {n_params / 1e9:.3f} G parameters "
-          f"(param_count {cfg.param_count() / 1e9:.3f} G) in bf16 made on the "
-          f"card in {init_s:.1f} s; {cfg.n_layers} layers, d_model "
-          f"{cfg.d_model}, {cfg.n_heads} q / {cfg.n_kv_heads} kv heads of "
-          f"{cfg.head_dim_}, window {cfg.sliding_window}")
+    params, n_params, _, init_s = lm_params(cfg, "serve")
     prompts = np.random.default_rng(SEED).integers(
         0, cfg.vocab_size, (SERVE_B, SERVE_PROMPT)).astype(np.int32)
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    tokens = on_path("serve_gemma3_12b", lambda: serve.generate(
-        params, cfg, prompts, SERVE_NEW, device=DEVICE))
-    generate_s = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    check(tokens.shape == (SERVE_B, SERVE_NEW) and tokens.dtype == np.int32
-          and tokens.min() >= 0 and tokens.max() < cfg.vocab_size,
-          f"serve: tokens {tokens.shape} {tokens.dtype} out of shape or range")
-    launched = PATH_LAUNCHES["serve_gemma3_12b"]["flash_attention"]
-    check(launched == cfg.n_layers,
-          f"serve: {launched} flash_attention launches, want one per layer "
-          f"({cfg.n_layers})")
+    tokens, generate_s, peak = served("serve_gemma3_12b", params, cfg,
+                                      prompts, SERVE_NEW)
 
     # the same steps, teacher-forced by generate's tokens, timed
+    dev_prompts = torch.from_numpy(prompts).to(DEVICE)
     dev_tokens = torch.from_numpy(tokens).to(DEVICE)
+    prefill_ms, step_ms, logits = teacher_forced(params, cfg, dev_prompts,
+                                                 dev_tokens, "serve")
+    errors, prefilled = prefill_vs_decode(params, cfg, dev_prompts,
+                                          dev_tokens, logits, "serve")
+    del logits
     with torch.inference_mode():
-        cache = lm.init_cache(cfg, SERVE_B, SERVE_PROMPT + SERVE_NEW,
-                              device=DEVICE)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits, cache = lm.prefill(params, cfg,
-                                   torch.from_numpy(prompts).to(DEVICE), cache)
-        torch.cuda.synchronize()
-        prefill_ms = (time.perf_counter() - t0) * 1e3
-        first = torch.argmax(logits[:, :cfg.vocab_size], -1)
-        check(torch.equal(first.cpu(), torch.from_numpy(tokens[:, 0]).long()),
-              "serve: the prefill's token differs from generate's")
-        kept, step_ms = {}, []
-        for j in range(SERVE_NEW):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            logits, cache = lm.decode_step(params, cfg,
-                                           dev_tokens[:, j:j + 1], cache)
-            torch.cuda.synchronize()
-            step_ms.append((time.perf_counter() - t0) * 1e3)
-            if j in SERVE_CHECK_STEPS:
-                kept[j] = logits[:, :cfg.vocab_size].float()
-            if j + 1 < SERVE_NEW:
-                nxt = torch.argmax(logits[:, :cfg.vocab_size], -1)
-                check(torch.equal(nxt, dev_tokens[:, j + 1].long()),
-                      f"serve: decode step {j}'s token differs from "
-                      f"generate's")
-        del cache
-        errors, prefilled = {}, {}
-        for j, want in kept.items():
-            seq = torch.cat([torch.from_numpy(prompts).to(DEVICE),
-                             dev_tokens[:, :j + 1]], dim=1)
-            c = lm.init_cache(cfg, SERVE_B, seq.shape[1], device=DEVICE)
-            got, c = lm.prefill(params, cfg, seq, c)
-            del c
-            got = got[:, :cfg.vocab_size].float()
-            prefilled[j] = got
-            err = rel_l2(got, want)
-            same = float((got.argmax(-1) == want.argmax(-1)).float().mean())
-            errors[j] = {"rel_l2": err, "max_abs_err": max_abs_err(got, want),
-                         "argmax_agree": same}
-            print(f"[serve] decode step {j} (position {SERVE_PROMPT + j}): a "
-                  f"prefill over {seq.shape[1]} tokens gives its logits within "
-                  f"relative L2 {err:.4g} (bound {SERVE_REL_L2}), max abs err "
-                  f"{errors[j]['max_abs_err']:.4g}, argmax agrees on "
-                  f"{same:.2f} of the rows")
-            check(err <= SERVE_REL_L2,
-                  f"serve: prefill vs decode step {j}: relative L2 {err} > "
-                  f"{SERVE_REL_L2}")
         faults = serve_faults(params, cfg, prompts, dev_tokens, prefilled)
     decode_ms = float(np.median(step_ms))
     print(f"[serve] generate {SERVE_B} x {SERVE_PROMPT} + {SERVE_NEW}: "
@@ -2300,6 +2363,81 @@ def phase_serve(smi: str) -> dict:
             "decode_step_ms": step_ms, "decode_step_median_ms": decode_ms,
             "max_memory_allocated_bytes": peak,
             "prefill_vs_decode": errors, "planted_faults": faults}
+
+
+def teacher_forced(params, cfg, prompts: torch.Tensor, tokens: torch.Tensor,
+                   label: str, embeds: Optional[torch.Tensor] = None,
+                   teacher: bool = True) -> tuple:
+    """A prefill over ``prompts`` (after ``embeds``, the vision front
+    end's), then one decode step per column of ``tokens``, fed those
+    tokens; with ``teacher`` (``tokens`` are generate's), each step's
+    argmax must be the next token.  Returns the prefill's ms, each
+    step's ms (host clock + synchronize) and the logits over the real
+    vocabulary, (B, vocab) float32: the prefill's, then each step's."""
+    b, n = tokens.shape
+    vocab = cfg.vocab_size
+    front = embeds.shape[1] if embeds is not None else 0
+    with torch.inference_mode():
+        cache = lm.init_cache(cfg, b, front + prompts.shape[1] + n,
+                              device=DEVICE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = lm.prefill(params, cfg, prompts, cache, embeds)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        out, step_ms = [logits[:, :vocab].float()], []
+        for j in range(n):
+            if teacher:
+                check(torch.equal(torch.argmax(out[-1], -1),
+                                  tokens[:, j].long()),
+                      f"{label}: the token after step {j - 1} differs from "
+                      f"generate's")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = lm.decode_step(params, cfg, tokens[:, j:j + 1],
+                                           cache)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            out.append(logits[:, :vocab].float())
+        del cache
+    return prefill_ms, step_ms, out
+
+
+def prefill_vs_decode(params, cfg, prompts: torch.Tensor,
+                      tokens: torch.Tensor, logits: list, label: str,
+                      embeds: Optional[torch.Tensor] = None) -> tuple:
+    """At each of SERVE_CHECK_STEPS, a prefill over the prompt and the tokens so
+    far reproduces that decode step's logits (``logits[j + 1]``, from
+    :func:`teacher_forced`) within SERVE_REL_L2: the kernel's prefill
+    against the dense-rows decode (and a mamba layer's chunked scan
+    against its recurrent step).  Returns the readings and the
+    prefills' logits."""
+    errors, prefilled = {}, {}
+    b = prompts.shape[0]
+    front = embeds.shape[1] if embeds is not None else 0
+    with torch.inference_mode():
+        for j in SERVE_CHECK_STEPS:
+            want = logits[j + 1]
+            seq = torch.cat([prompts, tokens[:, :j + 1]], dim=1)
+            c = lm.init_cache(cfg, b, front + seq.shape[1], device=DEVICE)
+            got, c = lm.prefill(params, cfg, seq, c, embeds)
+            del c
+            got = got[:, :cfg.vocab_size].float()
+            prefilled[j] = got
+            err = rel_l2(got, want)
+            same = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+            errors[j] = {"rel_l2": err, "max_abs_err": max_abs_err(got, want),
+                         "argmax_agree": same}
+            print(f"[{label}] decode step {j} (position "
+                  f"{front + prompts.shape[1] + j}): a prefill over "
+                  f"{front + seq.shape[1]} positions gives its logits within "
+                  f"relative L2 {err:.4g} (bound {SERVE_REL_L2}), max abs "
+                  f"err {errors[j]['max_abs_err']:.4g}, argmax agrees on "
+                  f"{same:.2f} of the rows")
+            check(err <= SERVE_REL_L2,
+                  f"{label}: prefill vs decode step {j}: relative L2 {err} > "
+                  f"{SERVE_REL_L2}")
+    return errors, prefilled
 
 
 def serve_faults(params, cfg, prompts, dev_tokens, prefilled) -> dict:
@@ -2333,35 +2471,43 @@ def serve_faults(params, cfg, prompts, dev_tokens, prefilled) -> dict:
 
 
 def phase_serve_smoke(arch: str = SERVE_ARCH,
-                      path: str = "serve_gemma3_smoke") -> None:
-    """``arch``'s smoke configuration (gemma3-12b's: 2 periods of 6
-    layers, window 16; granite-moe-3b-a800m's: 2 layers of 8 experts,
-    top-2; float32) on the card against the same call on the CPU: the
-    same weights, a 48-token prompt (the kernel path and the window),
-    prefill and decode logits within 2e-3 and the same generated
-    tokens."""
-    cfg = smoke_config(get_arch(arch))
+                      path: str = "serve_gemma3_smoke",
+                      change: Optional[dict] = None) -> None:
+    """``arch``'s smoke configuration with ``change`` (gemma3-12b's: 2
+    periods of 6 layers, window 16; granite-moe-3b-a800m's: 2 layers of
+    8 experts, top-2; pixtral-12b's with 8 front-end embeddings of 32;
+    mamba2-130m's and jamba's Mamba-2 layers, d_state 16, chunk 32;
+    gemma-2b's with the int8 cache; float32) on the card against the
+    same call on the CPU: the same weights, a 48-token prompt (the
+    kernel path, the window, more than a chunk), prefill and decode
+    logits within 2e-3 and the same generated tokens."""
+    cfg = dataclasses.replace(smoke_config(get_arch(arch)), **(change or {}))
     params = lm.init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
     on_card = tree_map(lambda w: w.to(DEVICE), params)
-    prompts = np.random.default_rng(SEED + 1).integers(
-        0, cfg.vocab_size, (2, 48)).astype(np.int32)
+    rng = np.random.default_rng(SEED + 1)
+    prompts = rng.integers(0, cfg.vocab_size, (2, 48)).astype(np.int32)
+    front = cfg.n_frontend_tokens if cfg.frontend == "vision" else 0
+    embeds = (torch.from_numpy(rng.standard_normal(
+        (2, front, cfg.frontend_dim)).astype(np.float32)) if front else None)
     out = {}
     for device, p in (("cpu", params), (DEVICE, on_card)):
-        cache = lm.init_cache(cfg, 2, 52, device=device)
+        e = None if embeds is None else embeds.to(device)
+        cache = lm.init_cache(cfg, 2, front + 52, device=device)
         run = lambda: lm.prefill(p, cfg, torch.from_numpy(prompts).to(  # noqa: E731
-            device), cache)
+            device), cache, e)
         logits, cache = (on_path(path, run) if device == DEVICE
                          else run())
         step, _ = lm.decode_step(p, cfg, torch.from_numpy(
             prompts[:, :1]).to(device), cache)
-        toks = serve.generate(p, cfg, prompts, 4, device=device)
+        toks = serve.generate(p, cfg, prompts, 4, embeds=e, device=device)
         out[device] = (logits.cpu(), step.cpu(), toks)
     (lc, sc, tc), (lg, sg, tg) = out["cpu"], out[DEVICE]
     check(torch.allclose(lg, lc, rtol=2e-3, atol=2e-3)
           and torch.allclose(sg, sc, rtol=2e-3, atol=2e-3),
-          "serve smoke: card logits differ from the CPU's beyond 2e-3")
-    check(np.array_equal(tg, tc), "serve smoke: card tokens != CPU tokens")
-    print(f"[small] {cfg.name} on the card: prefill and decode logits within "
+          f"{path}: card logits differ from the CPU's beyond 2e-3")
+    check(np.array_equal(tg, tc), f"{path}: card tokens != CPU tokens")
+    print(f"[small] {cfg.name}{' ' + str(change) if change else ''} on the "
+          f"card: prefill and decode logits within "
           f"{max_abs_err(lg, lc):.3g} / {max_abs_err(sg, sc):.3g} of the CPU "
           f"run (bound 2e-3), tokens equal {tg.tolist()}")
 
@@ -2407,16 +2553,17 @@ def _last_routes(stats) -> torch.Tensor:
                         for st in stats]).cpu()
 
 
-def _rows_dropped(stats) -> torch.Tensor:
+def _rows_dropped(stats, last: bool = False) -> torch.Tensor:
     """(B,) bool: the batch rows with an assignment dropped in any layer
-    (``MoEStats.keep`` is (B, S, K))."""
-    return torch.stack([~st.keep.reshape(st.keep.shape[0], -1).all(dim=1)
-                        for st in stats]).any(dim=0).cpu()
+    (``MoEStats.keep`` is (B, S, K)); with ``last``, at the row's last
+    position only."""
+    return torch.stack([~(st.keep[:, -1:] if last else st.keep).reshape(
+        st.keep.shape[0], -1).all(dim=1) for st in stats]).any(dim=0).cpu()
 
 
 def moe_prefill_vs_decode(params, cfg, prompts: torch.Tensor,
                           tokens: torch.Tensor, label: str,
-                          teacher: bool) -> dict:
+                          teacher: bool, moe_last: bool = False) -> dict:
     """A prefill over the prompts, then decode steps teacher-forced by
     ``tokens`` (with ``teacher``, each step's argmax must be the next
     token), then at every step a prefill over the prompt and the tokens
@@ -2427,13 +2574,16 @@ def moe_prefill_vs_decode(params, cfg, prompts: torch.Tensor,
     its capacity drops, as in the reference -- and both routed the row's
     last position to the same experts in every layer -- roundings that
     tip a near tie of the k-th and (k+1)-th logits swap an expert, a
-    jump the attention paths' agreement does not bound.  Returns the
+    jump the attention paths' agreement does not bound.  ``moe_last``:
+    the model's only MoE layer is its last (the jamba cut), so no state
+    lies downstream of it: the prefill that filled the cache cannot
+    change a step's logits by a drop, and only a drop at the last
+    position can.  One step a column of ``tokens``.  Returns the
     readings, the (step, rows) where the bound held, the prefill's
     per-layer drops and loads, and the times."""
-    b = prompts.shape[0]
+    b, n_new = tokens.shape
     vocab = cfg.vocab_size
-    cache = lm.init_cache(cfg, b, prompts.shape[1] + SERVE_NEW,
-                          device=DEVICE)
+    cache = lm.init_cache(cfg, b, prompts.shape[1] + n_new, device=DEVICE)
     pre_stats = []
     with moe_stats_tap(pre_stats):
         torch.cuda.synchronize()
@@ -2445,9 +2595,10 @@ def moe_prefill_vs_decode(params, cfg, prompts: torch.Tensor,
         check(torch.equal(torch.argmax(logits[:, :vocab], -1),
                           tokens[:, 0].long()),
               f"{label}: the prefill's token differs from generate's")
-    pre_rows = _rows_dropped(pre_stats)
+    pre_rows = (torch.zeros(b, dtype=torch.bool) if moe_last
+                else _rows_dropped(pre_stats))
     steps = []
-    for j in range(SERVE_NEW):
+    for j in range(n_new):
         stats = []
         with moe_stats_tap(stats):
             torch.cuda.synchronize()
@@ -2458,7 +2609,7 @@ def moe_prefill_vs_decode(params, cfg, prompts: torch.Tensor,
             ms = (time.perf_counter() - t0) * 1e3
         steps.append((logits[:, :vocab].float(), _dropped(stats),
                       _rows_dropped(stats), _last_routes(stats), ms))
-        if teacher and j + 1 < SERVE_NEW:
+        if teacher and j + 1 < n_new:
             check(torch.equal(torch.argmax(logits[:, :vocab], -1),
                               tokens[:, j + 1].long()),
                   f"{label}: decode step {j}'s token differs from "
@@ -2474,7 +2625,8 @@ def moe_prefill_vs_decode(params, cfg, prompts: torch.Tensor,
         del c
         got = got[:, :vocab].float()
         flipped = (_last_routes(stats) != step_routes).any(dim=2).any(dim=0)
-        clean = ~(_rows_dropped(stats) | step_rows | pre_rows | flipped)
+        clean = ~(_rows_dropped(stats, moe_last) | step_rows | pre_rows
+                  | flipped)
         rows = clean.nonzero().reshape(-1).tolist()
         per_row = [rel_l2(got[r], want[r]) for r in range(b)]
         err_clean = (rel_l2(got[clean.to(DEVICE)], want[clean.to(DEVICE)])
@@ -2502,8 +2654,8 @@ def moe_prefill_vs_decode(params, cfg, prompts: torch.Tensor,
                   f"{label}: prefill vs decode step {j}, rows {rows}: "
                   f"relative L2 {err_clean} > {SERVE_REL_L2}")
     print(f"[moe] {label}: the prefill-vs-decode bound held on "
-          f"{sum(len(r) for _, r in checked)} of {SERVE_NEW * b} (step, row) "
-          f"pairs, at {len(checked)} of {SERVE_NEW} steps; rows with drops "
+          f"{sum(len(r) for _, r in checked)} of {n_new * b} (step, row) "
+          f"pairs, at {len(checked)} of {n_new} steps; rows with drops "
           f"in the prefill that filled the cache "
           f"{pre_rows.nonzero().reshape(-1).tolist()}")
     return {"prefill_ms": prefill_ms,
@@ -2530,39 +2682,12 @@ def phase_serve_granite(smi: str) -> dict:
     slot load, each step's drops and readings, the bf16 prefill and
     decode-step times, peak memory."""
     cfg = get_arch(MOE_ARCH)
-    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    params = lm.init_params(cfg, gen, DEVICE)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    sizes = []
-    tree_map(lambda w: sizes.append(w.numel()), params)
-    n_params = sum(sizes)
+    params, n_params, _, init_s = lm_params(cfg, "moe")
     moe = cfg.moe
-    print(f"[moe] {MOE_ARCH}: {n_params / 1e9:.3f} G parameters "
-          f"(param_count {cfg.param_count() / 1e9:.3f} G, active "
-          f"{cfg.active_param_count() / 1e9:.3f} G) in bf16 made on the card "
-          f"in {init_s:.1f} s; {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.n_heads} q / {cfg.n_kv_heads} kv heads of {cfg.head_dim_}; "
-          f"{moe.num_experts} experts of {moe.d_ff_expert}, top-{moe.top_k}, "
-          f"{moe.extra_slots} extra slots, dispatch {moe.dispatch}")
     prompts = np.random.default_rng(SEED).integers(
         0, cfg.vocab_size, (SERVE_B, SERVE_PROMPT)).astype(np.int32)
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    tokens = on_path("serve_granite", lambda: serve.generate(
-        params, cfg, prompts, SERVE_NEW, device=DEVICE))
-    generate_s = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    check(tokens.shape == (SERVE_B, SERVE_NEW) and tokens.dtype == np.int32
-          and tokens.min() >= 0 and tokens.max() < cfg.vocab_size,
-          f"serve_granite: tokens {tokens.shape} {tokens.dtype} out of shape "
-          f"or range")
-    launched = PATH_LAUNCHES["serve_granite"]["flash_attention"]
-    check(launched == cfg.n_layers,
-          f"serve_granite: {launched} flash_attention launches, want one per "
-          f"layer ({cfg.n_layers})")
+    tokens, generate_s, peak = served("serve_granite", params, cfg, prompts,
+                                      SERVE_NEW)
     capacity = math.ceil(
         cluster.CapacityPolicy.moe_dispatch().first_factor * SERVE_B
         * SERVE_PROMPT * moe.top_k / (moe.num_experts + moe.extra_slots))
@@ -3864,6 +3989,432 @@ def serve_overload(smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 6c. the rest of the LM stack: the vision front end and the int8 KV
+#     cache (pixtral-12b), Mamba-2 layers (mamba2-130m), the hybrid
+#     (a jamba-1.5-large-398b cut); ROADMAP C18 on the card
+# ---------------------------------------------------------------------------
+
+# The smoke configurations run on the card against the CPU (phase 6's
+# gemma3 check): (architecture, path, change to its smoke config)
+SMOKE_VARIANTS = (
+    (VLM_ARCH, "serve_pixtral_smoke", {}),
+    (SSM_ARCH, "serve_mamba2_smoke", {}),
+    (HYBRID_ARCH, "serve_jamba_smoke", {}),
+    ("gemma-2b", "serve_gemma2b_int8_smoke", {"kv_quant": True}),
+)
+# The int8 cache against the bf16 one, both teacher-forced by the bf16
+# run's tokens: the largest logit difference over the largest logit, and
+# the share of argmaxes that agree -- the reference's own bounds
+# (tests/test_models_smoke.py:test_int8_kv_cache_decode_parity)
+INT8_REL_MAX, INT8_ARGMAX_AGREE = 0.05, 0.8
+# The float64 recurrence against the card's chunked scan: the
+# reference's own bound (tests/test_ssm_oracle.py)
+SSD_ORACLE_TOL = 2e-4
+# (B, S, H, P, N, chunk): a chunk that divides S and one that does not
+SSD_ORACLE_SHAPES = ((2, 48, 3, 4, 8, 16), (2, 37, 3, 4, 8, 16))
+# ROADMAP C18: machine counts whose float32 reciprocal rounds up
+C18_SMMS, C18_TERASORT = (7, 1000), (7, 1024)
+
+
+def layer_qkv(params, cfg, prompts: torch.Tensor, embeds) -> tuple:
+    """The first attention layer's prefill q, k, v (B, H, S, hd), as the
+    model hands them to ``attention`` (a prefill with the call tapped;
+    its kernel launches are not on a path)."""
+    box = []
+    real = lm.attention
+
+    def tap(q, k, v, **kw):
+        if not box:
+            box.append((q.contiguous(), k.contiguous(), v.contiguous()))
+        return real(q, k, v, **kw)
+
+    lm.attention = tap
+    try:
+        with torch.inference_mode():
+            cache = lm.init_cache(cfg, prompts.shape[0], embeds.shape[1]
+                                  + prompts.shape[1], device=DEVICE)
+            lm.prefill(params, cfg, prompts, cache, embeds)
+            del cache
+    finally:
+        lm.attention = real
+    return box[0]
+
+
+def flash_vs_blockwise(label: str, q, k, v, window=None,
+                       fault_window=None) -> dict:
+    """The flash kernel on bf16 q, k, v against the blockwise backend on
+    the same values in float32 (the reference's default algorithm, no
+    rounding of its scores), rounded to bf16 once: within FLASH_TOL's
+    bf16 bound, one bf16 rounding apart.  With ``fault_window``, the
+    blockwise result at that window must fall outside the bound (a
+    window one key too wide, ROADMAP C9)."""
+    rtol, atol = FLASH_TOL[torch.bfloat16]
+
+    def blockwise(w):
+        return attention(q.float(), k.float(), v.float(), causal=True,
+                         window=w, backend="blockwise").to(q.dtype)
+
+    got = fa.flash_attention(q, k, v, True, window)
+    want = blockwise(window)
+    err = max_abs_err(got, want)
+    check(torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol),
+          f"{label}: flash against blockwise, max abs err {err} outside "
+          f"rtol {rtol} + atol {atol}")
+    out = {"shape": [list(q.shape), list(k.shape)], "window": window,
+           "max_abs_err": err, "bound": [rtol, atol]}
+    msg = ""
+    if fault_window is not None:
+        wide = blockwise(fault_window)
+        out["fault_window"] = fault_window
+        out["fault_max_abs_err"] = max_abs_err(got, wide)
+        check(not torch.allclose(got.float(), wide.float(), rtol=rtol,
+                                 atol=atol),
+              f"{label}: the bound does not reject a window of "
+              f"{fault_window}")
+        msg = (f"; against window {fault_window} (one key too wide) "
+               f"{out['fault_max_abs_err']:.4g}, rejected")
+        del wide
+    print(f"[{label}] flash_attention {tuple(q.shape)} / {tuple(k.shape)} "
+          f"bf16, window {window}, against the blockwise backend in f32: "
+          f"max abs err {err:.4g} (bound rtol {rtol} + atol {atol}){msg}")
+    return out
+
+
+def phase_serve_pixtral(smi: str) -> dict:
+    """``serve.generate`` for pixtral-12b at full width and depth (40
+    layers, d_model 5120, 32 q / 8 kv heads of 128), bf16: B = 4 prompts
+    of 2048 tokens after 256 front-end embeddings of 1024 (random, made
+    on the card), 16 new tokens -- once with the bf16 KV cache, once
+    with the int8 one (``kv_quant``), on the same weights.
+
+    Checks, for each cache: the tokens; flash attention once per layer;
+    the teacher-forced steps give generate's tokens; prefill against
+    decode within SERVE_REL_L2 at SERVE_CHECK_STEPS.  The int8 cache
+    against the bf16 one, teacher-forced by the bf16 tokens: the largest
+    logit difference under INT8_REL_MAX of the largest logit, argmaxes
+    agreeing on INT8_ARGMAX_AGREE.  The flash kernel against the
+    blockwise backend on the first layer's prefill q, k, v (4, 32 / 8,
+    2304, 128), and at gemma3-12b's window (4, 16 / 8, 2048, 256, window
+    1024), where a window one key too wide must be rejected."""
+    cfg = get_arch(VLM_ARCH)
+    params, n_params, n_bytes, init_s = lm_params(cfg, "pixtral")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    embeds = torch.randn((SERVE_B, cfg.n_frontend_tokens, cfg.frontend_dim),
+                         generator=gen, device=DEVICE)
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (SERVE_B, SERVE_PROMPT)).astype(np.int32)
+    dev_prompts = torch.from_numpy(prompts).to(DEVICE)
+    seq = cfg.n_frontend_tokens + SERVE_PROMPT + SERVE_NEW
+    runs, logits = {}, {}
+    for label, c in (("bf16", cfg),
+                     ("int8", dataclasses.replace(cfg, kv_quant=True))):
+        path = "serve_pixtral" + ("_int8" if c.kv_quant else "")
+        tokens, gen_s, peak = served(path, params, c, prompts, SERVE_NEW,
+                                     embeds)
+        dev_tokens = torch.from_numpy(tokens).to(DEVICE)
+        prefill_ms, step_ms, logits[label] = teacher_forced(
+            params, c, dev_prompts, dev_tokens, path, embeds)
+        errors, _ = prefill_vs_decode(params, c, dev_prompts, dev_tokens,
+                                      logits[label], path, embeds)
+        kv = cache_bytes(c, SERVE_B, seq)
+        runs[label] = {"tokens_head": tokens[:, :6].tolist(),
+                       "generate_first_call_s": gen_s,
+                       "prefill_ms": prefill_ms, "decode_step_ms": step_ms,
+                       "decode_step_median_ms": float(np.median(step_ms)),
+                       "max_memory_allocated_bytes": peak,
+                       "cache_bytes": kv, "prefill_vs_decode": errors}
+        print(f"[{path}] generate {SERVE_B} x ({cfg.n_frontend_tokens} + "
+              f"{SERVE_PROMPT}) + {SERVE_NEW}: {gen_s:.2f} s first call; "
+              f"prefill {prefill_ms:.1f} ms, a decode step "
+              f"{runs[label]['decode_step_median_ms']:.2f} ms (median of "
+              f"{SERVE_NEW}; host clock + synchronize); KV cache "
+              f"{ {n: f'{b / 1e6:.1f} MB' for n, b in kv.items()} }; peak "
+              f"memory {peak / 2**30:.2f} GiB; tokens {tokens[:, :6].tolist()} "
+              f"... ({smi})")
+        if label == "bf16":
+            bf16_tokens = dev_tokens
+        else:
+            # the int8 cache teacher-forced by the bf16 run's tokens
+            _, _, quant = teacher_forced(params, c, dev_prompts, bf16_tokens,
+                                         path, embeds, teacher=False)
+            exact, quant = torch.stack(logits["bf16"]), torch.stack(quant)
+            rel = float((exact - quant).abs().max() / exact.abs().max())
+            agree = float((exact.argmax(-1) == quant.argmax(-1)).float()
+                          .mean())
+            runs["int8_vs_bf16"] = {"rel_max_err": rel, "argmax_agree": agree}
+            print(f"[{path}] against the bf16 cache on the same tokens, "
+                  f"{exact.shape[0]} x {SERVE_B} logit rows: largest "
+                  f"difference {rel:.4g} of the largest logit (bound "
+                  f"{INT8_REL_MAX}), argmax agrees on {agree:.3f} (bound "
+                  f"{INT8_ARGMAX_AGREE})")
+            check(rel < INT8_REL_MAX and agree >= INT8_ARGMAX_AGREE,
+                  f"{path}: the int8 cache against the bf16 one: {rel}, "
+                  f"{agree}")
+            del exact, quant
+    del logits
+    q, k, v = layer_qkv(params, cfg, dev_prompts, embeds)
+    runs["flash_vs_blockwise"] = flash_vs_blockwise("serve_pixtral", q, k, v)
+    del q, k, v, params
+    torch.cuda.empty_cache()
+    g3 = get_arch(SERVE_ARCH)
+    q, k, v = (torch.randn((SERVE_B, h, SERVE_PROMPT, g3.head_dim_),
+                           generator=gen, device=DEVICE).bfloat16()
+               for h in (g3.n_heads, g3.n_kv_heads, g3.n_kv_heads))
+    runs["flash_vs_blockwise_window"] = flash_vs_blockwise(
+        "serve_pixtral", q, k, v, g3.sliding_window, g3.sliding_window + 1)
+    del q, k, v
+    torch.cuda.empty_cache()
+    return {"parameters": n_params, "parameter_bytes": n_bytes,
+            "init_s": init_s, **runs}
+
+
+def ssd_recurrence(x, dt, a_neg, b_in, c_in, d_skip) -> tuple:
+    """The SSD as its step-by-step recurrence in float64 (numpy):
+    h_t = exp(dt_t A) h_{t-1} + B_t dt_t x_t, y_t = C_t h_t + D x_t."""
+    bsz, s, h, p = x.shape
+    st = np.zeros((bsz, h, p, b_in.shape[-1]))
+    ys = np.zeros((bsz, s, h, p))
+    for t in range(s):
+        st = (st * np.exp(dt[:, t] * a_neg)[:, :, None, None]
+              + (x[:, t] * dt[:, t][..., None])[..., None]
+              * b_in[:, t][:, None, None, :])
+        ys[:, t] = (np.einsum("bn,bhpn->bhp", c_in[:, t], st)
+                    + x[:, t] * d_skip[None, :, None])
+    return ys, st
+
+
+def ssd_oracle() -> dict:
+    """``ssd_chunked`` on the card (float32) against the float64
+    recurrence, at a chunk that divides the length and one that does
+    not, within SSD_ORACLE_TOL."""
+    rng = np.random.default_rng(SEED)
+    out = {}
+    for b, s, h, p, n, chunk in SSD_ORACLE_SHAPES:
+        x = rng.standard_normal((b, s, h, p))
+        dt = np.log1p(np.exp(rng.standard_normal((b, s, h)))) * 0.1
+        b_in, c_in = (rng.standard_normal((b, s, n)) for _ in range(2))
+        a_neg = -np.exp(np.linspace(0.0, 1.5, h))
+        d_skip = np.linspace(0.5, 1.5, h)
+        args = [torch.from_numpy(z).float().to(DEVICE)
+                for z in (x, dt, a_neg, b_in, c_in, d_skip)]
+        y, st = ssd_chunked(*args, chunk)
+        # the recurrence on the float32 inputs the card saw
+        y_ref, st_ref = ssd_recurrence(*(a.double().cpu().numpy()
+                                         for a in args))
+        err = max(float(np.abs(y.double().cpu().numpy() - y_ref).max()),
+                  float(np.abs(st.double().cpu().numpy() - st_ref).max()))
+        ok = (np.allclose(y.cpu().numpy(), y_ref, rtol=SSD_ORACLE_TOL,
+                          atol=SSD_ORACLE_TOL)
+              and np.allclose(st.cpu().numpy(), st_ref, rtol=SSD_ORACLE_TOL,
+                              atol=SSD_ORACLE_TOL))
+        check(ok, f"ssd_chunked {(b, s, h, p, n)} chunk {chunk} on the card: "
+                  f"max abs err {err} against the float64 recurrence")
+        out[f"{(b, s, h, p, n)} chunk {chunk}"] = err
+    print(f"[serve_mamba2] ssd_chunked on the card against the float64 "
+          f"recurrence: max abs err {out} (bound rtol = atol = "
+          f"{SSD_ORACLE_TOL})")
+    return out
+
+
+def phase_serve_mamba2(smi: str) -> dict:
+    """``serve.generate`` for mamba2-130m at full width and depth (24
+    Mamba-2 layers, d_model 768, d_inner 1536, 16 heads of 96, d_state
+    128, chunk 256, tied embeddings), bf16: B = 4 prompts of 2048 tokens,
+    16 new tokens, nothing cut; and one prompt of 32,768 tokens (128
+    chunks), prefill only.  No hand kernel is on this path: the SSD scan
+    is torch ops, as the reference's is jnp.
+
+    Checks: the tokens; no kernel launched; the teacher-forced steps;
+    prefill against decode within SERVE_REL_L2; the long prompt's logits
+    finite, and a prefill over its first 32,767 tokens then a decode
+    step of the last within SERVE_REL_L2 of them; ``ssd_chunked`` on the
+    card against the float64 recurrence (:func:`ssd_oracle`)."""
+    cfg = get_arch(SSM_ARCH)
+    params, n_params, n_bytes, init_s = lm_params(cfg, "serve_mamba2")
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (SERVE_B, SERVE_PROMPT)).astype(np.int32)
+    tokens, gen_s, peak = served("serve_mamba2", params, cfg, prompts,
+                                 SERVE_NEW)
+    check(not +PATH_LAUNCHES["serve_mamba2"],
+          f"serve_mamba2 launched {dict(PATH_LAUNCHES['serve_mamba2'])}")
+    print("[serve_mamba2] generate launched no hand kernel (none is on an "
+          "attention-free path)")
+    dev_prompts = torch.from_numpy(prompts).to(DEVICE)
+    dev_tokens = torch.from_numpy(tokens).to(DEVICE)
+    prefill_ms, step_ms, logits = teacher_forced(
+        params, cfg, dev_prompts, dev_tokens, "serve_mamba2")
+    errors, _ = prefill_vs_decode(params, cfg, dev_prompts, dev_tokens,
+                                  logits, "serve_mamba2")
+    del logits
+    kv = cache_bytes(cfg, SERVE_B, SERVE_PROMPT + SERVE_NEW)
+    decode_ms = float(np.median(step_ms))
+    print(f"[serve_mamba2] generate {SERVE_B} x {SERVE_PROMPT} + {SERVE_NEW}: "
+          f"{gen_s:.2f} s first call; prefill {prefill_ms:.1f} ms, a decode "
+          f"step {decode_ms:.2f} ms (median of {SERVE_NEW}; host clock + "
+          f"synchronize); state {kv}; peak memory {peak / 2**30:.2f} GiB; "
+          f"tokens {tokens[:, :6].tolist()} ... ({smi})")
+
+    long = torch.from_numpy(np.random.default_rng(SEED + 2).integers(
+        0, cfg.vocab_size, (1, SSM_LONG_PROMPT)).astype(np.int32)).to(DEVICE)
+    with torch.inference_mode():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cache = lm.init_cache(cfg, 1, SSM_LONG_PROMPT, device=DEVICE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want, cache = on_path("serve_mamba2_long", lambda: lm.prefill(
+            params, cfg, long, cache))
+        long_ms = (time.perf_counter() - t0) * 1e3
+        long_peak = torch.cuda.max_memory_allocated()
+        want = want[:, :cfg.vocab_size].float()
+        check(bool(torch.isfinite(want).all()),
+              "serve_mamba2: the long prompt's logits are not finite")
+        cache = lm.init_cache(cfg, 1, SSM_LONG_PROMPT, device=DEVICE)
+        _, cache = lm.prefill(params, cfg, long[:, :-1], cache)
+        got, cache = lm.decode_step(params, cfg, long[:, -1:], cache)
+        del cache
+        long_err = rel_l2(got[:, :cfg.vocab_size].float(), want)
+    print(f"[serve_mamba2] one prompt of {SSM_LONG_PROMPT} tokens "
+          f"({SSM_LONG_PROMPT // cfg.ssm.chunk} chunks): prefill {long_ms:.1f} "
+          f"ms (host clock + synchronize), peak memory "
+          f"{long_peak / 2**30:.2f} GiB; a prefill of the first "
+          f"{SSM_LONG_PROMPT - 1} and a decode step of the last give its "
+          f"logits within relative L2 {long_err:.4g} (bound {SERVE_REL_L2}) "
+          f"({smi})")
+    check(long_err <= SERVE_REL_L2,
+          f"serve_mamba2: long prompt, prefill vs decode {long_err}")
+    oracle = ssd_oracle()
+    del params
+    torch.cuda.empty_cache()
+    return {"parameters": n_params, "parameter_bytes": n_bytes,
+            "init_s": init_s, "generate_first_call_s": gen_s,
+            "prefill_ms": prefill_ms, "decode_step_ms": step_ms,
+            "decode_step_median_ms": decode_ms,
+            "max_memory_allocated_bytes": peak, "state_bytes": kv,
+            "prefill_vs_decode": errors,
+            "long_prompt": {"tokens": SSM_LONG_PROMPT, "prefill_ms": long_ms,
+                            "max_memory_allocated_bytes": long_peak,
+                            "prefill_vs_decode_rel_l2": long_err},
+            "ssd_oracle_max_abs_err": oracle}
+
+
+def hybrid_peak_bytes(cfg, n_bytes: int) -> int:
+    """The jamba cut's peak, worked out before the run: its weights, and
+    the dense alpha_k dispatch's gathered slot weights (every slot's
+    three matrices at once, ``models/moe.py:moe_layer``), plus 1 GiB for
+    the activations, the cache and the logits."""
+    moe = cfg.moe
+    slots = moe.num_experts + moe.extra_slots
+    itemsize = torch.empty((), dtype=cfg.param_dtype).element_size()
+    return (n_bytes + slots * 3 * cfg.d_model * moe.d_ff_expert * itemsize
+            + 2**30)
+
+
+def phase_serve_jamba(smi: str) -> dict:
+    """``serve.generate`` for jamba-1.5-large-398b at full width, its
+    depth cut to one period of two (:func:`workloads.hybrid_cut`):
+    attention (64 q / 8 kv heads of 128) with the dense SwiGLU FFN of
+    24,576, then a Mamba-2 mixer (d_inner 16,384, 128 heads of 128,
+    d_state 128) with the MoE (16 experts of 24,576, top-2, alpha_k, 16
+    extra slots); bf16; one prompt of 1024 tokens, 8 new tokens.  The
+    peak is worked out before the run (:func:`hybrid_peak_bytes`) and
+    must fit the card.
+
+    Checks: the tokens; flash attention once; the teacher-forced steps;
+    prefill against decode within SERVE_REL_L2 on the steps whose last
+    position neither run dropped or routed to other experts
+    (:func:`moe_prefill_vs_decode`, ``moe_last``), on at least one
+    step."""
+    cfg = hybrid_cut(get_arch(HYBRID_ARCH))
+    n_bytes = 2 * cfg.param_count()
+    predicted = hybrid_peak_bytes(cfg, n_bytes)
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"[serve_jamba] predicted peak {predicted / 2**30:.2f} GiB of the "
+          f"card's {total / 2**30:.2f}: {n_bytes / 1e9:.2f} GB of weights "
+          f"and the alpha_k dispatch's gathered slot weights")
+    check(predicted < total, f"serve_jamba: predicted peak {predicted} "
+                             f"bytes past the card's {total}")
+    params, n_params, n_bytes, init_s = lm_params(cfg, "serve_jamba")
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (HYBRID_B, HYBRID_PROMPT)).astype(np.int32)
+    tokens, gen_s, peak = served("serve_jamba", params, cfg, prompts,
+                                 HYBRID_NEW)
+    with torch.inference_mode():
+        res = moe_prefill_vs_decode(
+            params, cfg, torch.from_numpy(prompts).to(DEVICE),
+            torch.from_numpy(tokens).to(DEVICE), "serve_jamba bf16",
+            teacher=True, moe_last=True)
+    check(res["checked"], "serve_jamba: every step dropped or routed apart; "
+                          "the prefill-vs-decode check held nowhere")
+    decode_ms = float(np.median(res["decode_step_ms"]))
+    kv = cache_bytes(cfg, HYBRID_B, HYBRID_PROMPT + HYBRID_NEW)
+    print(f"[serve_jamba] generate {HYBRID_B} x {HYBRID_PROMPT} + "
+          f"{HYBRID_NEW}: {gen_s:.2f} s first call; prefill "
+          f"{res['prefill_ms']:.1f} ms, a decode step {decode_ms:.2f} ms "
+          f"(median of {HYBRID_NEW}; host clock + synchronize); cache {kv}; "
+          f"peak memory {peak / 2**30:.2f} GiB (predicted "
+          f"{predicted / 2**30:.2f}); prefill drops by MoE layer "
+          f"{res['prefill_dropped_by_layer']}; tokens {tokens.tolist()} "
+          f"({smi})")
+    del params
+    torch.cuda.empty_cache()
+    return {"parameters": n_params, "parameter_bytes": n_bytes,
+            "init_s": init_s, "generate_first_call_s": gen_s,
+            "decode_step_median_ms": decode_ms,
+            "max_memory_allocated_bytes": peak,
+            "predicted_peak_bytes": predicted, "cache_bytes": kv, **res}
+
+
+def c18_moved(count: int, num: int, den: int) -> int:
+    """How many of the indices ceil(j num / den), j = 1..count, XLA's
+    float32(j num) x float32(1/den) moves off the exact quotient's."""
+    j = np.arange(1, count + 1, dtype=np.int64)
+    xla = np.ceil((j * num).astype(np.float32)
+                  * (np.float32(1) / np.float32(den)))
+    return int((xla != -(-j * num // den)).sum())
+
+
+def phase_c18() -> None:
+    """ROADMAP C18 on the card: SMMS at t=7 x 1,000 and Terasort at t=7
+    x 1,024 (its draws made from SEED with numpy, handed to both runs),
+    where the reference's jitted index arithmetic -- float32(j m) x
+    float32(1/s) -- takes samples one later than an exact division
+    would (SMMS's last one past the row: a NaN boundary).  Keys,
+    boundaries (NaN by NaN-ness: the card's NaN bits are its own),
+    workload and every report field equal to the CPU run."""
+    (t, m), (tt, mt) = C18_SMMS, C18_TERASORT
+    x = np.random.default_rng(SEED).uniform(-1e3, 1e3, (t, m)).astype(
+        np.float32)
+    xt = uniform_keys(tt * mt, seed=SEED).reshape(tt, mt)
+    u = torch.from_numpy(np.random.default_rng(SEED).random(
+        (tt, mt), dtype=np.float32))
+    moved = {"c18_smms": c18_moved(2 * t, m, 2 * t),
+             "c18_terasort": c18_moved(
+                 tt - 1, tt * terasort_sample_count(tt * mt, tt), tt)}
+    check(all(moved.values()), f"C18: no index moved at these sizes {moved}")
+    nans = {}
+    for path, algorithm, keys_in, kw in (
+            ("c18_smms", "smms", x, {}),
+            ("c18_terasort", "terasort", xt, {"uniforms": u})):
+        (keys, _), rep = on_path(path, lambda: cluster.sort(
+            keys_in, algorithm=algorithm, device=DEVICE, **kw))
+        (keys_cpu, _), rep_cpu = cluster.sort(keys_in, algorithm=algorithm,
+                                              device="cpu", **kw)
+        check(same_bits(keys, keys_cpu), f"{path}: card keys != CPU keys")
+        b, b_cpu = rep.boundaries, rep_cpu.boundaries
+        nan = np.isnan(b_cpu)
+        check(np.array_equal(np.isnan(b), nan) and np.array_equal(
+            b[~nan].view(np.int32), b_cpu[~nan].view(np.int32)),
+            f"{path}: card boundaries != CPU boundaries")
+        _same_report(path, rep, rep_cpu)
+        nans[path] = int(nan.sum())
+    print(f"[small] C18: SMMS t={t} m={m} and Terasort t={tt} m={mt}, "
+          f"indices moved by the float32 reciprocal {moved}, NaN boundaries "
+          f"{nans}: the card's keys, boundaries, workload and every report "
+          f"field equal the CPU run")
+
+
+# ---------------------------------------------------------------------------
 # 8. times
 # ---------------------------------------------------------------------------
 
@@ -4156,6 +4707,30 @@ def phase_times(rng, smi: str) -> dict:
            4 * q.numel() * 2, 4 * b * mg.n_heads * seen * mg.head_dim_,
            BF16_OPS_PER_S)
     del q, k, v
+    # pixtral-12b's prefill (B = 4, 32 q / 8 kv heads of 128, S = 2304:
+    # 256 front-end positions and 2048 tokens) and the jamba cut's
+    # attention layer (B = 1, 64 q / 8 kv heads of 128, S = 1024), bf16,
+    # causal
+    px, jb = get_arch(VLM_ARCH), get_arch(HYBRID_ARCH)
+    for label, (bb, arch, ss) in (
+            ("flash_attention@pixtral",
+             (SERVE_B, px, px.n_frontend_tokens + SERVE_PROMPT)),
+            ("flash_attention@jamba", (HYBRID_B, jb, HYBRID_PROMPT))):
+        hd = arch.head_dim_
+        q = torch.randn((bb, arch.n_heads, ss, hd), generator=gen,
+                        device=dev).bfloat16()
+        k, v = (torch.randn((bb, arch.n_kv_heads, ss, hd), generator=gen,
+                            device=dev).bfloat16() for _ in range(2))
+        record(label,
+               timed_ms(lambda: fa.flash_attention(q, k, v, True, None), 5),
+               event_ms(lambda: fa.flash_attention_plain(q, k, v, True,
+                                                         None), 1, warm=1),
+               event_ms(lambda: sdpa(q, k, v, is_causal=True,
+                                     enable_gqa=True), 20),
+               (2 * q.numel() + k.numel() + v.numel()) * 2,
+               4 * bb * arch.n_heads * (ss * (ss + 1) // 2) * hd,
+               BF16_OPS_PER_S)
+        del q, k, v
     bf16_times(record, rng, x, xs)
     rb = r.to(torch.bfloat16)
     xb, bqb = x.to(torch.bfloat16), bq.to(torch.bfloat16)
@@ -4643,6 +5218,7 @@ def main() -> None:
     phase_small_values_and_joins()
     phase_small_terasort()
     phase_small_radix()
+    phase_c18()
     runs["bf16"] = phase_bf16(smi)
     runs["wide"] = phase_wide(smi)
     phase_nan_keys(errs)
@@ -4655,6 +5231,11 @@ def main() -> None:
     phase_serve_smoke(MOE_ARCH, "serve_granite_smoke")
     serving_moe = phase_serve_granite(smi)
     moe_runs = phase_moe_cluster(smi, errs)
+    for arch, path, change in SMOKE_VARIANTS:
+        phase_serve_smoke(arch, path, change)
+    serving_rest = {"serve_pixtral": phase_serve_pixtral(smi),
+                    "serve_mamba2": phase_serve_mamba2(smi),
+                    "serve_jamba": phase_serve_jamba(smi)}
     launches = phase_launches()
 
     times = phase_times(rng, smi)
@@ -4690,7 +5271,7 @@ def main() -> None:
                for name, k in cuda.KERNELS.items()]
     print(json.dumps({"build": build, "runs": runs, "joins": join_runs,
                       "serve": serving, "serve_granite": serving_moe,
-                      "moe": moe_runs, "times": times,
+                      "moe": moe_runs, **serving_rest, "times": times,
                       "crossover": crossover}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,8 @@
 """Model configurations of the port (counterpart of ``repro.configs``):
-the seven architectures its serving path runs -- five dense ones
-(musicgen-medium's audio front end is the reference's stub: codes in as
-tokens) and two MoE ones, granite-moe-3b-a800m and dbrx-132b."""
+the reference's ten architectures -- five dense ones (musicgen-medium's
+audio front end is the reference's stub: codes in as tokens), two MoE
+ones (granite-moe-3b-a800m, dbrx-132b), the vision-language
+pixtral-12b, the SSM mamba2-130m and the hybrid jamba-1.5-large-398b."""
 from .base import ArchConfig, MoEConfig, SSMConfig
 from .registry import ARCHS, get_arch, smoke_config
 

@@ -2,10 +2,10 @@
 
 The port's own copy of ``src/repro/configs/base.py``, field for field,
 with torch dtypes in place of the reference's.  The port's model serves
-the dense and the MoE configurations (``MoEConfig``: ``models/moe.py``,
-``cluster.moe_dispatch``); ``SSMConfig`` is kept so that a config's
-shape (``param_count``, ``kind``) reads as the reference's does, and
-the model raises on SSM layers (``models/model.py``).
+every configuration: ``MoEConfig`` drives ``models/moe.py`` (and
+``cluster.moe_dispatch``), ``SSMConfig`` the Mamba-2 mixer of
+``models/ssm.py``, ``frontend="vision"`` the projected patch embeddings
+and ``kv_quant`` the int8 KV cache (``models/model.py``).
 """
 from __future__ import annotations
 

@@ -1,15 +1,17 @@
 """Architecture registry + reduced smoke configs for CPU tests.
 
-The port's copy of ``src/repro/configs/registry.py`` for the
-configurations it serves: gemma3-12b (the full-width target of the
-serving path: GQA, a 5:1 local:global window pattern, head_dim 256),
-gemma-2b (MQA, GeGLU), llama3-405b and mistral-large-123b (SwiGLU,
-plain GQA), musicgen-medium (full MHA over audio codes; its audio
-front end is the reference's stub, so it is a dense decoder too), and
-the two MoE decoders, granite-moe-3b-a800m (40 experts, top-8) and
-dbrx-132b (16 experts, top-4).  :func:`smoke_config` is the
-reference's, field for field, with torch dtypes, so a smoke config here
-and there has the same shape.
+The port's copy of ``src/repro/configs/registry.py``, all ten of its
+configurations: gemma3-12b (GQA, a 5:1 local:global window pattern,
+head_dim 256), gemma-2b (MQA, GeGLU), llama3-405b and
+mistral-large-123b (SwiGLU, plain GQA), musicgen-medium (full MHA over
+audio codes; its audio front end is the reference's stub, so it is a
+dense decoder), the two MoE decoders granite-moe-3b-a800m (40 experts,
+top-8) and dbrx-132b (16 experts, top-4), pixtral-12b (a vision front
+end's patch embeddings prepended to the tokens), mamba2-130m (Mamba-2
+SSD layers only) and jamba-1.5-large-398b (one attention layer to
+seven Mamba-2 ones, MoE every second layer).  :func:`smoke_config` is
+the reference's, field for field, with torch dtypes, so a smoke config
+here and there has the same shape.
 """
 from __future__ import annotations
 
@@ -20,12 +22,14 @@ import torch
 
 from .base import ArchConfig
 from . import (dbrx_132b, gemma3_12b, gemma_2b, granite_moe_3b_a800m,
-               llama3_405b, mistral_large_123b, musicgen_medium)
+               jamba_1_5_large_398b, llama3_405b, mamba2_130m,
+               mistral_large_123b, musicgen_medium, pixtral_12b)
 
 ARCHS: Dict[str, ArchConfig] = {
     m.CONFIG.name: m.CONFIG for m in (
         gemma3_12b, gemma_2b, llama3_405b, mistral_large_123b,
-        musicgen_medium, granite_moe_3b_a800m, dbrx_132b)
+        jamba_1_5_large_398b, pixtral_12b, granite_moe_3b_a800m,
+        dbrx_132b, musicgen_medium, mamba2_130m)
 }
 
 __all__ = ["ARCHS", "get_arch", "smoke_config"]

@@ -5,8 +5,9 @@ equi-depth samples lam[i, 0..s] of its sorted m objects; out come t+1
 global boundaries b[0..t] such that every bucket [b_k, b_{k+1}) has an
 estimated m objects.
 
-* :func:`equidepth_samples` -- the samples, picked as the reference
-  picks them (index arithmetic in float32, as JAX runs with x64 off).
+* :func:`equidepth_samples` -- the samples, picked as the reference's
+  jitted body picks them (index arithmetic in float32, as JAX runs with
+  x64 off, by XLA's reciprocal, C18).
 * :func:`boundaries` -- the reference's vectorised Algorithm 1
   (``boundaries_jax``): invert the summed piecewise-linear CDF.  Written
   with ``jnp.interp``'s own formula and ``jnp.linspace``'s as XLA
@@ -30,6 +31,7 @@ import numpy as np
 import torch
 
 from ..kernels.bitonic import ftz
+from ..numerics import float32_reciprocal, fma_float32
 
 __all__ = ["equidepth_samples", "boundaries", "boundaries_oracle"]
 
@@ -38,36 +40,23 @@ def equidepth_samples(sorted_local: torch.Tensor, s: int) -> torch.Tensor:
     """The s+1 equi-depth samples of each machine's sorted m objects.
 
     sorted_local: (..., m).  lam_0 = o_1 and lam_j = o_{ceil(j*m/s)}
-    (1-indexed), per paper §3.1; ``j*m/s`` is computed in float32 as
-    the reference computes it.
+    (1-indexed), per paper §3.1.  The quotient is the reference's as its
+    jitted body computes it: XLA's CPU compiler turns ``j * m / s`` into
+    float32(j*m) x float32(1/s), so where 1/s rounds up and j*m/s is a
+    whole number the index comes out one higher (ROADMAP C18).  An index
+    past the row (at j = s) takes ``jnp.take``'s fill: NaN for float
+    rows, the dtype's minimum for integer ones.
     """
     m = sorted_local.shape[-1]
-    j = torch.arange(1, s + 1, dtype=torch.int32, device=sorted_local.device)
-    q = (j * m).to(torch.float32) / torch.tensor(float(s), dtype=torch.float32)
-    idx = torch.ceil(q).to(torch.int64) - 1
-    return torch.cat([sorted_local[..., :1],
-                      sorted_local.index_select(-1, idx)], dim=-1)
-
-
-def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """Correctly rounded float32 ``a * b + c``.
-
-    XLA contracts the reference's ``fp + q * df`` into a fused
-    multiply-add on the CPU; torch rounds twice.  The product of two
-    float32 values is exact in float64; the float64 sum is rounded to
-    odd (a TwoSum error term decides), and rounding that to float32
-    gives the fused result exactly (53 >= 2 * 24 + 2 bits).
-    """
-    p = a.double() * b.double()
-    cd = c.double()
-    s = p + cd
-    bp = s - cd
-    err = (p - bp) + (cd - (s - bp))
-    even = (s.view(torch.int64) & 1) == 0
-    toward = torch.where(err > 0, torch.full_like(s, float("inf")),
-                         torch.full_like(s, float("-inf")))
-    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
-    return s.float()
+    dev = sorted_local.device
+    j = torch.arange(1, s + 1, dtype=torch.int32, device=dev)
+    quot = (j * m).to(torch.float32) * float32_reciprocal(s, dev)
+    idx = torch.ceil(quot).to(torch.int64) - 1
+    rest = sorted_local.index_select(-1, idx.clamp(max=m - 1))
+    fill = (float("nan") if sorted_local.is_floating_point()
+            else torch.iinfo(sorted_local.dtype).min)
+    rest = torch.where(idx < m, rest, fill)
+    return torch.cat([sorted_local[..., :1], rest], dim=-1)
 
 
 def _order_key(v: torch.Tensor) -> torch.Tensor:
@@ -111,8 +100,8 @@ def _interp(x, xp, fp, left=None, right=None):
     xp: (..., K) rows of knots, sorted but for NaN that the keys-only
     network left mid-row, with fp of the same shape (or (K,) shared);
     x: (..., q).  float32 throughout, with the update fused as XLA fuses
-    it (:func:`_fma`), and the intervals found by JAX's own bisection
-    (:func:`_searchsorted_right`).
+    it (:func:`~repro_torch.numerics.fma_float32`), and the intervals
+    found by JAX's own bisection (:func:`_searchsorted_right`).
     """
     k = xp.shape[-1]
     fp = fp.expand(xp.shape)
@@ -126,7 +115,7 @@ def _interp(x, xp, fp, left=None, right=None):
     eps = float(np.spacing(np.finfo(np.float32).eps))
     dx0 = torch.abs(dx) <= eps
     q = delta / torch.where(dx0, torch.ones_like(dx), dx)
-    f = torch.where(dx0, fp_im1, _fma(q, df, fp_im1))
+    f = torch.where(dx0, fp_im1, fma_float32(q, df, fp_im1))
     left_v = fp[..., :1] if left is None else torch.full_like(f, left)
     right_v = fp[..., -1:] if right is None else torch.full_like(f, right)
     f = torch.where(x < xp[..., :1], left_v, f)

@@ -34,6 +34,7 @@ from ..cluster.capacity import CapacityPolicy, run_with_capacity
 from ..cluster.collectives import CollectiveTape
 from ..kernels.bitonic import ftz
 from .alpha_k import terasort_workload_bound
+from ..numerics import float32_reciprocal
 from .exchange import exchange_sorted_segments
 from .sampling import algorithm_s, draw_uniforms, terasort_sample_count
 from .smms import SortResult, received_objects, resolve_exchange_topology
@@ -43,15 +44,14 @@ __all__ = ["boundary_index", "terasort_shard", "terasort_sort"]
 
 def boundary_index(t: int, s_tot: int, device) -> torch.Tensor:
     """(t-1,) int32 positions ceil(i s_tot / t) - 1, i = 1..t-1, in the
-    pooled sorted samples.  The quotient is taken in float32, as the
-    reference's int32 / int true division takes it: where float32
-    rounds it onto an integer, the ceiling differs from the exact one.
+    pooled sorted samples.  The quotient is the reference's as its
+    jitted body computes it: float32(i*s_tot) x float32(1/t), XLA's
+    rewrite of the division by a constant.  Where 1/t rounds up and the
+    quotient is a whole number, the ceiling is one higher than the exact
+    one (ROADMAP C18; never past the pool, since i < t).
     """
     i = torch.arange(1, t, dtype=torch.int32, device=device)
-    # divided by a tensor on the device: a CPU scalar divisor would let
-    # CUDA multiply by its reciprocal instead
-    quot = (i * s_tot).to(torch.float32) / torch.full(
-        (), float(t), dtype=torch.float32, device=device)
+    quot = (i * s_tot).to(torch.float32) * float32_reciprocal(t, device)
     return torch.ceil(quot).to(torch.int32) - 1
 
 

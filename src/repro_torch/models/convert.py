@@ -7,10 +7,12 @@ per period (``models/model.py``).  :func:`params_from_reference` takes
 that pytree with numpy arrays as leaves (``np.asarray`` of each jax
 array) and returns the port's parameters on ``device`` (None: the card,
 raising without one, as every entry point of the port) in
-``cfg.param_dtype`` (a MoE router in float32, as the reference holds
-it): the periods unstacked, ``unembed`` present only without tied
-embeddings, the embedding at the padded vocab as the reference holds
-it.  bfloat16 leaves (numpy's ``ml_dtypes`` type) go
+``cfg.param_dtype`` (a MoE router and a Mamba mixer's ``A_log``, ``D``
+and ``dt_bias`` in float32, as the reference holds them): the periods
+unstacked -- a period of jamba holds attention and mamba positions side
+by side --, ``unembed`` present only without tied embeddings,
+``frontend_proj`` only with the vision front end, the embedding at the
+padded vocab as the reference holds it.  bfloat16 leaves (numpy's ``ml_dtypes`` type) go
 through float32, which holds them exactly.
 """
 from __future__ import annotations
@@ -22,7 +24,6 @@ import torch
 
 from ..cluster.api import resolve_device
 from ..configs.base import ArchConfig
-from .model import check_served
 
 __all__ = ["params_from_reference", "tree_map"]
 
@@ -36,9 +37,11 @@ def _block(block: Dict[str, Any], i: int, cfg: ArchConfig, device):
     """Period ``i`` of one in-period position's stacked leaves."""
     out = tree_map(lambda a: _tensor(np.asarray(a)[i], cfg.param_dtype,
                                      device), block)
-    if "moe" in block:
-        out["moe"]["router"] = _tensor(np.asarray(block["moe"]["router"])[i],
-                                       torch.float32, device)
+    for sub, names in (("moe", ("router",)),
+                       ("mamba", ("A_log", "D", "dt_bias"))):
+        for name in names if sub in block else ():
+            out[sub][name] = _tensor(np.asarray(block[sub][name])[i],
+                                     torch.float32, device)
     return out
 
 
@@ -54,10 +57,10 @@ def tree_map(fn, tree):
 
 def params_from_reference(tree: Dict[str, Any], cfg: ArchConfig,
                           device=None) -> Dict[str, Any]:
-    check_served(cfg)
     device = resolve_device(device)
-    want = {"embed", "final_norm", "periods"} | (
-        set() if cfg.tie_embeddings else {"unembed"})
+    want = ({"embed", "final_norm", "periods"}
+            | (set() if cfg.tie_embeddings else {"unembed"})
+            | ({"frontend_proj"} if cfg.frontend == "vision" else set()))
     if set(tree) != want:
         raise ValueError(f"{cfg.name}: reference parameters {sorted(tree)}, "
                          f"expected {sorted(want)}")

@@ -38,7 +38,11 @@ as ``ops`` calls them (:func:`_pair_call`).  ``serve_prefill`` is
 gemma3-12b's prefill of 4 x 2048 tokens and ``serve_decode`` one decode
 step after it (:data:`repro_torch.workloads.SERVE_ARCH`), bf16 weights
 made on the card from a seed; ``serve_granite_prefill`` and
-``serve_granite_decode`` the same on granite-moe-3b-a800m; and
+``serve_granite_decode`` the same on granite-moe-3b-a800m,
+``serve_pixtral_prefill`` and ``serve_pixtral_decode`` on pixtral-12b
+(256 front-end embeddings of 1024 before each prompt, random, made on
+the card), ``serve_mamba2_prefill`` and ``serve_mamba2_decode`` on
+mamba2-130m (the SSD scan's chunked prefill and recurrent step); and
 ``moe_capacity``, ``moe_alpha_k`` and ``moe_cluster`` one granite MoE
 layer through ``cluster.moe_dispatch`` (8192 float32 tokens, t = 8).
 """
@@ -59,8 +63,8 @@ from repro_torch.kernels import bitonic, cuda, fused, ops, radix
 from repro_torch.models import model
 from repro_torch.workloads import (JOIN_T, JOINS, M, M_SMALL, M_WIDE,
                                    MOE_ARCH, MOE_T, MOE_TOKENS, SERVE_ARCH,
-                                   SERVE_B, SERVE_NEW, SERVE_PROMPT, T,
-                                   T_SMALL, make_payload)
+                                   SERVE_B, SERVE_NEW, SERVE_PROMPT, SSM_ARCH,
+                                   T, T_SMALL, VLM_ARCH, make_payload)
 
 __all__ = ["PATHS"]
 
@@ -154,12 +158,19 @@ def _serve_call(kind: str, arch: str = SERVE_ARCH):
         cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     prompts = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (SERVE_B, SERVE_PROMPT)).astype(np.int32)).cuda()
+    embeds, front = None, 0
+    if cfg.frontend == "vision":
+        front = cfg.n_frontend_tokens
+        embeds = torch.randn((SERVE_B, front, cfg.frontend_dim),
+                             device="cuda", generator=torch.Generator(
+                                 device="cuda").manual_seed(1))
 
     def prefill():
         with torch.inference_mode():
-            cache = model.init_cache(cfg, SERVE_B, SERVE_PROMPT + SERVE_NEW,
+            cache = model.init_cache(cfg, SERVE_B,
+                                     front + SERVE_PROMPT + SERVE_NEW,
                                      device="cuda")
-            return model.prefill(params, cfg, prompts, cache)
+            return model.prefill(params, cfg, prompts, cache, embeds)
     if kind == "prefill":
         return lambda: prefill()[0]
     _, cache = prefill()        # room for SERVE_NEW steps: warm-up + reps
@@ -188,6 +199,9 @@ PATHS = {
     "serve_decode": lambda: _serve_call("decode"),
     "serve_granite_prefill": lambda: _serve_call("prefill", MOE_ARCH),
     "serve_granite_decode": lambda: _serve_call("decode", MOE_ARCH),
+    **{f"serve_{short}_{kind}": (lambda k=kind, a=arch: _serve_call(k, a))
+       for short, arch in (("pixtral", VLM_ARCH), ("mamba2", SSM_ARCH))
+       for kind in ("prefill", "decode")},
     **{f"moe_{mode}": (lambda mode=mode: _moe_call(mode))
        for mode in ("capacity", "alpha_k", "cluster")},
     **{name + ("_radix" if family == "radix" else ""):

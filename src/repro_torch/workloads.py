@@ -23,10 +23,19 @@ One table for both ``chip_smoke.py`` and :mod:`repro_torch.profile_port`:
   :data:`MOE_ARCH` and one of :data:`MOE_WIDE_ARCH` (dbrx-132b, 16
   experts of 6144 x 10752, top-4: one layer's 6.3 GB of bf16 experts;
   the whole model's 263 GB does not fit a card) at full width, over
-  :data:`MOE_T` machines, :data:`MOE_TOKENS` tokens each.
+  :data:`MOE_T` machines, :data:`MOE_TOKENS` tokens each;
+* the rest of the LM stack: :data:`VLM_ARCH` (pixtral-12b, 40 layers,
+  d_model 5120, 256 front-end tokens of 1024) and :data:`SSM_ARCH`
+  (mamba2-130m, 24 Mamba-2 layers) at full width and depth on the
+  serving path's prompts, and mamba2-130m also on one prompt of
+  :data:`SSM_LONG_PROMPT` tokens; :data:`HYBRID_ARCH`
+  (jamba-1.5-large-398b) at full width cut to one attention and one
+  mamba position (:func:`hybrid_cut`), :data:`HYBRID_B` prompt of
+  :data:`HYBRID_PROMPT` tokens and :data:`HYBRID_NEW` new tokens.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -39,6 +48,8 @@ __all__ = ["T", "M", "T_SMALL", "M_SMALL", "M_WIDE", "JOIN_T",
            "PAYLOAD_COLS",
            "SERVE_ARCH", "SERVE_B", "SERVE_PROMPT", "SERVE_NEW",
            "MOE_ARCH", "MOE_WIDE_ARCH", "MOE_T", "MOE_TOKENS",
+           "VLM_ARCH", "SSM_ARCH", "SSM_LONG_PROMPT", "HYBRID_ARCH",
+           "HYBRID_B", "HYBRID_PROMPT", "HYBRID_NEW", "hybrid_cut",
            "JoinConfig", "JOINS", "TERASORT_ATTEMPTS", "sort_inputs",
            "adversarial_shards", "make_payload"]
 
@@ -54,6 +65,23 @@ MOE_WIDE_ARCH = "dbrx-132b"
 MOE_T = 8
 # tokens a layer call: granite's a prefill's 4 x 2048; dbrx's a quarter
 MOE_TOKENS = {MOE_ARCH: 8192, MOE_WIDE_ARCH: 2048}
+VLM_ARCH = "pixtral-12b"
+SSM_ARCH = "mamba2-130m"
+SSM_LONG_PROMPT = 32768     # one prompt, 128 chunks of 256
+HYBRID_ARCH = "jamba-1.5-large-398b"
+# one prompt: the dense alpha_k dispatch gathers every slot's weights at
+# once, 32 slots x 3 x 8192 x 24576 bf16 = 38.6 GB beside 23.8 GB of
+# weights
+HYBRID_B, HYBRID_PROMPT, HYBRID_NEW = 1, 1024, 8
+
+
+def hybrid_cut(cfg):
+    """jamba-1.5-large-398b at full width, its 72 layers cut to one
+    period of two: position 0 attention with the dense FFN, position 1
+    a Mamba-2 mixer with the MoE (~11.9 G parameters, 23.8 GB in bf16;
+    the whole model's ~398 G do not fit a card)."""
+    return dataclasses.replace(cfg, n_layers=2, period=2,
+                               attn_positions=(0,))
 
 
 class JoinConfig(NamedTuple):

@@ -14,7 +14,9 @@ The port's ``attention`` is held against the reference's ``attention``
 at rtol = atol = 2e-3, the reference's own bound for its blockwise path
 against the Pallas kernel (tests/test_attention_module.py): prefill
 (the kernel's plain version against the blockwise scan) and decode rows
-(dense rows against dense rows) at an explicit offset.  Tests marked
+(dense rows against dense rows) at an explicit offset.  Its blockwise
+backend is held against the reference's at rtol = atol = 1e-5: the same
+online softmax over the same blocks, in float32.  Tests marked
 ``cuda`` hold the CUDA kernel against its plain version on the card.
 """
 import numpy as np
@@ -114,6 +116,45 @@ def test_attention_dense_rows_match_reference(sq, sk, offset, window):
                     q_offset=offset)
     assert not ops.DISPATCH_COUNTS                  # no kernel for decode
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **MODULE)
+
+
+# (b, hq, hkv, sq, sk, window, q_offset, q_chunk, block_k): GQA and MQA;
+# a window; queries at an offset into longer keys; sk that block_k does
+# not divide; several q chunks, each with its own key prefix
+BLOCKWISE = [
+    (2, 4, 2, 40, 40, None, None, 16, 8),
+    (1, 8, 2, 50, 70, 13, None, 16, 16),
+    (2, 4, 4, 33, 90, None, 20, 8, 32),
+    (1, 4, 1, 100, 100, 20, 0, 32, 24),
+    (1, 4, 2, 64, 64, 33, None, 2048, 2048),
+]
+
+
+@pytest.mark.parametrize("case", BLOCKWISE, ids=str)
+def test_blockwise_backend_matches_reference(case):
+    b, hq, hkv, sq, sk, window, offset, q_chunk, block_k = case
+    q, k, v = qkv(sq + sk, b, hq, hkv, sq, sk, 16)
+    want = jattention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                      causal=True, window=window, q_offset=offset,
+                      q_chunk=q_chunk, block_k=block_k)
+    got = attention(*to_torch((q, k, v)), causal=True, window=window,
+                    q_offset=offset, backend="blockwise", q_chunk=q_chunk,
+                    block_k=block_k)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+
+
+def test_blockwise_agrees_with_the_kernel_and_refuses_other_backends():
+    """Right-aligned, the blockwise backend and the kernel's plain
+    version give the same attention (within the float32 bound); an
+    unknown backend raises."""
+    q, k, v = to_torch(qkv(9, 2, 4, 2, 60, 60, 16))
+    ops.reset_dispatch_counts()
+    got = attention(q, k, v, window=16, backend="blockwise", block_k=32)
+    assert ops.DISPATCH_COUNTS[("flash_attention", "plain")] == 0
+    np.testing.assert_allclose(got.numpy(),
+                               attention(q, k, v, window=16).numpy(), **F32)
+    with pytest.raises(ValueError, match="backend"):
+        attention(q, k, v, backend="pallas")
 
 
 def test_flash_outside_the_gate_raises():

@@ -106,16 +106,21 @@ def _sorted_rows(gen, t, m, seed):
     return np.sort(gen(t * m, seed=seed).reshape(t, m), axis=1)
 
 
+# t = 7 and 13: machine counts whose float32 reciprocal XLA's rewrite
+# of the index's division rounds up (ROADMAP C18); at (7, 100) the last
+# sample's index lands past the row and takes jnp.take's NaN fill
 @pytest.mark.parametrize("t,m,r", [(2, 7, 2), (4, 192, 2), (8, 1000, 3),
-                                   (8, 64, 1)])
+                                   (8, 64, 1), (7, 100, 2), (13, 200, 2)])
 @pytest.mark.parametrize("gen", [uniform_keys, lidar_like, zipf_keys])
 def test_samples_and_boundaries_bitwise(t, m, r, gen):
     s = r * t
     xs = _sorted_rows(gen, t, m, seed=t + m + r)
     lam = equidepth_samples(torch.from_numpy(xs), s)
-    want_lam = np.asarray(jax.vmap(lambda row: j_equidepth(row, s))(
+    # jitted, as the SMMS body runs it: XLA multiplies by 1/s (C18)
+    want_lam = np.asarray(jax.jit(jax.vmap(lambda row: j_equidepth(row, s)))(
         jnp.asarray(xs)))
-    np.testing.assert_array_equal(lam.numpy(), want_lam)
+    np.testing.assert_array_equal(lam.numpy().view(np.int32),
+                                  want_lam.view(np.int32))
     # as the SMMS body runs it: jitted, every machine computing it
     want = np.asarray(jax.jit(jax.vmap(
         lambda z: boundaries_jax(jnp.asarray(want_lam) + z, m, s)))(
@@ -265,6 +270,31 @@ def test_smms_with_values_through_the_rank_merge():
     assert not ops._merge_fits_one_tile(t, cap_pair)
     assert ops.DISPATCH_COUNTS[("merge_sorted_rows_kv", "plain")] == \
         rep.capacity_attempts
+
+
+@pytest.mark.parametrize("with_values", [False, True])
+@pytest.mark.parametrize("t,m", [(7, 100), (7, 1000), (13, 260), (13, 1040)])
+def test_smms_where_the_sample_index_rounds_up_matches_reference(
+        t, m, with_values):
+    """ROADMAP C18: at t = 7 and 13 the float32 reciprocal of s = 2t
+    rounds up, and the reference's jitted body takes some samples one
+    later than an exact division would (at (7, 100) the last one past
+    the row: NaN).  Keys, values, workload, k_workload and every phase
+    equal the reference's."""
+    x = np.random.default_rng(t * m).uniform(-1e3, 1e3, (t, m)).astype(
+        np.float32)
+    v = (np.arange(t * m, dtype=np.int32).reshape(t, m) if with_values
+         else None)
+    (want, want_v), want_rep = jcluster.sort(
+        jnp.asarray(x), algorithm="smms", values=v,
+        kernel_backend="reference")
+    (got, got_v), rep = cluster.sort(x, algorithm="smms", values=v,
+                                     device="cpu")
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  np.asarray(want).view(np.int32))
+    if with_values:
+        np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
+    assert_reports_equal(rep, want_rep)
 
 
 def test_smms_at_sixteen_machines_matches_reference():

@@ -32,6 +32,8 @@ def test_port_imports_neither_jax_nor_the_reference():
         import repro_torch.serve.query, repro_torch.serve.batching
         import repro_torch.obs.export
         import repro_torch.models.moe, repro_torch.core.moe_dispatch
+        import repro_torch.models.ssm, repro_torch.models.attention
+        import repro_torch.numerics
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "repro" or m.startswith("repro."))
@@ -82,21 +84,50 @@ def _tables():
 
 
 def _unported(entry, change):
+    """``entry``'s smoke config with ``change`` (a mamba position brings
+    the smoke SSM config along): the port's and the reference's, with
+    the reference's weights carried over to the port."""
+    import jax
+    from repro.configs import ARCHS as JARCHS, smoke_config as jsmoke
+    from repro.configs.base import SSMConfig as JSSMConfig
+    from repro.models import model as jmodel
     from repro_torch.configs import ARCHS, smoke_config
-    from repro_torch.models import model
-    model.check_served(dataclasses.replace(smoke_config(ARCHS[entry]),
-                                           **change))
+    from repro_torch.models.convert import params_from_reference
+    cfg = dataclasses.replace(smoke_config(ARCHS[entry]), **change)
+    jcfg = dataclasses.replace(jsmoke(JARCHS[entry]), **{
+        k: (JSSMConfig(**dataclasses.asdict(v)) if k == "ssm" else v)
+        for k, v in change.items()})
+    jparams = jmodel.init_params(jcfg, jax.random.key(2))
+    return cfg, jcfg, jparams, params_from_reference(
+        jax.tree_util.tree_map(np.asarray, jparams), cfg, "cpu")
 
 
-@pytest.mark.parametrize("entry, change, item", [
-    ("mistral-large-123b", {"ssm": SSMConfig()}, "A12"),
-    ("granite-moe-3b-a800m", {"attn_positions": (0,), "period": 2}, "A12"),
-    ("gemma3-12b", {"frontend": "vision"}, "A12"),
-    ("llama3-405b", {"kv_quant": True}, "A12"),
+# The options of ROADMAP A12's serving half, which the port once
+# refused; the test keeps its name from then.
+@pytest.mark.parametrize("entry, change", [
+    ("mistral-large-123b", {"ssm": SSMConfig()}),
+    ("granite-moe-3b-a800m", {"attn_positions": (0,), "period": 2,
+                              "ssm": SSMConfig(d_state=16, head_dim=16,
+                                               chunk=32)}),
+    ("gemma3-12b", {"frontend": "vision", "n_frontend_tokens": 8}),
+    ("llama3-405b", {"kv_quant": True}),
 ])
-def test_unported_options_name_their_roadmap_item(entry, change, item):
-    with pytest.raises(NotImplementedError, match=item):
-        _unported(entry, change)
+def test_unported_options_name_their_roadmap_item(entry, change):
+    """A12's options -- an SSM config, a period of attention and mamba
+    (granite's MoE after both), the vision front end, the int8 KV cache
+    -- on four architectures: ``generate`` on the CPU gives the
+    reference's tokens."""
+    from repro.serve.engine import generate as jgenerate
+    from repro_torch.serve import generate
+    cfg, jcfg, jparams, params = _unported(entry, change)
+    rng = np.random.default_rng(2)
+    prompt = rng.integers(0, cfg.vocab_size, (2, 24)).astype(np.int32)
+    embeds = (rng.standard_normal((2, 8, cfg.frontend_dim)).astype(np.float32)
+              if cfg.frontend == "vision" else None)
+    want = jgenerate(jparams, jcfg, jnp.asarray(prompt), max_new_tokens=2,
+                     embeds=None if embeds is None else jnp.asarray(embeds))
+    got = generate(params, cfg, prompt, 2, embeds=embeds, device="cpu")
+    np.testing.assert_array_equal(got, want)
 
 
 def test_generate_defaults_to_the_card(monkeypatch):

@@ -88,9 +88,13 @@ def test_algorithm_s_takes_exactly_q_in_position_order():
 
 @pytest.mark.parametrize("t", [3, 6, 64, 100, 250])
 def test_round2_index_is_the_reference_float32_division(t):
+    """The oracle is jitted, as the Terasort body always runs: XLA turns
+    the division by the constant t into a product with float32(1/t),
+    which at t = 250 (and 7, 13, 14, 15) moves some indices one up from
+    the eager division's (ROADMAP C18)."""
     s_tot = t * terasort_sample_count(t * 65536, t)
-    want = np.asarray(jnp.ceil(jnp.arange(1, t) * s_tot / t)
-                      .astype(jnp.int32) - 1)
+    want = np.asarray(jax.jit(lambda z: jnp.ceil(
+        (jnp.arange(1, t) + z) * s_tot / t).astype(jnp.int32) - 1)(0))
     np.testing.assert_array_equal(boundary_index(t, s_tot, "cpu").numpy(),
                                   want)
 
@@ -128,6 +132,30 @@ def test_terasort_matches_reference(t, gen, with_values):
     assert_reports_equal(rep, want)
     assert rep.alpha == 3
     assert max(rep.workload) <= terasort_workload_bound(t * m, t)
+
+
+@pytest.mark.parametrize("with_values", [False, True])
+@pytest.mark.parametrize("t,m", [(7, 1024), (13, 256)])
+def test_terasort_where_the_round2_index_rounds_up_matches_reference(
+        t, m, with_values):
+    """ROADMAP C18: at t = 7 and 13 the reference's jitted Round 2 takes
+    some boundaries one sample later than an exact division would; on
+    the reference's draws keys, values, workload, k_workload and every
+    phase equal the reference's."""
+    x = uniform_keys(t * m, seed=t).reshape(t, m)
+    v = (np.random.default_rng(t).integers(0, 1 << 30, (t, m))
+         .astype(np.int32) if with_values else None)
+    seed = t + 1
+    (wk, wv), want = jcluster.sort(x, algorithm="terasort", seed=seed,
+                                   values=v, kernel_backend="reference")
+    (gk, gv), rep = cluster.sort(x, algorithm="terasort", seed=seed,
+                                 values=v, device="cpu",
+                                 uniforms=reference_uniforms(seed, t, m))
+    np.testing.assert_array_equal(gk.numpy().view(np.int32),
+                                  np.asarray(wk).view(np.int32))
+    if with_values:
+        np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
+    assert_reports_equal(rep, want)
 
 
 def test_terasort_capacity_retry_matches_reference():
