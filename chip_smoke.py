@@ -61,7 +61,17 @@ version there:
   against the blockwise attention backend at pixtral's prefill shape
   and at gemma3-12b's window; SMMS and Terasort at t = 7, where the
   reference's float32 index arithmetic moves samples (ROADMAP C18),
-  against the CPU.  Matmuls run in full float32 where they are float32
+  against the CPU;
+* training (``launch.steps.build_train_step``, ``launch.train.train``):
+  gemma-2b at full width and depth (18 layers, 2.51 G parameters, bf16
+  weights, float32 AdamW moments, remat "full") on 4 x 2048 tokens a
+  step for 8 steps, every attention forward and its recompute through
+  the flash kernel (``attention.FlashAttentionFn``, whose backward is
+  the blockwise scan under autograd); mamba2-130m at full size on 8 x
+  2048 tokens; the four smoke configurations' loss and gradients
+  against the CPU; a 30-step ``train`` with a checkpoint and a resume;
+  and ``data.smms_length_bucketing`` of 64 x 4,096 document lengths
+  through SMMS.  Matmuls run in full float32 where they are float32
   (TF32 off).
 
 Phases, in order; any failure raises and the script exits non-zero
@@ -194,13 +204,30 @@ without printing a result:
                 on the steps without drops or routing apart); C18:
                 SMMS t = 7 x 1,000 and Terasort t = 7 x 1,024 equal to
                 the CPU run (keys, boundaries, workload, report)
+     training   FlashAttentionFn at gemma-2b's (4, 8/1, 2048, 256) and
+                gemma3-12b's window: dq, dk, dv against autograd through
+                the blockwise backend, the forward against the blockwise
+                scan (FLASH_TOL), f32 and bf16; the smoke configs of
+                gemma-2b, granite, mamba2 and pixtral (with embeds): the
+                loss within 1e-5 and every gradient leaf within 1e-3 of
+                its largest magnitude of the CPU's; train for 30 steps,
+                then 20 and a resume from the step-20 checkpoint (the
+                last 10 losses within rtol 1e-5 + atol 1e-6); gemma-2b
+                at full size, 8 steps of 4 x 2048 (losses finite and
+                falling, the flash kernel twice a step in every layer;
+                the median step, tok/s, model_flops over the step time
+                over the bf16 peak, the peak memory beside the state
+                worked out from the shapes); mamba2-130m the same at 8 x
+                2048, 5 steps; SMMS length bucketing of 64 x 4,096
+                lengths equal to the CPU run (order, bucket ids, report)
   7. launches   per path of phases 4-6 (each run's counts set to 0 just
                 before it, read just after): each path launched exactly
                 the kernels of PATH_KERNELS, and every kernel ran
   8. times      per kernel: CUDA-event time, plain version, one PyTorch
                 library call, bound (each sort-side kernel also on bf16
                 keys, flash attention also in f32 and at musicgen's,
-                pixtral's and the jamba cut's shapes, the rank merge
+                pixtral's, the jamba cut's and gemma-2b's training
+                shapes, the rank merge
                 also at each path's landed
                 buffers, the search also as SMMS's Round 3 calls it
                 through ops, the pair sorts also as ops calls them,
@@ -237,6 +264,7 @@ import math
 import pathlib
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from typing import Optional
@@ -248,12 +276,14 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import cluster, serve  # noqa: E402
-from repro_torch.configs import get_arch, smoke_config  # noqa: E402
+from repro_torch.configs import ShapeSpec, get_arch, smoke_config  # noqa: E402
 from repro_torch.core import (MASKED_KEY, choose_ab,  # noqa: E402
                               draw_assignments, flat_receive_capacity,
                               terasort_sample_count)
-from repro_torch.data import (lidar_like, scalar_skew_tables,  # noqa: E402
-                              uniform_keys, zipf_keys, zipf_tables)
+from repro_torch.data import (TokenPipeline,  # noqa: E402
+                              lidar_like, scalar_skew_tables,
+                              smms_length_bucketing, uniform_keys, zipf_keys,
+                              zipf_tables)
 from repro_torch.kernels import (bitonic, bucketize, cuda, fused,  # noqa: E402
                                  ops, radix)
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -261,7 +291,12 @@ from repro_torch.models import model as lm  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.attention import attention  # noqa: E402
 from repro_torch.models.ssm import ssd_chunked  # noqa: E402
-from repro_torch.models.convert import tree_map  # noqa: E402
+from repro_torch.models.convert import tree_leaves, tree_map  # noqa: E402
+from repro_torch.launch import roofline  # noqa: E402
+from repro_torch.launch.steps import build_train_step  # noqa: E402
+from repro_torch.launch.train import batch_on, train  # noqa: E402
+from repro_torch.optim import (AdamWConfig, adamw_init,  # noqa: E402
+                               cosine_schedule)
 from repro_torch.workloads import (JOIN_T, JOINS, M, M_SMALL,  # noqa: E402
                                    M_WIDE, MOE_ARCH, MOE_T, MOE_TOKENS,
                                    MOE_WIDE_ARCH, PAYLOAD_COLS, SERVE_ARCH,
@@ -269,7 +304,11 @@ from repro_torch.workloads import (JOIN_T, JOINS, M, M_SMALL,  # noqa: E402
                                    T_SMALL, TERASORT_ATTEMPTS, make_payload,
                                    sort_inputs, VLM_ARCH, SSM_ARCH,
                                    SSM_LONG_PROMPT, HYBRID_ARCH, HYBRID_B,
-                                   HYBRID_PROMPT, HYBRID_NEW, hybrid_cut)
+                                   HYBRID_PROMPT, HYBRID_NEW, hybrid_cut,
+                                   TRAIN_ARCH, TRAIN_B, TRAIN_SEQ,
+                                   TRAIN_STEPS, TRAIN_LR, TRAIN_WARMUP,
+                                   TRAIN_SSM_B, TRAIN_SSM_STEPS, BUCKETS,
+                                   BUCKET_DOCS)
 
 # the module, not the function of the same name repro_torch.core exports
 statjoin_mod = importlib.import_module("repro_torch.core.statjoin")
@@ -395,6 +434,23 @@ PATH_KERNELS = {
     "serve_mamba2_smoke": set(),
     "serve_jamba_smoke": {"flash_attention"},
     "serve_gemma2b_int8_smoke": {"flash_attention"},
+    # training (remat "full"): the flash kernel in every attention
+    # layer's forward and again in its recompute; its backward is the
+    # blockwise scan, torch ops.  mamba2-130m's paths launch none.
+    # FlashAttentionFn alone at gemma-2b's and gemma3-12b's shapes
+    "flash_grad": {"flash_attention"},
+    "train_gemma2b_smoke": {"flash_attention"},
+    "train_granite_smoke": {"flash_attention"},
+    "train_mamba2_smoke": set(),
+    "train_pixtral_smoke": {"flash_attention"},
+    "train_resume": {"flash_attention"},
+    "train_gemma2b": {"flash_attention"},
+    "train_mamba2": set(),
+    # SMMS length bucketing at 64 x 4,096: Round 1's pair sort of the
+    # lengths with their ids, Round 3's search, the in-tile merge of the
+    # landed rows with their ids; set by phase_bucketing from the cost
+    # model's family
+    "bucketing": set(),
     # ROADMAP C18 at t = 7 (the small paths' kernels)
     "c18_smms": {"bitonic_sort", "searchsorted", "merge_rows"},
     "c18_terasort": {"sort_partition", "merge_rows"},
@@ -1307,7 +1363,8 @@ def flash_operands(close, dev) -> None:
     kv heads of 64), at pixtral-12b's (4 x 32 q heads over 8 kv heads of
     128, S = 2304: 256 front-end positions and 2048 tokens) and at the
     jamba-1.5-large cut's attention layer (1 x 64 q heads over 8 kv
-    heads of 128, S = 1024), in bf16 (the tensor-core kernel) and f32
+    heads of 128, S = 1024), at gemma-2b's training step (4 x 8 q heads
+    over 1 kv head of 256, S = 2048), in bf16 (the tensor-core kernel) and f32
     (the CUDA-core one); and at edge shapes: S = 17, S a multiple of no
     tile with fewer queries than keys, MQA, and a head_dim (48) that
     the kernel pads."""
@@ -1323,6 +1380,7 @@ def flash_operands(close, dev) -> None:
             cfg.head_dim_)
     mg, gr = get_arch("musicgen-medium"), get_arch(MOE_ARCH)
     px, jb = get_arch(VLM_ARCH), get_arch(HYBRID_ARCH)
+    tr = get_arch(TRAIN_ARCH)
     px_s = px.n_frontend_tokens + SERVE_PROMPT
     shapes = [(full, None), (full, cfg.sliding_window),
               ((SERVE_B, mg.n_heads, mg.n_kv_heads, SERVE_PROMPT,
@@ -1333,6 +1391,8 @@ def flash_operands(close, dev) -> None:
                 px.head_dim_), None),
               ((HYBRID_B, jb.n_heads, jb.n_kv_heads, HYBRID_PROMPT,
                 HYBRID_PROMPT, jb.head_dim_), None),
+              ((TRAIN_B, tr.n_heads, tr.n_kv_heads, TRAIN_SEQ, TRAIN_SEQ,
+                tr.head_dim_), None),
               ((2, 4, 2, 17, 17, 256), None),
               ((2, 4, 2, 1000, 1300, 128), 333),
               ((1, 8, 1, 777, 777, 64), None),
@@ -4415,6 +4475,306 @@ def phase_c18() -> None:
 
 
 # ---------------------------------------------------------------------------
+# 6c. training: gemma-2b and mamba2-130m train on the card
+# ---------------------------------------------------------------------------
+
+# (arch, path): the float32 smoke configurations trained on the card
+# against the CPU
+TRAIN_SMOKE = (("gemma-2b", "train_gemma2b_smoke"),
+               (MOE_ARCH, "train_granite_smoke"),
+               (SSM_ARCH, "train_mamba2_smoke"),
+               (VLM_ARCH, "train_pixtral_smoke"))
+# Card against CPU, float32 (TF32 off): the loss within rtol 1e-5, and
+# each gradient leaf's largest error within 1e-3 of the leaf's largest
+# magnitude.  The two sum in other orders (cuBLAS against the CPU's
+# GEMMs, the flash kernel against its plain version in the forward),
+# ~1e-6 a value before the backward pass compounds it over a few
+# layers; 1e-3 leaves room for that and still sees a wrong or missing
+# term (each is O(1) of the leaf).
+TRAIN_SMOKE_LOSS_RTOL, TRAIN_SMOKE_GRAD_TOL = 1e-5, 1e-3
+# The resumed run's losses against the uninterrupted run's, both on the
+# card: the reference's own bound (tests/test_train_e2e.py)
+TRAIN_RESUME_TOL = dict(rtol=1e-5, atol=1e-6)
+# FlashAttentionFn against autograd through the blockwise backend: the
+# forward is the kernel (FLASH_TOL against the blockwise scan); the
+# backward recomputes that same scan, so its gradients are expected
+# bitwise, bounded by FLASH_TOL all the same
+FLASH_GRAD_SHAPES = (("gemma-2b", None), (SERVE_ARCH, "window"))
+
+
+def loss_and_grads(params, cfg, batch: dict, remat: str = "full") -> tuple:
+    """train_loss and the gradient of every leaf, by autograd."""
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss = lm.train_loss(params, cfg, batch, remat=remat)
+    return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+def smoke_batch(cfg, b: int = 2, s: int = 48) -> dict:
+    """A numpy-seeded batch (-1 labels on row 0's first three positions;
+    vision embeds where the config has them) as CPU tensors."""
+    rng = np.random.default_rng(SEED + 3)
+    toks = rng.integers(0, cfg.vocab_size, (b, s + 1)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:].copy()}
+    batch["labels"][0, :3] = -1
+    if cfg.frontend == "vision":
+        batch["embeds"] = rng.standard_normal(
+            (b, cfg.n_frontend_tokens, cfg.frontend_dim)).astype(np.float32)
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+def attention_layers(cfg) -> int:
+    return cfg.n_periods * sum(cfg.kind(p) != "mamba"
+                               for p in range(cfg.period))
+
+
+def phase_train_smoke() -> dict:
+    """The four smoke configurations' loss and every gradient leaf on
+    the card against the CPU (the same weights and batch; remat
+    "full": the flash kernel in each attention layer's forward and again
+    in its recompute), then ``train`` on the card for 30 steps of
+    gemma-2b's smoke config (d_model 64, vocab 512: the reference's
+    tests/test_train_e2e.py), checkpoints every 10; a run of 20 and a
+    resume to 30 reproduce the uninterrupted run's last 10 losses."""
+    out = {}
+    for arch, path in TRAIN_SMOKE:
+        cfg = smoke_config(get_arch(arch))
+        params = lm.init_params(cfg, torch.Generator().manual_seed(SEED),
+                                "cpu")
+        on_card = tree_map(lambda w: w.to(DEVICE), params)
+        batch = smoke_batch(cfg)
+        loss_cpu, grads_cpu = loss_and_grads(params, cfg, batch)
+        card_batch = {k: v.to(DEVICE) for k, v in batch.items()}
+        loss, grads = on_path(path, lambda: loss_and_grads(
+            on_card, cfg, card_batch))
+        loss_err = abs(float(loss) - float(loss_cpu)) / abs(float(loss_cpu))
+        worst = max(max_abs_err(g, c) / max(float(c.abs().max()), 1e-30)
+                    for g, c in zip(grads, grads_cpu))
+        check(loss_err <= TRAIN_SMOKE_LOSS_RTOL,
+              f"{path}: loss {float(loss)} against the CPU's "
+              f"{float(loss_cpu)}")
+        check(worst <= TRAIN_SMOKE_GRAD_TOL,
+              f"{path}: a gradient leaf differs from the CPU's by {worst} "
+              f"of its largest magnitude")
+        want = 2 * attention_layers(cfg)
+        got = PATH_LAUNCHES[path]["flash_attention"]
+        check(got == want, f"{path}: {got} flash_attention launches, want "
+                           f"{want} (each attention layer's forward and "
+                           f"its recompute)")
+        print(f"[train_smoke] {cfg.name}: loss {float(loss):.6f} on the "
+              f"card, {loss_err:.3g} from the CPU's (rtol "
+              f"{TRAIN_SMOKE_LOSS_RTOL}); {len(grads)} gradient leaves, the "
+              f"worst {worst:.3g} of its largest magnitude from the CPU's "
+              f"(bound {TRAIN_SMOKE_GRAD_TOL}); flash launches {got}")
+        out[path] = {"loss_rel_err": loss_err, "grad_rel_err": worst,
+                     "flash_launches": got}
+
+    cfg = dataclasses.replace(smoke_config(get_arch("gemma-2b")),
+                              vocab_size=512, d_model=64)
+    kw = dict(batch=4, seq=32, lr=3e-3, ckpt_every=10, log_every=1000,
+              device=DEVICE)
+    with tempfile.TemporaryDirectory() as tmp:
+        full = train(cfg, 30, ckpt_dir=f"{tmp}/a", **kw)
+        train(cfg, 20, ckpt_dir=f"{tmp}/b", **kw)
+        resumed = on_path("train_resume", lambda: train(
+            cfg, 30, ckpt_dir=f"{tmp}/b", **kw))
+    diff = float(np.max(np.abs(np.asarray(resumed) - np.asarray(full[20:]))))
+    check(len(resumed) == 10 and np.allclose(resumed, full[20:],
+                                             **TRAIN_RESUME_TOL),
+          f"train_resume: resumed losses {resumed} against {full[20:]}")
+    check(np.mean(full[-5:]) < np.mean(full[:5]),
+          f"train_resume: the loss did not fall {full[:5]} ... {full[-5:]}")
+    print(f"[train_smoke] train 30 steps on the card, {full[0]:.4f} -> "
+          f"{full[-1]:.4f}; 20 steps, then a resume from the step-20 "
+          f"checkpoint to 30: the last 10 losses within {diff:.3g} of the "
+          f"uninterrupted run's (bound rtol {TRAIN_RESUME_TOL['rtol']} + "
+          f"atol {TRAIN_RESUME_TOL['atol']}; "
+          f"{'bitwise' if diff == 0 else 'not bitwise'})")
+    out["train_resume"] = {"losses": full, "resumed": resumed,
+                           "max_abs_diff": diff}
+    return out
+
+
+def phase_flash_grad() -> dict:
+    """``attention`` under autograd -- FlashAttentionFn: the kernel
+    forward, the blockwise recompute backward -- against autograd
+    through ``backend="blockwise"`` on the same q, k, v and upstream
+    gradient: at gemma-2b's training shape (4 x 8 q / 1 kv head of 256,
+    S = 2048) and gemma3-12b's local layers (4 x 16 / 8 heads of 256,
+    window 1024), f32 and bf16.  The output within FLASH_TOL of the
+    blockwise scan's on the same values in float32 rounded once (as
+    :func:`flash_vs_blockwise`: the bf16 scan rounds its scores), dq /
+    dk / dv within FLASH_TOL of autograd's."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    out = {}
+    for arch, window in FLASH_GRAD_SHAPES:
+        cfg = get_arch(arch)
+        w = cfg.sliding_window if window else None
+        for dtype in (torch.float32, torch.bfloat16):
+            label = (f"{arch}{' window ' + str(w) if w else ''} "
+                     f"{str(dtype)[6:]}")
+            shapes = ((TRAIN_B, cfg.n_heads, TRAIN_SEQ, cfg.head_dim_),
+                      (TRAIN_B, cfg.n_kv_heads, TRAIN_SEQ, cfg.head_dim_))
+            q, k, v = (torch.randn(shapes[i > 0], generator=gen,
+                                   device=DEVICE).to(dtype).requires_grad_()
+                       for i in range(3))
+            dout = torch.randn(shapes[0], generator=gen,
+                               device=DEVICE).to(dtype)
+            got = on_path("flash_grad", lambda: attention(q, k, v, window=w))
+            grads = torch.autograd.grad(got, (q, k, v), dout)
+            want = attention(q, k, v, window=w, backend="blockwise")
+            want_grads = torch.autograd.grad(want, (q, k, v), dout)
+            with torch.no_grad():       # the forward: as flash_vs_blockwise
+                ref = attention(q.float(), k.float(), v.float(), window=w,
+                                backend="blockwise").to(dtype)
+            rtol, atol = FLASH_TOL[dtype]
+            errs = [max_abs_err(got.detach(), ref)]
+            ok = torch.allclose(got.float(), ref.float(), rtol=rtol,
+                                atol=atol)
+            for g, wg in zip(grads, want_grads):
+                errs.append(max_abs_err(g, wg))
+                ok = ok and torch.allclose(g.float(), wg.float(), rtol=rtol,
+                                           atol=atol)
+            check(ok, f"flash_grad {label}: out / dq / dk / dv max abs err "
+                      f"{errs} outside rtol {rtol} + atol {atol}")
+            print(f"[flash_grad] {label}: out (kernel vs blockwise) "
+                  f"{errs[0]:.4g}, dq {errs[1]:.4g}, dk {errs[2]:.4g}, dv "
+                  f"{errs[3]:.4g} against autograd through the blockwise "
+                  f"backend (bound rtol {rtol} + atol {atol})")
+            out[label] = errs
+            del q, k, v, dout, got, grads, want, want_grads, ref
+    launched = PATH_LAUNCHES["flash_grad"]["flash_attention"]
+    check(launched == 2 * len(FLASH_GRAD_SHAPES),      # two dtypes a shape
+          f"flash_grad: {launched} kernel launches, want one a forward")
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_state_bytes(cfg, adamw_cfg) -> dict:
+    """The training state worked out from the shapes: weights and
+    gradients in the parameters' dtypes, two moments in the moment
+    dtype."""
+    shapes = tree_leaves(lm.params_shape(cfg))
+    weights = sum(p.numel() * p.element_size() for p in shapes)
+    moment = torch.empty((), dtype=adamw_cfg.moment_dtype).element_size()
+    return {"weights": weights, "gradients": weights,
+            "moments": 2 * sum(p.numel() for p in shapes) * moment,
+            "largest_leaf": max(p.numel() for p in shapes)}
+
+
+def phase_train(smi: str, arch: str, path: str, batch: int,
+                n_steps: int) -> dict:
+    """``arch`` at its published width and depth (bf16 weights made on
+    the card from SEED, float32 AdamW moments, remat "full", the cosine
+    schedule at TRAIN_LR with TRAIN_WARMUP warm-up steps) through
+    ``launch.steps.build_train_step`` on ``data.TokenPipeline``'s
+    batches, ``batch`` x TRAIN_SEQ tokens a step, ``n_steps`` steps, the
+    first a warm-up.  Each step's host-clock time ends in a synchronize.
+    Checks: the losses finite, the mean of the last three below the
+    first; the flash kernel twice a step in every attention layer (the
+    forward and remat's recompute), no other kernel.  Prints the median
+    step, tok/s, model_flops over the step time over the bf16 peak, the
+    peak memory beside the state worked out from the shapes."""
+    cfg = get_arch(arch)
+    shape = ShapeSpec(path, "train", TRAIN_SEQ, batch)
+    adamw_cfg = AdamWConfig(lr=TRAIN_LR)
+    state = train_state_bytes(cfg, adamw_cfg)
+    state_total = state["weights"] + state["gradients"] + state["moments"]
+    print(f"[{path}] worked out before the run: weights "
+          f"{state['weights'] / 1e9:.2f} GB, gradients "
+          f"{state['gradients'] / 1e9:.2f} GB, moments "
+          f"{state['moments'] / 1e9:.2f} GB; the largest leaf "
+          f"{state['largest_leaf'] / 1e6:.1f} M values")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, n_params, n_bytes, init_s = lm_params(cfg, path)
+    bundle = build_train_step(
+        cfg, None, shape, remat="full", adamw=adamw_cfg,
+        lr_schedule=lambda s: cosine_schedule(s, TRAIN_LR, TRAIN_WARMUP,
+                                              n_steps))
+    opt = adamw_init(params, adamw_cfg)
+    pipe = TokenPipeline(cfg.vocab_size, batch, TRAIN_SEQ, seed=SEED)
+    losses, step_ms, flash = [], [], []
+    for step in range(n_steps):
+        data = batch_on(pipe.batch_at(step), DEVICE)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        params, opt, metrics = on_path(path, lambda: bundle.fn(
+            params, opt, data))
+        step_ms.append((time.monotonic() - t0) * 1e3)
+        flash.append(cuda.LAUNCHES["flash_attention"])
+        losses.append(float(metrics["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    median = float(np.median(step_ms[1:]))
+    tok_s = batch * TRAIN_SEQ / (median / 1e3)
+    flops = roofline.model_flops(cfg, shape)
+    share = flops / (median / 1e3) / roofline.PEAK_FLOPS
+    want = 2 * attention_layers(cfg)
+    check(all(math.isfinite(x) for x in losses),
+          f"{path}: losses not finite {losses}")
+    check(np.mean(losses[-3:]) < losses[0],
+          f"{path}: the mean of the last three losses {losses[-3:]} is not "
+          f"below the first {losses[0]}")
+    check(all(n == want for n in flash),
+          f"{path}: flash launches a step {flash}, want {want}")
+    print(f"[{path}] {cfg.name} trains {n_steps} steps of {batch} x "
+          f"{TRAIN_SEQ} tokens: losses {[round(x, 4) for x in losses]}; a "
+          f"step {median:.1f} ms (median of steps 2-{n_steps}; the first "
+          f"{step_ms[0]:.1f}), {tok_s:.0f} tok/s, model_flops "
+          f"{flops / 1e12:.1f} TFLOP a step = {share:.4f} of the bf16 peak "
+          f"({roofline.PEAK_FLOPS / 1e12:.0f} TFLOP/s); peak memory "
+          f"{peak / 1e9:.2f} GB ({peak / 2**30:.2f} GiB; state worked out "
+          f"{state_total / 1e9:.2f} GB); flash launches a step {flash[-1]} "
+          f"({smi})")
+    del params, opt, bundle, metrics
+    torch.cuda.empty_cache()
+    return {"parameters": n_params, "parameter_bytes": n_bytes,
+            "init_s": init_s, "losses": losses, "step_ms": step_ms,
+            "step_median_ms": median, "tokens_per_s": tok_s,
+            "model_flops": flops, "bf16_peak_share": share,
+            "max_memory_allocated_bytes": peak, "state_bytes": state,
+            "flash_launches_per_step": flash[-1]}
+
+
+def phase_bucketing(smi: str) -> dict:
+    """``data.smms_length_bucketing`` of BUCKETS x BUCKET_DOCS document
+    lengths (numpy, 1 to 8192 tokens, from SEED) on the card against the
+    CPU: the order, the bucket ids and every report field equal; the
+    documents a bucket and the padding share if each bucket is padded
+    to its longest document; the median of 5 calls."""
+    lengths = np.random.default_rng(SEED).integers(1, 8193,
+                                                   BUCKETS * BUCKET_DOCS)
+    PATH_KERNELS["bucketing"] = {
+        "bitonic_sort_kv" if cost_model_family(BUCKET_DOCS) == "bitonic"
+        else "radix_sort", "searchsorted", "merge_rows_kv"}
+    order, bucket, rep = on_path("bucketing", lambda: smms_length_bucketing(
+        lengths, BUCKETS, device=DEVICE))
+    order_cpu, bucket_cpu, rep_cpu = smms_length_bucketing(
+        lengths, BUCKETS, device="cpu")
+    check(np.array_equal(order, order_cpu), "bucketing: card order != CPU")
+    check(np.array_equal(bucket, bucket_cpu),
+          "bucketing: card bucket ids != CPU")
+    _same_report("bucketing", rep, rep_cpu)
+    check(np.all(np.diff(lengths[order]) >= 0),
+          "bucketing: the order does not sort the lengths")
+    docs = np.bincount(bucket, minlength=BUCKETS)
+    longest = np.maximum.reduceat(lengths[order], np.r_[0, np.cumsum(
+        docs)[:-1]])
+    waste = 1 - lengths.sum() / float((longest * docs).sum())
+    timing = e2e("bucketing", lambda: smms_length_bucketing(
+        lengths, BUCKETS, device=DEVICE), smi)
+    print(f"[bucketing] {BUCKETS} buckets of {BUCKET_DOCS} documents on the "
+          f"card: order, bucket ids and report equal to the CPU run; "
+          f"k_workload {rep.k_workload:.4f}, alpha {rep.alpha}; documents "
+          f"a bucket {int(docs.min())}-{int(docs.max())}; padded to each "
+          f"bucket's longest, {waste:.4f} of the tokens are padding")
+    return {"k_workload": rep.k_workload, "k_network": rep.k_network,
+            "alpha": rep.alpha, "bucket_docs": [int(x) for x in docs],
+            "padding_share": waste, **timing}
+
+
+# ---------------------------------------------------------------------------
 # 8. times
 # ---------------------------------------------------------------------------
 
@@ -4708,14 +5068,17 @@ def phase_times(rng, smi: str) -> dict:
            BF16_OPS_PER_S)
     del q, k, v
     # pixtral-12b's prefill (B = 4, 32 q / 8 kv heads of 128, S = 2304:
-    # 256 front-end positions and 2048 tokens) and the jamba cut's
-    # attention layer (B = 1, 64 q / 8 kv heads of 128, S = 1024), bf16,
-    # causal
+    # 256 front-end positions and 2048 tokens), the jamba cut's
+    # attention layer (B = 1, 64 q / 8 kv heads of 128, S = 1024) and
+    # gemma-2b's training step (B = 4, 8 q / 1 kv head of 256, S =
+    # 2048), bf16, causal
     px, jb = get_arch(VLM_ARCH), get_arch(HYBRID_ARCH)
     for label, (bb, arch, ss) in (
             ("flash_attention@pixtral",
              (SERVE_B, px, px.n_frontend_tokens + SERVE_PROMPT)),
-            ("flash_attention@jamba", (HYBRID_B, jb, HYBRID_PROMPT))):
+            ("flash_attention@jamba", (HYBRID_B, jb, HYBRID_PROMPT)),
+            ("flash_attention@gemma2b",
+             (TRAIN_B, get_arch(TRAIN_ARCH), TRAIN_SEQ))):
         hd = arch.head_dim_
         q = torch.randn((bb, arch.n_heads, ss, hd), generator=gen,
                         device=dev).bfloat16()
@@ -5236,6 +5599,13 @@ def main() -> None:
     serving_rest = {"serve_pixtral": phase_serve_pixtral(smi),
                     "serve_mamba2": phase_serve_mamba2(smi),
                     "serve_jamba": phase_serve_jamba(smi)}
+    training = {"flash_grad": phase_flash_grad(),
+                "train_smoke": phase_train_smoke(),
+                "train_gemma2b": phase_train(smi, TRAIN_ARCH, "train_gemma2b",
+                                             TRAIN_B, TRAIN_STEPS),
+                "train_mamba2": phase_train(smi, SSM_ARCH, "train_mamba2",
+                                            TRAIN_SSM_B, TRAIN_SSM_STEPS),
+                "bucketing": phase_bucketing(smi)}
     launches = phase_launches()
 
     times = phase_times(rng, smi)
@@ -5271,7 +5641,8 @@ def main() -> None:
                for name, k in cuda.KERNELS.items()]
     print(json.dumps({"build": build, "runs": runs, "joins": join_runs,
                       "serve": serving, "serve_granite": serving_moe,
-                      "moe": moe_runs, **serving_rest, "times": times,
+                      "moe": moe_runs, **serving_rest, **training,
+                      "times": times,
                       "crossover": crossover}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

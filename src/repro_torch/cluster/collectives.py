@@ -71,6 +71,7 @@ class CollectiveTape:
     def __init__(self) -> None:
         self._phase_order: List[str] = []
         self._entry_phase: List[str] = []
+        self._entry_kind: List[str] = []     # the collective of each record
         self._entries: List = []             # (sent, received) per record
         self._current: Optional[str] = None
 
@@ -85,14 +86,18 @@ class CollectiveTape:
         finally:
             self._current = prev
 
-    def record(self, sent, received) -> None:
-        """Record one traffic entry: scalars or (t,) per-machine counts."""
+    def record(self, sent, received, kind: str = "record") -> None:
+        """Record one traffic entry: scalars or (t,) per-machine counts,
+        and the collective that moved it (``"all-gather"``,
+        ``"all-to-all"``; ``"record"`` for a count a caller records
+        itself)."""
         name = self._current
         if name is None:
             name = "(untagged)"
         if name not in self._phase_order:
             self._phase_order.append(name)
         self._entry_phase.append(name)
+        self._entry_kind.append(kind)
         self._entries.append((torch.as_tensor(sent, dtype=torch.float32),
                               torch.as_tensor(received, dtype=torch.float32)))
 
@@ -128,7 +133,8 @@ class CollectiveTape:
         sent counts."""
         sent = torch.as_tensor(count)
         sent = sent.expand(t) if sent.dim() == 0 else sent
-        self.record(sent=sent, received=_line_sum(sent, grid, axis))
+        self.record(sent=sent, received=_line_sum(sent, grid, axis),
+                    kind="all-gather")
         return sent
 
     def all_gather_multi(self, x: torch.Tensor, *,
@@ -245,7 +251,7 @@ class CollectiveTape:
             r = (out < pad).reshape(t, -1).sum(dim=1)
         else:
             r = torch.full((t,), per_machine)
-        self.record(sent=s, received=r)
+        self.record(sent=s, received=r, kind="all-to-all")
         return out
 
     def psum(self, x: torch.Tensor, *,
@@ -257,6 +263,15 @@ class CollectiveTape:
         if grid is None:
             return x.sum()
         return _line_sum(x, grid, axis)
+
+    def received_by_kind(self, t: int) -> Dict[str, np.ndarray]:
+        """Collective kind -> the (t,) objects each machine received
+        through it, summed over the records."""
+        out: Dict[str, np.ndarray] = {}
+        for kind, (_, r) in zip(self._entry_kind, self._entries):
+            out[kind] = out.get(kind, np.zeros(t)) + np.broadcast_to(
+                r.cpu().numpy(), (t,))
+        return out
 
     def phases(self, t: int):
         """Merge the records into one PhaseStats per declared phase."""

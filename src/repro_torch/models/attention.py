@@ -1,4 +1,4 @@
-"""Attention for prefill and decode.
+"""Attention for training, prefill and decode.
 
 Counterpart of ``src/repro/models/attention.py``.  Two paths, chosen by
 the query length as in the reference, and for long queries two
@@ -24,6 +24,16 @@ backends:
   prefix (from the window's first block), at any ``q_offset``.  It is
   the tests' counterpart of the reference's own at a tight tolerance,
   and ``chip_smoke.py`` holds the kernel against it at full width.
+
+Training goes through the kernel too.  The kernel is a foreign call
+with no derivative, so where an operand requires a gradient (and
+gradients are on) ``attention`` calls :class:`FlashAttentionFn`: its
+forward is the kernel, its backward recomputes :func:`_blockwise` under
+autograd and returns dq, dk and dv.  The reference has no Pallas
+backward and differentiates that same blockwise scan (its default
+backend), so the gradient is the reference's; the recompute is what
+its ``jax.checkpoint`` does anyway.  Without gradients the serving path
+is unchanged.
 """
 from __future__ import annotations
 
@@ -34,7 +44,7 @@ import torch.nn.functional as F
 
 from ..kernels import ops
 
-__all__ = ["attention"]
+__all__ = ["attention", "FlashAttentionFn"]
 
 _NEG = -1e30
 DENSE_ROWS_MAX_Q = 16
@@ -127,6 +137,34 @@ def _blockwise(q, k, v, q_offset: int, causal: bool, window: Optional[int],
     return torch.cat(outs, dim=2) if len(outs) > 1 else outs[0]
 
 
+class FlashAttentionFn(torch.autograd.Function):
+    """The flash kernel forward, the blockwise scan's gradient backward.
+
+    ``apply(q, k, v, causal, window, q_chunk, block_k)``: queries
+    right-aligned to the keys, as the kernel takes them.  The backward
+    recomputes :func:`_blockwise` at ``q_chunk`` / ``block_k`` (the
+    reference trains at its defaults, 2048 / 2048) from the saved
+    operands and differentiates it."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: Optional[int],
+                q_chunk: int, block_k: int):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (causal, window, q_chunk, block_k)
+        return ops.flash_attention(q, k, v, causal=causal, window=window)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v = ctx.saved_tensors
+        causal, window, q_chunk, block_k = ctx.args
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            out = _blockwise(*qkv, k.shape[2] - q.shape[2], causal, window,
+                             q_chunk, block_k)
+            dq, dk, dv = torch.autograd.grad(out, qkv, grad_out)
+        return dq, dk, dv, None, None, None, None
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: Optional[int] = None,
               q_offset: Optional[int] = None, backend: str = "flash",
@@ -134,9 +172,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D) -> (B, Hq, Sq, D).
 
     q_offset: absolute position of q[0] (default right-aligned to k).
-    backend: "flash" (the kernel) or "blockwise" (plain torch, with
-    ``q_chunk`` and ``block_k``); at most 16 queries take the dense rows
-    either way."""
+    backend: "flash" (the kernel; under autograd
+    :class:`FlashAttentionFn`, whose backward runs the blockwise scan at
+    ``q_chunk`` and ``block_k``) or "blockwise" (plain torch); at most
+    16 queries take the dense rows either way."""
     if backend not in ("flash", "blockwise"):
         raise ValueError(f"attention: unknown backend {backend!r}; "
                          f"'flash' or 'blockwise'")
@@ -152,4 +191,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"attention: {sq} queries at offset {q_offset} over "
                          f"{sk} keys; the flash-attention kernel right-aligns "
                          f"the queries (offset {sk - sq})")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttentionFn.apply(q, k, v, causal, window, q_chunk,
+                                      block_k)
     return ops.flash_attention(q, k, v, causal=causal, window=window)

@@ -14,6 +14,11 @@ by side --, ``unembed`` present only without tied embeddings,
 ``frontend_proj`` only with the vision front end, the embedding at the
 padded vocab as the reference holds it.  bfloat16 leaves (numpy's ``ml_dtypes`` type) go
 through float32, which holds them exactly.
+
+:func:`opt_state_from_reference` does the same for the reference's
+AdamW state ``{"step", "m", "v"}``: the moments unstacked into the
+port's per-period layout in the moment dtype, the step an int32 scalar
+-- so a test can hand both packages the same optimizer state.
 """
 from __future__ import annotations
 
@@ -25,7 +30,8 @@ import torch
 from ..cluster.api import resolve_device
 from ..configs.base import ArchConfig
 
-__all__ = ["params_from_reference", "tree_map"]
+__all__ = ["params_from_reference", "opt_state_from_reference", "tree_map",
+           "tree_leaves"]
 
 
 def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
@@ -33,13 +39,15 @@ def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
         device=device, dtype=dtype)
 
 
-def _block(block: Dict[str, Any], i: int, cfg: ArchConfig, device):
-    """Period ``i`` of one in-period position's stacked leaves."""
-    out = tree_map(lambda a: _tensor(np.asarray(a)[i], cfg.param_dtype,
-                                     device), block)
+def _block(block: Dict[str, Any], i: int, dtype: torch.dtype, device,
+           f32_leaves: bool = True):
+    """Period ``i`` of one in-period position's stacked leaves, in
+    ``dtype`` (with ``f32_leaves``, the leaves the reference keeps in
+    float32 stay float32)."""
+    out = tree_map(lambda a: _tensor(np.asarray(a)[i], dtype, device), block)
     for sub, names in (("moe", ("router",)),
                        ("mamba", ("A_log", "D", "dt_bias"))):
-        for name in names if sub in block else ():
+        for name in names if sub in block and f32_leaves else ():
             out[sub][name] = _tensor(np.asarray(block[sub][name])[i],
                                      torch.float32, device)
     return out
@@ -55,6 +63,13 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of a tree of dicts and lists, in ``tree_map``'s order."""
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
 def params_from_reference(tree: Dict[str, Any], cfg: ArchConfig,
                           device=None) -> Dict[str, Any]:
     device = resolve_device(device)
@@ -68,11 +83,29 @@ def params_from_reference(tree: Dict[str, Any], cfg: ArchConfig,
     if embed.shape != (cfg.padded_vocab, cfg.d_model):
         raise ValueError(f"{cfg.name}: embed {embed.shape}, expected "
                          f"{(cfg.padded_vocab, cfg.d_model)}")
-    params: Dict[str, Any] = {
-        name: _tensor(tree[name], cfg.param_dtype, device)
-        for name in sorted(want - {"periods"})}
-    params["periods"] = [
-        {str(pos): _block(tree["periods"][str(pos)], i, cfg, device)
+    return _unstack(tree, cfg, cfg.param_dtype, device, True)
+
+
+def _unstack(tree: Dict[str, Any], cfg: ArchConfig, dtype: torch.dtype,
+             device, f32_leaves: bool) -> Dict[str, Any]:
+    out: Dict[str, Any] = {name: _tensor(tree[name], dtype, device)
+                           for name in sorted(set(tree) - {"periods"})}
+    out["periods"] = [
+        {str(pos): _block(tree["periods"][str(pos)], i, dtype, device,
+                          f32_leaves)
          for pos in range(cfg.period)}
         for i in range(cfg.n_periods)]
-    return params
+    return out
+
+
+def opt_state_from_reference(state: Dict[str, Any], cfg: ArchConfig,
+                             moment_dtype: torch.dtype = torch.float32,
+                             device=None) -> Dict[str, Any]:
+    """The reference's AdamW state (leaves as numpy arrays) in the
+    port's layout: "m" and "v" unstacked in ``moment_dtype``, "step" an
+    int32 scalar, all on ``device`` (None: the card)."""
+    device = resolve_device(device)
+    return {"step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32, device=device),
+            **{name: _unstack(state[name], cfg, moment_dtype, device, False)
+               for name in ("m", "v")}}

@@ -1,4 +1,5 @@
-"""Basic model layers: RMSNorm, RoPE, gated MLPs, weight init.
+"""Basic model layers: RMSNorm, RoPE, gated MLPs, weight init, the
+chunked cross-entropy.
 
 Counterpart of ``src/repro/models/layers.py``.  Each function casts where
 the reference casts, so a float32 run matches it to rounding and a
@@ -9,7 +10,10 @@ bfloat16 run rounds at the same places:
 * ``rope`` multiplies the activations by float32 cos/sin (torch promotes
   bf16 x f32 to f32, as jnp does) and casts the result back;
 * ``gated_mlp``'s GeGLU is the tanh approximation, ``jax.nn.gelu``'s
-  default (torch's default is the exact form).
+  default (torch's default is the exact form);
+* ``chunked_cross_entropy`` takes the logits in float32 chunk by chunk,
+  as the reference does, and recomputes each chunk's logits in the
+  backward pass (see its docstring).
 
 Weights are drawn from an explicit ``torch.Generator`` on an explicit
 device; they are not the reference's ``jax.random`` draws (the tests
@@ -21,8 +25,10 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-__all__ = ["rms_norm", "rope", "gated_mlp", "init_dense", "init_mlp"]
+__all__ = ["rms_norm", "rope", "gated_mlp", "init_dense", "init_mlp",
+           "chunked_cross_entropy"]
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
@@ -78,3 +84,52 @@ def init_mlp(generator: torch.Generator, d: int, ff: int, dtype: torch.dtype,
     return {"w_gate": init_dense(generator, (d, ff), dtype, device),
             "w_up": init_dense(generator, (d, ff), dtype, device),
             "w_down": init_dense(generator, (ff, d), dtype, device)}
+
+
+def _chunk_loss(x: torch.Tensor, w_unembed: torch.Tensor,
+                labels: torch.Tensor, vocab_size: Optional[int]):
+    """One chunk's (summed loss, count of labelled positions), float32."""
+    v = w_unembed.shape[1]
+    logits = (x @ w_unembed).float()
+    if vocab_size is not None and vocab_size < v:
+        pad_mask = torch.arange(v, device=x.device) >= vocab_size
+        logits = torch.where(pad_mask, -1e30, logits)
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1,
+                          labels.clamp_min(0).long()[..., None])[..., 0]
+    valid = labels >= 0
+    return (torch.where(valid, lse - picked, 0.0).sum(),
+            valid.float().sum())
+
+
+def chunked_cross_entropy(x: torch.Tensor, w_unembed: torch.Tensor,
+                          labels: torch.Tensor, chunk: int = 512,
+                          vocab_size: Optional[int] = None) -> torch.Tensor:
+    """Token-mean CE without materializing (B, S, V) logits.
+
+    x: (B, S, d) final hidden states; w_unembed: (d, V_padded); labels:
+    (B, S) int, -1 = ignore.  The sequence goes in chunks of ``chunk``
+    positions, each reduced at once; vocab rows past ``vocab_size`` are
+    masked to -1e30.  Where gradients are on, each chunk runs under
+    ``torch.utils.checkpoint``: eager autograd would otherwise keep
+    every chunk's (B, chunk, V) float32 logits for the backward pass
+    (2.1 GB a chunk at gemma-2b's 256,000 vocab and 4 x 512 tokens),
+    which undoes the chunking; so only one chunk's logits live at a
+    time, forward or backward.
+    """
+    s = x.shape[1]
+    chunk = min(chunk, s)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    count = torch.zeros((), dtype=torch.float32, device=x.device)
+    grad = torch.is_grad_enabled() and (x.requires_grad
+                                        or w_unembed.requires_grad)
+    for lo in range(0, s, chunk):
+        hi = min(s, lo + chunk)
+        args = (x[:, lo:hi], w_unembed, labels[:, lo:hi], vocab_size)
+        if grad:
+            part, n = checkpoint(_chunk_loss, *args, use_reentrant=False)
+        else:
+            part, n = _chunk_loss(*args)
+        total = total + part
+        count = count + n
+    return total / torch.clamp_min(count, 1.0)

@@ -1,14 +1,16 @@
-"""Decoder LM, the serving path: init / cache / prefill / decode.
+"""Decoder LM: init / train forward and loss / cache / prefill / decode.
 
 Counterpart of ``src/repro/models/model.py`` (``init_params``,
-``init_cache``, ``prefill``, ``decode_step``, ``_attn_sub``,
-``_ffn_sub``, ``_quant_rows``, ``_embed_in``) for every configuration
-of the reference.  A layer is attention (global or local) or a Mamba-2
-mixer (``cfg.kind(pos) == "mamba"``: ``ln1`` and ``mamba``, the mixer of
-``models/ssm.py``); either is followed by the dense MLP or, where
-``cfg.is_moe(pos)``, by ``ln2`` and ``moe``: ``models/moe.py:moe_layer``
-in its config's dense dispatch mode, one dispatch group (the
-reference's group count without a mesh).  What differs:
+``params_shape``, ``forward``, ``train_loss``, ``init_cache``,
+``prefill``, ``decode_step``, ``_attn_sub``, ``_ffn_sub``,
+``_apply_period_train``, ``_quant_rows``, ``_embed_in``) for every
+configuration of the reference.  A layer is attention (global or local)
+or a Mamba-2 mixer (``cfg.kind(pos) == "mamba"``: ``ln1`` and
+``mamba``, the mixer of ``models/ssm.py``); either is followed by the
+dense MLP or, where ``cfg.is_moe(pos)``, by ``ln2`` and ``moe``:
+``models/moe.py:moe_layer`` in its config's dense dispatch mode, one
+dispatch group (the reference's group count without a mesh).  What
+differs:
 
 * Parameters are plain dictionaries of tensors with the reference's
   names.  The reference stacks each in-period position's weights on a
@@ -30,6 +32,15 @@ reference's group count without a mesh).  What differs:
   conv and SSM state, replaced at every call.
 * Prefill attends through the flash-attention kernel
   (``models/attention.py``); decode through the dense rows.
+* Training (:func:`forward`, :func:`train_loss`) attends through the
+  same kernel, differentiated by ``attention.FlashAttentionFn``.  The
+  reference wraps its scanned period in ``jax.checkpoint``; here
+  ``remat`` wraps each period's call in ``torch.utils.checkpoint``
+  (non-reentrant): ``"full"`` keeps only the period's input, ``"dots"``
+  also the outputs of the matmuls without batch dimensions (``aten.mm``
+  / ``aten.addmm``: the projections; JAX's
+  ``dots_with_no_batch_dims_saveable``), ``"none"`` keeps everything.
+  The MoE and mamba layers are the serving modules, run without state.
 
 The vision front end (pixtral-12b) is the reference's stub: ``embeds``
 (B, n_front, frontend_dim) handed to :func:`prefill` go through
@@ -40,19 +51,26 @@ port.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import ArchConfig
 from ..numerics import fma_float32
 from . import moe
 from .attention import attention
-from .layers import gated_mlp, init_dense, init_mlp, rms_norm, rope
+from .layers import (chunked_cross_entropy, gated_mlp, init_dense, init_mlp,
+                     rms_norm, rope)
 from .ssm import MambaState, init_mamba, init_mamba_state, mamba_block
 
-__all__ = ["init_params", "init_cache", "prefill", "decode_step"]
+__all__ = ["init_params", "params_shape", "forward", "train_loss",
+           "init_cache", "prefill", "decode_step", "REMAT"]
+
+REMAT = ("full", "dots", "none")
 
 
 # ---------------------------------------------------------------------------
@@ -104,6 +122,12 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device):
          for pos in range(cfg.period)}
         for _ in range(cfg.n_periods)]
     return params
+
+
+def params_shape(cfg: ArchConfig):
+    """The parameters laid out on the meta device: every leaf's shape
+    and dtype, nothing allocated."""
+    return init_params(cfg, None, "meta")
 
 
 # ---------------------------------------------------------------------------
@@ -212,6 +236,76 @@ def _ffn_sub(bp, x: torch.Tensor, cfg: ArchConfig,
         return gated_mlp(h, bp["mlp"]["w_gate"], bp["mlp"]["w_up"],
                          bp["mlp"]["w_down"], act=cfg.act)
     return None
+
+
+# ---------------------------------------------------------------------------
+# train
+# ---------------------------------------------------------------------------
+
+def _apply_period_train(period_params, x: torch.Tensor,
+                        cfg: ArchConfig) -> torch.Tensor:
+    for pos in range(cfg.period):
+        bp = period_params[str(pos)]
+        if cfg.kind(pos) == "mamba":
+            x = x + _mamba_sub(bp, x, cfg)
+        else:
+            x = x + _attn_sub(bp, x, cfg, pos)
+        f = _ffn_sub(bp, x, cfg, pos)
+        if f is not None:
+            x = x + f
+    return x
+
+
+# the matmuls without batch dimensions: what JAX's
+# dots_with_no_batch_dims_saveable keeps (batched products recompute)
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
+            embeds: Optional[torch.Tensor] = None,
+            remat: str = "full") -> torch.Tensor:
+    """Token ids (B, S) (+ the vision front end's ``embeds``) -> the
+    final hidden states (B, n_front + S, d)."""
+    if remat not in REMAT:
+        raise ValueError(f"remat={remat!r}; one of {REMAT}")
+    x = _embed_in(params, cfg, tokens, embeds)
+    body = functools.partial(_apply_period_train, cfg=cfg)
+    grad = torch.is_grad_enabled()
+    for period_params in params["periods"]:
+        if remat == "none" or not grad:
+            x = body(period_params, x)
+        elif remat == "full":
+            x = checkpoint(body, period_params, x, use_reentrant=False)
+        else:
+            x = checkpoint(body, period_params, x, use_reentrant=False,
+                           context_fn=functools.partial(
+                               create_selective_checkpoint_contexts,
+                               _save_dots))
+    return rms_norm(x, params["final_norm"], cfg.rms_eps)
+
+
+def train_loss(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
+               remat: str = "full", loss_chunk: int = 512) -> torch.Tensor:
+    """The token-mean next-token loss of ``batch`` ({"tokens", "labels"}
+    (B, S) int, -1 labels ignored, and "embeds" with a vision front
+    end), a float32 scalar."""
+    embeds = batch.get("embeds")
+    x = forward(params, cfg, batch["tokens"], embeds, remat=remat)
+    w_un = (params["embed"].T if cfg.tie_embeddings
+            else params["unembed"]).to(cfg.compute_dtype)
+    labels = batch["labels"]
+    if cfg.frontend == "vision" and embeds is not None:
+        # the front end's positions carry no next-token loss
+        pad = torch.full((labels.shape[0], embeds.shape[1]), -1,
+                         dtype=labels.dtype, device=labels.device)
+        labels = torch.cat([pad, labels], dim=1)
+    return chunked_cross_entropy(x, w_un, labels, chunk=loss_chunk,
+                                 vocab_size=cfg.vocab_size)
 
 
 # ---------------------------------------------------------------------------

@@ -15,12 +15,15 @@ carries the (heads, head_dim, d_state) state.  The reference writes the
 chunk contractions as three-operand einsums and scans the chunks with
 ``lax.scan``; here each contraction is a pairwise ``matmul`` in the
 order that keeps the intermediates small (their shapes are in the
-comments: a wrong order would build (B, nc, q, q, H, P)), and the
-chunks are a Python loop.  No hand kernel: the reference runs none
+comments: a wrong order would build (B, nc, q, q, H, P)), the chunks
+are a Python loop, and the intra-chunk decay masks its exponent before
+the exp, so that its gradient stays finite where the reference's is
+NaN (ROADMAP C19).  No hand kernel: the reference runs none
 here either.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -123,13 +126,19 @@ def ssd_chunked(x, dt, a_neg, b_in, c_in, d_skip, chunk: int,
     # y_intra[i] = sum_j cb[i, j] decay[i, j, h] xdt[j, h]: first the
     # (B, nc, q_i, q_j, H) weights cb * decay, then one batched product
     # over j per (chunk, head)
+    # The exponent is masked before the exp: above the diagonal li - lj
+    # > 0 grows with the chunk and overflows at full width, and the
+    # reference's where(mask, exp(li - lj), 0) then has the gradient
+    # 0 * inf = NaN there (ROADMAP C19).  The values are the same.
     li = cum[:, :, :, None, :]                       # i index -> axis 2
     lj = cum[:, :, None, :, :]                       # j index -> axis 3
     mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
-    decay = torch.where(mask[None, None, :, :, None], torch.exp(li - lj),
-                        0.0)                         # (B, nc, q_i, q_j, H)
+    decay = torch.exp(torch.where(mask[None, None, :, :, None], li - lj,
+                                  -math.inf))        # (B, nc, q_i, q_j, H)
     cb = cc @ bc.transpose(-1, -2)                   # (B, nc, q_i, q_j)
-    wts = decay.mul_(cb[..., None]).permute(0, 1, 4, 2, 3)  # (B,nc,H,qi,qj)
+    # in place where nothing differentiates it (exp keeps its output)
+    wts = (decay * cb[..., None] if decay.requires_grad
+           else decay.mul_(cb[..., None])).permute(0, 1, 4, 2, 3)
     del decay
     y_intra = wts @ xdt.permute(0, 1, 3, 2, 4)       # (B, nc, H, q_i, P)
     del wts

@@ -44,7 +44,9 @@ made on the card from a seed; ``serve_granite_prefill`` and
 the card), ``serve_mamba2_prefill`` and ``serve_mamba2_decode`` on
 mamba2-130m (the SSD scan's chunked prefill and recurrent step); and
 ``moe_capacity``, ``moe_alpha_k`` and ``moe_cluster`` one granite MoE
-layer through ``cluster.moe_dispatch`` (8192 float32 tokens, t = 8).
+layer through ``cluster.moe_dispatch`` (8192 float32 tokens, t = 8);
+``train_gemma2b`` and ``train_mamba2`` one training step at full size
+(4 x 2048 and 8 x 2048 tokens, remat "full", AdamW).
 """
 from __future__ import annotations
 
@@ -64,7 +66,9 @@ from repro_torch.models import model
 from repro_torch.workloads import (JOIN_T, JOINS, M, M_SMALL, M_WIDE,
                                    MOE_ARCH, MOE_T, MOE_TOKENS, SERVE_ARCH,
                                    SERVE_B, SERVE_NEW, SERVE_PROMPT, SSM_ARCH,
-                                   T, T_SMALL, VLM_ARCH, make_payload)
+                                   T, T_SMALL, TRAIN_ARCH, TRAIN_B,
+                                   TRAIN_SEQ, TRAIN_SSM_B, VLM_ARCH,
+                                   make_payload)
 
 __all__ = ["PATHS"]
 
@@ -194,7 +198,35 @@ def _moe_call(mode: str):
                                         t_machines=MOE_T)[0]
 
 
+def _train_call(arch: str, batch: int):
+    """One training step (``launch.steps.build_train_step``, remat
+    "full", float32 AdamW moments) of ``arch`` at full size on
+    ``batch`` x TRAIN_SEQ tokens of ``data.TokenPipeline``; each call
+    updates the same weights."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.launch.train import batch_on
+    from repro_torch.optim import adamw_init
+    cfg = get_arch(arch)
+    bundle = build_train_step(cfg, None, ShapeSpec("p", "train", TRAIN_SEQ,
+                                                   batch))
+    state = {"params": model.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")}
+    state["opt"] = adamw_init(state["params"])
+    data = batch_on(TokenPipeline(cfg.vocab_size, batch, TRAIN_SEQ)
+                    .batch_at(0), "cuda")
+
+    def step():
+        state["params"], state["opt"], metrics = bundle.fn(
+            state["params"], state["opt"], data)
+        return metrics["loss"]
+    return step
+
+
 PATHS = {
+    "train_gemma2b": lambda: _train_call(TRAIN_ARCH, TRAIN_B),
+    "train_mamba2": lambda: _train_call(SSM_ARCH, TRAIN_SSM_B),
     "serve_prefill": lambda: _serve_call("prefill"),
     "serve_decode": lambda: _serve_call("decode"),
     "serve_granite_prefill": lambda: _serve_call("prefill", MOE_ARCH),

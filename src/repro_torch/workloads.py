@@ -31,7 +31,18 @@ One table for both ``chip_smoke.py`` and :mod:`repro_torch.profile_port`:
   :data:`SSM_LONG_PROMPT` tokens; :data:`HYBRID_ARCH`
   (jamba-1.5-large-398b) at full width cut to one attention and one
   mamba position (:func:`hybrid_cut`), :data:`HYBRID_B` prompt of
-  :data:`HYBRID_PROMPT` tokens and :data:`HYBRID_NEW` new tokens.
+  :data:`HYBRID_PROMPT` tokens and :data:`HYBRID_NEW` new tokens;
+* training (``launch.steps.build_train_step``): :data:`TRAIN_ARCH`
+  (gemma-2b, 18 layers, d_model 2048, 8 q / 1 kv head of 256, d_ff
+  16384, vocab 256,000: 2.51 G parameters) at full width and depth,
+  bf16 weights, float32 AdamW moments, remat "full",
+  :data:`TRAIN_B` x :data:`TRAIN_SEQ` tokens a step for
+  :data:`TRAIN_STEPS` steps (the first a warm-up); :data:`SSM_ARCH`
+  the same way at :data:`TRAIN_SSM_B` x :data:`TRAIN_SEQ` tokens (the
+  reference's ``examples/train_lm.py`` default) for
+  :data:`TRAIN_SSM_STEPS` steps;
+* SMMS length bucketing (``data.smms_length_bucketing``):
+  :data:`BUCKETS` buckets of :data:`BUCKET_DOCS` documents.
 """
 from __future__ import annotations
 
@@ -50,6 +61,9 @@ __all__ = ["T", "M", "T_SMALL", "M_SMALL", "M_WIDE", "JOIN_T",
            "MOE_ARCH", "MOE_WIDE_ARCH", "MOE_T", "MOE_TOKENS",
            "VLM_ARCH", "SSM_ARCH", "SSM_LONG_PROMPT", "HYBRID_ARCH",
            "HYBRID_B", "HYBRID_PROMPT", "HYBRID_NEW", "hybrid_cut",
+           "TRAIN_ARCH", "TRAIN_B", "TRAIN_SEQ", "TRAIN_STEPS", "TRAIN_LR",
+           "TRAIN_WARMUP", "TRAIN_SSM_B", "TRAIN_SSM_STEPS", "BUCKETS",
+           "BUCKET_DOCS",
            "JoinConfig", "JOINS", "TERASORT_ATTEMPTS", "sort_inputs",
            "adversarial_shards", "make_payload"]
 
@@ -73,6 +87,11 @@ HYBRID_ARCH = "jamba-1.5-large-398b"
 # once, 32 slots x 3 x 8192 x 24576 bf16 = 38.6 GB beside 23.8 GB of
 # weights
 HYBRID_B, HYBRID_PROMPT, HYBRID_NEW = 1, 1024, 8
+TRAIN_ARCH = "gemma-2b"
+TRAIN_B, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 8
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 2      # the cosine schedule's warm-up steps
+TRAIN_SSM_B, TRAIN_SSM_STEPS = 8, 5
+BUCKETS, BUCKET_DOCS = 64, 4096
 
 
 def hybrid_cut(cfg):

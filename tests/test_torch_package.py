@@ -34,6 +34,11 @@ def test_port_imports_neither_jax_nor_the_reference():
         import repro_torch.models.moe, repro_torch.core.moe_dispatch
         import repro_torch.models.ssm, repro_torch.models.attention
         import repro_torch.numerics
+        import repro_torch.configs.shapes, repro_torch.launch.roofline
+        import repro_torch.launch.steps, repro_torch.launch.train
+        import repro_torch.optim, repro_torch.optim.adamw
+        import repro_torch.optim.grad_compress, repro_torch.ckpt
+        import repro_torch.ckpt.manager, repro_torch.data.pipeline
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "repro" or m.startswith("repro."))
