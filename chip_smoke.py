@@ -17,6 +17,9 @@ version there:
   ``ops.force_sort_kernel`` where the cost model would pick the other);
   with bf16 keys at both sizes; and at t = 64 x m = 262,144, rows past
   the bitonic tile's reach;
+* the same sorts and joins on ``cluster.ProcessGroupSubstrate`` -- the
+  t machines over the ranks of a ``torch.distributed`` group: one NCCL
+  rank holding all 64, and two Gloo ranks sharing the card;
 * the same sorts with ``exchange="staged"`` -- the two-level exchange
   over the 8 x 8 factorization of t = 64 -- and with
   ``algorithm="auto", exchange="auto"`` (the planner's sketch round on
@@ -144,6 +147,19 @@ without printing a result:
                 its phase spans equal to the report's phases, and
                 obs.timeit against the host clock; t=16 (4 x 4) with
                 values equal to the CPU run on the same draws
+     multiproc  the process-group substrate (ProcessGroupSubstrate):
+                one NCCL rank in this process holding all t = 64
+                machines -- SMMS keys only, with the records,
+                backend="ragged" and staged 8 x 8, Terasort on injected
+                draws, StatJoin and RandJoin on the Zipf tables, the
+                small t = 8 sorts -- each bitwise the BatchedSubstrate
+                run on the card in every output and report field, its
+                median of 3 beside the batch's, every kernel call of one
+                ragged run against its plain version; then two Gloo
+                ranks sharing the card (32 machines each; this script
+                with --gloo-rank): SMMS flat and ragged and StatJoin,
+                every rank's whole result equal to its own batch run,
+                the collectives staged through pinned host memory
      auto       algorithm="auto" (exchange="auto") on the uniform and
                 Zipf t=64 keys, and on the Zipf and scalar-skew join
                 tables at t=64: the plan equal to the CPU's (the sketch
@@ -261,6 +277,7 @@ import functools
 import importlib
 import json
 import math
+import os
 import pathlib
 import subprocess
 import sys
@@ -279,7 +296,7 @@ from repro_torch import cluster, serve  # noqa: E402
 from repro_torch.configs import ShapeSpec, get_arch, smoke_config  # noqa: E402
 from repro_torch.core import (MASKED_KEY, choose_ab,  # noqa: E402
                               draw_assignments, flat_receive_capacity,
-                              terasort_sample_count)
+                              report_fields, terasort_sample_count)
 from repro_torch.data import (TokenPipeline,  # noqa: E402
                               lidar_like, scalar_skew_tables,
                               smms_length_bucketing, uniform_keys, zipf_keys,
@@ -464,6 +481,14 @@ PATH_KERNELS = {
     "moe_auto_granite_uniform": set(),
     "moe_auto_granite_hot": set(),
     "moe_cluster_dbrx_uniform": set(),
+    # the process-group substrate (phase_multiproc): on one NCCL rank the
+    # batch paths' sets of the same calls, the ragged re-sort's kernel
+    # added; on two Gloo ranks (both ranks' launches); set by
+    # multiproc_kernels
+    **{f"multiproc_{name}": set() for name in (
+        "sort", "sort_payload", "sort_ragged", "sort_staged", "terasort",
+        "statjoin", "randjoin", "small_sort", "small_sort_values",
+        "gloo_sort", "gloo_sort_ragged", "gloo_statjoin")},
 }
 # path -> kernel -> launches, summed over the path's runs
 PATH_LAUNCHES = {path: collections.Counter() for path in PATH_KERNELS}
@@ -3428,6 +3453,316 @@ def phase_small_staged() -> None:
               f"the CPU run on the same draws, bitwise")
 
 
+# ---------------------------------------------------------------------------
+# multiproc: the process-group substrate (ROADMAP A7's cluster half)
+# ---------------------------------------------------------------------------
+
+MULTIPROC_RANKS = 2              # the Gloo ranks that share the card
+MULTIPROC_WAIT_S = 300           # the two ranks, start to finish
+MULTIPROC_GROUP_TIMEOUT_S = 120  # any one collective's wait
+MULTIPROC_REPS = 3
+MULTIPROC_JOINS = ("statjoin_zipf", "randjoin_zipf")
+
+
+def _report_fields(rep) -> dict:
+    """Every comparable field of a report, host values."""
+    out = report_fields(rep)
+    for key in ("boundaries", "exchange_topology",
+                "theoretical_workload_bound", "total_dropped"):
+        if hasattr(rep, key):
+            out[key] = getattr(rep, key)
+    return out
+
+
+def _same_fields(a, b) -> bool:
+    if isinstance(b, dict):
+        return set(a) == set(b) and all(_same_fields(a[k], b[k]) for k in b)
+    if isinstance(b, (list, tuple)):
+        return len(a) == len(b) and all(_same_fields(x, y)
+                                        for x, y in zip(a, b))
+    if isinstance(b, np.ndarray):
+        a = np.asarray(a)
+        return a.dtype == b.dtype and a.tobytes() == b.tobytes()
+    return a == b
+
+
+def _same_run(label: str, got, want) -> None:
+    """A process-group run against the batch's: every output tensor
+    bitwise (sort keys and values, every JoinOutput field) and every
+    report field."""
+    (value, rep), (value_b, rep_b) = got, want
+    check(len(value) == len(value_b)
+          and all((a is None) == (b is None) for a, b in zip(value, value_b))
+          and all(same_bits(a, b) for a, b in zip(_value_tensors(value),
+                                                  _value_tensors(value_b))),
+          f"{label}: output differs from the batch's")
+    check(_same_fields(_report_fields(rep), _report_fields(rep_b)),
+          f"{label}: report differs from the batch's")
+
+
+def multiproc_calls(x, vals, uniforms, joins: dict) -> dict:
+    """path -> (the call on a substrate provider, the batch twin's call
+    or None: the same call).  Every sort and join of the phase."""
+    def sort(**kw):
+        return lambda pool: cluster.sort(x, seed=SEED, device=DEVICE,
+                                         substrate=pool, **kw)
+
+    def join(name):
+        cfg, (s, t) = JOINS[name], joins[name]
+        rows = (np.arange(len(s), dtype=np.int32),
+                np.arange(len(t), dtype=np.int32))
+        return lambda pool: cluster.join(
+            s, rows[0], t, rows[1], algorithm=cfg.algorithm,
+            t_machines=JOIN_T, seed=SEED, device=DEVICE, substrate=pool,
+            **cfg.options)
+
+    calls = {"multiproc_sort": (sort(), None),
+             "multiproc_sort_payload": (sort(values=vals), None),
+             "multiproc_sort_ragged": (sort(backend="ragged"), sort()),
+             "multiproc_sort_staged": (sort(exchange="staged"), None),
+             "multiproc_terasort": (sort(algorithm="terasort",
+                                         uniforms=uniforms), None)}
+    for name in joins:
+        calls[f"multiproc_{name.split('_')[0]}"] = (join(name), None)
+    return calls
+
+
+def ragged_sort_kernel() -> tuple:
+    """(kernel, width) of the ragged backend's re-sort of the (t,
+    capacity) landed rows: SMMS's Theorem-1 capacity at t x m, past the
+    bitonic tile at the phase's size, so the radix sort."""
+    from repro_torch.core.smms import default_cap_factor
+    width = flat_receive_capacity(M, T, default_cap_factor(T * M, T, 2))
+    return ("radix_sort" if cost_model_family(width) == "radix"
+            else "bitonic_sort"), width
+
+
+def multiproc_kernels() -> None:
+    """The multiproc paths' launch sets: the batch paths' of the same
+    calls, and the ragged re-sort's (:func:`ragged_sort_kernel`)."""
+    fam = cost_model_family(M)
+    sort = PATH_KERNELS[path_name("smms", False, fam)]
+    ragged = (sort - RANK_MERGE) | {ragged_sort_kernel()[0]}   # no merge
+    PATH_KERNELS.update({
+        "multiproc_sort": sort,
+        "multiproc_sort_payload": PATH_KERNELS[path_name("smms", True, fam)],
+        "multiproc_sort_ragged": ragged,
+        "multiproc_sort_staged": PATH_KERNELS["sort_staged"],
+        "multiproc_terasort": PATH_KERNELS[path_name("terasort", False, fam)],
+        "multiproc_statjoin": PATH_KERNELS["statjoin_zipf"],
+        "multiproc_randjoin": PATH_KERNELS["randjoin_zipf"],
+        "multiproc_small_sort": PATH_KERNELS["small_sort"],
+        "multiproc_small_sort_values": PATH_KERNELS["small_sort_values"],
+        "multiproc_gloo_sort": sort,
+        "multiproc_gloo_sort_ragged": ragged,
+        "multiproc_gloo_statjoin": PATH_KERNELS["statjoin_zipf"]})
+
+
+def phase_multiproc(smi: str, errs: dict) -> dict:
+    """The process-group substrate (``ProcessGroupSubstrate``) on the card.
+
+    One NCCL rank in this process, holding all t = 64 machines: SMMS
+    keys only, with the 100-byte records, ``backend="ragged"`` and
+    staged (8 x 8), Terasort on injected draws, StatJoin and RandJoin on
+    the §5.2 Zipf tables, and the small t = 8 sorts (the in-tile
+    merges), each bitwise the BatchedSubstrate run on the card in every
+    output and report field (ragged: the static run's), its launches
+    counted; every kernel call of one ragged run held against its plain
+    version; the median of 3 beside the batch's.  Then two Gloo ranks
+    on this card (:func:`gloo_rank_main`, 32 machines a rank): SMMS flat
+    and ragged and StatJoin, every rank's whole result equal to its own
+    batch run, whether the tape staged through the host, the ms."""
+    import datetime
+
+    import torch.distributed as dist
+    from repro_torch.cluster import ProcessGroupSubstrate, SubstratePool
+    from repro_torch.core.sampling import draw_uniforms
+    multiproc_kernels()
+    x = sort_inputs(SEED)["uniform"][0]
+    joins = {name: JOINS[name].tables() for name in MULTIPROC_JOINS}
+    calls = multiproc_calls(x, make_payload(T, M, SEED, device=DEVICE),
+                            draw_uniforms(T, M, SEED + 1, DEVICE), joins)
+    xs = zipf_keys(T_SMALL * M_SMALL, seed=SEED + 2).reshape(T_SMALL, M_SMALL)
+    vs = make_payload(T_SMALL, M_SMALL, SEED + 2, cols=3, device=DEVICE)
+    small = forced_family("bitonic", M_SMALL)
+    for path, kw in (("multiproc_small_sort", {}),
+                     ("multiproc_small_sort_values", {"values": vs})):
+        calls[path] = (lambda pool, kw=kw: _forced(small, lambda: cluster.sort(
+            xs, device=DEVICE, substrate=pool, **kw)), None)
+    out = {}
+    backend = "nccl" if DEVICE == "cuda" else "gloo"
+    with tempfile.TemporaryDirectory() as tmp:
+        if DEVICE == "cuda":
+            torch.cuda.set_device(0)
+        dist.init_process_group(
+            backend, init_method=f"file://{tmp}/pg", world_size=1, rank=0,
+            timeout=datetime.timedelta(seconds=MULTIPROC_GROUP_TIMEOUT_S))
+        try:
+            group = SubstratePool(make=ProcessGroupSubstrate)
+            batch = SubstratePool()
+            wants = {}
+            for path, (run, twin) in calls.items():
+                want = wants.setdefault(
+                    "multiproc_sort" if twin is not None else path,
+                    (twin or run)(batch))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = on_path(path, lambda: run(group))
+                first = (time.perf_counter() - t0) * 1e3
+                _same_run(path, got, want)
+                del got
+                ms = e2e(f"{path} one NCCL rank", lambda: run(group), smi,
+                         reps=MULTIPROC_REPS)
+                ms_b = e2e(f"{path} batch", lambda: (twin or run)(batch), smi,
+                           reps=MULTIPROC_REPS)
+                print(f"[multiproc] {path:28s} ok: bitwise the batch run in "
+                      f"every output and report field; median of "
+                      f"{MULTIPROC_REPS} {ms['median_ms']:.2f} ms on one "
+                      f"{backend} rank, batch {ms_b['median_ms']:.2f} ms; "
+                      f"first call {first:.1f} ms ({smi})")
+                out[path] = {"ms": ms["ms"], "batch_ms": ms_b["ms"],
+                             "median_ms": ms["median_ms"],
+                             "batch_median_ms": ms_b["median_ms"],
+                             "first_call_ms": first}
+            calls_seen = []
+            with kernel_taps(comparer(errs), "multiproc ragged", calls_seen):
+                calls["multiproc_sort_ragged"][0](group)
+            kernel, width = ragged_sort_kernel()
+            check(_called(calls_seen, kernel, f"({T}, {width})"),
+                  f"the ragged re-sort ({kernel} of ({T}, {width})) not "
+                  f"among {calls_seen}")
+            print(f"[multiproc] one ragged run: {len(calls_seen)} kernel "
+                  f"calls held against their plain versions, bitwise")
+            check(not group.stats().get("host_staged_runs"),
+                  f"a {backend} rank staged through the host")
+            out["group_runs"] = group.stats()["runs"]
+            del wants
+        finally:
+            dist.destroy_process_group()
+        out["gloo"] = multiproc_gloo(smi, tmp, x, joins["statjoin_zipf"])
+    return out
+
+
+def _forced(family, fn):
+    with ops.force_sort_kernel(family):
+        return fn()
+
+
+def multiproc_gloo(smi: str, tmp: str, x: np.ndarray, tables) -> dict:
+    """Two Gloo ranks on the card, each a process running
+    :func:`gloo_rank_main`; their launches are added to the paths'."""
+    root = pathlib.Path(tmp) / "gloo"
+    root.mkdir()
+    np.savez(root / "inputs.npz", x=x, s=tables[0], t=tables[1])
+    (root / "settings.json").write_text(json.dumps(
+        {"device": DEVICE, "t": T, "join_t": JOIN_T}))
+    logs = [open(root / f"rank{r}.log", "w") for r in range(MULTIPROC_RANKS)]
+    # Gloo's ranks meet on the loopback device: the machine needs no
+    # network for them
+    env = dict(os.environ)
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--gloo-rank", str(r),
+         str(MULTIPROC_RANKS), str(root)], stdout=logs[r],
+        stderr=subprocess.STDOUT, env=env) for r in range(MULTIPROC_RANKS)]
+    deadline = time.monotonic() + MULTIPROC_WAIT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    results = []
+    for r, p in enumerate(procs):
+        text = (root / f"rank{r}.log").read_text()
+        for line in text.splitlines():
+            if line.startswith("[multiproc"):
+                print(f"[multiproc gloo rank {r}] {line}")
+        check(p.returncode == 0 and (root / f"rank{r}.json").exists(),
+              f"Gloo rank {r} of {MULTIPROC_RANKS} failed (exit "
+              f"{p.returncode}):\n{text[-4000:]}")
+        results.append(json.loads((root / f"rank{r}.json").read_text()))
+    for res in results:
+        for path, counts in res["launches"].items():
+            PATH_LAUNCHES[path].update(counts)
+    staged = [res["host_staged_runs"] for res in results]
+    print(f"[multiproc] {MULTIPROC_RANKS} Gloo ranks on one card: every "
+          f"rank's whole results equal to its batch run; the tape staged "
+          f"through pinned host memory in {staged} runs a rank; medians "
+          + ", ".join(f"{p} {np.median(results[0]['ms'][p]):.2f} ms (batch "
+                      f"{np.median(results[0]['batch_ms'][p]):.2f})"
+                      for p in results[0]["ms"]) + f" ({smi})")
+    return {"ranks": results}
+
+
+def gloo_rank_main(rank: int, world: int, root: str) -> None:
+    """One Gloo rank of :func:`multiproc_gloo`: SMMS flat and ragged and
+    StatJoin on ``ProcessGroupSubstrate(t)`` (t / world machines here),
+    each whole result bitwise this process's own batch run; the medians
+    of 3, the batch's timed on rank 0 while the others wait."""
+    import datetime
+
+    import torch.distributed as dist
+    from repro_torch.cluster import ProcessGroupSubstrate, SubstratePool
+    global DEVICE
+    root = pathlib.Path(root)
+    settings = json.loads((root / "settings.json").read_text())
+    DEVICE = settings["device"]
+    inputs = np.load(root / "inputs.npz")
+    x, s, t = inputs["x"], inputs["s"], inputs["t"]
+    if DEVICE == "cuda":
+        torch.cuda.set_device(0)
+        smi = phase_device()
+    else:       # a rehearsal on the CPU: nothing to synchronize
+        smi = "cpu"
+        torch.cuda.synchronize = torch.cuda.reset_peak_memory_stats = \
+            lambda *a, **k: None
+        torch.cuda.max_memory_allocated = lambda *a, **k: 0
+    dist.init_process_group(
+        "gloo", init_method=f"file://{root}/pg", world_size=world,
+        rank=rank,
+        timeout=datetime.timedelta(seconds=MULTIPROC_GROUP_TIMEOUT_S))
+    rows = (np.arange(len(s), dtype=np.int32),
+            np.arange(len(t), dtype=np.int32))
+    sort = lambda **kw: (lambda pool: cluster.sort(
+        x, device=DEVICE, substrate=pool, **kw))
+    calls = {"multiproc_gloo_sort": (sort(), None),
+             "multiproc_gloo_sort_ragged": (sort(backend="ragged"), sort()),
+             "multiproc_gloo_statjoin": (lambda pool: cluster.join(
+                 s, rows[0], t, rows[1], algorithm="statjoin",
+                 t_machines=settings["join_t"], device=DEVICE,
+                 substrate=pool), None)}
+    group, batch = SubstratePool(make=ProcessGroupSubstrate), SubstratePool()
+    res = {"launches": {}, "ms": {}, "batch_ms": {}}
+    try:
+        for path, (run, twin) in calls.items():
+            want = (twin or run)(batch)
+            got = on_path(path, lambda: run(group))
+            _same_run(f"{path} rank {rank}", got, want)
+            del got, want
+            res["launches"][path] = dict(PATH_LAUNCHES[path])
+            res["ms"][path] = e2e(f"{path} rank {rank}", lambda: run(group),
+                                  smi, reps=MULTIPROC_REPS)["ms"]
+            if rank == 0:
+                res["batch_ms"][path] = e2e(
+                    f"{path} batch rank 0", lambda: (twin or run)(batch),
+                    smi, reps=MULTIPROC_REPS)["ms"]
+            dist.barrier()
+            print(f"[multiproc] {path} rank {rank}/{world}: whole result "
+                  f"bitwise this process's batch run; median "
+                  f"{np.median(res['ms'][path]):.2f} ms", flush=True)
+        res["host_staged_runs"] = group.stats().get("host_staged_runs", 0)
+    finally:
+        dist.destroy_process_group()
+    (root / f"rank{rank}.json").write_text(json.dumps(res))
+
+
 def _same_profile(label: str, got, want) -> None:
     """A sketch profile of the card against the CPU's, field by field."""
     for f in dataclasses.fields(want):
@@ -5586,6 +5921,7 @@ def main() -> None:
     runs["wide"] = phase_wide(smi)
     phase_nan_keys(errs)
     runs["staged"] = phase_staged(smi)
+    runs["multiproc"] = phase_multiproc(smi, errs)
     runs["auto"] = phase_auto(smi)
     runs["serve_queries"] = phase_serve_queries(smi)
     runs["bucketize"] = phase_bucketize(smi)
@@ -5652,4 +5988,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--gloo-rank"]:      # a rank of phase_multiproc
+        gloo_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    else:
+        main()

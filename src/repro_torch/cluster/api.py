@@ -29,9 +29,14 @@ RandJoin), which is how the tests hand the port the reference's
 ``jax.random`` draws.
 
 Every algorithm runs on a substrate: ``substrate=`` takes a
-``BatchedSubstrate``, a provider -- any callable mapping an axis spec
-to one, a ``SubstratePool`` above all -- or None, the process-wide
-pool (``substrate.default_pool``).  A provider is called with the axes
+``BatchedSubstrate`` (t machines on one device) or a
+``ProcessGroupSubstrate`` (t machines over the ranks of a
+``torch.distributed`` group: every rank makes the same call with the
+whole operands and gets the whole result), a provider -- any callable
+mapping an axis spec to one, a ``SubstratePool`` above all -- or None,
+the process-wide pool (``substrate.default_pool``).  ``algorithm="auto"``
+and ``moe_dispatch``'s ``cluster`` / ``auto`` modes run on a batch
+only (ROADMAP A7).  A provider is called with the axes
 each algorithm needs: ``(t,)`` for the flat sorts, the sketch and the
 1D joins, the staged grid's two named axes, RandJoin's ``(("a", a),
 ("b", b))``; the query engine hands its pool in this way.
@@ -93,6 +98,18 @@ def _as_tensor(a) -> torch.Tensor:
     return a if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a))
 
 
+def _refuse_process_group(substrate, t: int, what: str) -> None:
+    """The planner's sketch round and the MoE dispatch's exchange run on
+    a batch only: on a process-group substrate they raise, naming the
+    ROADMAP item that ports them."""
+    from .substrate import ProcessGroupSubstrate, resolve_substrate
+    if isinstance(resolve_substrate(substrate, t), ProcessGroupSubstrate):
+        raise NotImplementedError(
+            f"{what} on a ProcessGroupSubstrate is ROADMAP A7's next item "
+            f"(the planner's sketch and cluster.moe_dispatch across "
+            f"ranks); name the algorithm or run on a BatchedSubstrate")
+
+
 def _attach_plan(report, plan, sketch_phases) -> None:
     """Put the planner's decision and prediction on an AlphaKReport."""
     report.query_plan = plan
@@ -105,7 +122,7 @@ def _attach_plan(report, plan, sketch_phases) -> None:
 def sort(x, *, algorithm: str = "smms", r: int = 2, seed: int = 0,
          cap_factor: Optional[float] = None, policy=None, values=None,
          exchange: str = "flat", overlap_chunks: int = 2, uniforms=None,
-         substrate=None, device=None):
+         backend: str = "static", substrate=None, device=None):
     """Distributed sort of x: (t, m), one row per machine.
 
     x: a numpy array or a tensor (float32, bfloat16 or int32 keys; a
@@ -126,6 +143,9 @@ def sort(x, *, algorithm: str = "smms", r: int = 2, seed: int = 0,
     ``overlap_chunks`` slices; one more round, the same keys; a t that
     does not factor warns and runs flat) or "auto" (the planner's
     topology model); ``report.exchange_topology`` says which ran.
+    ``backend``: Round 3's ``"static"`` tiles or its ``"ragged"``
+    exact-size segments (a ``ProcessGroupSubstrate``'s only, flat only;
+    the same keys, values and report, nothing dropped).
     ``substrate``: see the module docstring (a 2-axis substrate runs
     staged over its own grid).
     """
@@ -147,6 +167,7 @@ def sort(x, *, algorithm: str = "smms", r: int = 2, seed: int = 0,
     xt = torch.as_tensor(_x32(x)).to(dev).contiguous()
     vt = None if values is None else torch.as_tensor(_x32(values)).to(dev)
     if algorithm == AUTO:
+        _refuse_process_group(substrate, t, 'algorithm="auto"')
         from ..planner import plan_sort_query
         # the fingerprint reads the caller's host array; the sketch the
         # rows already on the device
@@ -158,7 +179,7 @@ def sort(x, *, algorithm: str = "smms", r: int = 2, seed: int = 0,
             cap_factor=cap_factor, policy=policy, values=vt,
             exchange=plan.exchange if exchange == AUTO else exchange,
             overlap_chunks=overlap_chunks, uniforms=uniforms,
-            substrate=substrate, device=dev)
+            backend=backend, substrate=substrate, device=dev)
         _attach_plan(report, plan, sketch_phases)
         return out, report
     if exchange == AUTO:
@@ -172,12 +193,13 @@ def sort(x, *, algorithm: str = "smms", r: int = 2, seed: int = 0,
         return terasort_sort(xt, seed=seed, cap_factor=cap_factor,
                              policy=policy, values=vt, uniforms=ut,
                              exchange=exchange,
-                             overlap_chunks=overlap_chunks,
+                             overlap_chunks=overlap_chunks, backend=backend,
                              substrate=substrate)
     from ..core.smms import smms_sort
     return smms_sort(xt, r=r, cap_factor=cap_factor, policy=policy,
                      values=vt, exchange=exchange,
-                     overlap_chunks=overlap_chunks, substrate=substrate)
+                     overlap_chunks=overlap_chunks, backend=backend,
+                     substrate=substrate)
 
 
 def join(s_keys, s_rows, t_keys, t_rows, *, algorithm: str = "statjoin",
@@ -212,6 +234,7 @@ def join(s_keys, s_rows, t_keys, t_rows, *, algorithm: str = "statjoin",
     """
     dev = resolve_device(device)
     if algorithm == AUTO:
+        _refuse_process_group(substrate, t_machines, 'algorithm="auto"')
         from ..planner import plan_join_query
         plan, sketch_phases = plan_join_query(
             s_keys, t_keys, t_machines=t_machines, mem_budget=mem_budget,
@@ -345,6 +368,8 @@ def moe_dispatch(params, x, cfg, *, mode: Optional[str] = None,
 
     plan = sketch_phases = None
     if mode in (AUTO, "cluster"):
+        _refuse_process_group(substrate, t_machines,
+                              f"moe_dispatch mode {mode!r}")
         if tt % t_machines:
             raise ValueError(
                 f"moe_dispatch mode {mode!r} shards tokens over machines: "

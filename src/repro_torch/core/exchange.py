@@ -1,6 +1,6 @@
-"""The Round-3 shuffle, flat static exchange, batched over the machines.
+"""The Round-3 shuffle, batched over the machines a tape's rows hold.
 
-Counterpart of the flat static path of ``src/repro/core/exchange.py``.
+Counterpart of ``src/repro/core/exchange.py``.
 Every machine cuts its locally sorted row at the t-1 interior
 boundaries (or, with ``sort_input``, sorts and cuts it in one kernel,
 as Terasort's Round 3 does), packs the t contiguous segments into a
@@ -8,8 +8,14 @@ as Terasort's Round 3 does), packs the t contiguous segments into a
 theorem sizes, exchanges the tiles all-to-all and merges the t landed
 sorted rows.  Values, when present, ride in a second tile (zeros in the
 pad slots) through an untracked all-to-all and come out of the merge in
-the keys' stable order.  Here all t machines do each step at once: rows, tiles and
-landed buffers carry the machine axis first.
+the keys' stable order.  The machines a tape holds (all t on the
+batch, a rank's t / world in a process group; ``tape.axis_index`` says
+which) do each step at once: rows, tiles and landed buffers carry the
+machine axis first.
+
+``backend="ragged"`` (a process group's only) sends each segment at
+its exact size (:func:`ragged_exchange`) into the same capacity and
+re-sorts the landed buffer: the reference's ragged backend.
 
 Dropped objects (a segment longer than C) are counted, not hidden: the
 caller's capacity-retry loop re-runs with a larger factor.
@@ -34,11 +40,13 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..cluster.capacity import CapacityOverflowError
 from ..cluster.collectives import CollectiveTape
 from ..kernels import ops
 
 __all__ = ["PAD", "partition_sorted", "build_send_buffer", "static_exchange",
-           "flat_receive_capacity", "staged_receive_capacities",
+           "ragged_exchange", "flat_receive_capacity",
+           "staged_receive_capacities",
            "ExchangeResult", "exchange_sorted_segments", "RoutedRows",
            "exchange_routed_rows", "return_routed_rows"]
 
@@ -123,6 +131,49 @@ def static_exchange(keys_buf: torch.Tensor, tape: CollectiveTape,
     return recv_k, recv_v
 
 
+def ragged_exchange(x_sorted: torch.Tensor, starts: torch.Tensor,
+                    lens: torch.Tensor, capacity: int, tape: CollectiveTape,
+                    values: Optional[torch.Tensor] = None, sent=None):
+    """Exact-size exchange: segment k of each machine lands on machine
+    k, packed after the segments of the machines before it, in a
+    ``capacity``-slot receive buffer (PAD past the landed objects).
+
+    The reference's ``ragged_exchange`` (``src/repro/core/exchange.py:139``)
+    over ``tape.ragged_all_to_all``: every machine learns the whole
+    (t, t) size matrix through an untracked all-gather, and so its
+    receive offsets; ``values`` ride a second, untracked ragged exchange
+    with the same sizes.  Theorem 1 / 3 bound the received total by the
+    capacity; a machine that would receive more raises
+    (``CapacityOverflowError``, on every rank alike: the size matrix is
+    whole everywhere), and nothing is written past the buffer.  Returns
+    (recv_keys (rows, capacity), recv_values or None, recv_count
+    (rows,)).
+    """
+    sizes = lens.long()
+    rows = sizes.shape[0]
+    size_matrix = tape.all_gather(sizes, track=False)             # (t, t)
+    landed = size_matrix.sum(dim=0)
+    if int(landed.max()) > capacity:
+        raise CapacityOverflowError(
+            f"ragged exchange: a machine receives {int(landed.max())} "
+            f"objects, past its {capacity}-slot buffer")
+    me = tape.axis_index(rows, sizes.device)
+    col_excl = torch.cumsum(size_matrix, dim=0) - size_matrix
+    out_offsets = col_excl[me]                                    # (rows, t)
+    recv_sizes = size_matrix[:, me].T                             # (rows, t)
+    out = torch.full((rows, capacity), PAD, dtype=x_sorted.dtype,
+                     device=x_sorted.device)
+    recv = tape.ragged_all_to_all(x_sorted, out, starts, sizes, out_offsets,
+                                  recv_sizes, sent=sent)
+    recv_v = None
+    if values is not None:
+        out_v = torch.zeros((rows, capacity) + values.shape[2:],
+                            dtype=values.dtype, device=values.device)
+        recv_v = tape.ragged_all_to_all(values, out_v, starts, sizes,
+                                        out_offsets, recv_sizes, track=False)
+    return recv, recv_v, recv_sizes.sum(dim=1)
+
+
 def flat_receive_capacity(m: int, t: int, cap_factor: float) -> int:
     """Receive-buffer slots of the flat exchange: t * ceil-per-pair."""
     return int(-(-int(cap_factor * m) // t) * t)
@@ -162,8 +213,9 @@ def _staged_exchange(x_sorted, interior, starts, lens, *, t1: int, t2: int,
     merge a landed chunk, then a merge across the chunks.
 
     Counterpart of the reference's ``_staged_exchange``
-    (``src/repro/core/exchange.py:284``), batched over the machines:
-    machine g sits at (g // t2, g % t2) of the (t1, t2) grid.  Group j's
+    (``src/repro/core/exchange.py:284``), batched over the machines the
+    tape's rows hold: machine g sits at (g // t2, g % t2) of the (t1,
+    t2) grid.  Group j's
     segment is the flat segments [j*t2, (j+1)*t2), so a machine sends
     one contiguous segment a group, of up to C1 = ceil(cap_factor*m/t1)
     objects.  A machine merges the t1 rows it receives and cuts the
@@ -173,21 +225,22 @@ def _staged_exchange(x_sorted, interior, starts, lens, *, t1: int, t2: int,
     multiple of ``overlap_chunks``) over i2.
     """
     grid = (t1, t2)
-    t = t1 * t2
     c1, c2 = _staged_pair_capacities(m, t1, t2, cap_factor, overlap_chunks)
     dev = starts.device
-    me = torch.arange(t, device=dev)
+    rows = starts.shape[0]
+    local = torch.arange(rows, device=dev)
+    me = tape.axis_index(rows, dev)
     i1, i2 = me // t2, me % t2
-    g_starts = starts[:, ::t2]                                  # (t, t1)
+    g_starts = starts[:, ::t2]                                  # (rows, t1)
     g_ends = torch.cat([starts[:, t2::t2],
-                        torch.full((t, 1), m, dtype=starts.dtype,
+                        torch.full((rows, 1), m, dtype=starts.dtype,
                                    device=dev)], dim=1)
     g_lens = g_ends - g_starts
     kbuf1, vbuf1, drop1 = build_send_buffer(x_sorted, g_starts, g_lens, c1,
                                             values, valid_len=valid_len)
-    sent1 = m - g_lens[me, i1]
-    local = interior[(i1 * t2)[:, None]
-                     + torch.arange(t2 - 1, device=dev)]        # (t, t2-1)
+    sent1 = m - g_lens[local, i1]
+    mine = interior[(i1 * t2)[:, None]
+                    + torch.arange(t2 - 1, device=dev)]         # (rows, t2-1)
     aux = {}
 
     def restage(rk, rv):
@@ -196,13 +249,13 @@ def _staged_exchange(x_sorted, interior, starts, lens, *, t1: int, t2: int,
         # row's real keys, as the reference's valid_len=count1
         merged, merged_v = _merge(rk, rv)
         count1 = (merged < PAD).sum(dim=1).to(torch.int32)
-        cuts = torch.minimum(ops.searchsorted(merged, local, side="left"),
+        cuts = torch.minimum(ops.searchsorted(merged, mine, side="left"),
                              count1[:, None])
         s2_starts = torch.cat([torch.zeros_like(cuts[:, :1]), cuts], dim=1)
         s2_lens = torch.cat([cuts, count1[:, None]], dim=1) - s2_starts
         kbuf2, vbuf2, aux["drop2"] = build_send_buffer(
             merged, s2_starts, s2_lens, c2, merged_v, valid_len=count1)
-        return kbuf2, vbuf2, count1 - s2_lens[me, i2]
+        return kbuf2, vbuf2, count1 - s2_lens[local, i2]
 
     outs, sent2 = tape.staged_all_to_all(
         kbuf1, grid=grid, values_buf=vbuf1, sent=sent1, pad=PAD,
@@ -233,6 +286,7 @@ def exchange_sorted_segments(x_sorted: torch.Tensor, interior: torch.Tensor,
                              values: Optional[torch.Tensor] = None,
                              valid_len: Optional[int] = None,
                              sort_input: bool = False,
+                             backend: str = "static",
                              tape: Optional[CollectiveTape] = None,
                              staged_shape: Optional[Tuple[int, int]] = None,
                              overlap_chunks: int = 2,
@@ -256,7 +310,17 @@ def exchange_sorted_segments(x_sorted: torch.Tensor, interior: torch.Tensor,
     record into their own phases (``"<phase_prefix> s1"`` / ``"s2"``),
     so a staged caller must not wrap the call in a phase of its own.
     The keys come out bitwise the flat path's.
+
+    ``backend="ragged"`` sends exact-size segments
+    (:func:`ragged_exchange`, a process group's only) into the same
+    capacity and re-sorts the landed buffer (``ops.sort`` /
+    ``ops.sort_kv``: the sender runs land at offsets that depend on the
+    data); nothing drops, so ``dropped`` is 0.  The stable sort keeps
+    equal keys in sender order, as the static merge does.
     """
+    if backend not in ("static", "ragged"):
+        raise ValueError(f"unknown exchange backend {backend!r}; "
+                         "expected 'static' or 'ragged'")
     if sort_input and valid_len is not None:
         raise ValueError("sort_input=True takes unpadded input; "
                          "valid_len cannot be combined with it")
@@ -265,6 +329,9 @@ def exchange_sorted_segments(x_sorted: torch.Tensor, interior: torch.Tensor,
         if t1 * t2 != t or min(t1, t2) < 2:
             raise ValueError(f"staged_shape {staged_shape} must factor "
                              f"t={t} with both sub-axes >= 2")
+        if backend != "static":
+            raise NotImplementedError(
+                "staged exchange supports the static backend only")
     tape = tape if tape is not None else CollectiveTape()
     m = valid_len if valid_len is not None else x_sorted.shape[1]
     cap_pair = flat_receive_capacity(m, t, cap_factor) // t
@@ -282,13 +349,28 @@ def exchange_sorted_segments(x_sorted: torch.Tensor, interior: torch.Tensor,
             cap_factor=cap_factor, values=values, valid_len=valid_len,
             overlap_chunks=overlap_chunks, tape=tape,
             phase_prefix=phase_prefix)
-    me = torch.arange(t, device=lens.device)
-    sent = m - lens[me, me]                      # objects leaving each machine
+    rows = lens.shape[0]
+    me = tape.axis_index(rows, lens.device)
+    sent = m - lens[torch.arange(rows, device=lens.device), me]   # leaving
+    if backend == "ragged":
+        if valid_len is not None:       # exact-size sends: no pad tail
+            x_sorted = x_sorted[:, :m]
+            values = None if values is None else values[:, :m]
+        recv, recv_v, count = ragged_exchange(
+            x_sorted, starts, lens, cap_pair * t, tape, values=values,
+            sent=sent)
+        dropped = torch.zeros((), dtype=torch.int32, device=recv.device)
+        if recv_v is None:
+            return ExchangeResult(ops.sort(recv), None, count.to(torch.int32),
+                                  sent, dropped)
+        keys, vals = ops.sort_kv(recv, recv_v)
+        return ExchangeResult(keys, vals, count.to(torch.int32), sent,
+                              dropped)
     keys_buf, vals_buf, local_drop = build_send_buffer(
         x_sorted, starts, lens, cap_pair, values, valid_len=valid_len)
     recv2d, recv_v2d = static_exchange(keys_buf, tape, sent,
-                                       vals_buf)            # (t, t, C)
-    count = (recv2d.reshape(t, -1) < PAD).sum(dim=1).to(torch.int32)
+                                       vals_buf)            # (rows, t, C)
+    count = (recv2d.reshape(rows, -1) < PAD).sum(dim=1).to(torch.int32)
     dropped = tape.psum(local_drop).to(torch.int32)
     # pads (= inf) land last
     if recv_v2d is None:
@@ -328,18 +410,18 @@ def exchange_routed_rows(owner: torch.Tensor, payload: torch.Tensor, *,
     offered: payload rows do not merge.
     """
     tape = tape if tape is not None else CollectiveTape()
-    n = owner.shape[1]
+    n_rows, n = owner.shape
     dev = owner.device
-    iota = torch.arange(n, dtype=torch.int32, device=dev).expand(t, n)
+    iota = torch.arange(n, dtype=torch.int32, device=dev).expand(n_rows, n)
     owner_sorted, perm = ops.sort_kv(owner.float().contiguous(), iota)
-    rows = torch.arange(t, device=dev)[:, None]
+    rows = torch.arange(n_rows, device=dev)[:, None]
     pay_sorted = payload[rows, perm.long()]
     interior = torch.arange(1, t, dtype=torch.float32, device=dev)
     starts, lens = partition_sorted(owner_sorted, interior)
     keys_buf, vals_buf, local_drop = build_send_buffer(
         owner_sorted, starts, lens, cap_pair, pay_sorted)
-    me = torch.arange(t, device=dev)
-    recv_k, recv_v = static_exchange(keys_buf, tape, n - lens[me, me],
+    me = tape.axis_index(n_rows, dev)
+    recv_k, recv_v = static_exchange(keys_buf, tape, n - lens[rows[:, 0], me],
                                      vals_buf)
     return RoutedRows(recv_k, recv_v, perm, owner_sorted.to(torch.int32),
                       starts, lens, cap_pair, local_drop)

@@ -1,5 +1,6 @@
 """RandJoin (paper §4.2): randomized skew equi-join on an a x b machine
-matrix, batched over the t = a b machines on one card.
+matrix, batched over the machines a substrate hands the body (all t =
+a b on one card, or a process-group rank's share).
 
 Counterpart of ``src/repro/core/randjoin.py`` (``choose_ab`` :42,
 ``route_to_interval`` :55, ``randjoin_shard`` :88, ``randjoin`` :128).
@@ -70,11 +71,12 @@ def route_to_interval(keys: torch.Tensor, rows: torch.Tensor,
                       cap_pair: int, tape: CollectiveTape):
     """all_to_all every machine's tuples to their drawn line member.
 
-    keys/rows/assign: (t, m) int32; ``assign`` in [0, n) with n =
-    grid[axis].  Returns (join_keys, payload_rows, dropped, valid_count):
-    (t, n*C), (t, n*C), (t,), (t,); masked slots have join key
-    MASKED_KEY.  Integer boundaries 1..n-1 with the left rule cut the
-    sorted draws where the reference's do.
+    keys/rows/assign: (rows, m) int32, the machines the tape holds;
+    ``assign`` in [0, n) with n = grid[axis].  Returns (join_keys,
+    payload_rows, dropped, valid_count): (rows, n*C), (rows, n*C),
+    (rows,), (rows,); masked slots have join key MASKED_KEY.  Integer
+    boundaries 1..n-1 with the left rule cut the sorted draws where the
+    reference's do.
     """
     t, m = keys.shape
     n = grid[axis]
@@ -85,9 +87,9 @@ def route_to_interval(keys: torch.Tensor, rows: torch.Tensor,
     kbuf, vbuf, dropped = build_send_buffer(
         assign_sorted.to(torch.float32), starts, lens, cap_pair,
         values=payload)
-    line = torch.arange(t, device=keys.device)
-    me = line // grid[1] if axis == 0 else line % grid[1]   # place in the line
-    sent = m - lens[line, me]
+    ids = tape.axis_index(t, keys.device)
+    me = ids // grid[1] if axis == 0 else ids % grid[1]     # place in the line
+    sent = m - lens[torch.arange(t, device=keys.device), me]
     rk, rv = static_exchange(kbuf, tape, sent, vbuf, grid=grid, axis=axis)
     rk = rk.reshape(t, -1)
     rv = rv.reshape(t, -1, 2)
@@ -101,9 +103,9 @@ def randjoin_shard(s_keys, s_rows, t_keys, t_rows, i_assign, j_assign, *,
                    a: int, b: int, out_capacity: int,
                    in_cap_factor: float = 2.0,
                    tape: Optional[CollectiveTape] = None) -> JoinOutput:
-    """The RandJoin body for all t = a*b machines: local fragments
-    (t, ms), (t, mt) int32 and their draws, rows in [0, a) for S,
-    columns in [0, b) for T."""
+    """The RandJoin body for the machines the tape holds of the t = a*b:
+    their fragments (rows, ms), (rows, mt) int32 and their draws, rows
+    in [0, a) for S, columns in [0, b) for T."""
     ms, mt = s_keys.shape[1], t_keys.shape[1]
     grid = (a, b)
     if tape is None:
@@ -125,9 +127,9 @@ def randjoin_shard(s_keys, s_rows, t_keys, t_rows, i_assign, j_assign, *,
         tr = tape.all_gather(tr, track=False, grid=grid, axis=0)
 
         # the local cross product, in the same round
-        t = a * b
-        out = local_equijoin(sk.reshape(t, -1), sr.reshape(t, -1),
-                             tk.reshape(t, -1), tr.reshape(t, -1),
+        rows = s_keys.shape[0]
+        out = local_equijoin(sk.reshape(rows, -1), sr.reshape(rows, -1),
+                             tk.reshape(rows, -1), tr.reshape(rows, -1),
                              out_capacity)
         dropped = out.dropped + tape.psum(sdrop + tdrop, grid=grid,
                                           axis=0 if a > 1 else 1)

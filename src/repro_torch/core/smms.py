@@ -1,7 +1,9 @@
-"""SMMS -- Sort-Map-Merge Sort (paper §3.1), on one card.
+"""SMMS -- Sort-Map-Merge Sort (paper §3.1).
 
 Counterpart of ``src/repro/core/smms.py`` (``smms_shard`` :111,
-``smms_sort`` :201).  Three rounds, written batched over the t machines:
+``smms_sort`` :201).  Three rounds, written batched over the machines a
+substrate hands the body (all t on one card; a rank's share of them in
+a process group, where every rank computes Round 2 alike):
 
   Round 1   local sort (the bitonic kernel; with values the (key, iota)
             pair-sort kernel and one gather of the values) and
@@ -33,7 +35,7 @@ import torch
 
 from ..cluster.capacity import CapacityPolicy, run_with_capacity
 from ..cluster.collectives import CollectiveTape
-from ..cluster.substrate import BatchedSubstrate, resolve_substrate
+from ..cluster.substrate import Substrate, resolve_substrate
 from ..kernels import ops
 from .alpha_k import smms_workload_bound
 from .boundaries import boundaries, equidepth_samples
@@ -67,7 +69,7 @@ def resolve_exchange_topology(substrate, t: int, exchange: str = "flat"):
     if exchange not in ("flat", "staged"):
         raise ValueError(f"unknown exchange topology {exchange!r}; "
                          "expected 'flat' or 'staged'")
-    explicit = isinstance(substrate, BatchedSubstrate)
+    explicit = isinstance(substrate, Substrate)
     if explicit and len(substrate.axes) == 2:
         t1, t2 = substrate.shape
         if min(t1, t2) < 2:
@@ -112,15 +114,17 @@ def default_cap_factor(n: int, t: int, r: int, slack: float = 1.05) -> float:
     return CapacityPolicy.smms(n, t, r, slack=slack).first_factor
 
 
-def smms_shard(x: torch.Tensor, *, t: int, r: int = 2,
-               cap_factor: Optional[float] = None,
-               values: Optional[torch.Tensor] = None,
+def smms_shard(x: torch.Tensor, values: Optional[torch.Tensor] = None, *,
+               t: int, r: int = 2, cap_factor: Optional[float] = None,
                staged_shape: Optional[tuple] = None,
-               overlap_chunks: int = 2,
+               overlap_chunks: int = 2, backend: str = "static",
                tape: Optional[CollectiveTape] = None) -> SortResult:
-    """The SMMS body for all t machines.  x: (t, m), row i machine i's
-    keys; values: (t, m, ...) their payload, or None.
-    ``staged_shape=(t1, t2)`` runs Round 3 as the staged exchange."""
+    """The SMMS body for the machines the tape holds.  x: (rows, m), a
+    row a machine's keys (all t on the batch); values: (rows, m, ...)
+    their payload, or None.  ``staged_shape=(t1, t2)`` runs Round 3 as
+    the staged exchange, ``backend="ragged"`` as the exact-size one.
+    The dropped count and the boundaries come out whole on every
+    machine (``tape.replicated``)."""
     m = x.shape[1]
     n = m * t
     s = r * t
@@ -152,21 +156,23 @@ def smms_shard(x: torch.Tensor, *, t: int, r: int = 2,
     if staged_shape is not None:
         ex = exchange_sorted_segments(
             xs, b[1:-1], t=t, cap_factor=cap_factor, values=values,
-            valid_len=m, tape=tape, staged_shape=staged_shape,
+            valid_len=m, backend=backend, tape=tape,
+            staged_shape=staged_shape,
             overlap_chunks=overlap_chunks, phase_prefix="round3 shuffle")
     else:
         with tape.phase("round3 shuffle"):
             ex = exchange_sorted_segments(
                 xs, b[1:-1], t=t, cap_factor=cap_factor, values=values,
-                valid_len=m, tape=tape)
-    return SortResult(ex.keys, ex.values, ex.count, ex.sent, ex.dropped, b)
+                valid_len=m, backend=backend, tape=tape)
+    return SortResult(ex.keys, ex.values, ex.count, ex.sent,
+                      tape.replicated(ex.dropped), tape.replicated(b))
 
 
 def smms_sort(x: torch.Tensor, r: int = 2, cap_factor: Optional[float] = None,
               policy: Optional[CapacityPolicy] = None,
               values: Optional[torch.Tensor] = None,
               exchange: str = "flat", overlap_chunks: int = 2,
-              substrate=None):
+              backend: str = "static", substrate=None):
     """Sort x of shape (t, m) across t machines, on x's device.
 
     Returns ``((sorted_keys, sorted_values), report)``: the n sorted
@@ -179,8 +185,10 @@ def smms_sort(x: torch.Tensor, r: int = 2, cap_factor: Optional[float] = None,
     retries on overflow.  ``exchange="staged"`` runs Round 3 over the
     (t1, t2) factorization of t, its stage 2 in ``overlap_chunks``
     slices (a t that does not factor warns and runs flat);
-    ``report.exchange_topology`` says which ran.  ``substrate`` as
-    :func:`resolve_exchange_topology` takes it.
+    ``report.exchange_topology`` says which ran.  ``backend``: the
+    shuffle's ``"static"`` tiles or its ``"ragged"`` exact-size
+    segments (a ``ProcessGroupSubstrate``'s only; flat only).
+    ``substrate`` as :func:`resolve_exchange_topology` takes it.
     """
     t, m = x.shape
     n = t * m
@@ -193,12 +201,17 @@ def smms_sort(x: torch.Tensor, r: int = 2, cap_factor: Optional[float] = None,
         policy = (CapacityPolicy.fixed(cap_factor) if cap_factor is not None
                   else CapacityPolicy.smms(n, t, r))
 
+    # the values travel as an operand: a process group hands each rank
+    # its rows of both
+    operands = (x,) if values is None else (x, values)
+
     def attempt(factor):
         res, tape = substrate.run(
             functools.partial(smms_shard, t=t, r=r, cap_factor=float(factor),
-                              values=values, staged_shape=staged_shape,
-                              overlap_chunks=int(overlap_chunks)),
-            x)
+                              staged_shape=staged_shape,
+                              overlap_chunks=int(overlap_chunks),
+                              backend=backend),
+            *operands)
         return (res, tape), int(res.dropped)    # the one host read per attempt
 
     (res, tape), factor, attempts = run_with_capacity(attempt, policy)

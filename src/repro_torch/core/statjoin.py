@@ -213,7 +213,8 @@ def _routing_tensors(keys: np.ndarray, plan: StatJoinPlan, t: int,
 
 
 def _statjoin_body(a, b, c, d, *, tape, n_in, n_stat, t, capacity):
-    """The StatJoin body for all t machines: (t, n) routed fragments."""
+    """The StatJoin body for the machines the tape holds: their rows of
+    the (t, n) routed fragments (every rank plans alike on the host)."""
     # Rounds 1-2: the SMMS sort that produced the statistics -- each
     # tuple crosses the network once (n/t per machine, paper §4.3.1).
     with tape.phase("rounds1-2 sort+stats"):

@@ -1,8 +1,9 @@
-"""Terasort with Algorithm S (paper §3.2), on one card.
+"""Terasort with Algorithm S (paper §3.2).
 
 Counterpart of ``src/repro/core/terasort.py`` (``terasort_shard`` :44,
 ``terasort_sort`` :116), the randomized baseline SMMS is measured
-against.  Three rounds, written batched over the t machines:
+against.  Three rounds, written batched over the machines a substrate
+hands the body (all t, or a process-group rank's share):
 
   Round 1   each machine draws exactly q = ceil(ln(n t)) samples
             (Algorithm S) and they are all-gathered.
@@ -55,16 +56,17 @@ def boundary_index(t: int, s_tot: int, device) -> torch.Tensor:
     return torch.ceil(quot).to(torch.int32) - 1
 
 
-def terasort_shard(x: torch.Tensor, uniforms: torch.Tensor, *, t: int,
+def terasort_shard(x: torch.Tensor, uniforms: torch.Tensor,
+                   values: Optional[torch.Tensor] = None, *, t: int,
                    q: int, cap_factor: float = 5.5,
-                   values: Optional[torch.Tensor] = None,
                    staged_shape: Optional[tuple] = None,
-                   overlap_chunks: int = 2,
+                   overlap_chunks: int = 2, backend: str = "static",
                    tape: Optional[CollectiveTape] = None) -> SortResult:
-    """The Terasort body for all t machines.  x: (t, m) unsorted keys;
-    uniforms: (t, m) float32 Algorithm-S draws; values: (t, m, ...) or
+    """The Terasort body for the machines the tape holds.  x: (rows, m)
+    unsorted keys; uniforms: (rows, m) float32 Algorithm-S draws, the
+    same rows of the whole (t, m) draws; values: (rows, m, ...) or
     None.  ``staged_shape=(t1, t2)`` runs Round 3 as the staged
-    exchange."""
+    exchange, ``backend="ragged"`` as the exact-size one."""
     if tape is None:
         tape = CollectiveTape()
 
@@ -90,15 +92,17 @@ def terasort_shard(x: torch.Tensor, uniforms: torch.Tensor, *, t: int,
     if staged_shape is not None:
         ex = exchange_sorted_segments(
             x, interior, t=t, cap_factor=cap_factor, values=values,
-            sort_input=True, tape=tape, staged_shape=staged_shape,
+            sort_input=True, backend=backend, tape=tape,
+            staged_shape=staged_shape,
             overlap_chunks=overlap_chunks, phase_prefix="round3 shuffle")
     else:
         with tape.phase("round3 shuffle"):
             ex = exchange_sorted_segments(
                 x, interior, t=t, cap_factor=cap_factor, values=values,
-                sort_input=True, tape=tape)
+                sort_input=True, backend=backend, tape=tape)
     b = torch.cat([all_samples[:1], interior, all_samples[-1:]])
-    return SortResult(ex.keys, ex.values, ex.count, ex.sent, ex.dropped, b)
+    return SortResult(ex.keys, ex.values, ex.count, ex.sent,
+                      tape.replicated(ex.dropped), tape.replicated(b))
 
 
 def terasort_sort(x: torch.Tensor, seed: int = 0,
@@ -107,7 +111,7 @@ def terasort_sort(x: torch.Tensor, seed: int = 0,
                   values: Optional[torch.Tensor] = None,
                   uniforms: Optional[torch.Tensor] = None,
                   exchange: str = "flat", overlap_chunks: int = 2,
-                  substrate=None):
+                  backend: str = "static", substrate=None):
     """Sort x of shape (t, m) across t machines, on x's device.
 
     ``uniforms`` (t, m) float32 are the Algorithm-S draws; None draws
@@ -117,8 +121,11 @@ def terasort_sort(x: torch.Tensor, seed: int = 0,
     (Theorem 3), ``cap_factor``, ``capacity_attempts`` and the
     boundaries.  An explicit ``cap_factor`` pins the capacity (no
     retry); otherwise Theorem 3 sizes it, with slack 1.1, and the
-    policy retries on overflow.  ``exchange``, ``overlap_chunks`` and
-    ``substrate`` as in :func:`~repro_torch.core.smms.smms_sort`.
+    policy retries on overflow.  ``exchange``, ``overlap_chunks``,
+    ``backend`` and ``substrate`` as in
+    :func:`~repro_torch.core.smms.smms_sort`.  The draws are made (or
+    taken) whole, so every rank of a process group hands its rows the
+    batch's draws.
     """
     t, m = x.shape
     n = t * m
@@ -138,13 +145,18 @@ def terasort_sort(x: torch.Tensor, seed: int = 0,
         policy = (CapacityPolicy.fixed(cap_factor) if cap_factor is not None
                   else CapacityPolicy.terasort(n, t, slack=1.1))
 
+    # the values travel as an operand: a process group hands each rank
+    # its rows of the keys, the draws and the values
+    operands = (x, uniforms) if values is None else (x, uniforms, values)
+
     def attempt(factor):
         res, tape = substrate.run(
             functools.partial(terasort_shard, t=t, q=q,
-                              cap_factor=float(factor), values=values,
+                              cap_factor=float(factor),
                               staged_shape=staged_shape,
-                              overlap_chunks=int(overlap_chunks)),
-            x, uniforms)
+                              overlap_chunks=int(overlap_chunks),
+                              backend=backend),
+            *operands)
         return (res, tape), int(res.dropped)    # the one host read per attempt
 
     (res, tape), factor, attempts = run_with_capacity(attempt, policy)

@@ -1,24 +1,28 @@
-"""The staged exchange's shard factorization.
+"""The staged exchange's shard factorization and its device mesh.
 
 A copy of the factorization half of ``src/repro/launch/mesh.py``
-(``STAGED_AXIS_NAMES`` :20, ``factor_shards`` :23); the port imports
-nothing of the reference package.  The shard
-axis t is factored into t = t1 * t2 so one t-way all-to-all becomes
-two ~sqrt(t)-way exchanges.  Only balanced power-of-two factorizations
-are produced; anything else falls back to the flat topology with a
-warning -- the staged path is an optimization, not a requirement.
+(``STAGED_AXIS_NAMES`` :20, ``factor_shards`` :23, ``staged_axes``
+:44, ``make_staged_mesh`` :54); the port imports nothing of the
+reference package.  The shard axis t is factored into t = t1 * t2 so
+one t-way all-to-all becomes two ~sqrt(t)-way exchanges.  Only
+balanced power-of-two factorizations are produced; anything else falls
+back to the flat topology with a warning -- the staged path is an
+optimization, not a requirement.  Machine g = i1 * t2 + i2 sits at
+(i1, i2) of the (t1, t2) grid, on a batch (``BatchedSubstrate``) and
+across the ranks of a process group (``ProcessGroupSubstrate``) alike;
+:func:`make_staged_mesh` is the grid as a ``DeviceMesh`` of t ranks.
 
-The reference's ``staged_axes`` and device-mesh constructors
-(``make_staged_mesh``, ``make_production_mesh``) belong to the
-multi-process substrate (ROADMAP A7) and are not here: on one card the t machines are a batch
-axis, and machine g = i1 * t2 + i2 sits at (i1, i2) of a (t1, t2) grid.
+The reference's ``make_production_mesh`` and ``make_host_mesh`` belong
+to the model half of the multi-process substrate (ROADMAP A7) and are
+not here.
 """
 from __future__ import annotations
 
 import warnings
 from typing import Optional, Tuple
 
-__all__ = ["STAGED_AXIS_NAMES", "factor_shards"]
+__all__ = ["STAGED_AXIS_NAMES", "factor_shards", "staged_axes",
+           "make_staged_mesh"]
 
 STAGED_AXIS_NAMES = ("i1", "i2")
 
@@ -43,3 +47,27 @@ def factor_shards(t: int, *, warn: bool = False
     k = t.bit_length() - 1
     return (1 << (k - k // 2), 1 << (k // 2))
 
+
+
+def staged_axes(t: int, names: Tuple[str, str] = STAGED_AXIS_NAMES,
+                *, warn: bool = False):
+    """Axis spec ``((name1, t1), (name2, t2))`` for a staged substrate,
+    or ``None`` when t does not factor (see :func:`factor_shards`)."""
+    fs = factor_shards(t, warn=warn)
+    if fs is None:
+        return None
+    return ((names[0], fs[0]), (names[1], fs[1]))
+
+
+def make_staged_mesh(t: int, names: Tuple[str, str] = STAGED_AXIS_NAMES,
+                     device_type: str = "cpu"):
+    """The (t1, t2) ``DeviceMesh`` of the staged exchange over the t
+    ranks of the default group (``cluster.compat.make_mesh``).  A t
+    that does not factor warns and gives a flat 1-axis mesh instead of
+    raising -- the same contract as the exchange itself."""
+    from ..cluster.compat import make_mesh
+
+    fs = factor_shards(t, warn=True)
+    if fs is None:
+        return make_mesh((int(t),), (names[0],), device_type)
+    return make_mesh(fs, names, device_type)

@@ -750,9 +750,12 @@ class QueryEngine:
         wait for batchmates while the engine is busy.
     workers     : micro-batch executor threads (1 = execute inline in
         the dispatcher).
-    pool        : a SubstratePool (or any ``(*axes) -> BatchedSubstrate``
-        provider); defaults to a fresh pool.  Passing one engine's pool
-        to another shares its substrates and their counters.
+    pool        : a SubstratePool (or any ``(*axes) -> Substrate``
+        provider: ``SubstratePool(make=lambda *axes:
+        ProcessGroupSubstrate(*axes))`` serves over a process group);
+        defaults to a fresh pool of ``BatchedSubstrate``.  Passing one
+        engine's pool to another shares its substrates and their
+        counters.
     device      : where the queries run unless a spec pins a device;
         None means the card, and raises when there is none.
     tracer      : a :class:`repro_torch.obs.Tracer` for per-request span

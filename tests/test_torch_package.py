@@ -39,6 +39,7 @@ def test_port_imports_neither_jax_nor_the_reference():
         import repro_torch.optim, repro_torch.optim.adamw
         import repro_torch.optim.grad_compress, repro_torch.ckpt
         import repro_torch.ckpt.manager, repro_torch.data.pipeline
+        import repro_torch.cluster.compat, repro_torch.launch.mesh
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "repro" or m.startswith("repro."))
@@ -107,8 +108,32 @@ def _unported(entry, change):
         jax.tree_util.tree_map(np.asarray, jparams), cfg, "cpu")
 
 
+def _auto_on_a_process_group_names_a7(tmp_path):
+    """``algorithm="auto"`` on a ProcessGroupSubstrate (a one-rank Gloo
+    group of this process) raises, naming ROADMAP A7."""
+    import datetime
+
+    import torch.distributed as dist
+    from repro_torch.cluster import ProcessGroupSubstrate, SubstratePool
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                            world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        x = np.ones((8, 16), np.float32)
+        with pytest.raises(NotImplementedError, match="A7"):
+            cluster.sort(x, algorithm="auto", device="cpu",
+                         substrate=ProcessGroupSubstrate(8))
+        with pytest.raises(NotImplementedError, match="A7"):
+            cluster.join(*_tables(), algorithm="auto", t_machines=2,
+                         device="cpu",
+                         substrate=SubstratePool(make=ProcessGroupSubstrate))
+    finally:
+        dist.destroy_process_group()
+
+
 # The options of ROADMAP A12's serving half, which the port once
-# refused; the test keeps its name from then.
+# refused (the test keeps its name from then), and the one option of
+# A7 still to port: algorithm="auto" on a process group.
 @pytest.mark.parametrize("entry, change", [
     ("mistral-large-123b", {"ssm": SSMConfig()}),
     ("granite-moe-3b-a800m", {"attn_positions": (0,), "period": 2,
@@ -116,12 +141,17 @@ def _unported(entry, change):
                                                chunk=32)}),
     ("gemma3-12b", {"frontend": "vision", "n_frontend_tokens": 8}),
     ("llama3-405b", {"kv_quant": True}),
+    ("auto on a ProcessGroupSubstrate", None),
 ])
-def test_unported_options_name_their_roadmap_item(entry, change):
+def test_unported_options_name_their_roadmap_item(entry, change, tmp_path):
     """A12's options -- an SSM config, a period of attention and mamba
     (granite's MoE after both), the vision front end, the int8 KV cache
     -- on four architectures: ``generate`` on the CPU gives the
-    reference's tokens."""
+    reference's tokens.  A7's ``algorithm="auto"`` on a process group
+    raises, naming its ROADMAP item."""
+    if change is None:
+        _auto_on_a_process_group_names_a7(tmp_path)
+        return
     from repro.serve.engine import generate as jgenerate
     from repro_torch.serve import generate
     cfg, jcfg, jparams, params = _unported(entry, change)
