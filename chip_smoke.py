@@ -65,6 +65,10 @@ version there:
   and at gemma3-12b's window; SMMS and Terasort at t = 7, where the
   reference's float32 index arithmetic moves samples (ROADMAP C18),
   against the CPU;
+* the model on a mesh: ``build_train_step(cfg, mesh, ...)`` and
+  ``serve.generate(..., rules=)`` on ``launch.mesh.make_host_mesh()``
+  (one NCCL rank: a (1, 1) mesh), and ``python -m
+  repro_torch.launch.dryrun`` on a fake 16 x 16 mesh;
 * training (``launch.steps.build_train_step``, ``launch.train.train``):
   gemma-2b at full width and depth (18 layers, 2.51 G parameters, bf16
   weights, float32 AdamW moments, remat "full") on 4 x 2048 tokens a
@@ -159,7 +163,15 @@ without printing a result:
                 ranks sharing the card (32 machines each; this script
                 with --gloo-rank): SMMS flat and ragged and StatJoin,
                 every rank's whole result equal to its own batch run,
-                the collectives staged through pinned host memory
+                the collectives staged through pinned host memory; the
+                planner and the MoE dispatch on the group (the plan
+                cache cleared before every call): algorithm="auto" on
+                the t = 64 keys and on the Zipf tables, moe_dispatch in
+                its cluster and auto modes on a granite-moe-3b-a800m
+                layer of 8,192 tokens at published widths on the NCCL
+                rank, and the auto sort on the two Gloo ranks, each
+                bitwise its batch run (plan, sketch phases, every
+                output and report field), its launches the batch run's
      auto       algorithm="auto" (exchange="auto") on the uniform and
                 Zipf t=64 keys, and on the Zipf and scalar-skew join
                 tables at t=64: the plan equal to the CPU's (the sketch
@@ -236,6 +248,19 @@ without printing a result:
                 worked out from the shapes); mamba2-130m the same at 8 x
                 2048, 5 steps; SMMS length bucketing of 64 x 4,096
                 lengths equal to the CPU run (order, bucket ids, report)
+     mesh       the model on a mesh (launch.mesh.make_host_mesh(): a
+                (1, 1) ('data', 'model') mesh of one NCCL rank):
+                gemma-2b at full size trains 3 steps through
+                build_train_step(cfg, mesh, ...) (parameters, moments
+                and batches DTensors laid out by sharding/specs.py), its
+                losses against train_gemma2b's first three, the step
+                time and peak memory; gemma3-12b's generate with the
+                rules' cache layout giving serve_gemma3_12b's tokens;
+                and launch/dryrun.py, started in the background after
+                the build, on gemma-2b train_4k and gemma3-12b
+                decode_32k over a fake 16 x 16 mesh of 256 ranks: ok,
+                its per-device arguments_bytes equal to the bytes worked
+                out from the specs
   7. launches   per path of phases 4-6 (each run's counts set to 0 just
                 before it, read just after): each path launched exactly
                 the kernels of PATH_KERNELS, and every kernel ran
@@ -270,6 +295,7 @@ limit.
 """
 from __future__ import annotations
 
+import atexit
 import collections
 import contextlib
 import dataclasses
@@ -279,6 +305,7 @@ import json
 import math
 import os
 import pathlib
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -489,6 +516,18 @@ PATH_KERNELS = {
         "sort", "sort_payload", "sort_ragged", "sort_staged", "terasort",
         "statjoin", "randjoin", "small_sort", "small_sort_values",
         "gloo_sort", "gloo_sort_ragged", "gloo_statjoin")},
+    # the planner and the MoE dispatch on the group (the plan cache
+    # cleared before every call, so each sketches): the kernels of the
+    # batch run of the same call, which phase_multiproc reads; the Gloo
+    # ranks' auto sort the one NCCL rank's set
+    **{f"multiproc_{name}": set() for name in (
+        "sort_auto", "join_auto", "moe_cluster", "moe_auto",
+        "gloo_sort_auto")},
+    # the model on a mesh (phase_mesh): gemma-2b training and gemma3-12b's
+    # generate on a (1, 1) mesh of one NCCL rank, the flash kernel in
+    # every attention layer on the rank's local heads
+    "mesh_train_gemma2b": {"flash_attention"},
+    "mesh_serve_gemma3_12b": {"flash_attention"},
 }
 # path -> kernel -> launches, summed over the path's runs
 PATH_LAUNCHES = {path: collections.Counter() for path in PATH_KERNELS}
@@ -2383,13 +2422,15 @@ def cache_bytes(cfg, batch: int, max_seq: int) -> dict:
 
 
 def served(path: str, params, cfg, prompts: np.ndarray, n_new: int,
-           embeds=None) -> tuple:
-    """``serve.generate`` as one run of ``path``: the tokens (checked for
-    shape, type and range), the seconds and the peak memory."""
+           embeds=None, rules=None) -> tuple:
+    """``serve.generate`` as one run of ``path`` (on a mesh with
+    ``rules``): the tokens (checked for shape, type and range), the
+    seconds and the peak memory."""
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     tokens = on_path(path, lambda: serve.generate(
-        params, cfg, prompts, n_new, embeds=embeds, device=DEVICE))
+        params, cfg, prompts, n_new, embeds=embeds, device=DEVICE,
+        rules=rules))
     seconds = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     check(tokens.shape == (prompts.shape[0], n_new)
@@ -2447,7 +2488,8 @@ def phase_serve(smi: str) -> dict:
             "generate_first_call_s": generate_s, "prefill_ms": prefill_ms,
             "decode_step_ms": step_ms, "decode_step_median_ms": decode_ms,
             "max_memory_allocated_bytes": peak,
-            "prefill_vs_decode": errors, "planted_faults": faults}
+            "prefill_vs_decode": errors, "planted_faults": faults,
+            "tokens": tokens.tolist()}
 
 
 def teacher_forced(params, cfg, prompts: torch.Tensor, tokens: torch.Tensor,
@@ -3465,12 +3507,26 @@ MULTIPROC_JOINS = ("statjoin_zipf", "randjoin_zipf")
 
 
 def _report_fields(rep) -> dict:
-    """Every comparable field of a report, host values."""
+    """Every comparable field of a report, host values: the MoE
+    dispatch's and the planner's too (the plan's algorithm, topology and
+    every candidate's costs, the sketch round's phases)."""
     out = report_fields(rep)
     for key in ("boundaries", "exchange_topology",
-                "theoretical_workload_bound", "total_dropped"):
+                "theoretical_workload_bound", "total_dropped",
+                "dispatch_mode", "slot_workload", "expert_workload",
+                "k_slot", "k_expert", "capacity", "slot2expert",
+                "slot_replicas", "predicted_alpha", "predicted_k",
+                "predicted_k_network"):
         if hasattr(rep, key):
             out[key] = getattr(rep, key)
+    plan = getattr(rep, "query_plan", None)
+    if plan is not None:
+        out["plan"] = (plan.algorithm, plan.exchange, {
+            name: dataclasses.asdict(c)
+            for name, c in sorted(plan.candidates.items())})
+        out["sketch_phases"] = [(p.name, np.asarray(p.sent),
+                                 np.asarray(p.received))
+                                for p in rep.sketch_phases]
     return out
 
 
@@ -3491,6 +3547,8 @@ def _same_run(label: str, got, want) -> None:
     bitwise (sort keys and values, every JoinOutput field) and every
     report field."""
     (value, rep), (value_b, rep_b) = got, want
+    if isinstance(value, torch.Tensor):         # an MoE layer's y
+        value, value_b = (value,), (value_b,)
     check(len(value) == len(value_b)
           and all((a is None) == (b is None) for a, b in zip(value, value_b))
           and all(same_bits(a, b) for a, b in zip(_value_tensors(value),
@@ -3570,8 +3628,11 @@ def phase_multiproc(smi: str, errs: dict) -> dict:
     counted; every kernel call of one ragged run held against its plain
     version; the median of 3 beside the batch's.  Then two Gloo ranks
     on this card (:func:`gloo_rank_main`, 32 machines a rank): SMMS flat
-    and ragged and StatJoin, every rank's whole result equal to its own
-    batch run, whether the tape staged through the host, the ms."""
+    and ragged, the auto sort and StatJoin, every rank's whole result
+    equal to its own batch run, whether the tape staged through the
+    host, the ms.  The one rank also runs the planner and the MoE
+    dispatch on the group (:func:`multiproc_planner_calls`), their
+    launch sets those of their batch runs."""
     import datetime
 
     import torch.distributed as dist
@@ -3589,6 +3650,7 @@ def phase_multiproc(smi: str, errs: dict) -> dict:
                      ("multiproc_small_sort_values", {"values": vs})):
         calls[path] = (lambda pool, kw=kw: _forced(small, lambda: cluster.sort(
             xs, device=DEVICE, substrate=pool, **kw)), None)
+    calls.update(multiproc_planner_calls(x, joins["statjoin_zipf"]))
     out = {}
     backend = "nccl" if DEVICE == "cuda" else "gloo"
     with tempfile.TemporaryDirectory() as tmp:
@@ -3602,9 +3664,16 @@ def phase_multiproc(smi: str, errs: dict) -> dict:
             batch = SubstratePool()
             wants = {}
             for path, (run, twin) in calls.items():
-                want = wants.setdefault(
-                    "multiproc_sort" if twin is not None else path,
-                    (twin or run)(batch))
+                key = "multiproc_sort" if twin is not None else path
+                if key not in wants:
+                    torch.cuda.synchronize()
+                    cuda.reset_launches()
+                    wants[key] = (twin or run)(batch)
+                    torch.cuda.synchronize()
+                    if path in MULTIPROC_FROM_BATCH:
+                        PATH_KERNELS[path] = {k for k, n in
+                                              cuda.LAUNCHES.items() if n}
+                want = wants[key]
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 got = on_path(path, lambda: run(group))
@@ -3636,6 +3705,8 @@ def phase_multiproc(smi: str, errs: dict) -> dict:
             check(not group.stats().get("host_staged_runs"),
                   f"a {backend} rank staged through the host")
             out["group_runs"] = group.stats()["runs"]
+            PATH_KERNELS["multiproc_gloo_sort_auto"] = PATH_KERNELS[
+                "multiproc_sort_auto"]
             del wants
         finally:
             dist.destroy_process_group()
@@ -3646,6 +3717,51 @@ def phase_multiproc(smi: str, errs: dict) -> dict:
 def _forced(family, fn):
     with ops.force_sort_kernel(family):
         return fn()
+
+
+# the paths whose launch sets are those of the batch run of the same call
+MULTIPROC_FROM_BATCH = ("multiproc_sort_auto", "multiproc_join_auto",
+                        "multiproc_moe_cluster", "multiproc_moe_auto")
+
+
+def _fresh(fn):
+    """``fn()`` with the plan cache cleared first: every call sketches."""
+    from repro_torch import planner
+    planner.clear_plan_cache()
+    return fn()
+
+
+def multiproc_planner_calls(x, tables) -> dict:
+    """The planner and the MoE dispatch on the group: ``algorithm="auto"``
+    on the t = 64 sort keys and on the §5.2 Zipf tables; and
+    ``cluster.moe_dispatch`` in ``cluster`` and ``auto`` modes on one
+    granite-moe-3b-a800m layer at its published widths (bf16 experts,
+    float32 tokens, MOE_TOKENS over t = MOE_T).  Each call clears the
+    plan cache first, so each sketches on the substrate it is given."""
+    cfg = get_arch(MOE_ARCH)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    p = moe_layer_params(cfg.moe, cfg.d_model, cfg.param_dtype, DEVICE,
+                         gen)["uniform"]
+    xm = torch.randn((MOE_TOKENS[MOE_ARCH], cfg.d_model), generator=gen,
+                     device=DEVICE)
+    s, t = tables
+    rows = (np.arange(len(s), dtype=np.int32),
+            np.arange(len(t), dtype=np.int32))
+
+    def moe(mode):
+        return lambda pool: _fresh(lambda: cluster.moe_dispatch(
+            p, xm, cfg.moe, mode=mode, t_machines=MOE_T, device=DEVICE,
+            substrate=pool))
+
+    return {
+        "multiproc_sort_auto": (lambda pool: _fresh(lambda: cluster.sort(
+            x, algorithm="auto", seed=SEED, device=DEVICE, substrate=pool)),
+            None),
+        "multiproc_join_auto": (lambda pool: _fresh(lambda: cluster.join(
+            s, rows[0], t, rows[1], algorithm="auto", t_machines=JOIN_T,
+            seed=SEED, device=DEVICE, substrate=pool)), None),
+        "multiproc_moe_cluster": (moe("cluster"), None),
+        "multiproc_moe_auto": (moe("auto"), None)}
 
 
 def multiproc_gloo(smi: str, tmp: str, x: np.ndarray, tables) -> dict:
@@ -3734,6 +3850,9 @@ def gloo_rank_main(rank: int, world: int, root: str) -> None:
         x, device=DEVICE, substrate=pool, **kw))
     calls = {"multiproc_gloo_sort": (sort(), None),
              "multiproc_gloo_sort_ragged": (sort(backend="ragged"), sort()),
+             "multiproc_gloo_sort_auto": (lambda pool: _fresh(
+                 lambda: cluster.sort(x, algorithm="auto", seed=SEED,
+                                      device=DEVICE, substrate=pool)), None),
              "multiproc_gloo_statjoin": (lambda pool: cluster.join(
                  s, rows[0], t, rows[1], algorithm="statjoin",
                  t_machines=settings["join_t"], device=DEVICE,
@@ -5072,6 +5191,235 @@ def phase_train(smi: str, arch: str, path: str, batch: int,
             "flash_launches_per_step": flash[-1]}
 
 
+# ---------------------------------------------------------------------------
+# mesh: the model half of the process-group substrate (ROADMAP A7)
+# ---------------------------------------------------------------------------
+
+MESH_TRAIN_STEPS = 3
+# train_gemma2b's median step and peak memory without a mesh, first
+# measured on "NVIDIA H100 80GB HBM3, 700.00 W" (PERF.md), printed beside
+# this run's
+NO_MESH_STEP_MS, NO_MESH_PEAK_GB = 887.7, 37.70
+DRYRUN_CELLS = (("gemma-2b", "train_4k"), ("gemma3-12b", "decode_32k"))
+DRYRUN_WAIT_S = 600
+
+
+class _StandInMesh:
+    """The production (16, 16) mesh as the rules read it: its shape and
+    axis names, no ranks."""
+    shape, axis_names = (16, 16), ("data", "model")
+
+
+def spec_argument_bytes(cfg, shape_name: str) -> int:
+    """One device's argument bytes of the step on (16, 16), worked out
+    from the rules' specs and the leaves' shapes alone: the parameters,
+    and the moments, step and batch (train) or the tokens and the cache
+    (serving)."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.configs.shapes import input_specs
+    from repro_torch.sharding.specs import local_shape, make_rules
+    mesh = _StandInMesh()
+    rules = make_rules(mesh, cfg)
+    shape = SHAPES[shape_name]
+
+    def tree_bytes(tree, specs, itemsize=None) -> int:
+        if isinstance(tree, dict):
+            return sum(tree_bytes(tree[k], specs[k], itemsize) for k in tree)
+        if isinstance(tree, list):
+            return sum(tree_bytes(v, sp, itemsize)
+                       for v, sp in zip(tree, specs))
+        if not isinstance(tree, torch.Tensor):
+            return 0
+        return math.prod(local_shape(tree.shape, specs, mesh)) * (
+            itemsize or tree.element_size())
+
+    pshape = lm.params_shape(cfg)
+    pspecs = rules.param_specs(pshape)
+    total = tree_bytes(pshape, pspecs)
+    specs = input_specs(cfg, shape)
+    batch = lambda t: tree_bytes(t, rules.batch_spec(t.shape[0]))  # noqa
+    if shape.kind == "train":
+        return (total + 2 * tree_bytes(pshape, pspecs, 4) + 4
+                + batch(specs["tokens"]) + batch(specs["labels"]))
+    return (total + batch(specs["token" if shape.kind == "decode"
+                                else "tokens"])
+            + tree_bytes(specs["cache"], rules.cache_specs(specs["cache"])))
+
+
+def start_dryruns(out_dir: str) -> list:
+    """``python -m repro_torch.launch.dryrun`` for each of DRYRUN_CELLS,
+    started now in the background (the CPU traces them while the card
+    runs the other phases)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    procs = []
+    for arch, shape in DRYRUN_CELLS:
+        log = open(pathlib.Path(out_dir) / f"{arch}_{shape}.log", "w")
+        procs.append((arch, shape, log, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", "single", "--out", out_dir],
+            stdout=log, stderr=subprocess.STDOUT, env=env, cwd=str(ROOT))))
+
+    def stop():                 # a failed phase leaves none running
+        for _, _, _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+    atexit.register(stop)
+    return procs
+
+
+def collect_dryruns(procs: list, out_dir: str, smi: str) -> dict:
+    """Each dry run's record: ``ok``, and its per-device arguments_bytes
+    equal to :func:`spec_argument_bytes`."""
+    deadline = time.monotonic() + DRYRUN_WAIT_S
+    out = {}
+    try:
+        for arch, shape, log, p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            log.close()
+            text = (pathlib.Path(out_dir) / f"{arch}_{shape}.log").read_text()
+            check(p.returncode == 0, f"dryrun {arch} {shape} exited "
+                                     f"{p.returncode}:\n{text[-3000:]}")
+            rec = json.loads((pathlib.Path(out_dir)
+                              / f"{arch}_{shape}_single.json").read_text())
+            want = spec_argument_bytes(get_arch(arch), shape)
+            got = rec["memory_per_device"]["arguments_bytes"]
+            check(rec["status"] == "ok" and got == want,
+                  f"dryrun {arch} {shape}: status {rec['status']}, "
+                  f"arguments_bytes {got} != {want} from the specs")
+            mem = rec["memory_per_device"]
+            print(f"[mesh] dryrun {arch} {shape} on the fake 16 x 16 mesh "
+                  f"(256 ranks, the host's CPU): ok in {rec['compile_s']} s; "
+                  f"arguments_bytes {got} a device, from the specs {want}; "
+                  f"peak {mem['peak_bytes']}, fits 80 GiB "
+                  f"{mem['fits_80GiB_hbm']}; flops "
+                  f"{rec['cost_analysis_raw']['flops']:.4g}; collectives "
+                  f"{rec['collectives_prod_bytes']}; roofline dominant "
+                  f"{rec.get('roofline', {}).get('dominant')} ({smi})")
+            out[f"{arch} {shape}"] = {
+                "compile_s": rec["compile_s"], "arguments_bytes": got,
+                "spec_arguments_bytes": want, "memory_per_device": mem,
+                "flops": rec["cost_analysis_raw"]["flops"],
+                "collectives_prod_bytes": rec["collectives_prod_bytes"],
+                "roofline": rec.get("roofline")}
+    finally:
+        for _, _, log, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    return out
+
+
+def phase_mesh(smi: str, train_losses: list, serve_tokens: list,
+               dryruns: list, dryrun_dir: str) -> dict:
+    """The model on a mesh: ``launch.mesh.make_host_mesh()`` on one NCCL
+    rank is a (1, 1) ('data', 'model') mesh.  gemma-2b at full width and
+    depth trains MESH_TRAIN_STEPS steps through ``build_train_step(cfg,
+    mesh, ...)`` (parameters, moments and batches laid out by the rules,
+    DTensors of one shard), each loss against the first losses of
+    ``train_gemma2b``'s run without a mesh (the same seed, batches and
+    schedule); gemma3-12b's ``generate(..., rules=)`` at full width
+    against ``serve_gemma3_12b``'s tokens; then the dry runs'
+    records."""
+    import datetime
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import shard_batch, shard_params
+    from repro_torch.sharding import make_rules
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        if DEVICE == "cuda":
+            torch.cuda.set_device(0)
+        dist.init_process_group(
+            "nccl" if DEVICE == "cuda" else "gloo",
+            init_method=f"file://{tmp}/pg", world_size=1, rank=0,
+            timeout=datetime.timedelta(seconds=MULTIPROC_GROUP_TIMEOUT_S))
+        try:
+            mesh = make_host_mesh()
+            check(tuple(mesh.shape) == (1, 1) and mesh.device_type == DEVICE
+                  and mesh.mesh_dim_names == ("data", "model"),
+                  f"make_host_mesh() on one NCCL rank: {mesh}")
+            cfg = get_arch(TRAIN_ARCH)
+            shape = ShapeSpec("mesh_train_gemma2b", "train", TRAIN_SEQ,
+                              TRAIN_B)
+            adamw_cfg = AdamWConfig(lr=TRAIN_LR)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            params = lm_params(cfg, "mesh_train_gemma2b")[0]
+            bundle = build_train_step(
+                cfg, mesh, shape, remat="full", adamw=adamw_cfg,
+                lr_schedule=lambda s: cosine_schedule(
+                    s, TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS))
+            params = shard_params(bundle.rules, params)
+            opt = adamw_init(params, adamw_cfg)
+            pipe = TokenPipeline(cfg.vocab_size, TRAIN_B, TRAIN_SEQ,
+                                 seed=SEED)
+            losses, step_ms = [], []
+            for step in range(MESH_TRAIN_STEPS):
+                data = shard_batch(bundle.rules,
+                                   batch_on(pipe.batch_at(step), DEVICE))
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                params, opt, metrics = on_path(
+                    "mesh_train_gemma2b", lambda: bundle.fn(params, opt,
+                                                            data))
+                step_ms.append((time.monotonic() - t0) * 1e3)
+                losses.append(float(metrics["loss"]))
+            peak = torch.cuda.max_memory_allocated()
+            want = train_losses[:MESH_TRAIN_STEPS]
+            diff = max(abs(a - b) for a, b in zip(losses, want))
+            check(diff <= 1e-5 * max(abs(b) for b in want),
+                  f"mesh train: losses {losses} against {want} without a "
+                  f"mesh")
+            flash = PATH_LAUNCHES["mesh_train_gemma2b"]["flash_attention"]
+            check(flash == 2 * attention_layers(cfg) * MESH_TRAIN_STEPS,
+                  f"mesh train: {flash} flash launches in "
+                  f"{MESH_TRAIN_STEPS} steps")
+            median = float(np.median(step_ms[1:]))
+            print(f"[mesh] {cfg.name} trains {MESH_TRAIN_STEPS} steps on "
+                  f"make_host_mesh() = (1, 1) over one NCCL rank: losses "
+                  f"{losses}, without a mesh {want} (bitwise "
+                  f"{losses == want}, largest difference {diff}); a step "
+                  f"{median:.1f} ms (median of steps 2-{MESH_TRAIN_STEPS}; "
+                  f"the first {step_ms[0]:.1f}), peak memory "
+                  f"{peak / 1e9:.2f} GB; first measured without a mesh: "
+                  f"{NO_MESH_STEP_MS} ms, {NO_MESH_PEAK_GB} GB ({smi})")
+            out["train_gemma2b"] = {
+                "losses": losses, "losses_without_mesh": want,
+                "bitwise": losses == want, "largest_difference": diff,
+                "step_ms": step_ms, "step_median_ms": median,
+                "max_memory_allocated_bytes": peak}
+            del params, opt, bundle, metrics, data
+            torch.cuda.empty_cache()
+
+            cfg = get_arch(SERVE_ARCH)
+            params = lm_params(cfg, "mesh_serve_gemma3_12b")[0]
+            rules = make_rules(mesh, cfg)
+            prompts = np.random.default_rng(SEED).integers(
+                0, cfg.vocab_size, (SERVE_B, SERVE_PROMPT)).astype(np.int32)
+            tokens, seconds, peak = served(
+                "mesh_serve_gemma3_12b", shard_params(rules, params), cfg,
+                prompts, SERVE_NEW, rules=rules)
+            check(tokens.tolist() == serve_tokens,
+                  "mesh serve: gemma3-12b's tokens on the (1, 1) mesh differ "
+                  "from serve_gemma3_12b's without a mesh")
+            print(f"[mesh] {cfg.name} generate {SERVE_B} x {SERVE_PROMPT} + "
+                  f"{SERVE_NEW} with rules of the (1, 1) mesh: the tokens "
+                  f"of the run without a mesh; {seconds:.2f} s first call, "
+                  f"peak memory {peak / 2**30:.2f} GiB ({smi})")
+            out["serve_gemma3_12b"] = {"generate_first_call_s": seconds,
+                                       "max_memory_allocated_bytes": peak}
+            del params
+            torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    out["dryrun"] = collect_dryruns(dryruns, dryrun_dir, smi)
+    return out
+
+
 def phase_bucketing(smi: str) -> dict:
     """``data.smms_length_bucketing`` of BUCKETS x BUCKET_DOCS document
     lengths (numpy, 1 to 8192 tokens, from SEED) on the card against the
@@ -5899,6 +6247,8 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     build = phase_build()
+    dryrun_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    dryruns = start_dryruns(dryrun_dir)
     rng = np.random.default_rng(SEED)
     errs = phase_kernels(rng)
 
@@ -5942,6 +6292,9 @@ def main() -> None:
                 "train_mamba2": phase_train(smi, SSM_ARCH, "train_mamba2",
                                             TRAIN_SSM_B, TRAIN_SSM_STEPS),
                 "bucketing": phase_bucketing(smi)}
+    mesh = phase_mesh(smi, training["train_gemma2b"]["losses"],
+                      serving["tokens"], dryruns, dryrun_dir)
+    shutil.rmtree(dryrun_dir, ignore_errors=True)
     launches = phase_launches()
 
     times = phase_times(rng, smi)
@@ -5978,7 +6331,7 @@ def main() -> None:
     print(json.dumps({"build": build, "runs": runs, "joins": join_runs,
                       "serve": serving, "serve_granite": serving_moe,
                       "moe": moe_runs, **serving_rest, **training,
-                      "times": times,
+                      "mesh": mesh, "times": times,
                       "crossover": crossover}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -15,8 +15,14 @@ tensors, Python numbers or numpy arrays.  A bfloat16 leaf is saved
 through float32, which holds it exactly, and its manifest dtype stays
 ``bfloat16``.  :meth:`CheckpointManager.restore` fills the structure of
 ``like``, each leaf in ``like``'s dtype on ``device`` (None: the
-device of ``like``'s leaf).  There is no ``shardings=``: one card has
-no mesh (ROADMAP A7).
+device of ``like``'s leaf).
+
+On a mesh (DTensor leaves) a save is a collective: every rank gathers
+each leaf whole (``full_tensor``), rank 0 writes, and the ranks meet at
+a barrier before any returns.  A restore reads the whole leaves on every
+rank and lays each out as ``like``'s leaf is -- on the run's own mesh,
+whatever mesh saved it (the reference's elastic re-scale,
+``src/repro/ckpt/manager.py:88``), or whole where ``like`` is.
 """
 from __future__ import annotations
 
@@ -54,8 +60,16 @@ def _unflatten(like, leaves):
     return next(leaves)
 
 
+def _is_dtensor(leaf) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(leaf, DTensor)
+
+
 def _to_numpy(leaf) -> Tuple[np.ndarray, str]:
-    """(the array to save, its dtype's name)."""
+    """(the array to save, its dtype's name); a DTensor gathered whole
+    (a collective)."""
+    if _is_dtensor(leaf):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         name = str(t.dtype).replace("torch.", "")
@@ -78,13 +92,24 @@ class CheckpointManager:
     # ------------------------------------------------------------------
     def save(self, step: int, tree: Any) -> str:
         pairs = _flatten(tree)
+        final = self._path(step)
+        if any(_is_dtensor(leaf) for _, leaf in pairs):
+            import torch.distributed as dist
+            whole = [(p, _to_numpy(leaf)) for p, leaf in pairs]
+            if dist.get_rank() == 0:
+                self._write(step, whole)
+            dist.barrier()
+            return final
+        return self._write(step, [(p, _to_numpy(leaf)) for p, leaf in pairs])
+
+    def _write(self, step: int, pairs) -> str:
         tmp, final = self._path(step) + ".tmp", self._path(step)
         if os.path.exists(tmp):
             shutil.rmtree(tmp)
         os.makedirs(tmp)
         arrays, dtypes = {}, []
-        for i, (_, leaf) in enumerate(pairs):
-            arrays[f"leaf_{i}"], name = _to_numpy(leaf)
+        for i, (_, (array, name)) in enumerate(pairs):
+            arrays[f"leaf_{i}"] = array
             dtypes.append(name)
         np.savez(os.path.join(tmp, "leaves.npz"), **arrays)
         manifest = {"step": step, "paths": [p for p, _ in pairs],
@@ -119,8 +144,9 @@ class CheckpointManager:
     def restore(self, step: int, like: Any, device=None) -> Any:
         """The checkpoint of ``step`` in the structure of ``like``: each
         leaf a tensor of ``like``'s leaf's dtype on ``device`` (None:
-        that leaf's device).  Raises ``ValueError`` where the leaf
-        count or a shape differs."""
+        that leaf's device), a DTensor laid out as ``like``'s where that
+        is one.  Raises ``ValueError`` where the leaf count or a shape
+        differs."""
         path = self._path(step)
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
@@ -137,7 +163,13 @@ class CheckpointManager:
                         f"leaf {manifest['paths'][i]}: checkpoint shape "
                         f"{tuple(got.shape)}, expected {tuple(np.shape(ref))}")
                 t = torch.from_numpy(got)
-                if isinstance(ref, torch.Tensor):
+                if _is_dtensor(ref):
+                    from torch.distributed.tensor import distribute_tensor
+                    t = distribute_tensor(
+                        t.to(device=ref.device if device is None else device,
+                             dtype=ref.dtype),
+                        ref.device_mesh, ref.placements, src_data_rank=None)
+                elif isinstance(ref, torch.Tensor):
                     t = t.to(device=ref.device if device is None else device,
                              dtype=ref.dtype)
                 elif device is not None:

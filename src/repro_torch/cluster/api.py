@@ -35,8 +35,10 @@ Every algorithm runs on a substrate: ``substrate=`` takes a
 whole operands and gets the whole result), a provider -- any callable
 mapping an axis spec to one, a ``SubstratePool`` above all -- or None,
 the process-wide pool (``substrate.default_pool``).  ``algorithm="auto"``
-and ``moe_dispatch``'s ``cluster`` / ``auto`` modes run on a batch
-only (ROADMAP A7).  A provider is called with the axes
+and ``moe_dispatch``'s ``cluster`` / ``auto`` modes run their sketch
+round (and the dispatch) on the substrate too, on a process group as
+on a batch; the ranks agree on a plan-cache hit before they sketch.
+A provider is called with the axes
 each algorithm needs: ``(t,)`` for the flat sorts, the sketch and the
 1D joins, the staged grid's two named axes, RandJoin's ``(("a", a),
 ("b", b))``; the query engine hands its pool in this way.
@@ -98,18 +100,6 @@ def _as_tensor(a) -> torch.Tensor:
     return a if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a))
 
 
-def _refuse_process_group(substrate, t: int, what: str) -> None:
-    """The planner's sketch round and the MoE dispatch's exchange run on
-    a batch only: on a process-group substrate they raise, naming the
-    ROADMAP item that ports them."""
-    from .substrate import ProcessGroupSubstrate, resolve_substrate
-    if isinstance(resolve_substrate(substrate, t), ProcessGroupSubstrate):
-        raise NotImplementedError(
-            f"{what} on a ProcessGroupSubstrate is ROADMAP A7's next item "
-            f"(the planner's sketch and cluster.moe_dispatch across "
-            f"ranks); name the algorithm or run on a BatchedSubstrate")
-
-
 def _attach_plan(report, plan, sketch_phases) -> None:
     """Put the planner's decision and prediction on an AlphaKReport."""
     report.query_plan = plan
@@ -167,7 +157,6 @@ def sort(x, *, algorithm: str = "smms", r: int = 2, seed: int = 0,
     xt = torch.as_tensor(_x32(x)).to(dev).contiguous()
     vt = None if values is None else torch.as_tensor(_x32(values)).to(dev)
     if algorithm == AUTO:
-        _refuse_process_group(substrate, t, 'algorithm="auto"')
         from ..planner import plan_sort_query
         # the fingerprint reads the caller's host array; the sketch the
         # rows already on the device
@@ -234,7 +223,6 @@ def join(s_keys, s_rows, t_keys, t_rows, *, algorithm: str = "statjoin",
     """
     dev = resolve_device(device)
     if algorithm == AUTO:
-        _refuse_process_group(substrate, t_machines, 'algorithm="auto"')
         from ..planner import plan_join_query
         plan, sketch_phases = plan_join_query(
             s_keys, t_keys, t_machines=t_machines, mem_budget=mem_budget,
@@ -368,8 +356,6 @@ def moe_dispatch(params, x, cfg, *, mode: Optional[str] = None,
 
     plan = sketch_phases = None
     if mode in (AUTO, "cluster"):
-        _refuse_process_group(substrate, t_machines,
-                              f"moe_dispatch mode {mode!r}")
         if tt % t_machines:
             raise ValueError(
                 f"moe_dispatch mode {mode!r} shards tokens over machines: "

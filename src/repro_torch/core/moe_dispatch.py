@@ -1,9 +1,10 @@
 """Cluster-routed MoE expert dispatch: routing run as the paper's skew
 join through the instrumented exchange.
 
-Counterpart of ``src/repro/core/moe_dispatch.py``, batched over the t
-machines like the rest of the port's substrate (the reference's
-``lax.axis_index`` is ``arange(t)``):
+Counterpart of ``src/repro/core/moe_dispatch.py``, batched over the
+machines a substrate hands the body -- all t on a ``BatchedSubstrate``,
+t / world on each rank of a ``ProcessGroupSubstrate`` (the reference's
+``lax.axis_index`` is ``tape.axis_index``):
 
   Round 1   route each machine's tokens (top-k over the router logits),
             all-gather the per-expert and per-slot histograms
@@ -55,13 +56,14 @@ class MoeDispatchResult(NamedTuple):
 
 
 def _global_positions(ids: torch.Tensor, n: int, tape: CollectiveTape):
-    """(t, L) ids in [0, n) -> (global totals (n,), each entry's position
-    among the entries of its value over the machines in order): the
-    machines' histograms all-gathered, their exclusive prefix over the
-    machines added to the local exclusive position."""
-    counts = histogram(ids, n)                              # (t, n)
-    counts_all = tape.all_gather(counts, count=n)
+    """(rows, L) ids in [0, n) -> (global totals (n,), each entry's
+    position among the entries of its value over the machines in
+    order): the machines' histograms all-gathered, their exclusive
+    prefix over the machines added to the local exclusive position."""
+    counts = histogram(ids, n)                              # (rows, n)
+    counts_all = tape.all_gather(counts, count=n)           # (t, n)
     off = torch.cumsum(counts_all, dim=0, dtype=torch.int32) - counts_all
+    off = off[tape.axis_index(ids.shape[0], ids.device)]    # my machines'
     pos = exclusive_positions(ids, n) + torch.gather(off, 1, ids.long())
     return counts_all.sum(dim=0, dtype=torch.int32), pos
 
@@ -75,25 +77,32 @@ def moe_dispatch_shard(x: torch.Tensor, *, router: torch.Tensor,
                        act: str = "swiglu",
                        tape: Optional[CollectiveTape] = None
                        ) -> MoeDispatchResult:
-    """The t machines' dispatch body.  x: (t, m, d) tokens.
+    """The dispatch body of the machines this tape holds.  x: (rows, m,
+    d) tokens, rows = t on a batch, t / world on a rank of a group.
 
     ``slot2expert`` / ``slot_table`` / ``replicas`` are the StatJoin
     slot plan (:func:`repro_torch.models.moe.plan_slots`) on x's
     device; ``capacity_slot`` bounds the assignments a slot takes,
-    ``cap_pair`` the rows a (source, destination) tile carries.
+    ``cap_pair`` the rows a (source, destination) tile carries.  The
+    router and expert weights are the same on every machine and every
+    rank (each rank holds them whole), so they come in as keywords; a
+    machine's own ids come from ``tape.axis_index``.  The global totals
+    and the dropped count are whole on every machine
+    (``tape.replicated``).
     """
     tape = tape if tape is not None else CollectiveTape()
-    _, m, d = x.shape
+    rows, m, d = x.shape
     e, k = num_experts, top_k
     n_slots = e + extra_slots
     s_local = -(-n_slots // t)          # slots a machine (round-robin)
     dev = x.device
-    me = torch.arange(t, device=dev)
+    me = tape.axis_index(rows, dev)     # global machine ids
+    loc = torch.arange(rows, device=dev)
 
     with tape.phase(PHASES[0]):
-        gate_vals, ids = route(x, router, k)                # (t, m, K)
-        gates = torch.softmax(gate_vals, dim=-1).reshape(t, m * k)
-        flat_ids = ids.reshape(t, m * k)
+        gate_vals, ids = route(x, router, k)                # (rows, m, K)
+        gates = torch.softmax(gate_vals, dim=-1).reshape(rows, m * k)
+        flat_ids = ids.reshape(rows, m * k)
         tot_e, pos_in_e = _global_positions(flat_ids, e, tape)
         rho = pos_in_e % replicas[flat_ids.long()]      # StatJoin even split
         slot = slot_table[flat_ids.long(), rho.clamp(0, extra_slots).long()]
@@ -101,24 +110,26 @@ def moe_dispatch_shard(x: torch.Tensor, *, router: torch.Tensor,
 
     with tape.phase(PHASES[1]):
         owner = slot % t
-        rows_k = x.float()[:, :, None].expand(t, m, k, d).reshape(t, m * k, d)
+        rows_k = x.float()[:, :, None].expand(rows, m, k, d).reshape(
+            rows, m * k, d)
         payload = torch.cat([slot.float()[..., None], pos.float()[..., None],
                              rows_k], dim=2)
         routed = exchange_routed_rows(owner, payload, t=t, cap_pair=cap_pair,
                                       tape=tape)
-        valid = routed.recv_keys < PAD                  # (t, t, cap_pair)
+        valid = routed.recv_keys < PAD                  # (rows, t, cap_pair)
         slot_r = routed.recv_payload[..., 0].to(torch.int32)
         pos_r = routed.recv_payload[..., 1].to(torch.int32)
         keep_r = valid & (pos_r < capacity_slot)
         # slot s lives at local index s // t on machine s % t
         tgt = torch.where(keep_r, (slot_r // t) * capacity_slot + pos_r,
                           s_local * capacity_slot)      # trash row last
-        rows = s_local * capacity_slot + 1
-        flat_tgt = (me[:, None, None] * rows + tgt.long()).reshape(-1)
-        buf = torch.zeros((t * rows, d), dtype=torch.float32, device=dev)
+        buf_rows = s_local * capacity_slot + 1
+        flat_tgt = (loc[:, None, None] * buf_rows + tgt.long()).reshape(-1)
+        buf = torch.zeros((rows * buf_rows, d), dtype=torch.float32,
+                          device=dev)
         buf.index_add_(0, flat_tgt, routed.recv_payload[..., 2:].reshape(-1, d))
-        buf = buf.reshape(t, rows, d)[:, :-1].reshape(t, s_local,
-                                                      capacity_slot, d)
+        buf = buf.reshape(rows, buf_rows, d)[:, :-1].reshape(
+            rows, s_local, capacity_slot, d)
         recv_drop = (valid & ~keep_r).sum(dim=(1, 2))
         dropped = tape.psum(routed.local_drop + recv_drop).to(torch.int32)
         kept = keep_r.sum(dim=(1, 2), dtype=torch.int32)
@@ -126,24 +137,25 @@ def moe_dispatch_shard(x: torch.Tensor, *, router: torch.Tensor,
     with tape.phase(PHASES[2]):
         my_slots = torch.arange(s_local, device=dev)[None] * t + me[:, None]
         exp_ids = slot2expert[my_slots.clamp(0, n_slots - 1)].long()
-        # one machine's slots at a time: the gathered weights of all t
-        # machines' slots would be t times one machine's
+        # one machine's slots at a time: the gathered weights of all the
+        # machines' slots would be rows times one machine's
         out_buf = torch.stack([
             expert_ffn(buf[i], w_gate[exp_ids[i]], w_up[exp_ids[i]],
-                       w_down[exp_ids[i]], act) for i in range(t)])
-        out_flat = torch.cat([out_buf.reshape(t, -1, d),
-                              out_buf.new_zeros((t, 1, d))], dim=1)
-        back = out_flat[me[:, None, None], tgt.long()]  # (t, t, cap_pair, d)
-        valid_per_src = valid.sum(dim=2)                # (t_dst, t_src)
-        sent_back = valid_per_src.sum(dim=1) - valid_per_src[me, me]
+                       w_down[exp_ids[i]], act) for i in range(rows)])
+        out_flat = torch.cat([out_buf.reshape(rows, -1, d),
+                              out_buf.new_zeros((rows, 1, d))], dim=1)
+        back = out_flat[loc[:, None, None], tgt.long()]  # (rows, t, cap, d)
+        valid_per_src = valid.sum(dim=2)                # (rows, t_src)
+        sent_back = valid_per_src.sum(dim=1) - valid_per_src[loc, me]
         # the rows a machine sent that landed (the pair capacity clips
         # them) come back to it: the return hop's received count
         recv_back = routed.lens.clamp(max=cap_pair).sum(dim=1)
         y_rows = return_routed_rows(back, routed, tape=tape, sent=sent_back,
-                                    received=recv_back)  # (t, m*K, d)
+                                    received=recv_back)  # (rows, m*K, d)
         w = gates * (pos < capacity_slot).to(gates.dtype)
-        y = (y_rows * w[..., None]).reshape(t, m, k, d).sum(dim=2)
-    return MoeDispatchResult(y.to(x.dtype), dropped, kept, tot_s, tot_e)
+        y = (y_rows * w[..., None]).reshape(rows, m, k, d).sum(dim=2)
+    return MoeDispatchResult(y.to(x.dtype), tape.replicated(dropped), kept,
+                             tape.replicated(tot_s), tape.replicated(tot_e))
 
 
 def cluster_moe_dispatch(params, x: torch.Tensor, cfg, *, t_machines: int,

@@ -1,9 +1,15 @@
-"""The staged exchange's shard factorization and its device mesh.
+"""Production and host meshes, and the staged exchange's shard
+factorization and its device mesh.
 
-A copy of the factorization half of ``src/repro/launch/mesh.py``
-(``STAGED_AXIS_NAMES`` :20, ``factor_shards`` :23, ``staged_axes``
-:44, ``make_staged_mesh`` :54); the port imports nothing of the
-reference package.  The shard axis t is factored into t = t1 * t2 so
+Counterpart of ``src/repro/launch/mesh.py`` (``STAGED_AXIS_NAMES`` :20,
+``factor_shards`` :23, ``staged_axes`` :44, ``make_staged_mesh`` :54,
+``make_production_mesh`` :68, ``make_host_mesh`` :83); the port imports
+nothing of the reference package.  Every mesh is a ``DeviceMesh`` over
+the default process group's ranks in rank order
+(``cluster.compat.make_mesh``), which the caller initialises: a rank a
+card (NCCL; ``torch.cuda.set_device`` first), Gloo ranks on the CPU, or
+a fake group of 256 / 512 ranks in one process
+(``launch/dryrun.py``).  The shard axis t is factored into t = t1 * t2 so
 one t-way all-to-all becomes two ~sqrt(t)-way exchanges.  Only
 balanced power-of-two factorizations are produced; anything else falls
 back to the flat topology with a warning -- the staged path is an
@@ -11,10 +17,6 @@ optimization, not a requirement.  Machine g = i1 * t2 + i2 sits at
 (i1, i2) of the (t1, t2) grid, on a batch (``BatchedSubstrate``) and
 across the ranks of a process group (``ProcessGroupSubstrate``) alike;
 :func:`make_staged_mesh` is the grid as a ``DeviceMesh`` of t ranks.
-
-The reference's ``make_production_mesh`` and ``make_host_mesh`` belong
-to the model half of the multi-process substrate (ROADMAP A7) and are
-not here.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ import warnings
 from typing import Optional, Tuple
 
 __all__ = ["STAGED_AXIS_NAMES", "factor_shards", "staged_axes",
-           "make_staged_mesh"]
+           "make_staged_mesh", "make_production_mesh", "make_host_mesh"]
 
 STAGED_AXIS_NAMES = ("i1", "i2")
 
@@ -71,3 +73,41 @@ def make_staged_mesh(t: int, names: Tuple[str, str] = STAGED_AXIS_NAMES,
     if fs is None:
         return make_mesh((int(t),), (names[0],), device_type)
     return make_mesh(fs, names, device_type)
+
+
+def _device_type() -> str:
+    """The device type of the default group's ranks: "cuda" under NCCL,
+    "cpu" otherwise (Gloo, the dry run's fake group)."""
+    import torch.distributed as dist
+    return "cuda" if "nccl" in str(dist.get_backend()).lower() else "cpu"
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type=None):
+    """16x16 = 256 ranks per pod; multi_pod adds a 2-pod 'pod' axis.
+
+    'pod'   -- pure data parallelism,
+    'data'  -- batch + FSDP,
+    'model' -- TP / EP / sequence-sharded KV.
+
+    The default group must have 256 (512) ranks."""
+    from ..cluster.compat import make_mesh
+
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, device_type or _device_type())
+
+
+def make_host_mesh(t: int = 8, device_type=None):
+    """A small ('data', 'model') mesh over the default group's ranks (the
+    reference counts ``jax.devices()``): min(t, world) ranks, half of
+    them (at least one) on 'data'.  One card: a (1, 1) mesh."""
+    import torch.distributed as dist
+
+    from ..cluster.compat import make_mesh
+
+    n = dist.get_world_size()
+    t = min(t, n)
+    data = max(1, t // 2) if t > 1 else 1
+    model = t // data
+    return make_mesh((data, model), ("data", "model"),
+                     device_type or _device_type())

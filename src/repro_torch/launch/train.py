@@ -9,6 +9,13 @@ its fault-tolerance model:
 * the data pipeline is stateless (step -> batch is pure), so a restart
   needs nothing beyond the step counter.
 
+``mesh``: None, or a ``DeviceMesh`` (``launch.mesh.make_host_mesh``):
+every rank builds the same weights and the same global batches from the
+seed, as ``ProcessGroupSubstrate`` takes whole operands on every rank,
+and keeps its shards (``launch.steps.shard_params`` / ``shard_batch``);
+the moments follow the parameters, and a checkpoint is saved whole and
+restored onto whatever mesh the run has.
+
 Added: ``device`` (None: the card, raising without one), and
 ``params=`` / ``pipeline=``, which inject the initial parameters (a
 tree of the port's layout, e.g. ``models.convert.
@@ -38,7 +45,7 @@ from ..data.pipeline import TokenPipeline
 from ..models.convert import tree_map
 from ..models.model import init_params
 from ..optim.adamw import AdamWConfig, adamw_init, cosine_schedule
-from .steps import build_train_step
+from .steps import build_train_step, shard_batch, shard_params
 
 __all__ = ["train", "batch_on"]
 
@@ -70,6 +77,7 @@ def train(cfg: ArchConfig, steps: int, *, mesh=None, batch: int = 8,
                              dev)
     else:
         params = tree_map(lambda p: p.detach().to(dev).clone(), params)
+    params = shard_params(bundle.rules, params)
     opt = adamw_init(params, adamw)
     start_step = 0
     manager = CheckpointManager(ckpt_dir) if ckpt_dir else None
@@ -85,7 +93,8 @@ def train(cfg: ArchConfig, steps: int, *, mesh=None, batch: int = 8,
     # monotonic: tok/s must survive wall-clock (NTP) steps mid-run
     t0 = time.monotonic()
     for step in range(start_step, steps):
-        data = batch_on(pipeline.batch_at(step), dev)
+        data = shard_batch(bundle.rules,
+                           batch_on(pipeline.batch_at(step), dev))
         params, opt, metrics = bundle.fn(params, opt, data)
         loss = float(metrics["loss"])
         losses.append(loss)

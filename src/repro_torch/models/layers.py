@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 __all__ = ["rms_norm", "rope", "gated_mlp", "init_dense", "init_mlp",
-           "chunked_cross_entropy"]
+           "chunked_cross_entropy", "cross_entropy_sums"]
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
@@ -102,6 +102,62 @@ def _chunk_loss(x: torch.Tensor, w_unembed: torch.Tensor,
             valid.float().sum())
 
 
+def _chunk_loss_vocab_parallel(x: torch.Tensor, w_unembed: torch.Tensor,
+                               labels: torch.Tensor,
+                               vocab_size: Optional[int], par):
+    """:func:`_chunk_loss` with the vocabulary split over 'model': this
+    rank's ``w_unembed`` columns are [rank * v, (rank + 1) * v); the
+    log-sum-exp's maximum and sum and the labels' logits are reduced
+    over the ranks (``x`` entered the region with ``Par.enter``)."""
+    from ..sharding.parallel import all_reduce_, reduce_from
+    v = w_unembed.shape[1]
+    lo = par.rank * v
+    logits = (x @ w_unembed).float()
+    col = lo + torch.arange(v, device=x.device)
+    if vocab_size is not None:
+        logits = torch.where(col >= vocab_size, -1e30, logits)
+    mx = all_reduce_(logits.detach().amax(dim=-1), par.group,
+                     torch.distributed.ReduceOp.MAX)
+    se = reduce_from(torch.exp(logits - mx[..., None]).sum(dim=-1),
+                     par.group)
+    lse = torch.log(se) + mx
+    rel = labels.long() - lo
+    mine = (rel >= 0) & (rel < v)
+    picked = torch.gather(logits, -1, rel.clamp(0, v - 1)[..., None])[..., 0]
+    picked = reduce_from(torch.where(mine, picked, 0.0), par.group)
+    valid = labels >= 0
+    return (torch.where(valid, lse - picked, 0.0).sum(),
+            valid.float().sum())
+
+
+def cross_entropy_sums(x: torch.Tensor, w_unembed: torch.Tensor,
+                       labels: torch.Tensor, chunk: int = 512,
+                       vocab_size: Optional[int] = None, par=None):
+    """(summed loss, labelled count) of :func:`chunked_cross_entropy`,
+    chunk by chunk; with ``par`` on, the vocabulary split over 'model'
+    (:func:`_chunk_loss_vocab_parallel`)."""
+    s = x.shape[1]
+    chunk = min(chunk, s)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    count = torch.zeros((), dtype=torch.float32, device=x.device)
+    grad = torch.is_grad_enabled() and (x.requires_grad
+                                        or w_unembed.requires_grad)
+    fn = _chunk_loss
+    extra = ()
+    if par is not None and par.on:
+        fn, extra = _chunk_loss_vocab_parallel, (par,)
+    for lo in range(0, s, chunk):
+        hi = min(s, lo + chunk)
+        args = (x[:, lo:hi], w_unembed, labels[:, lo:hi], vocab_size) + extra
+        if grad:
+            part, n = checkpoint(fn, *args, use_reentrant=False)
+        else:
+            part, n = fn(*args)
+        total = total + part
+        count = count + n
+    return total, count
+
+
 def chunked_cross_entropy(x: torch.Tensor, w_unembed: torch.Tensor,
                           labels: torch.Tensor, chunk: int = 512,
                           vocab_size: Optional[int] = None) -> torch.Tensor:
@@ -117,19 +173,6 @@ def chunked_cross_entropy(x: torch.Tensor, w_unembed: torch.Tensor,
     which undoes the chunking; so only one chunk's logits live at a
     time, forward or backward.
     """
-    s = x.shape[1]
-    chunk = min(chunk, s)
-    total = torch.zeros((), dtype=torch.float32, device=x.device)
-    count = torch.zeros((), dtype=torch.float32, device=x.device)
-    grad = torch.is_grad_enabled() and (x.requires_grad
-                                        or w_unembed.requires_grad)
-    for lo in range(0, s, chunk):
-        hi = min(s, lo + chunk)
-        args = (x[:, lo:hi], w_unembed, labels[:, lo:hi], vocab_size)
-        if grad:
-            part, n = checkpoint(_chunk_loss, *args, use_reentrant=False)
-        else:
-            part, n = _chunk_loss(*args)
-        total = total + part
-        count = count + n
+    total, count = cross_entropy_sums(x, w_unembed, labels, chunk,
+                                      vocab_size)
     return total / torch.clamp_min(count, 1.0)

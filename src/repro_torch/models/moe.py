@@ -39,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import MoEConfig
+from ..sharding.parallel import all_reduce_, copy_to
 from .layers import init_dense
 
 __all__ = ["MoEStats", "init_moe", "plan_slots", "route", "moe_layer",
@@ -156,13 +157,25 @@ def expert_ffn(buf: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
 
 def moe_layer(params, x: torch.Tensor, cfg: MoEConfig, act: str = "swiglu",
               groups: int = 1, rng: Optional[torch.Generator] = None,
-              draws: Optional[torch.Tensor] = None):
+              draws: Optional[torch.Tensor] = None, *, par=None,
+              total_groups: Optional[int] = None, count_groups=()):
     """x: (..., d) -> ((..., d), MoEStats), dense dispatch.
 
     ``groups``: tokens are dispatched in ``groups`` groups (the
     reference's data shards): positions in a slot count within a group,
     and the ``alpha_k`` capacity is split per group with 25% slack.  A
     count that does not divide the tokens warns and runs one group.
+
+    On a mesh (``par``, ``sharding.parallel.Par``) x holds this rank's
+    ``groups`` of the ``total_groups`` groups the reference dispatches
+    (the batch axes in ``count_groups`` split the rest), entered into
+    the 'model' region; the routing histogram is summed over
+    ``count_groups``, so the slot plan is the whole batch's.  The
+    experts are split over 'model' by the rules: whole experts (EP,
+    where 'model' divides E: this rank runs its own experts' slots and
+    every extra slot that lands on one of them) or each expert's d_ff
+    (TP).  Either way y is this rank's partial sum, for the caller to
+    reduce.
     ``replica_choice="random"`` takes its (groups, T/groups * K) draws
     in [0, 2^30) as ``draws`` (how the tests hand in the reference's
     ``jax.random.randint``), or draws them from the ``rng`` generator.
@@ -179,6 +192,16 @@ def moe_layer(params, x: torch.Tensor, cfg: MoEConfig, act: str = "swiglu",
     tt = xt.shape[0]
     e, k = cfg.num_experts, cfg.top_k
     dev = x.device
+    if total_groups is None:
+        total_groups = groups
+    router = params["router"]
+    w_gate, w_up, w_down = params["w_gate"], params["w_up"], params["w_down"]
+    ep = None
+    if par is not None:
+        router = copy_to(par.w(router), par.group)
+        w_gate, w_up, w_down = (par.w(w) for w in (w_gate, w_up, w_down))
+        if par.on and e % par.m == 0:
+            ep = (par.rank * (e // par.m), e // par.m)
     if tt % groups:
         warnings.warn(
             f"groups={groups} does not divide the token count {tt}; "
@@ -187,13 +210,15 @@ def moe_layer(params, x: torch.Tensor, cfg: MoEConfig, act: str = "swiglu",
         groups = 1
     tg = tt // groups
 
-    gate_vals, ids = route(xt, params["router"], k)       # (T, K)
+    gate_vals, ids = route(xt, router, k)                 # (T, K)
     gates = torch.softmax(gate_vals, dim=-1)
     flat_ids = ids.reshape(groups, tg * k)
 
     if cfg.dispatch == "alpha_k":
         n_slots = e + cfg.extra_slots
         counts = histogram(flat_ids.reshape(-1), e)
+        for g in count_groups:          # the whole batch's histogram
+            all_reduce_(counts, g)
         slot2expert, replicas, slot_table = plan_slots(counts, e,
                                                        cfg.extra_slots)
         pos_in_e = exclusive_positions(flat_ids, e)        # (G, Tg*K)
@@ -221,7 +246,7 @@ def moe_layer(params, x: torch.Tensor, cfg: MoEConfig, act: str = "swiglu",
             cap_mult = cfg.alpha_k_cap
         capacity = max(1, math.ceil(cap_mult * tt * k / n_slots
                                     / groups
-                                    * (1.25 if groups > 1 else 1.0)))
+                                    * (1.25 if total_groups > 1 else 1.0)))
     else:
         n_slots = e
         slot = flat_ids
@@ -248,8 +273,22 @@ def moe_layer(params, x: torch.Tensor, cfg: MoEConfig, act: str = "swiglu",
     buf = buf.reshape(n_slots, groups * capacity, d)
 
     s2e = slot2expert.long()
-    out_buf = expert_ffn(buf, params["w_gate"][s2e], params["w_up"][s2e],
-                         params["w_down"][s2e], act)
+    if ep is None:
+        out_buf = expert_ffn(buf, w_gate[s2e], w_up[s2e], w_down[s2e], act)
+    else:
+        # this rank's experts' own slots, and every extra slot masked by
+        # whether its expert is one of them: static shapes
+        lo, el = ep
+        idx = torch.cat([torch.arange(lo, lo + el, device=dev),
+                         torch.arange(e, n_slots, device=dev)])
+        sel = s2e[idx]
+        mine = (sel >= lo) & (sel < lo + el)
+        wi = (sel - lo).clamp(0, el - 1)
+        part = expert_ffn(buf[idx], w_gate[wi], w_up[wi], w_down[wi], act)
+        part = part * mine[:, None, None].to(part.dtype)
+        out_buf = torch.zeros((n_slots,) + tuple(part.shape[1:]),
+                              dtype=part.dtype, device=dev
+                              ).index_copy(0, idx, part)
     out_buf = out_buf.reshape(n_slots, groups, capacity, d).transpose(0, 1)
     out_buf = out_buf.reshape(groups, n_slots * capacity, d)
     safe = torch.where(keep, slot * capacity + pos, 0).long()

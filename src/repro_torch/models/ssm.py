@@ -32,8 +32,8 @@ import torch.nn.functional as F
 from ..configs.base import SSMConfig
 from .layers import init_dense, rms_norm
 
-__all__ = ["MambaState", "init_mamba", "mamba_block", "mamba_decode_step",
-           "init_mamba_state", "ssd_chunked"]
+__all__ = ["MambaState", "init_mamba", "mamba_block", "mamba_block_tp",
+           "mamba_decode_step", "init_mamba_state", "ssd_chunked"]
 
 
 class MambaState(NamedTuple):
@@ -178,20 +178,32 @@ def mamba_block(params, x: torch.Tensor, s: SSMConfig,
 
     One token with a state is the recurrent decode step; anything else
     the chunked scan from ``state`` (zeros when None)."""
-    bsz, seq, d = x.shape
+    d = x.shape[-1]
     di, nh, ns = s.d_inner(d), s.n_heads(d), s.d_state
-
     proj = x @ params["in_proj"]
     z, xi, b_in, c_in, dt = torch.split(proj, [di, di, ns, ns, nh], dim=-1)
+    y, new = _mix(z, xi, b_in, c_in, dt, params["conv_w"], params["conv_b"],
+                  params["A_log"], params["D"], params["dt_bias"], s, state,
+                  lambda v: rms_norm(v, params["norm_scale"]))
+    return y @ params["out_proj"], new
 
+
+def _mix(z, xi, b_in, c_in, dt, conv_w, conv_b, a_log, d_skip, dt_bias,
+         s: SSMConfig, state: Optional[MambaState], norm):
+    """The mixer between the projections, on the heads of ``xi`` (all of
+    them, or a rank's under tensor parallelism): the causal conv of x,
+    B and C, the SSD scan (or the decode step), the gate and ``norm``.
+    Returns (the (B, S, heads * head_dim) rows for the out projection,
+    the new state)."""
+    bsz, seq, dl = xi.shape
+    nh, ns = dt.shape[-1], b_in.shape[-1]
     conv_in = torch.cat([xi, b_in, c_in], dim=-1)
     conv_out, conv_state = _causal_conv(
-        conv_in, params["conv_w"], params["conv_b"],
-        None if state is None else state.conv)
-    xi, b_in, c_in = torch.split(conv_out, [di, ns, ns], dim=-1)
+        conv_in, conv_w, conv_b, None if state is None else state.conv)
+    xi, b_in, c_in = torch.split(conv_out, [dl, ns, ns], dim=-1)
 
-    dt = _softplus(dt.float() + params["dt_bias"][None, None])
-    a_neg = -torch.exp(params["A_log"])
+    dt = _softplus(dt.float() + dt_bias[None, None])
+    a_neg = -torch.exp(a_log)
     if seq == 1 and state is not None:
         # O(1) recurrent decode: h' = h exp(dt A) + B dt x;  y = C h' + D x
         xh = xi.reshape(bsz, nh, s.head_dim).float()      # (B, H, P)
@@ -201,16 +213,68 @@ def mamba_block(params, x: torch.Tensor, s: SSMConfig,
         ssm_state = state.ssm * da[:, :, None, None] + upd  # (B, H, P, N)
         cvec = c_in[:, 0].float()[:, None, :, None]       # (B, 1, N, 1)
         y = ((ssm_state @ cvec)[..., 0]
-             + xh * params["D"][None, :, None])[:, None]  # (B, 1, H, P)
-        y = y.to(x.dtype)
+             + xh * d_skip[None, :, None])[:, None]       # (B, 1, H, P)
+        y = y.to(xi.dtype)
     else:
         y, ssm_state = ssd_chunked(
             xi.reshape(bsz, seq, nh, s.head_dim), dt, a_neg, b_in, c_in,
-            params["D"], s.chunk, None if state is None else state.ssm)
+            d_skip, s.chunk, None if state is None else state.ssm)
 
-    y = y.reshape(bsz, seq, di)
-    y = rms_norm(y * F.silu(z.float()).to(y.dtype), params["norm_scale"])
-    return y @ params["out_proj"], MambaState(conv_state, ssm_state)
+    y = y.reshape(bsz, seq, dl)
+    y = norm(y * F.silu(z.float()).to(y.dtype))
+    return y, MambaState(conv_state, ssm_state)
+
+
+def mamba_block_tp(params, h: torch.Tensor, s: SSMConfig, par,
+                   state: Optional[MambaState] = None
+                   ) -> Tuple[torch.Tensor, MambaState]:
+    """The mixer with its heads split over 'model': this rank's heads
+    [r H/m, (r+1) H/m) and their channels, B and C whole.
+
+    ``h``: (B, S, d) entered into the region (``Par.enter``).  The rules
+    split ``in_proj`` and ``conv_w`` into contiguous column blocks that
+    cut across the z | x | B | C | dt segments, so both are gathered
+    whole over 'model' (``gather_to``) and this rank's columns picked;
+    the replicated per-head parameters are sliced after ``copy_to``; the
+    gated norm sums its squares over the ranks; ``out_proj``'s rows are
+    this rank's channels.  ``state``: this rank's SSM heads and the
+    whole conv state (the caller gathers and re-splits the cache's
+    channel shards).  Returns (this rank's partial (B, S, d), the new
+    state: the rank's SSM heads and its conv channels x | B | C)."""
+    from ..sharding.parallel import copy_to, gather_to, reduce_from
+    d = h.shape[-1]
+    di, nh, ns, hp = s.d_inner(d), s.n_heads(d), s.d_state, s.head_dim
+    if nh % par.m:
+        raise ValueError(f"{nh} SSM heads do not split over a {par.m}-way "
+                         f"'model' axis")
+    hl = nh // par.m
+    lo, hi = par.rank * hl, (par.rank + 1) * hl
+    ch = torch.arange(lo * hp, hi * hp, device=h.device)
+    bc = torch.arange(di, di + 2 * ns, device=h.device)
+    cols = torch.cat([ch, di + ch, di + bc,
+                      2 * di + 2 * ns + torch.arange(lo, hi, device=h.device)])
+    w_in = gather_to(par.w(params["in_proj"]), 1, par.group)[:, cols]
+    conv_ch = torch.cat([ch, bc])
+    conv_w = gather_to(par.w(params["conv_w"]), 1, par.group)[:, conv_ch]
+    rep = {n: copy_to(par.w(params[n]), par.group)
+           for n in ("conv_b", "A_log", "D", "dt_bias", "norm_scale")}
+    dl = hl * hp
+    z, xi, b_in, c_in, dt = torch.split(h @ w_in, [dl, dl, ns, ns, hl],
+                                        dim=-1)
+    scale = rep["norm_scale"][lo * hp:hi * hp]
+
+    def norm(v, eps: float = 1e-6):
+        vf = v.float()
+        # every rank's channels read the sum: the backward sums too
+        ss = copy_to(reduce_from((vf * vf).sum(dim=-1, keepdim=True),
+                                 par.group), par.group)
+        return ((vf * torch.rsqrt(ss / di + eps))
+                * (1.0 + scale.float())).to(v.dtype)
+
+    y, new = _mix(z, xi, b_in, c_in, dt, conv_w, rep["conv_b"][conv_ch],
+                  rep["A_log"][lo:hi], rep["D"][lo:hi],
+                  rep["dt_bias"][lo:hi], s, state, norm)
+    return y @ par.w(params["out_proj"]), new
 
 
 def init_mamba_state(batch: int, d: int, s: SSMConfig,

@@ -66,19 +66,25 @@ def adamw_init(params, cfg: AdamWConfig = AdamWConfig()):
     """Zeroed moments in ``cfg.moment_dtype`` beside each parameter, and
     the step count, an int32 scalar on the parameters' device."""
     def zeros(p: torch.Tensor) -> torch.Tensor:
-        return torch.zeros(p.shape, dtype=cfg.moment_dtype, device=p.device)
+        # zeros_like: a DTensor parameter's moments are laid out as it is
+        return torch.zeros_like(p, dtype=cfg.moment_dtype,
+                                memory_format=torch.contiguous_format)
 
     device = tree_leaves(params)[0].device
     return {"step": torch.zeros((), dtype=torch.int32, device=device),
             "m": tree_map(zeros, params), "v": tree_map(zeros, params)}
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, reduce=None) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's float32 sum of squares,
-    added leaf by leaf as the reference's Python ``sum``."""
+    added leaf by leaf as the reference's Python ``sum``.  ``reduce``
+    (on a mesh) maps the (leaves,) local sums of squares of local shards
+    to the whole leaves' sums (``launch.steps``)."""
+    sqs = [torch.sum(torch.square(leaf.float())) for leaf in tree_leaves(tree)]
+    if reduce is not None:
+        sqs = list(reduce(torch.stack(sqs)).unbind())
     total = None
-    for leaf in tree_leaves(tree):
-        sq = torch.sum(torch.square(leaf.float()))
+    for sq in sqs:
         total = sq if total is None else total + sq
     return torch.sqrt(total)
 
@@ -109,16 +115,18 @@ def _update_leaf(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
 
 
 def adamw_update(params, grads, state, cfg: AdamWConfig = AdamWConfig(),
-                 lr: Optional[Union[float, torch.Tensor]] = None
-                 ) -> Tuple[Any, Any, torch.Tensor]:
+                 lr: Optional[Union[float, torch.Tensor]] = None,
+                 norm_reduce=None) -> Tuple[Any, Any, torch.Tensor]:
     """One AdamW step, in place.  Returns (params, state, grad_norm): the
     trees given, updated, ``state["step"]`` replaced by step + 1, and
-    the float32 global norm of ``grads`` before clipping."""
+    the float32 global norm of ``grads`` before clipping (``norm_reduce``
+    as :func:`global_norm`'s ``reduce``, where the trees are a rank's
+    local shards)."""
     step = state["step"] + 1
     lr = cfg.lr if lr is None else lr
     if isinstance(lr, torch.Tensor):
         lr = lr.to(device=step.device, dtype=torch.float32)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, norm_reduce)
     scale = None
     if cfg.clip_norm is not None:
         clip = torch.full((), cfg.clip_norm, dtype=torch.float32,

@@ -15,6 +15,13 @@ the cache skips (ROADMAP C17).  The cache is a bounded LRU
 
 ``planner_stats()`` exposes the sketch-run / cache-hit counters, so a
 caller can see the cache short-circuit the sketch.
+
+On a ``ProcessGroupSubstrate`` the sketch round is collective, so the
+ranks must agree on a cache hit: each rank looks its cache up, the
+group takes the minimum of the hit flags (one ``all_reduce``), and
+unless every rank hit, every rank sketches (a rank that hit counts a
+miss).  The fingerprint is taken on the whole operands, which every
+rank holds, so the key is the same on every rank.
 """
 from __future__ import annotations
 
@@ -27,7 +34,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ..cluster.substrate import BatchedSubstrate, resolve_substrate
+from ..cluster.substrate import (BatchedSubstrate, ProcessGroupSubstrate,
+                                 resolve_substrate)
 from ..obs import trace as obs_trace
 from .cost import (CostEstimate, choose_exchange, join_costs,
                    moe_dispatch_costs, select, select_dispatch, sort_costs)
@@ -172,12 +180,32 @@ def _cache_put(key: str, plan: QueryPlan) -> None:
             _STATS["cache_evictions"] += 1
 
 
-def _sketch_substrate(substrate, t: int) -> BatchedSubstrate:
+def _sketch_substrate(substrate, t: int):
     """The substrate the sketch round runs on: the resolved one where
     it is a single axis of t machines (a pool's ``(t,)`` substrate, so
-    its run counters see the sketch), else a fresh one."""
+    its run counters see the sketch; a process group's too), else a
+    fresh batch (the reference's rule, ``src/repro/planner/plan.py:151``)."""
     sub = resolve_substrate(substrate, t)
     return sub if sub.t == t and len(sub.axes) == 1 else BatchedSubstrate(t)
+
+
+def _agreed_cache_get(key: str, sub) -> Optional[QueryPlan]:
+    """:func:`_cache_get`, agreed over ``sub``'s group where the sketch
+    runs on one: the plan only if every rank of the group hit."""
+    plan = _cache_get(key)
+    if not isinstance(sub, ProcessGroupSubstrate) or sub.world == 1:
+        return plan
+    import torch.distributed as dist
+    dev = ("cuda" if "nccl" in str(dist.get_backend(sub.group)).lower()
+           else "cpu")
+    hit = torch.tensor([int(plan is not None)], dtype=torch.int32,
+                       device=dev)
+    dist.all_reduce(hit, op=dist.ReduceOp.MIN, group=sub.group)
+    if plan is not None and not int(hit.item()):
+        _tick("cache_hits", -1)
+        _tick("cache_misses")
+        return None
+    return plan
 
 
 def plan_sort_query(x, *, t: int, r: int = 2, device="cpu", x_device=None,
@@ -194,13 +222,14 @@ def plan_sort_query(x, *, t: int, r: int = 2, device="cpu", x_device=None,
         x_device = (x if isinstance(x, torch.Tensor)
                     else torch.as_tensor(np.asarray(x))).to(device)
     key = fingerprint_arrays(x_device, extra=f"sort|t={t}|r={r}")
+    sub = _sketch_substrate(substrate, t)
     with obs_trace.span("plan.sort", t=t):
-        plan = _cache_get(key)
+        plan = _agreed_cache_get(key, sub)
         if plan is not None:
             obs_trace.event("plan.cache_hit", fingerprint=key[:12])
             return plan, []
         plan, phases = sketch_sort_plan(x_device, t=t, r=r, fingerprint=key,
-                                        substrate=substrate)
+                                        substrate=sub)
         _cache_put(key, plan)
         return plan, phases
 
@@ -239,16 +268,16 @@ def plan_join_query(s_keys, t_keys, *, t_machines: int,
     s32 = torch.as_tensor(np.asarray(s_keys, np.int32)).to(device)
     t32 = torch.as_tensor(np.asarray(t_keys, np.int32)).to(device)
     key = fingerprint_arrays(s32, t32, extra=f"join|t={t}|mem={mem_budget}")
+    sub = _sketch_substrate(substrate, t)
     with obs_trace.span("plan.join", t=t):
-        plan = _cache_get(key)
+        plan = _agreed_cache_get(key, sub)
         if plan is not None:
             obs_trace.event("plan.cache_hit", fingerprint=key[:12])
             return plan, []
         _tick("sketch_runs")
         with obs_trace.span("planner.sketch"):
             profile, tape = profile_join_tables(
-                s32, t32, t, _sketch_substrate(substrate, t),
-                masked=int(MASKED_KEY), device=device)
+                s32, t32, t, sub, masked=int(MASKED_KEY), device=device)
         with obs_trace.span("planner.score"):
             costs = join_costs(profile, t, mem_budget=mem_budget)
             chosen = select(costs)
@@ -294,8 +323,9 @@ def plan_moe_query(x, router, *, t_machines: int, num_experts: int,
     key = fingerprint_arrays(
         xd, rd, extra=f"moe|t={t}|e={num_experts}|k={top_k}"
                       f"|r={extra_slots}|cf={capacity_factor}")
+    sub = _sketch_substrate(substrate, t)
     with obs_trace.span("plan.moe", t=t):
-        plan = _cache_get(key)
+        plan = _agreed_cache_get(key, sub)
         if plan is not None:
             obs_trace.event("plan.cache_hit", fingerprint=key[:12])
             return plan, []
@@ -303,7 +333,7 @@ def plan_moe_query(x, router, *, t_machines: int, num_experts: int,
             routing_ids(xd, rd, t=t, top_k=top_k), num_experts=num_experts,
             top_k=top_k, extra_slots=extra_slots,
             capacity_factor=capacity_factor, fingerprint=key,
-            substrate=substrate)
+            substrate=sub)
         _cache_put(key, plan)
         return plan, phases
 

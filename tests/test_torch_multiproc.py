@@ -62,18 +62,36 @@ import torch
 
 
 def summary(rep):
-    """Every comparable field of an AlphaKReport, host values."""
+    """Every comparable field of an AlphaKReport, host values: the
+    MoE dispatch's and the planner's too (the plan's algorithm,
+    topology, every candidate's costs, the sketch round's phases)."""
+    import dataclasses
     from repro_torch.core import report_fields
     out = report_fields(rep)
     for key in ("boundaries", "exchange_topology",
-                "theoretical_workload_bound", "total_dropped"):
+                "theoretical_workload_bound", "total_dropped",
+                "dispatch_mode", "slot_workload", "expert_workload",
+                "k_slot", "k_expert", "capacity", "slot2expert",
+                "slot_replicas", "predicted_alpha", "predicted_k",
+                "predicted_k_network"):
         if hasattr(rep, key):
             out[key] = getattr(rep, key)
+    plan = getattr(rep, "query_plan", None)
+    if plan is not None:
+        out["plan"] = (plan.algorithm, plan.exchange, {
+            name: dataclasses.asdict(c)
+            for name, c in sorted(plan.candidates.items())})
+        out["sketch_phases"] = [
+            (p.name, np.asarray(p.sent), np.asarray(p.received))
+            for p in rep.sketch_phases]
     return out
 
 
 def outputs(value):
-    """A sort's (keys, values) or a join's JoinOutput as a dict."""
+    """A sort's (keys, values), a join's JoinOutput or an MoE layer's y
+    as a dict."""
+    if isinstance(value, torch.Tensor):
+        return {"y": value}
     if isinstance(value, tuple) and hasattr(value, "_fields"):
         return dict(value._asdict())
     return {"keys": value[0], "values": value[1]}
@@ -114,21 +132,50 @@ def differ(got, want, where=""):
     return None if got == want else f"{where}: {got!r} != {want!r}"
 
 
-def port_run(case, substrate_type):
+def port_run(case, substrate_type, fresh=True):
     """One front-door call of ``case`` on a ``substrate_type`` of its
-    axes; returns (value, report)."""
-    from repro_torch import cluster
+    axes, with an empty plan cache unless ``fresh`` is False; returns
+    (value, report)."""
+    from repro_torch import cluster, planner
+    if fresh:
+        planner.clear_plan_cache()
     sub = substrate_type(*case["axes"])
     if case["kind"] == "sort":
         return cluster.sort(case["x"], values=case["v"], device="cpu",
                             substrate=sub, **case["kw"])
+    if case["kind"] == "moe":
+        return cluster.moe_dispatch(case["params"], case["x"], case["cfg"],
+                                    device="cpu", substrate=sub,
+                                    **case["kw"])
     return cluster.join(*case["tables"], device="cpu", substrate=sub,
                         **case["kw"])
 
 
-def run_case(case, substrate_type):
+def cleared_cache_check(cases, expected, rank):
+    """Every auto case again with the plan cache of rank 0 alone
+    cleared: the group agrees on a miss, every rank sketches, and the
+    results are still the batch's.  Returns the first difference."""
+    from repro_torch import planner
+    from repro_torch.cluster import ProcessGroupSubstrate
+    for name, case in cases.items():
+        if not case.get("auto"):
+            continue
+        run_case(case, ProcessGroupSubstrate)       # every rank caches
+        if rank == 0:
+            planner.clear_plan_cache()
+        before = planner.planner_stats().get("sketch_runs", 0)
+        bad = differ(run_case(case, ProcessGroupSubstrate, fresh=False),
+                     expected[name], name + " (cache cleared on rank 0)")
+        if bad:
+            return bad
+        if planner.planner_stats().get("sketch_runs", 0) != before + 1:
+            return f"{name}: rank {rank} did not sketch with rank 0"
+    return None
+
+
+def run_case(case, substrate_type, fresh=True):
     """:func:`port_run` as (outputs, summary), host-comparable."""
-    value, rep = port_run(case, substrate_type)
+    value, rep = port_run(case, substrate_type, fresh)
     return outputs(value), summary(rep)
 '''
 exec(SHARED)  # noqa: S102 -- one source for this process and the ranks
@@ -163,6 +210,9 @@ for name, case in cases.items():
                  expected[case.get("want", name)], name)
     if bad:
         raise SystemExit(f"rank {rank}/{world}: {bad}")
+bad = cleared_cache_check(cases, expected, rank)
+if bad:
+    raise SystemExit(f"rank {rank}/{world}: {bad}")
 import warnings
 from repro_torch.launch import make_staged_mesh, staged_axes
 with warnings.catch_warnings():
@@ -306,7 +356,38 @@ def cases():
             out[f"{algorithm} t{t}"] = dict(
                 kind="join", tables=(TABLES[0], ROWS, TABLES[1], ROWS),
                 axes=axes, kw=kw)
+        # the planner: its sketch round on the substrate, then the
+        # winner (Terasort and RandJoin draw from the seed: no reference)
+        out[f"auto sort t{t}"] = dict(sort, v=v, kw={"algorithm": "auto"},
+                                      auto=True, no_reference=True)
+        out[f"auto join t{t}"] = dict(
+            kind="join", tables=(TABLES[0], ROWS, TABLES[1], ROWS),
+            axes=[t], kw={"algorithm": "auto", "t_machines": t}, auto=True,
+            no_reference=True)
+        for mode in ("cluster", "auto"):
+            out[f"moe {mode} t{t}"] = dict(
+                kind="moe", axes=[t], params=MOE_PARAMS, x=MOE_X,
+                cfg=MOE_CFG, kw={"mode": mode, "t_machines": t}, auto=True,
+                no_reference=True)
     return out
+
+
+def _moe_setup(d=32, tokens=256, seed=0):
+    """A small MoE layer (8 experts, top 2, expert 0 hot) and its tokens
+    as host arrays; held against the reference in test_torch_moe_cluster."""
+    import torch
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models.moe import init_moe
+    cfg = MoEConfig(num_experts=8, top_k=2, d_ff_expert=16, extra_slots=4)
+    p = init_moe(torch.Generator().manual_seed(seed), d, cfg, torch.float32,
+                 "cpu")
+    p["router"][:, 0] += 0.5
+    x = np.random.default_rng(seed).standard_normal((tokens, d)).astype(
+        np.float32)
+    return {k: v.numpy() for k, v in p.items()}, x, cfg
+
+
+MOE_PARAMS, MOE_X, MOE_CFG = _moe_setup()
 
 
 def reference_run(case):
@@ -321,7 +402,9 @@ def reference_run(case):
 
 
 CASES = cases()
-REFERENCE_CASES = [name for name, case in CASES.items() if "want" not in case]
+BATCH_CASES = [name for name, case in CASES.items() if "want" not in case]
+REFERENCE_CASES = [name for name in BATCH_CASES
+                   if not CASES[name].get("no_reference")]
 
 
 @pytest.fixture(autouse=True)
@@ -348,7 +431,7 @@ def batch():
     ragged cases have none (the batch refuses them): they are held
     against their static twins."""
     return {name: port_run(CASES[name], BatchedSubstrate)
-            for name in REFERENCE_CASES}
+            for name in BATCH_CASES}
 
 
 @pytest.fixture(scope="module")
@@ -450,9 +533,11 @@ def test_default_substrate_and_mesh_on_one_rank(world1):
         compat.make_mesh((2, 2), ("a", "b"))
 
 
-def test_errors_name_what_is_missing(world1):
-    """Ragged on the batch and with the staged exchange, an unknown
-    backend, and algorithm="auto" on a group (ROADMAP A7's next item)."""
+def test_errors_name_what_is_missing(world1, batch):
+    """Ragged on the batch and with the staged exchange and an unknown
+    backend raise, naming what is missing; algorithm="auto" on a group
+    -- a substrate or a pool of them -- runs (the planner's sketch round
+    on the group) and is the batch's call."""
     case = CASES["smms t8"]
     x = case["x"]
     with pytest.raises(NotImplementedError, match="ProcessGroupSubstrate"):
@@ -464,13 +549,27 @@ def test_errors_name_what_is_missing(world1):
     with pytest.raises(ValueError, match="unknown exchange backend"):
         cluster.sort(x, backend="bogus", device="cpu",
                      substrate=ProcessGroupSubstrate(8))
-    with pytest.raises(NotImplementedError, match="A7"):
-        cluster.sort(x, algorithm="auto", device="cpu",
-                     substrate=ProcessGroupSubstrate(8))
-    with pytest.raises(NotImplementedError, match="A7"):
-        cluster.join(*CASES["statjoin t8"]["tables"], algorithm="auto",
-                     t_machines=8, device="cpu",
-                     substrate=SubstratePool(make=ProcessGroupSubstrate))
+    auto = CASES["auto sort t8"]
+    got = cluster.sort(auto["x"], values=auto["v"], algorithm="auto",
+                       device="cpu", substrate=ProcessGroupSubstrate(8))
+    value, rep = batch["auto sort t8"]
+    assert differ((outputs(got[0]), summary(got[1])),
+                  (outputs(value), summary(rep)), "auto sort") is None
+    got = cluster.join(*CASES["auto join t8"]["tables"], algorithm="auto",
+                       t_machines=8, device="cpu",
+                       substrate=SubstratePool(make=ProcessGroupSubstrate))
+    value, rep = batch["auto join t8"]
+    assert differ((outputs(got[0]), summary(got[1])),
+                  (outputs(value), summary(rep)), "auto join") is None
+
+
+def test_one_rank_agrees_on_a_cleared_plan_cache(world1, batch):
+    """World 1: every auto case twice, the cache cleared before the
+    second run; it sketches again and gives the batch's results."""
+    expected = {name: (outputs(v), summary(r)) for name, (v, r)
+                in batch.items()}
+    assert cleared_cache_check(CASES, expected, 0) is None
+    assert planner.planner_stats()["cache_misses"] > 0
 
 
 def _launch(world: int, root) -> list:

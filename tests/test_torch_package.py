@@ -40,6 +40,8 @@ def test_port_imports_neither_jax_nor_the_reference():
         import repro_torch.optim.grad_compress, repro_torch.ckpt
         import repro_torch.ckpt.manager, repro_torch.data.pipeline
         import repro_torch.cluster.compat, repro_torch.launch.mesh
+        import repro_torch.sharding, repro_torch.sharding.specs
+        import repro_torch.sharding.parallel, repro_torch.launch.dryrun
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "repro" or m.startswith("repro."))
@@ -108,32 +110,48 @@ def _unported(entry, change):
         jax.tree_util.tree_map(np.asarray, jparams), cfg, "cpu")
 
 
-def _auto_on_a_process_group_names_a7(tmp_path):
+def _auto_on_a_process_group_is_the_batch(tmp_path):
     """``algorithm="auto"`` on a ProcessGroupSubstrate (a one-rank Gloo
-    group of this process) raises, naming ROADMAP A7."""
+    group of this process) and on a pool of them: the sketch round runs
+    on the group, and the plan, keys and join output are the batch's."""
     import datetime
 
     import torch.distributed as dist
-    from repro_torch.cluster import ProcessGroupSubstrate, SubstratePool
+    from repro_torch import planner
+    from repro_torch.cluster import (BatchedSubstrate, ProcessGroupSubstrate,
+                                     SubstratePool)
     dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
                             world_size=1, rank=0,
                             timeout=datetime.timedelta(seconds=60))
     try:
-        x = np.ones((8, 16), np.float32)
-        with pytest.raises(NotImplementedError, match="A7"):
-            cluster.sort(x, algorithm="auto", device="cpu",
-                         substrate=ProcessGroupSubstrate(8))
-        with pytest.raises(NotImplementedError, match="A7"):
-            cluster.join(*_tables(), algorithm="auto", t_machines=2,
-                         device="cpu",
-                         substrate=SubstratePool(make=ProcessGroupSubstrate))
+        x = np.random.default_rng(0).standard_normal((8, 16)).astype(
+            np.float32)
+        runs = []
+        for sub in (ProcessGroupSubstrate(8), BatchedSubstrate(8)):
+            planner.clear_plan_cache()
+            (keys, _), rep = cluster.sort(x, algorithm="auto", device="cpu",
+                                          substrate=sub)
+            runs.append((keys, rep.query_plan.algorithm,
+                         rep.query_plan.predicted))
+        assert torch.equal(runs[0][0], runs[1][0])
+        assert runs[0][1:] == runs[1][1:]
+        outs = []
+        for make in (ProcessGroupSubstrate, BatchedSubstrate):
+            planner.clear_plan_cache()
+            out, rep = cluster.join(*_tables(), algorithm="auto",
+                                    t_machines=2, device="cpu",
+                                    substrate=SubstratePool(make=make))
+            outs.append((out, rep.query_plan.algorithm))
+        assert outs[0][1] == outs[1][1]
+        for a, b in zip(outs[0][0], outs[1][0]):
+            assert torch.equal(a, b)
     finally:
         dist.destroy_process_group()
 
 
-# The options of ROADMAP A12's serving half, which the port once
-# refused (the test keeps its name from then), and the one option of
-# A7 still to port: algorithm="auto" on a process group.
+# The options of ROADMAP A12's serving half and A7's algorithm="auto"
+# on a process group, which the port once refused (the test keeps its
+# name from then).
 @pytest.mark.parametrize("entry, change", [
     ("mistral-large-123b", {"ssm": SSMConfig()}),
     ("granite-moe-3b-a800m", {"attn_positions": (0,), "period": 2,
@@ -148,9 +166,9 @@ def test_unported_options_name_their_roadmap_item(entry, change, tmp_path):
     (granite's MoE after both), the vision front end, the int8 KV cache
     -- on four architectures: ``generate`` on the CPU gives the
     reference's tokens.  A7's ``algorithm="auto"`` on a process group
-    raises, naming its ROADMAP item."""
+    is the batch's call."""
     if change is None:
-        _auto_on_a_process_group_names_a7(tmp_path)
+        _auto_on_a_process_group_is_the_batch(tmp_path)
         return
     from repro.serve.engine import generate as jgenerate
     from repro_torch.serve import generate

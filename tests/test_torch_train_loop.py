@@ -100,8 +100,10 @@ def test_train_defaults_to_the_card(monkeypatch):
 
 @pytest.mark.parametrize("build", ["train", "prefill", "decode", "loop"])
 def test_a_mesh_raises_naming_a7(build):
+    """A mesh that is not a DeviceMesh raises TypeError (the name is
+    from when every mesh raised, naming ROADMAP A7)."""
     cfg, shape = tiny(), ShapeSpec("s", "train", 32, 2)
-    with pytest.raises(ValueError, match="A7"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         if build == "loop":
             train(cfg, steps=1, mesh=object(), batch=2, seq=8, device="cpu")
         else:
