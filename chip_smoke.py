@@ -79,7 +79,9 @@ version there:
   against the CPU; a 30-step ``train`` with a checkpoint and a resume;
   and ``data.smms_length_bucketing`` of 64 x 4,096 document lengths
   through SMMS.  Matmuls run in full float32 where they are float32
-  (TF32 off).
+  (TF32 off);
+* the port's six examples (``examples/torch_*.py``), each ``main()`` as
+  a user starts it.
 
 Phases, in order; any failure raises and the script exits non-zero
 without printing a result:
@@ -120,6 +122,19 @@ without printing a result:
                 attempts checked on the host, and each radix run equal
                 to its bitonic twin; then the six joins, each held
                 against a host numpy join
+     alpha_k    every t=64 sort above with distinct keys held to its
+                theorem's k bound (Theorem 2: 1 + 2/r + r t^3/n = 2.125
+                for SMMS, r = 2; Theorem 4: 5 + t^3/n = 5.0625 for
+                Terasort), k_workload and k_network; a run above it
+                rerun on the CPU, where an equal report is a finding
+                and a different one a failure; the StatJoin and RandJoin
+                runs on the Zipf and scalar-skew tables: alpha 3 and 1,
+                StatJoin's k_out <= 2 (Theorem 6), each k beside
+                Theorem 7's / 5's 2 + t/sigma; one JSON line of them all
+     lenses     the reference's opt-in lenses on one SMMS sort at t=64:
+                execution counts equal to the dispatch counts cold and
+                twice them after a second call; one kernel_op_seconds
+                observation per dispatcher call
   5. small      t=8 x 4,096 (the in-tile merges) with and without values
                 by both sorts and both families, and each join on small
                 tables: outputs and every report field equal to the same
@@ -261,6 +276,13 @@ without printing a result:
                 decode_32k over a fake 16 x 16 mesh of 256 ranks: ok,
                 its per-device arguments_bytes equal to the bytes worked
                 out from the specs
+     examples   each examples/torch_*.py main() on the card at its own
+                sizes (torch_sort_cluster as one NCCL rank of a group it
+                makes; torch_train_lm also --full: mamba2-130m at its
+                published config, 20 steps): keys equal to np.sort and
+                reports to the same calls on the CPU, join pairs to a
+                host join, losses finite and falling, tokens in range;
+                the wall time of each
   7. launches   per path of phases 4-6 (each run's counts set to 0 just
                 before it, read just after): each path launched exactly
                 the kernels of PATH_KERNELS, and every kernel ran
@@ -301,6 +323,7 @@ import contextlib
 import dataclasses
 import functools
 import importlib
+import importlib.util
 import json
 import math
 import os
@@ -322,8 +345,10 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch import cluster, serve  # noqa: E402
 from repro_torch.configs import ShapeSpec, get_arch, smoke_config  # noqa: E402
 from repro_torch.core import (MASKED_KEY, choose_ab,  # noqa: E402
-                              draw_assignments, flat_receive_capacity,
-                              report_fields, terasort_sample_count)
+                              draw_assignments, draw_uniforms,
+                              flat_receive_capacity, randjoin_k_bound,
+                              report_fields, smms_k_bound, statjoin_k_bound,
+                              terasort_k_bound, terasort_sample_count)
 from repro_torch.data import (TokenPipeline,  # noqa: E402
                               lidar_like, scalar_skew_tables,
                               smms_length_bucketing, uniform_keys, zipf_keys,
@@ -402,6 +427,11 @@ RADIX_MAIN = {"radix_sort", "searchsorted"} | RANK_MERGE
 # widths its sorts get (join_kernels): the cost model may pick radix
 # for some of them.
 LOCAL_JOIN = {"bitonic_sort_kv", "searchsorted"}
+# the examples' t = 8 runs: SMMS and Terasort (the in-tile merge), and
+# the joins with RandJoin's routing and the auto join's sketch
+EXAMPLE_SORTS = {"bitonic_sort", "searchsorted", "merge_rows",
+                 "sort_partition"}
+EXAMPLE_JOINS = LOCAL_JOIN | {"sort_partition_kv", "bitonic_sort"}
 PATH_KERNELS = {
     "sort": {"bitonic_sort", "searchsorted"} | RANK_MERGE,
     "sort_payload": {"bitonic_sort_kv", "searchsorted"} | RANK_MERGE,
@@ -528,9 +558,28 @@ PATH_KERNELS = {
     # every attention layer on the rank's local heads
     "mesh_train_gemma2b": {"flash_attention"},
     "mesh_serve_gemma3_12b": {"flash_attention"},
+    # the port's examples (phase_examples), each main() at its own
+    # sizes: t = 8 sorts of 4,096 - 16,384 keys and joins of 500 rows a
+    # machine, all within the bitonic tile, so the cost model's family
+    # is bitonic and the landed rows take the in-tile merge; the LLM
+    # prefills (gemma-2b's smoke config) the flash kernel; mamba2-130m's
+    # training and generation launch none
+    "example_quickstart": EXAMPLE_SORTS | EXAMPLE_JOINS,
+    "example_sort_cluster": {"bitonic_sort", "searchsorted", "merge_rows"},
+    "example_skew_join": EXAMPLE_JOINS,
+    "example_serve_requests": (EXAMPLE_SORTS | LOCAL_JOIN
+                               | {"bitonic_sort", "flash_attention"}),
+    "example_traced_query": {"bitonic_sort", "searchsorted", "merge_rows"},
+    "example_train_lm": set(),
+    "example_train_lm_full": set(),
 }
 # path -> kernel -> launches, summed over the path's runs
 PATH_LAUNCHES = {path: collections.Counter() for path in PATH_KERNELS}
+# (label, algorithm, Theorem 1 / 3 holds, report, the same call on the
+# CPU) of every t = 64 sort of phases main and payload, and name ->
+# report of the t = 64 joins: what phase alpha_k holds to the k bounds
+SORT_REPORTS: list = []
+JOIN_REPORTS: dict = {}
 
 
 def on_path(path: str, fn):
@@ -1779,6 +1828,19 @@ def _expected(algorithm: str, name: str, attempts: int) -> int:
     return attempts if algorithm == "smms" else TERASORT_ATTEMPTS[name]
 
 
+def cpu_sort(algorithm: str, name: str, payload_seed=None):
+    """The report of phase main's (or, with ``payload_seed``, phase
+    payload's) sort of input ``name`` run on the CPU: the same keys,
+    records and (Terasort) the card's draws."""
+    kw = {}
+    if payload_seed is not None:
+        kw["values"] = make_payload(T, M, payload_seed, device=DEVICE).cpu()
+    if algorithm == "terasort":
+        kw["uniforms"] = draw_uniforms(T, M, SEED, DEVICE).cpu()
+    return cluster.sort(sort_inputs(SEED)[name][0], algorithm=algorithm,
+                        seed=SEED, device="cpu", **kw)[1]
+
+
 def phase_main(smi: str, algorithm: str, family: str = "bitonic",
                twins: Optional[dict] = None) -> tuple:
     """The sort at t=64 x 65,536 on the four inputs, keys only, by one
@@ -1803,6 +1865,9 @@ def phase_main(smi: str, algorithm: str, family: str = "bitonic",
             label = f"{path} {name}"
             check_run(label, x, keys, rep,
                       _expected(algorithm, name, attempts), theorem)
+            SORT_REPORTS.append((label, algorithm, theorem, rep,
+                                 functools.partial(cpu_sort, algorithm,
+                                                   name)))
             if twins is not None:
                 check(same_bits(keys, twins[name][0]),
                       f"{label}: keys differ from the other family's")
@@ -1851,6 +1916,9 @@ def phase_payload(smi: str, algorithm: str, family: str = "bitonic",
             label = f"{path} {name}"
             check_run(label, x, keys, rep,
                       _expected(algorithm, name, attempts), theorem)
+            SORT_REPORTS.append((label, algorithm, theorem, rep,
+                                 functools.partial(cpu_sort, algorithm, name,
+                                                   SEED + i)))
             n = T * M
             check(vals.device.type == DEVICE
                   and vals.shape == (n, PAYLOAD_COLS),
@@ -2141,6 +2209,7 @@ def phase_joins(smi: str) -> dict:
         check(res.s_rows.device.type == DEVICE,
               f"{name}: result not on the card")
         check_join(name, res, rep, want)
+        JOIN_REPORTS[name] = rep
         if cfg.algorithm == "statjoin":
             check(max(rep.workload) <= rep.theoretical_workload_bound,
                   f"{name}: a machine above 2W/t (Theorem 6)")
@@ -3637,7 +3706,6 @@ def phase_multiproc(smi: str, errs: dict) -> dict:
 
     import torch.distributed as dist
     from repro_torch.cluster import ProcessGroupSubstrate, SubstratePool
-    from repro_torch.core.sampling import draw_uniforms
     multiproc_kernels()
     x = sort_inputs(SEED)["uniform"][0]
     joins = {name: JOINS[name].tables() for name in MULTIPROC_JOINS}
@@ -6225,6 +6293,343 @@ def e2e(label: str, fn, smi: str, reps: int = 5) -> dict:
             "max_memory_allocated_bytes": peak}
 
 
+# ---------------------------------------------------------------------------
+# alpha_k: the paper's k bounds on the t = 64 paths; the opt-in lenses
+# ---------------------------------------------------------------------------
+
+ALPHA_K_JOINS = ("statjoin_zipf", "statjoin_scalar_skew", "randjoin_zipf",
+                 "randjoin_scalar_skew")
+SMMS_R = 2                  # cluster.sort's default r, as the paths run it
+
+
+def phase_alpha_k(smi: str) -> dict:
+    """Every t = 64 sort of phases main and payload (SMMS r = 2 and
+    Terasort, both kernel families) whose keys are distinct, held to its
+    theorem's k bound: Theorem 2's 1 + 2/r + r t^3/n for SMMS, Theorem
+    4's 5 + t^3/n for Terasort (``rep.check``: k_workload and k_network).
+    A run above its bound is run again on the CPU: an equal report
+    there makes it a finding about the bound at this size, recorded,
+    and a different one a fault of the port, raised.  Then the t = 64
+    joins on the paper's Zipf and scalar-skew tables: alpha 3 for
+    StatJoin and 1 for RandJoin, StatJoin's k_out = max workload /
+    (n_out / t) <= 2 (Theorem 6), and each report's k beside Theorem 7's
+    / 5's 2 + t/sigma, sigma = n_out / n_in.  One JSON line carries
+    every number."""
+    n = T * M
+    bounds = {"smms": smms_k_bound(n, T, SMMS_R),
+              "terasort": terasort_k_bound(n, T)}
+    sorts = []
+    for label, algorithm, theorem, rep, on_cpu in SORT_REPORTS:
+        row = {"path": label, "algorithm": algorithm, "distinct": theorem,
+               "k_workload": rep.k_workload, "k_network": rep.k_network,
+               "bound": bounds[algorithm]}
+        if theorem:
+            row["holds"] = rep.check(bounds[algorithm])
+            if not row["holds"]:
+                _same_report(f"{label} above its k bound, against the CPU",
+                             rep, on_cpu())
+                row["cpu_equal"] = True
+            print(f"[alpha_k] {label:32s} k_workload {rep.k_workload:.4f} "
+                  f"k_network {rep.k_network:.4f} against the bound "
+                  f"{bounds[algorithm]:.4f}: "
+                  f"{'held' if row['holds'] else 'ABOVE; the CPU equal'}")
+        sorts.append(row)
+    distinct = sum(theorem for _, _, theorem in sort_inputs(SEED).values())
+    check(sum(r["distinct"] for r in sorts)
+          == distinct * len(PATHS) * len(FAMILIES) * 2,
+          "not every t = 64 sort of phases main and payload with distinct "
+          "keys was held")
+    joins = {}
+    for name in ALPHA_K_JOINS:
+        rep = JOIN_REPORTS[name]
+        sigma = rep.n_out / max(1, rep.n_in)
+        k_out = float(np.max(rep.workload) / (rep.n_out / rep.t))
+        statjoin = JOINS[name].algorithm == "statjoin"
+        if statjoin:
+            bound = statjoin_k_bound(rep.t, sigma)
+            check(rep.alpha == 3, f"{name}: alpha {rep.alpha} != 3")
+            check(k_out <= 2.0, f"{name}: k_out {k_out} above 2 (Theorem 6)")
+        else:
+            bound = randjoin_k_bound(rep.t, sigma)
+            check(rep.alpha == 1, f"{name}: alpha {rep.alpha} != 1")
+        joins[name] = {"alpha": rep.alpha, "sigma": sigma, "k_out": k_out,
+                       "k_workload": rep.k_workload,
+                       "k_network": rep.k_network, "bound": bound,
+                       "within": rep.check(bound)}
+        print(f"[alpha_k] {name:24s} alpha {rep.alpha} sigma {sigma:.2f} "
+              f"k_out {k_out:.4f} k_workload {rep.k_workload:.4f} "
+              f"k_network {rep.k_network:.4f} against 2 + t/sigma "
+              f"{bound:.4f} (Theorem {7 if statjoin else 5})"
+              f": {'within' if joins[name]['within'] else 'above'} ({smi})")
+    out = {"sorts": sorts, "joins": joins}
+    print(json.dumps({"alpha_k": out}))
+    return out
+
+
+def phase_lenses(smi: str) -> dict:
+    """The reference's opt-in lenses on one SMMS sort at t = 64 x 65,536:
+    with ``ops.enable_exec_counts``, the execution counts equal the
+    dispatch counts of a cold call and double on a second identical
+    call; with ``ops.OP_TIMING_ENABLED``, ``kernel_op_seconds`` holds one
+    observation per dispatcher call, each ending in a synchronize."""
+    from repro_torch import obs
+    x = sort_inputs(SEED)["uniform"][0]
+    check(ops.exec_dispatch_counts() == {}
+          and not obs.REGISTRY.histograms_matching("kernel_op_seconds"),
+          "the lenses were on before this phase")
+    before = collections.Counter(ops.DISPATCH_COUNTS)
+    ops.enable_exec_counts(True)
+    ops.OP_TIMING_ENABLED = True
+    try:
+        cluster.sort(x, algorithm="smms", device=DEVICE)
+        cold = dict(collections.Counter(ops.DISPATCH_COUNTS) - before)
+        execs_cold = ops.exec_dispatch_counts()
+        cluster.sort(x, algorithm="smms", device=DEVICE)
+        execs_warm = ops.exec_dispatch_counts()
+    finally:
+        ops.enable_exec_counts(False)
+        ops.OP_TIMING_ENABLED = False
+    where = "cuda" if DEVICE == "cuda" else "plain"
+    check(cold and all(path.endswith(where) for _, path in cold),
+          f"the sort dispatched {cold}, not only to the card")
+    check(execs_cold == cold, f"exec counts {execs_cold} != the cold "
+                              f"dispatch counts {cold}")
+    check(execs_warm == {k: 2 * v for k, v in cold.items()},
+          f"exec counts {execs_warm} after a second call, not twice {cold}")
+    calls = collections.Counter()
+    for (op, _), count in cold.items():
+        calls[op] += 2 * count
+    hists = {dict(k)["op"]: h for k, h in
+             obs.REGISTRY.histograms_matching("kernel_op_seconds").items()}
+    check({op: h.count for op, h in hists.items()} == dict(calls),
+          f"kernel_op_seconds counts differ from the calls {dict(calls)}")
+    out = {"dispatch_counts": {f"{op}/{path}": v
+                               for (op, path), v in cold.items()},
+           "op_ms": {op: h.sum / h.count * 1e3 for op, h in hists.items()}}
+    print(f"[lenses] exec counts {out['dispatch_counts']} cold, twice that "
+          f"after a second call; kernel_op_seconds a call (host, with a "
+          f"synchronize): "
+          + ", ".join(f"{op} {ms:.3f} ms" for op, ms in out["op_ms"].items())
+          + f" ({smi})")
+    out["timing_off"] = op_timing_off_cost(x, sum(calls.values()) // 2, smi)
+    return out
+
+
+def op_timing_off_cost(x, calls: int, smi: str) -> dict:
+    """What ``_op_timing`` adds to a dispatcher call with the timing
+    off, on the host: a no-op body behind the decorator against the body
+    alone (``_per_call_us``), times the sort's ``calls`` decorated
+    calls, against the host-clock median of 5 untimed SMMS sorts."""
+    def noop(*args, **kw):
+        return None
+
+    check(not ops.OP_TIMING_ENABLED, "op timing is still on")
+    wrapped_us = _per_call_us(ops._op_timing(noop))
+    bare_us = _per_call_us(noop)
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cluster.sort(x, algorithm="smms", device=DEVICE)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    sort_ms = float(np.median(walls))
+    added_us = calls * (wrapped_us - bare_us)
+    out = {"wrapped_us": wrapped_us, "bare_us": bare_us, "calls": calls,
+           "added_us": added_us, "sort_ms": sort_ms,
+           "share": added_us / (sort_ms * 1e3)}
+    print(f"[lenses] op timing off, host: a decorated call {wrapped_us:.3f} "
+          f"us against {bare_us:.3f} us for the body alone; one SMMS sort: "
+          f"{calls} decorated calls, {added_us:.2f} us added = "
+          f"{100 * out['share']:.4f}% of its {sort_ms:.3f} ms host median "
+          f"({smi})")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# examples: the port's entry points as a user starts them
+# ---------------------------------------------------------------------------
+
+EXAMPLE_RUNS = (("example_quickstart", "torch_quickstart", []),
+                ("example_sort_cluster", "torch_sort_cluster", []),
+                ("example_skew_join", "torch_skew_join", []),
+                ("example_serve_requests", "torch_serve_requests", []),
+                ("example_traced_query", "torch_traced_query", []),
+                ("example_train_lm", "torch_train_lm", []),
+                ("example_train_lm_full", "torch_train_lm",
+                 ["--full", "--steps", "20"]))
+
+
+def load_example(name: str):
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", ROOT / "examples" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _sorted_like_numpy(label: str, keys, x) -> None:
+    got = np.asarray(keys.cpu() if isinstance(keys, torch.Tensor) else keys)
+    want = np.sort(np.asarray(x).reshape(-1))
+    check(np.array_equal(got.view(np.int32), want.view(np.int32)),
+          f"{label}: keys differ from np.sort of the input")
+
+
+def _join_pairs_like_host(label: str, out, s, t) -> None:
+    got = torch.sort(out.s_rows[out.valid].long() << 32
+                     | out.t_rows[out.valid].long()).values.cpu()
+    want = torch.sort(torch.from_numpy(host_pairs(
+        np.asarray(s, np.int32), np.asarray(t, np.int32)))).values
+    check(torch.equal(got, want), f"{label}: pairs differ from the host join")
+
+
+def _cpu_join(s, t, algorithm: str):
+    rows = np.arange(len(s))
+    return cluster.join(s, rows, t, rows, algorithm=algorithm, t_machines=8,
+                        device="cpu")[1]
+
+
+def check_example(path: str, got: dict) -> None:
+    """An example's outputs checked as tests/test_torch_examples.py checks
+    them, against the host and the same calls on the CPU."""
+    if path == "example_quickstart":
+        x = lidar_like(8 * 4096, seed=0).reshape(8, 4096)
+        keys, rep = got["smms"]
+        _sorted_like_numpy(path, keys, x)
+        _same_report(f"{path} smms", rep,
+                     cluster.sort(x, algorithm="smms", device="cpu")[1])
+        _sorted_like_numpy(f"{path} terasort", got["terasort"][0], x)
+        s, t = scalar_skew_tables(4000, m_hot=400, n_hot=100, seed=1)
+        for alg, (out, rep) in {**got["joins"], "auto": got["auto"]}.items():
+            _join_pairs_like_host(f"{path} {alg}", out, s, t)
+            if alg in DETERMINISTIC_JOINS:
+                _same_report(f"{path} {alg}", rep, _cpu_join(s, t, alg))
+    elif path == "example_sort_cluster":
+        x = lidar_like(8 * (1 << 14), seed=3).reshape(8, 1 << 14)
+        _sorted_like_numpy(path, got["keys"], x)
+        _same_report(path, got["report"],
+                     cluster.sort(x, algorithm="smms", device="cpu")[1])
+        check(np.array_equal(got["keys_kernel"].view(np.int32),
+                             got["keys_plain"].view(np.int32)),
+              f"{path}: the kernels' keys differ from the plain versions'")
+    elif path == "example_skew_join":
+        for theta, run in got.items():
+            s, t = zipf_tables(3000, 3000, theta=theta, seed=2, domain=150)
+            for alg, (out, rep) in run["runs"].items():
+                _join_pairs_like_host(f"{path} {theta} {alg}", out, s, t)
+                if alg in DETERMINISTIC_JOINS:
+                    _same_report(f"{path} {theta} {alg}", rep,
+                                 _cpu_join(s, t, alg))
+            check(run["auto_again"].query_plan.cached,
+                  f"{path} {theta}: the second auto join missed the cache")
+    elif path == "example_serve_requests":
+        specs, results = got["queries"]["specs"], got["queries"]["results"]
+        check(all(r.ok for r in results), f"{path}: a query failed")
+        for spec, res in zip(specs, results):
+            if spec.kind == "sort":
+                _sorted_like_numpy(path, res.value[0], spec.arrays[0])
+            else:
+                s, _, t, _ = spec.arrays
+                _join_pairs_like_host(path, res.value, s, t)
+        llm = got["llm"]
+        for tok in llm["tokens"]:
+            check(tok.shape[1] == 4 and tok.min() >= 0
+                  and tok.max() < llm["cfg"].vocab_size,
+                  f"{path}: tokens out of range or of the wrong shape")
+        # the same weights and left-padded batches through generate on
+        # the CPU: the card's tokens must be the same (phase_serve_smoke's
+        # rule, here at the example's batch and prompt sizes)
+        on_cpu = tree_map(lambda w: w.cpu(), llm["params"])
+        for toks, tok in zip(llm["batches"], llm["tokens"]):
+            want = serve.generate(on_cpu, llm["cfg"], toks, max_new_tokens=4,
+                                  device="cpu")
+            check(np.array_equal(np.asarray(tok), np.asarray(want)),
+                  f"{path}: card tokens != CPU tokens for a batch of "
+                  f"{toks.shape}")
+    elif path == "example_traced_query":
+        res = got["result"]
+        _sorted_like_numpy(path, res.value[0], uniform_keys(8 * 512, seed=5))
+        check(res.report.query_plan.cached and got["stats"].served == 1,
+              f"{path}: not the warm, planned query")
+        check(os.path.getsize(got["trace_path"]) > 0, f"{path}: no trace")
+        shutil.rmtree(os.path.dirname(got["trace_path"]), ignore_errors=True)
+    else:                       # the two training runs
+        losses, cfg, toks = got["losses"], got["cfg"], got["tokens"]
+        head = max(1, min(10, len(losses) // 4))
+        check(all(math.isfinite(v) for v in losses),
+              f"{path}: a loss is not finite")
+        check(np.mean(losses[-head:]) < np.mean(losses[:head]),
+              f"{path}: the loss did not fall: {losses}")
+        check(toks.shape == (2, 8) and toks.min() >= 0
+              and toks.max() < cfg.vocab_size,
+              f"{path}: tokens out of range or of the wrong shape")
+
+
+@contextlib.contextmanager
+def flash_held_to_plain(errs: list):
+    """Every ``ops.flash_attention`` call while the block runs (the
+    models call it through the module) also goes through
+    ``flash_attention_plain`` on the same inputs, out of the launch
+    counts; the kernel's output is held to it within FLASH_TOL and
+    ``(shape, window, max abs err)`` appended to ``errs``."""
+    real = ops.flash_attention
+
+    def held(q, k, v, causal=True, window=None):
+        out = real(q, k, v, causal=causal, window=window)
+        with torch.no_grad():
+            want = fa.flash_attention_plain(q, k, v, causal, window)
+        rtol, atol = FLASH_TOL[q.dtype]
+        a, b = out.detach().float(), want.float()
+        err = max_abs_err(a, b)
+        errs.append((tuple(q.shape), tuple(k.shape), window, err))
+        check(bool(torch.allclose(a, b, rtol=rtol, atol=atol)),
+              f"flash_attention at q {tuple(q.shape)}, k {tuple(k.shape)}, "
+              f"window {window}: kernel differs from its plain version "
+              f"(max abs err {err})")
+        return out
+
+    ops.flash_attention = held
+    try:
+        yield errs
+    finally:
+        ops.flash_attention = real
+
+
+def phase_examples(smi: str) -> dict:
+    """Each ``examples/torch_*.py`` ``main()`` on the card, in-process,
+    at its own sizes (``torch_sort_cluster`` makes its own NCCL group of
+    one rank; ``torch_train_lm`` also with ``--full``: mamba2-130m at
+    its published widths and depth, 20 steps), on its launch path, its
+    outputs checked as its test checks them; the wall time of each."""
+    out = {}
+    for path, name, args in EXAMPLE_RUNS:
+        main_fn = load_example(name).main
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        flash_errs: list = []
+        with flash_held_to_plain(flash_errs):
+            got = on_path(path, lambda: main_fn(args + ["--device", DEVICE]))
+        wall = time.perf_counter() - t0
+        check_example(path, got)
+        out[path] = {"wall_s": wall}
+        if "flash_attention" in PATH_KERNELS[path]:
+            check(len(flash_errs) == PATH_LAUNCHES[path]["flash_attention"],
+                  f"{path}: {len(flash_errs)} flash calls held, "
+                  f"{PATH_LAUNCHES[path]['flash_attention']} launched")
+            worst = max(e[3] for e in flash_errs)
+            out[path]["flash_max_abs_err"] = worst
+            print(f"[examples] {name}: {len(flash_errs)} flash_attention "
+                  f"launches at {sorted({e[:3] for e in flash_errs})} each "
+                  f"within FLASH_TOL of the plain version, max abs err "
+                  f"{worst:.3g}")
+        if "losses" in got:
+            out[path].update(losses=got["losses"],
+                             params=got["cfg"].param_count())
+        print(f"[examples] {name} {' '.join(args)}: ok, {wall:.2f} s wall "
+              f"({smi})")
+    return out
+
+
 def phase_launches() -> dict:
     """Every path launched exactly its kernels; kernel -> path -> count."""
     by_kernel = {name: {} for name in cuda.KERNELS}
@@ -6262,6 +6667,8 @@ def main() -> None:
     print(f"[main] the cost model picks {cost_model_family(M)} at "
           f"{M} lanes on this card; the other family ran forced")
     join_runs = phase_joins(smi)
+    alpha_k = phase_alpha_k(smi)
+    lenses = phase_lenses(smi)
     phase_small()
     phase_small_values_and_joins()
     phase_small_terasort()
@@ -6295,6 +6702,7 @@ def main() -> None:
     mesh = phase_mesh(smi, training["train_gemma2b"]["losses"],
                       serving["tokens"], dryruns, dryrun_dir)
     shutil.rmtree(dryrun_dir, ignore_errors=True)
+    examples = phase_examples(smi)
     launches = phase_launches()
 
     times = phase_times(rng, smi)
@@ -6331,7 +6739,8 @@ def main() -> None:
     print(json.dumps({"build": build, "runs": runs, "joins": join_runs,
                       "serve": serving, "serve_granite": serving_moe,
                       "moe": moe_runs, **serving_rest, **training,
-                      "mesh": mesh, "times": times,
+                      "mesh": mesh, "alpha_k": alpha_k, "lenses": lenses,
+                      "examples": examples, "times": times,
                       "crossover": crossover}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -3,8 +3,8 @@ the batched and the process-group substrates and their pool, the
 instrumented collectives, the capacity policy and the ``sort``,
 ``join`` and ``moe_dispatch`` front doors."""
 from . import compat
-from .api import (JOIN_ALGORITHMS, MOE_DISPATCH_MODES, SORT_ALGORITHMS, join,
-                  moe_dispatch, resolve_device, sort)
+from .api import (AUTO, JOIN_ALGORITHMS, MOE_DISPATCH_MODES, SORT_ALGORITHMS,
+                  join, moe_dispatch, resolve_device, sort)
 from .capacity import CapacityOverflowError, CapacityPolicy, run_with_capacity
 from .collectives import CollectiveTape, ProcessGroupTape
 from .substrate import (BatchedSubstrate, ProcessGroupSubstrate, Substrate,
@@ -13,7 +13,7 @@ from .substrate import (BatchedSubstrate, ProcessGroupSubstrate, Substrate,
                         resolve_substrate)
 
 __all__ = ["sort", "join", "moe_dispatch", "SORT_ALGORITHMS",
-           "JOIN_ALGORITHMS", "MOE_DISPATCH_MODES",
+           "JOIN_ALGORITHMS", "MOE_DISPATCH_MODES", "AUTO",
            "resolve_device", "CapacityPolicy", "CapacityOverflowError",
            "run_with_capacity", "CollectiveTape", "ProcessGroupTape",
            "Substrate", "BatchedSubstrate", "ProcessGroupSubstrate",

@@ -56,6 +56,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from .capacity import CapacityPolicy, run_with_capacity
 
 __all__ = ["sort", "join", "moe_dispatch", "SORT_ALGORITHMS",
@@ -65,16 +66,6 @@ SORT_ALGORITHMS = ("smms", "terasort")
 JOIN_ALGORITHMS = ("statjoin", "randjoin", "repartition", "broadcast")
 MOE_DISPATCH_MODES = ("capacity", "alpha_k", "cluster")
 AUTO = "auto"
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` -> the card; raise if a CUDA device is asked for and absent."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("repro_torch runs on a CUDA device and none is "
-                           "available; pass device='cpu' to run the plain "
-                           "versions of the kernels on the CPU")
-    return dev
 
 
 # The host dtypes JAX's default 32-bit mode narrows (the reference's

@@ -35,12 +35,17 @@ def axis_size(group=None) -> int:
 
 
 def make_mesh(shape: Sequence[int], names: Sequence[str],
-              device_type: str = "cpu"):
+              device_type: Optional[str] = None):
     """A ``DeviceMesh`` of ``shape`` over the default group's ranks, in
     rank order, its dimensions named ``names``.  The product of
-    ``shape`` must be the world size."""
+    ``shape`` must be the world size.  ``device_type`` None is the
+    default group's: "cuda" under NCCL, "cpu" otherwise (Gloo, the dry
+    run's fake group)."""
     from torch.distributed.device_mesh import DeviceMesh
 
+    if device_type is None:
+        device_type = ("cuda" if "nccl" in str(dist.get_backend()).lower()
+                       else "cpu")
     shape = tuple(int(s) for s in shape)
     world = dist.get_world_size()
     if len(shape) != len(names) or int(torch.tensor(shape).prod()) != world:

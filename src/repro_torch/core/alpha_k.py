@@ -11,13 +11,15 @@ compared field by field.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List
+from typing import Dict, List, Mapping, Sequence
 
 import numpy as np
 
 __all__ = ["PhaseStats", "AlphaKReport", "smms_k_bound",
-           "smms_workload_bound", "terasort_workload_bound",
-           "statjoin_workload_bound", "report_fields"]
+           "smms_workload_bound", "terasort_k_bound",
+           "terasort_workload_bound", "statjoin_k_bound",
+           "statjoin_workload_bound", "randjoin_k_bound",
+           "merge_phase_stats", "report_fields"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,14 +104,36 @@ def smms_workload_bound(n: int, t: int, r: int) -> float:
     return (1.0 + 2.0 / r + t**2 / n) * m
 
 
+def terasort_k_bound(n: int, t: int) -> float:
+    """Theorem 4: Terasort + Algorithm S is (3, 5 + t^3/n)-minimal w.h.p."""
+    return 5.0 + t**3 / n
+
+
 def terasort_workload_bound(n: int, t: int) -> float:
     """Theorem 3: |S_i| <= 5m + 1 with probability >= 1 - 1/n."""
     return 5.0 * (n / t) + 1.0
 
 
+def statjoin_k_bound(t: int, sigma: float) -> float:
+    """Theorem 7: StatJoin is (3, 2 + t/sigma)-minimal."""
+    return 2.0 + t / sigma
+
+
 def statjoin_workload_bound(w_total: int, t: int) -> float:
     """Theorem 6: join-result workload per machine <= 2 W / t."""
     return 2.0 * w_total / t
+
+
+def randjoin_k_bound(t: int, sigma: float) -> float:
+    """Theorem 5: RandJoin is (1, 2 + t/sigma)-minimal w.p. 1 - 1.2e-9."""
+    return 2.0 + t / sigma
+
+
+def merge_phase_stats(stats: Sequence[Mapping[str, np.ndarray]]
+                      ) -> List[PhaseStats]:
+    """PhaseStats from {'name', 'sent', 'received'} dicts."""
+    return [PhaseStats(s["name"], np.asarray(s["sent"]),
+                       np.asarray(s["received"])) for s in stats]
 
 
 def report_fields(report) -> dict:

@@ -8,6 +8,8 @@ estimated m objects.
 * :func:`equidepth_samples` -- the samples, picked as the reference's
   jitted body picks them (index arithmetic in float32, as JAX runs with
   x64 off, by XLA's reciprocal, C18).
+* :func:`interval_pdf` -- each machine's piecewise-constant density
+  between its samples, the reference's own.
 * :func:`boundaries` -- the reference's vectorised Algorithm 1
   (``boundaries_jax``): invert the summed piecewise-linear CDF.  Written
   with ``jnp.interp``'s own formula and ``jnp.linspace``'s as XLA
@@ -33,7 +35,8 @@ import torch
 from ..kernels.bitonic import ftz
 from ..numerics import float32_reciprocal, fma_float32
 
-__all__ = ["equidepth_samples", "boundaries", "boundaries_oracle"]
+__all__ = ["equidepth_samples", "interval_pdf", "boundaries",
+           "boundaries_oracle"]
 
 
 def equidepth_samples(sorted_local: torch.Tensor, s: int) -> torch.Tensor:
@@ -57,6 +60,19 @@ def equidepth_samples(sorted_local: torch.Tensor, s: int) -> torch.Tensor:
             else torch.iinfo(sorted_local.dtype).min)
     rest = torch.where(idx < m, rest, fill)
     return torch.cat([sorted_local[..., :1], rest], dim=-1)
+
+
+def interval_pdf(lam: torch.Tensor, m: int, s: int) -> torch.Tensor:
+    """mu[i, j] = (m/s) / (lam[i, j+1] - lam[i, j]); mu[i, s] = 0.
+
+    The reference's quotient in lam's dtype, ``(m / s) / max(width,
+    1e-30)``, on lam's device.  The numerator is a tensor: on CUDA a
+    Python scalar over a tensor computes reciprocal-times (ROADMAP C6).
+    """
+    width = lam[..., 1:] - lam[..., :-1]
+    floor = torch.tensor(1e-30, dtype=width.dtype, device=width.device)
+    mu = torch.full_like(width, m / s) / torch.maximum(width, floor)
+    return torch.cat([mu, torch.zeros_like(mu[..., :1])], dim=-1)
 
 
 def _order_key(v: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """Static-capacity local equi-join, batched over the t machines.
 
-Counterpart of ``src/repro/core/localjoin.py`` (``local_equijoin`` :49).
+Counterpart of ``src/repro/core/localjoin.py`` (``local_equijoin`` :49,
+``join_size`` :38).
 Given each machine's fragments of S and T (int32 join keys and int32
 payload row ids), emit every matching (s_row, t_row) pair into a fixed
 number of output slots per machine: sort T by key (``ops.sort_kv``, the
@@ -20,7 +21,7 @@ import torch
 
 from ..kernels import ops
 
-__all__ = ["MASKED_KEY", "JoinOutput", "local_equijoin"]
+__all__ = ["MASKED_KEY", "JoinOutput", "local_equijoin", "join_size"]
 
 MASKED_KEY = torch.iinfo(torch.int32).max   # sentinel; real keys are below
 
@@ -31,6 +32,17 @@ class JoinOutput(NamedTuple):
     valid: torch.Tensor    # (t, capacity) bool
     count: torch.Tensor    # (t,) int32: true number of result tuples
     dropped: torch.Tensor  # (t,) int32: results beyond capacity (0 == ok)
+
+
+def join_size(s_keys: torch.Tensor, t_keys: torch.Tensor) -> torch.Tensor:
+    """Exact |S >< T| of the fragments s_keys, t_keys (int32, (n,) each,
+    or (t, n) machines summed), for capacity planning: T's keys sorted
+    (``ops.sort``), each S key's match range by two searches, masked S
+    keys counted 0.  An int64 0-d tensor on the keys' device."""
+    tk = ops.sort(t_keys)
+    lo = ops.searchsorted(tk, s_keys, side="left")
+    hi = ops.searchsorted(tk, s_keys, side="right")
+    return torch.where(s_keys == MASKED_KEY, 0, hi - lo).sum()
 
 
 def local_equijoin(s_keys: torch.Tensor, s_rows: torch.Tensor,

@@ -21,7 +21,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ..cluster.api import resolve_device
+from ..device import resolve_device
 from ..core import smms_sort
 
 __all__ = ["TokenPipeline", "smms_length_bucketing"]

@@ -2,16 +2,20 @@
 
 Counterpart of ``src/repro/kernels/ref.py``.  These are library calls
 with the reference's comparator semantics (denormals fold to zero,
-ties keep input order); the port's main path never calls them.
+ties keep input order), and plain-torch attention; the port's main
+path never calls them.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from .bitonic import ftz
 
 __all__ = ["sort_ref", "sort_kv_ref", "merge_sorted_rows_kv_ref",
-           "searchsorted_ref", "sort_partition_ref", "sort_partition_kv_ref"]
+           "searchsorted_ref", "sort_partition_ref", "sort_partition_kv_ref",
+           "bucketize_ref", "attention_ref"]
 
 
 def sort_ref(x: torch.Tensor) -> torch.Tensor:
@@ -61,3 +65,43 @@ def sort_partition_kv_ref(keys: torch.Tensor, queries: torch.Tensor):
     ks = torch.gather(keys, -1, order)
     return (ks, order.to(torch.int32),
             searchsorted_ref(ks, queries, side="left"))
+
+
+def bucketize_ref(keys: torch.Tensor, boundaries: torch.Tensor, t: int):
+    """Bucket ids and the per-bucket histogram.  keys: (n,); boundaries:
+    (t-1,) ascending interior boundaries; id = the number of boundaries
+    <= key (buckets are [b_k, b_{k+1})).  Returns (ids, counts), int32."""
+    ids = searchsorted_ref(boundaries, keys, side="right")
+    buckets = torch.arange(t, device=keys.device)
+    counts = (ids[:, None] == buckets[None, :]).sum(0)
+    return ids, counts.to(torch.int32)
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True,
+                  window: Optional[int] = None) -> torch.Tensor:
+    """Multi-head attention with GQA and an optional sliding window.
+
+    q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D), Hq % Hkv == 0; queries
+    right-aligned to the keys.  Key j is visible to query i iff
+    j <= i (causal) and i - window < j (window).  Scores in q's dtype,
+    the softmax in float32, the probabilities back in q's dtype.
+    """
+    d = q.shape[-1]
+    sq, skv = q.shape[2], k.shape[2]
+    g = q.shape[1] // k.shape[1]
+    kx = k.repeat_interleave(g, dim=1)
+    vx = v.repeat_interleave(g, dim=1)
+    scale = torch.sqrt(torch.tensor(float(d), device=q.device)).to(q.dtype)
+    scores = torch.einsum("bhqd,bhkd->bhqk", q, kx) / scale
+    qpos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    scores = torch.where(mask, scores.float(), float("-inf"))
+    p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    return torch.einsum("bhqk,bhkd->bhqd", p.to(q.dtype), vx)

@@ -213,10 +213,10 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
                 meta[0], step_kw.get("adamw", AdamWConfig())))
             args = (params, opt, shard_batch(rules, meta[2]))
         else:
-            tokens = shard_batch(rules, {"t": meta[1]})["t"]
+            tokens = shard_batch(rules, {"tokens": meta[1]})["tokens"]
             args = (params, tokens, shard_cache(rules, meta[2]))
             if len(meta) > 3:
-                args += (shard_batch(rules, {"e": meta[3]})["e"],)
+                args += (shard_batch(rules, {"embeds": meta[3]})["embeds"],)
         arguments = _local_bytes(args)
         flops, comm = FlopCounterMode(display=False), CommDebugMode()
         counters = _counters(roofline)

@@ -62,7 +62,7 @@ def staged_axes(t: int, names: Tuple[str, str] = STAGED_AXIS_NAMES,
 
 
 def make_staged_mesh(t: int, names: Tuple[str, str] = STAGED_AXIS_NAMES,
-                     device_type: str = "cpu"):
+                     device_type=None):
     """The (t1, t2) ``DeviceMesh`` of the staged exchange over the t
     ranks of the default group (``cluster.compat.make_mesh``).  A t
     that does not factor warns and gives a flat 1-axis mesh instead of
@@ -73,13 +73,6 @@ def make_staged_mesh(t: int, names: Tuple[str, str] = STAGED_AXIS_NAMES,
     if fs is None:
         return make_mesh((int(t),), (names[0],), device_type)
     return make_mesh(fs, names, device_type)
-
-
-def _device_type() -> str:
-    """The device type of the default group's ranks: "cuda" under NCCL,
-    "cpu" otherwise (Gloo, the dry run's fake group)."""
-    import torch.distributed as dist
-    return "cuda" if "nccl" in str(dist.get_backend()).lower() else "cpu"
 
 
 def make_production_mesh(*, multi_pod: bool = False, device_type=None):
@@ -94,7 +87,7 @@ def make_production_mesh(*, multi_pod: bool = False, device_type=None):
 
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return make_mesh(shape, axes, device_type or _device_type())
+    return make_mesh(shape, axes, device_type)
 
 
 def make_host_mesh(t: int = 8, device_type=None):
@@ -109,5 +102,4 @@ def make_host_mesh(t: int = 8, device_type=None):
     t = min(t, n)
     data = max(1, t // 2) if t > 1 else 1
     model = t // data
-    return make_mesh((data, model), ("data", "model"),
-                     device_type or _device_type())
+    return make_mesh((data, model), ("data", "model"), device_type)

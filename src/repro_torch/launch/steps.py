@@ -39,11 +39,12 @@ from ..models.model import (decode_step, params_shape, prefill,
                             train_loss)
 from ..optim.adamw import AdamWConfig, adamw_init, adamw_update
 from ..sharding.parallel import Par, all_reduce_, distribute, local
-from ..sharding.specs import ShardingRules, make_rules
+from ..sharding.specs import P, ShardingRules, make_rules
 
 __all__ = ["StepBundle", "build_train_step", "build_prefill_step",
            "build_decode_step", "build_step", "rules_for", "shard_params",
-           "shard_opt_state", "shard_cache", "shard_batch"]
+           "shard_opt_state", "shard_cache", "shard_batch",
+           "train_input_sharding"]
 
 
 class StepBundle:
@@ -100,13 +101,24 @@ def shard_cache(rules: ShardingRules, cache):
     return distribute(cache, rules.cache_specs(cache), rules.mesh)
 
 
+def train_input_sharding(cfg: ArchConfig, rules: ShardingRules,
+                         batch: int) -> dict:
+    """The batch's specs: tokens and labels by ``rules.batch_spec``, and
+    a vision front end's (B, n, d) embeds over the same batch axes."""
+    spec = {"tokens": rules.batch_spec(batch),
+            "labels": rules.batch_spec(batch)}
+    if cfg.frontend == "vision":
+        spec["embeds"] = P(rules.batch_spec(batch)[0], None, None)
+    return spec
+
+
 def shard_batch(rules: ShardingRules, batch: dict) -> dict:
-    """A batch's tensors (B, ...) laid out by ``rules.batch_spec`` (the
-    reference's ``train_input_sharding``)."""
+    """A batch's tensors {"tokens", "labels", "embeds"}, each (B, ...),
+    laid out by :func:`train_input_sharding` for the rules' config."""
     if rules.mesh is None:
         return batch
-    return {k: distribute(v, tuple(rules.batch_spec(v.shape[0]))
-                          + (None,) * (v.dim() - 2), rules.mesh)
+    return {k: distribute(v, tuple(train_input_sharding(
+                rules._cfg, rules, v.shape[0])[k]), rules.mesh)
             for k, v in batch.items()}
 
 

@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from ..ckpt import CheckpointManager
-from ..cluster.api import resolve_device
+from ..device import resolve_device
 from ..configs.base import ArchConfig
 from ..configs.shapes import ShapeSpec
 from ..data.pipeline import TokenPipeline

@@ -6,5 +6,9 @@ Mamba-2 SSD mixer, the decoder's training forward and loss and its
 serving path with a KV cache (bf16 or int8) and vision front end, and
 the carry-over of the reference's parameters and optimizer state."""
 from . import attention, convert, layers, model, moe, ssm
+from .model import (decode_step, forward, init_cache, init_params,
+                    params_shape, prefill, train_loss)
 
-__all__ = ["attention", "convert", "layers", "model", "moe", "ssm"]
+__all__ = ["attention", "convert", "layers", "model", "moe", "ssm",
+           "decode_step", "forward", "init_cache", "init_params",
+           "params_shape", "prefill", "train_loss"]

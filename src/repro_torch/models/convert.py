@@ -27,7 +27,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from ..cluster.api import resolve_device
+from ..device import resolve_device
 from ..configs.base import ArchConfig
 
 __all__ = ["params_from_reference", "opt_state_from_reference", "tree_map",

@@ -59,6 +59,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ..device import resolve_device
 from ..configs.base import ArchConfig
 from ..numerics import fma_float32
 from ..sharding.parallel import (Par, all_reduce_, gather_from, gather_to,
@@ -612,8 +613,10 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, dtype=None,
     buffers (B, Hkv, max_seq, hd) for every attention layer (int8 with
     float32 (B, Hkv, max_seq, 1) scales under ``kv_quant``), and a
     zeroed conv state (B, W-1, conv_dim) and float32 SSM state (B, H, P,
-    N) for every mamba layer."""
+    N) for every mamba layer.  ``device`` None is the card
+    (``device.resolve_device``); "meta" lays out shapes only."""
     dtype = dtype or cfg.compute_dtype
+    device = resolve_device(device)
 
     def layer(pos: int) -> Dict[str, torch.Tensor]:
         if cfg.kind(pos) == "mamba":

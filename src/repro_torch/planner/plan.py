@@ -34,6 +34,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..cluster.substrate import (BatchedSubstrate, ProcessGroupSubstrate,
                                  resolve_substrate)
 from ..obs import trace as obs_trace
@@ -208,7 +209,7 @@ def _agreed_cache_get(key: str, sub) -> Optional[QueryPlan]:
     return plan
 
 
-def plan_sort_query(x, *, t: int, r: int = 2, device="cpu", x_device=None,
+def plan_sort_query(x, *, t: int, r: int = 2, device=None, x_device=None,
                     substrate=None):
     """Sketch -> score -> choose for ``cluster.sort(algorithm="auto")``.
 
@@ -216,8 +217,10 @@ def plan_sort_query(x, *, t: int, r: int = 2, device="cpu", x_device=None,
     same rows already on ``device``, else ``x`` is moved there.  The
     rows on the device are fingerprinted and sketched, on ``substrate``
     (a substrate, a provider or None, as ``cluster.sort`` takes it).
+    ``device`` None is the card (``device.resolve_device``).
     Returns ``(QueryPlan, sketch_phases)``; the phases are [] on a
     cache hit (no sketch ran)."""
+    device = resolve_device(device)
     if x_device is None:
         x_device = (x if isinstance(x, torch.Tensor)
                     else torch.as_tensor(np.asarray(x))).to(device)
@@ -256,14 +259,15 @@ def sketch_sort_plan(x_device: torch.Tensor, *, t: int, r: int = 2,
 
 
 def plan_join_query(s_keys, t_keys, *, t_machines: int,
-                    mem_budget: Optional[int] = None, device="cpu",
+                    mem_budget: Optional[int] = None, device=None,
                     substrate=None):
     """Sketch -> score -> choose for ``cluster.join(algorithm="auto")``.
 
-    The sketch runs on ``substrate`` as in :func:`plan_sort_query`.
-    Returns ``(QueryPlan, sketch_phases)``."""
+    The sketch runs on ``substrate`` and ``device`` (None: the card) as
+    in :func:`plan_sort_query`.  Returns ``(QueryPlan, sketch_phases)``."""
     from ..core.localjoin import MASKED_KEY
 
+    device = resolve_device(device)
     t = t_machines
     s32 = torch.as_tensor(np.asarray(s_keys, np.int32)).to(device)
     t32 = torch.as_tensor(np.asarray(t_keys, np.int32)).to(device)
@@ -301,7 +305,7 @@ def routing_ids(x: torch.Tensor, router: torch.Tensor, *, t: int,
 
 def plan_moe_query(x, router, *, t_machines: int, num_experts: int,
                    top_k: int, extra_slots: int,
-                   capacity_factor: float = 1.25, device="cpu",
+                   capacity_factor: float = 1.25, device=None,
                    substrate=None):
     """Sketch -> score -> choose for ``cluster.moe_dispatch(mode="auto")``
     (and the cluster mode's counts).
@@ -309,13 +313,14 @@ def plan_moe_query(x, router, *, t_machines: int, num_experts: int,
     The sketched table is the router's top-k expert-id stream: routing
     is a join keyed by expert id, so the heavy-hitter / CountMin
     machinery that prices skew joins prices dispatch skew.  x (tokens,
-    d) and the router are moved to ``device`` (tensors already there
-    are not copied), fingerprinted there (:func:`tensor_digest`) and the
+    d) and the router are moved to ``device`` (None: the card; tensors
+    already there are not copied), fingerprinted there (:func:`tensor_digest`) and the
     ids sketched there, on ``substrate``.  Returns ``(QueryPlan,
     sketch_phases)``; ``plan.profile`` is the ids' TableProfile, and
     ``sketch.expert_counts_estimate`` re-derives the per-expert counts
     from it.  The phases are [] on a cache hit.
     """
+    device = resolve_device(device)
     t = t_machines
     xd, rd = (a if isinstance(a, torch.Tensor)
               else torch.from_numpy(np.array(a)) for a in (x, router))

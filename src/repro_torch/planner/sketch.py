@@ -38,6 +38,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..kernels import ops
 from ..kernels.bitonic import KEY_DTYPES, _next_pow2
 
@@ -452,11 +453,13 @@ def _deal(keys: torch.Tensor, t: int, masked) -> torch.Tensor:
 
 def profile_join_tables(s_keys, t_keys, t_machines: int, substrate, *,
                         masked, sample: Optional[int] = SKETCH_SAMPLE,
-                        device="cpu"):
+                        device=None):
     """Profile both join tables in one substrate run (one sketch round).
 
-    Keys are int32 host arrays or tensors, moved to ``device`` once and
-    dealt to the machines there.  Returns ``(DataProfile, tape)``."""
+    Keys are int32 host arrays or tensors, moved to ``device`` (None: the
+    card, ``device.resolve_device``) once and dealt to the machines
+    there.  Returns ``(DataProfile, tape)``."""
+    device = resolve_device(device)
     ss = _deal(torch.as_tensor(s_keys).to(device), t_machines, masked)
     ts = _deal(torch.as_tensor(t_keys).to(device), t_machines, masked)
     (sk_s, sk_t), tape = substrate.run(

@@ -23,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..cluster.api import resolve_device
+from ..device import resolve_device
 from ..configs.base import ArchConfig
 from ..models.model import decode_step, init_cache, prefill
 

@@ -83,7 +83,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..cluster.api import _x32, resolve_device
+from ..cluster.api import _x32
+from ..device import resolve_device
 from ..cluster.substrate import SubstratePool, recommend_pool_size
 from ..obs import metrics as obs_metrics
 from ..obs import trace as obs_trace

@@ -285,13 +285,15 @@ def test_plan_moe_query_matches_reference(hot):
     p, host, x, jcfg, cfg = setup(hot=hot, tokens=1024, k=2)
     kw = dict(t_machines=8, num_experts=8, top_k=2, extra_slots=8)
     want, want_phases = jplanner.plan_moe_query(x, p["router"], **kw)
-    got, got_phases = planner.plan_moe_query(x, host["router"], **kw)
+    got, got_phases = planner.plan_moe_query(x, host["router"],
+                                             device="cpu", **kw)
     assert_same_plans(got, want)
     assert phases_of(got_phases) == phases_of(want_phases)
     counts = planner.expert_counts_estimate(got.profile, 8)
     np.testing.assert_array_equal(
         counts, jplanner.expert_counts_estimate(want.profile, 8))
-    again, phases = planner.plan_moe_query(x, host["router"], **kw)
+    again, phases = planner.plan_moe_query(x, host["router"], device="cpu",
+                                           **kw)
     assert again.cached and phases == []
 
 

@@ -54,6 +54,27 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert out.stdout.strip() == ""
 
 
+def test_port_examples_import_neither_jax_nor_the_reference():
+    """``examples/torch_*.py``, each loaded as a module (main not run)."""
+    root = __import__("pathlib").Path(repro_torch.__file__).parents[2]
+    code = textwrap.dedent("""
+        import importlib.util, pathlib, sys
+        names = sorted(pathlib.Path("examples").glob("torch_*.py"))
+        assert len(names) == 6, names
+        for path in names:
+            spec = importlib.util.spec_from_file_location(path.stem, path)
+            spec.loader.exec_module(importlib.util.module_from_spec(spec))
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.")
+                     or m == "repro" or m.startswith("repro."))
+        print(",".join(bad))
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True, cwd=root,
+                         env={"PYTHONPATH": str(root / "src")}, timeout=120)
+    assert out.stdout.strip() == ""
+
+
 def test_query_engine_imports_neither_jax_nor_the_models():
     """``repro_torch.serve.query`` alone: no jax, no reference, and the
     LM stack stays unloaded (``serve.generate`` is lazy)."""

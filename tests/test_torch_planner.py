@@ -186,7 +186,7 @@ def test_join_profiles_costs_and_choice_match_reference(case, t):
     s_keys, t_keys = JOIN_TABLES[case]()
     s32, t32 = np.asarray(s_keys, np.int32), np.asarray(t_keys, np.int32)
     prof, _ = sketch.profile_join_tables(s32, t32, t, BatchedSubstrate(t),
-                                         masked=MASKED_KEY)
+                                         masked=MASKED_KEY, device="cpu")
     jprof, _ = jsketch.profile_join_tables(s32, t32, t, VmapSubstrate(t),
                                            masked=MASKED_KEY)
     assert_profile_equal(prof, jprof)
@@ -210,7 +210,7 @@ def test_sort_plan_matches_reference(case):
     Terasort) and the exchange topology, from the same profile."""
     t, m, seed = SORT_INPUTS[case]
     x = uniform_keys(t * m, seed=seed).reshape(t, m)
-    plan, phases = planner.plan_sort_query(x, t=t)
+    plan, phases = planner.plan_sort_query(x, t=t, device="cpu")
     jplan, jphases = jplanner.plan_sort_query(jnp.asarray(x), t=t)
     assert (plan.algorithm, plan.exchange) == (jplan.algorithm,
                                                jplan.exchange)
@@ -423,7 +423,7 @@ def test_sketch_sort_plan_is_the_uncached_plan():
     t, m = 8, 256
     x = np.random.default_rng(10).random((t, m)).astype(np.float32)
     planner.clear_plan_cache()
-    plan, phases = planner.plan_sort_query(x, t=t)
+    plan, phases = planner.plan_sort_query(x, t=t, device="cpu")
     direct, direct_phases = sketch_sort_plan(torch.from_numpy(x), t=t)
     assert (direct.algorithm, direct.exchange) == (plan.algorithm,
                                                    plan.exchange)
@@ -452,7 +452,8 @@ def test_moe_planner_matches_reference():
     x = np.random.default_rng(4).standard_normal((256, d)).astype(np.float32)
     kw = dict(t_machines=4, num_experts=e, top_k=1, extra_slots=2)
     want, want_phases = jplanner.plan_moe_query(x, jnp.asarray(router), **kw)
-    got, got_phases = planner.plan_moe_query(x, router, **kw)
+    got, got_phases = planner.plan_moe_query(x, router, device="cpu",
+                                             **kw)
     assert (got.kind, got.algorithm) == ("moe", want.algorithm)
     assert {n: dataclasses.asdict(c) for n, c in got.candidates.items()} == {
         n: dataclasses.asdict(c) for n, c in want.candidates.items()}
