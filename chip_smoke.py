@@ -131,10 +131,11 @@ without printing a result:
                 runs on the Zipf and scalar-skew tables: alpha 3 and 1,
                 StatJoin's k_out <= 2 (Theorem 6), each k beside
                 Theorem 7's / 5's 2 + t/sigma; one JSON line of them all
-     lenses     the reference's opt-in lenses on one SMMS sort at t=64:
-                execution counts equal to the dispatch counts cold and
-                twice them after a second call; one kernel_op_seconds
-                observation per dispatcher call
+     lenses     the port's lenses on one SMMS sort at t=64: the traces
+                counter equal to the dispatch counts cold and twice them
+                after a second call; one sync: span a synchronizing
+                operation; every span a profiler range; span()'s cost
+                with tracing off
   5. small      t=8 x 4,096 (the in-tile merges) with and without values
                 by both sorts and both families, and each join on small
                 tables: outputs and every report field equal to the same
@@ -6367,83 +6368,92 @@ def phase_alpha_k(smi: str) -> dict:
 
 
 def phase_lenses(smi: str) -> dict:
-    """The reference's opt-in lenses on one SMMS sort at t = 64 x 65,536:
-    with ``ops.enable_exec_counts``, the execution counts equal the
-    dispatch counts of a cold call and double on a second identical
-    call; with ``ops.OP_TIMING_ENABLED``, ``kernel_op_seconds`` holds one
-    observation per dispatcher call, each ending in a synchronize."""
+    """The port's lenses on one SMMS sort at t = 64 x 65,536: the
+    registry's ``kernel_dispatch_traces_total`` equals the dispatch
+    counts of a call and doubles on a second identical call (the port
+    dispatches on every call: the traces are the executions); a traced
+    call holds one ``sync:`` span for each synchronizing operation that
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports during it, and
+    each of its spans is a ``repro:`` range in torch.profiler's trace of
+    it; what ``obs.trace.span`` costs with neither sink on."""
     from repro_torch import obs
     x = sort_inputs(SEED)["uniform"][0]
-    check(ops.exec_dispatch_counts() == {}
-          and not obs.REGISTRY.histograms_matching("kernel_op_seconds"),
-          "the lenses were on before this phase")
+
+    def traces():
+        return {(dict(k)["op"], dict(k)["path"]): int(v) for k, v in
+                obs.REGISTRY.counters_matching(
+                    "kernel_dispatch_traces_total").items()}
+
+    obs.reset_registry()
     before = collections.Counter(ops.DISPATCH_COUNTS)
-    ops.enable_exec_counts(True)
-    ops.OP_TIMING_ENABLED = True
-    try:
-        cluster.sort(x, algorithm="smms", device=DEVICE)
-        cold = dict(collections.Counter(ops.DISPATCH_COUNTS) - before)
-        execs_cold = ops.exec_dispatch_counts()
-        cluster.sort(x, algorithm="smms", device=DEVICE)
-        execs_warm = ops.exec_dispatch_counts()
-    finally:
-        ops.enable_exec_counts(False)
-        ops.OP_TIMING_ENABLED = False
+    cluster.sort(x, algorithm="smms", device=DEVICE)
+    cold = dict(collections.Counter(ops.DISPATCH_COUNTS) - before)
+    check(traces() == cold, f"traces {traces()} != the dispatch counts "
+                            f"{cold}")
+    cluster.sort(x, algorithm="smms", device=DEVICE)
+    check(traces() == {k: 2 * v for k, v in cold.items()},
+          f"traces {traces()} after a second call, not twice {cold}")
     where = "cuda" if DEVICE == "cuda" else "plain"
     check(cold and all(path.endswith(where) for _, path in cold),
           f"the sort dispatched {cold}, not only to the card")
-    check(execs_cold == cold, f"exec counts {execs_cold} != the cold "
-                              f"dispatch counts {cold}")
-    check(execs_warm == {k: 2 * v for k, v in cold.items()},
-          f"exec counts {execs_warm} after a second call, not twice {cold}")
-    calls = collections.Counter()
-    for (op, _), count in cold.items():
-        calls[op] += 2 * count
-    hists = {dict(k)["op"]: h for k, h in
-             obs.REGISTRY.histograms_matching("kernel_op_seconds").items()}
-    check({op: h.count for op, h in hists.items()} == dict(calls),
-          f"kernel_op_seconds counts differ from the calls {dict(calls)}")
+
+    tracer = obs.Tracer(enabled=True)
+    with tracer.trace("q") as root:
+        warned = sync_warnings(
+            lambda: cluster.sort(x, algorithm="smms", device=DEVICE))
+    spans = [s.name for s in root.walk()]
+    syncs = [n for n in spans if n.startswith("sync:")]
+    if warned is not None:
+        check(warned == len(syncs), f"{warned} synchronizing operations "
+                                    f"warned, {len(syncs)} sync: spans")
+    with torch.profiler.profile() as prof:
+        cluster.sort(x, algorithm="smms", device=DEVICE)
+    ranges = collections.Counter(
+        e.name[len(obs.trace.RANGE_PREFIX):] for e in prof.events()
+        if e.name.startswith(obs.trace.RANGE_PREFIX)
+        and not e.name.startswith(obs.trace.RANGE_PREFIX + "launch:"))
+    # the traced call read the tape's counts for its phase spans too
+    untraced = collections.Counter(n for n in spans[1:]
+                                   if n != "sync:tape.counts")
+    ranges.pop("sync:tape.counts", None)
+    check(ranges == untraced, f"profiler ranges {dict(ranges)} != the "
+                              f"traced call's spans {dict(untraced)}")
+
+    def probe():
+        with obs.trace.span("probe"):
+            pass
+
+    def bare():
+        pass
+
+    off_us = _per_call_us(probe) - _per_call_us(bare)
     out = {"dispatch_counts": {f"{op}/{path}": v
                                for (op, path), v in cold.items()},
-           "op_ms": {op: h.sum / h.count * 1e3 for op, h in hists.items()}}
-    print(f"[lenses] exec counts {out['dispatch_counts']} cold, twice that "
-          f"after a second call; kernel_op_seconds a call (host, with a "
-          f"synchronize): "
-          + ", ".join(f"{op} {ms:.3f} ms" for op, ms in out["op_ms"].items())
-          + f" ({smi})")
-    out["timing_off"] = op_timing_off_cost(x, sum(calls.values()) // 2, smi)
+           "sync_warnings": warned, "sync_spans": len(syncs),
+           "spans": len(spans) - 1, "span_off_us": off_us}
+    print(f"[lenses] traces counter {out['dispatch_counts']} cold, twice "
+          f"that after a second call; {warned} synchronizing operations, "
+          f"{len(syncs)} sync: spans ({collections.Counter(syncs)}); "
+          f"{len(spans) - 1} spans a traced call, each a profiler range; "
+          f"span() off {off_us:.3f} us a call ({smi})")
     return out
 
 
-def op_timing_off_cost(x, calls: int, smi: str) -> dict:
-    """What ``_op_timing`` adds to a dispatcher call with the timing
-    off, on the host: a no-op body behind the decorator against the body
-    alone (``_per_call_us``), times the sort's ``calls`` decorated
-    calls, against the host-clock median of 5 untimed SMMS sorts."""
-    def noop(*args, **kw):
+def sync_warnings(fn) -> Optional[int]:
+    """Synchronizing CUDA operations ``fn()`` makes, counted by
+    ``torch.cuda.set_sync_debug_mode("warn")``; None off the card."""
+    if DEVICE != "cuda":
+        fn()
         return None
-
-    check(not ops.OP_TIMING_ENABLED, "op timing is still on")
-    wrapped_us = _per_call_us(ops._op_timing(noop))
-    bare_us = _per_call_us(noop)
-    walls = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        cluster.sort(x, algorithm="smms", device=DEVICE)
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    sort_ms = float(np.median(walls))
-    added_us = calls * (wrapped_us - bare_us)
-    out = {"wrapped_us": wrapped_us, "bare_us": bare_us, "calls": calls,
-           "added_us": added_us, "sort_ms": sort_ms,
-           "share": added_us / (sort_ms * 1e3)}
-    print(f"[lenses] op timing off, host: a decorated call {wrapped_us:.3f} "
-          f"us against {bare_us:.3f} us for the body alone; one SMMS sort: "
-          f"{calls} decorated calls, {added_us:.2f} us added = "
-          f"{100 * out['share']:.4f}% of its {sort_ms:.3f} ms host median "
-          f"({smi})")
-    return out
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
 
 
 # ---------------------------------------------------------------------------

@@ -57,6 +57,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..obs import trace as obs_trace
 from .capacity import CapacityPolicy, run_with_capacity
 
 __all__ = ["sort", "join", "moe_dispatch", "SORT_ALGORITHMS",
@@ -89,6 +90,15 @@ def _as_tensor(a) -> torch.Tensor:
     """A tensor of ``a``; a numpy array (or a read-only view of one) is
     copied first."""
     return a if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a))
+
+
+def _to_device(a, dev: torch.device) -> torch.Tensor:
+    """``a`` as the reference's front door sees it (:func:`_x32`), on
+    ``dev``; a host array's copy to the card blocks the host (a
+    ``sync:input`` span)."""
+    a = torch.as_tensor(_x32(a))
+    with obs_trace.sync("input", not a.is_cuda and dev.type == "cuda"):
+        return a.to(dev)
 
 
 def _attach_plan(report, plan, sketch_phases) -> None:
@@ -130,6 +140,38 @@ def sort(x, *, algorithm: str = "smms", r: int = 2, seed: int = 0,
     ``substrate``: see the module docstring (a 2-axis substrate runs
     staged over its own grid).
     """
+    with obs_trace.span("cluster.sort") as sp:
+        t, m = _sort_shape(x, values, algorithm, exchange)
+        dev = resolve_device(device)
+        xt = _to_device(x, dev).contiguous()
+        vt = None if values is None else _to_device(values, dev)
+        if sp is not None:
+            sp.attrs.update(algorithm=algorithm, t=t, m=m, payload_bytes=(
+                0 if vt is None else vt.element_size() * vt[0, 0].numel()))
+        if algorithm != AUTO:
+            return _sort(xt, t, m, algorithm=algorithm, r=r, seed=seed,
+                         cap_factor=cap_factor, policy=policy, values=vt,
+                         exchange=exchange, overlap_chunks=overlap_chunks,
+                         uniforms=uniforms, backend=backend,
+                         substrate=substrate, device=dev)
+        from ..planner import plan_sort_query
+        # the fingerprint reads the caller's host array; the sketch the
+        # rows already on the device
+        plan, sketch_phases = plan_sort_query(x, t=t, r=r, device=dev,
+                                              x_device=xt,
+                                              substrate=substrate)
+        out, report = _sort(
+            xt, t, m, algorithm=plan.algorithm, r=r, seed=seed,
+            cap_factor=cap_factor, policy=policy, values=vt,
+            exchange=plan.exchange if exchange == AUTO else exchange,
+            overlap_chunks=overlap_chunks, uniforms=uniforms,
+            backend=backend, substrate=substrate, device=dev)
+        _attach_plan(report, plan, sketch_phases)
+        return out, report
+
+
+def _sort_shape(x, values, algorithm: str, exchange: str):
+    """(t, m) of a sort's rows, once its arguments are checked."""
     if exchange not in ("flat", "staged", AUTO):
         raise ValueError(f"unknown exchange topology {exchange!r}; "
                          f"expected 'flat', 'staged' or '{AUTO}'")
@@ -143,25 +185,15 @@ def sort(x, *, algorithm: str = "smms", r: int = 2, seed: int = 0,
     if values is not None and tuple(np.shape(values)[:2]) != np.shape(x):
         raise ValueError(f"values of shape {tuple(np.shape(values))} do not "
                          f"align with x of shape {tuple(np.shape(x))}")
-    t, m = (int(d) for d in np.shape(x))
-    dev = resolve_device(device)
-    xt = torch.as_tensor(_x32(x)).to(dev).contiguous()
-    vt = None if values is None else torch.as_tensor(_x32(values)).to(dev)
-    if algorithm == AUTO:
-        from ..planner import plan_sort_query
-        # the fingerprint reads the caller's host array; the sketch the
-        # rows already on the device
-        plan, sketch_phases = plan_sort_query(x, t=t, r=r, device=dev,
-                                              x_device=xt,
-                                              substrate=substrate)
-        out, report = sort(
-            xt, algorithm=plan.algorithm, r=r, seed=seed,
-            cap_factor=cap_factor, policy=policy, values=vt,
-            exchange=plan.exchange if exchange == AUTO else exchange,
-            overlap_chunks=overlap_chunks, uniforms=uniforms,
-            backend=backend, substrate=substrate, device=dev)
-        _attach_plan(report, plan, sketch_phases)
-        return out, report
+    return tuple(int(d) for d in np.shape(x))
+
+
+def _sort(xt: torch.Tensor, t: int, m: int, *, algorithm: str, r, seed,
+          cap_factor, policy, values, exchange, overlap_chunks, uniforms,
+          backend, substrate, device):
+    """:func:`sort` past its checks, on the rows on the device, by the
+    named algorithm (an ``exchange="auto"`` resolved here)."""
+    dev, vt = device, values
     if exchange == AUTO:
         from ..planner import choose_exchange
         exchange, _ = choose_exchange(t, m, algorithm=algorithm, r=r,

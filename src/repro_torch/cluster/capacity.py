@@ -83,9 +83,12 @@ def run_with_capacity(attempt: Callable[[float], Tuple[object, int]],
                       policy: CapacityPolicy) -> Tuple[object, float, int]:
     """Run ``attempt(cap_factor) -> (result, dropped)`` until nothing drops.
 
-    Returns ``(result, cap_factor_used, attempts)``.  Raises
-    :class:`CapacityOverflowError` when the schedule is exhausted with
-    drops remaining (the last result is attached as ``.last_result``).
+    Each attempt is a ``capacity.attempt`` span (``attempt``,
+    ``cap_factor`` and ``dropped``, the count the attempt read back;
+    ``attempt`` may add its own attributes to it).  Returns ``(result,
+    cap_factor_used, attempts)``.  Raises :class:`CapacityOverflowError`
+    when the schedule is exhausted with drops remaining (the last result
+    is attached as ``.last_result``).
     """
     attempts = 0
     result, dropped, factor = None, 0, policy.first_factor
@@ -94,8 +97,13 @@ def run_with_capacity(attempt: Callable[[float], Tuple[object, int]],
         if attempts > 1:    # an actual retry (the first try is not one)
             obs_trace.event("capacity_retry", attempt=attempts,
                             cap_factor=float(factor), dropped=int(dropped))
-        result, dropped = attempt(factor)
-        if int(dropped) == 0:
+        with obs_trace.span("capacity.attempt", attempt=attempts,
+                            cap_factor=float(factor)) as sp:
+            result, dropped = attempt(factor)
+            dropped = int(dropped)
+            if sp is not None:
+                sp.attrs["dropped"] = dropped
+        if dropped == 0:
             return result, factor, attempts
     err = CapacityOverflowError(
         f"{int(dropped)} objects still dropped after {attempts} attempts "

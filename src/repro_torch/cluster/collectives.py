@@ -63,12 +63,20 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..obs import trace as obs_trace
 from . import compat
 
 # repro_torch.core.alpha_k is imported inside phases()/report(): the
 # core modules import this one at load time.
 
 __all__ = ["CollectiveTape", "ProcessGroupTape"]
+
+
+def _host(x: torch.Tensor) -> torch.Tensor:
+    """x on the host: a card's tensor read under a ``sync:tape.counts``
+    span (a blocking device-to-host copy)."""
+    with obs_trace.sync("tape.counts", x.is_cuda):
+        return x.cpu()
 
 
 def _line_sum(x: torch.Tensor, grid: Optional[Tuple[int, int]],
@@ -102,15 +110,21 @@ class CollectiveTape:
         self._entry_kind: List[str] = []     # the collective of each record
         self._entries: List = []             # (sent, received) per record
         self._current: Optional[str] = None
+        # phase name -> its first live ``phase:<name>`` span (a trace open)
+        self.phase_spans: Dict[str, "obs_trace.Span"] = {}
 
     @contextlib.contextmanager
     def phase(self, name: str):
-        """Declare a synchronized round; records inside merge into it."""
+        """Declare a synchronized round; records inside merge into it.
+        The round is a live ``phase:<name>`` span (``obs.trace.span``)."""
         if name not in self._phase_order:
             self._phase_order.append(name)
         prev, self._current = self._current, name
         try:
-            yield self
+            with obs_trace.span(f"phase:{name}") as sp:
+                if sp is not None:
+                    self.phase_spans.setdefault(name, sp)
+                yield self
         finally:
             self._current = prev
 
@@ -334,8 +348,8 @@ class CollectiveTape:
 
     def _host_entries(self, t: int) -> List[Tuple[np.ndarray, np.ndarray]]:
         """Each record's (sent, received) as (t,) float32 host arrays."""
-        return [(np.broadcast_to(s.cpu().numpy(), (t,)),
-                 np.broadcast_to(r.cpu().numpy(), (t,)))
+        return [(np.broadcast_to(_host(s).numpy(), (t,)),
+                 np.broadcast_to(_host(r).numpy(), (t,)))
                 for s, r in self._entries]
 
     def received_by_kind(self, t: int) -> Dict[str, np.ndarray]:
@@ -625,15 +639,15 @@ class ProcessGroupTape(CollectiveTape):
             return
         cols = []
         for s, r in self._entries:      # read to the host, as the batch's
-            cols.append(s.cpu())
+            cols.append(_host(s))
             cols.append(torch.zeros(self.rows) if isinstance(r, _LineTotals)
-                        else r.cpu())
+                        else _host(r))
         if cols:        # every rank records the same entries
             local = torch.stack(cols, dim=1)                 # (rows, 2R)
             if self._nccl:
                 local = local.to(torch.device(
                     "cuda", torch.cuda.current_device()))
-            counts = self._whole(local).T.cpu().numpy()      # (2R, t)
+            counts = _host(self._whole(local).T).numpy()     # (2R, t)
         bound = []
         for e, (_, r) in enumerate(self._entries):
             s, got = counts[2 * e], counts[2 * e + 1]

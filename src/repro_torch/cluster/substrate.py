@@ -31,9 +31,10 @@ and their run counters (runs, not compiles: ``ServeStats``' compile
 fields read 0).
 
 Under an open trace each run is a ``substrate.run`` span whose
-``phase:<name>`` children carry the tape's per-phase sent/received
-counts, the same numbers the AlphaKReport's phases hold (the
-reference's ``_attach_phases``, ``src/repro/cluster/substrate.py:168``).
+``phase:<name>`` descendants, opened live by the tape's phases, carry
+the tape's per-phase sent/received counts once the run is over, the
+same numbers the AlphaKReport's phases hold (the reference's
+``_attach_phases``, ``src/repro/cluster/substrate.py:168``).
 With no trace open a batch's device counters are not read; a process
 group's are gathered after every run (a collective every rank takes,
 trace or not), and a span reads those.
@@ -234,12 +235,19 @@ def _gather_outputs(out, tape: ProcessGroupTape):
 
 
 def _attach_phases(sp, tape: CollectiveTape, t: int) -> None:
-    """Under an open trace, the tape's phases as ``phase:<name>``
-    children of the run's span (no trace: the counters are not read)."""
+    """Under an open trace, the tape's per-phase counts on the live
+    ``phase:<name>`` spans the run opened (a phase with none -- records
+    taped outside every phase -- becomes an instant child of the run's
+    span); no trace: the counters are not read."""
     if sp is None:
         return
     for ph in tape.phases(t):
-        sp.add_child(f"phase:{ph.name}", sent=ph.sent, received=ph.received)
+        live = tape.phase_spans.get(ph.name)
+        if live is None:
+            sp.add_child(f"phase:{ph.name}", sent=ph.sent,
+                         received=ph.received)
+        else:
+            live.attrs.update(sent=ph.sent, received=ph.received)
 
 
 def _fn_label(fn: Callable) -> str:

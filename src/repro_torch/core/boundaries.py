@@ -34,6 +34,7 @@ import torch
 
 from ..kernels.bitonic import ftz
 from ..numerics import float32_reciprocal, fma_float32
+from ..obs import trace as obs_trace
 
 __all__ = ["equidepth_samples", "interval_pdf", "boundaries",
            "boundaries_oracle"]
@@ -150,9 +151,13 @@ def _linspace(stop: float, num: int, device) -> torch.Tensor:
     div = num - 1
     recip = torch.tensor(1.0, dtype=torch.float32) / float(div)
     stop_t = torch.tensor(stop, dtype=torch.float32)
-    out = (stop_t * recip).to(device) * torch.arange(
-        div, dtype=torch.float32, device=device)
-    return torch.cat([out, stop_t.to(device)[None]])
+    on_card = torch.device(device).type == "cuda"   # each copy blocks
+    with obs_trace.sync("round2.linspace", on_card):
+        step = (stop_t * recip).to(device)
+    out = step * torch.arange(div, dtype=torch.float32, device=device)
+    with obs_trace.sync("round2.linspace", on_card):
+        stop_t = stop_t.to(device)
+    return torch.cat([out, stop_t[None]])
 
 
 def boundaries(lam: torch.Tensor, m: int, s: int) -> torch.Tensor:

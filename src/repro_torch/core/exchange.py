@@ -43,6 +43,7 @@ import torch
 from ..cluster.capacity import CapacityOverflowError
 from ..cluster.collectives import CollectiveTape
 from ..kernels import ops
+from ..obs import trace as obs_trace
 
 __all__ = ["PAD", "partition_sorted", "build_send_buffer", "static_exchange",
            "ragged_exchange", "flat_receive_capacity",
@@ -335,48 +336,57 @@ def exchange_sorted_segments(x_sorted: torch.Tensor, interior: torch.Tensor,
     tape = tape if tape is not None else CollectiveTape()
     m = valid_len if valid_len is not None else x_sorted.shape[1]
     cap_pair = flat_receive_capacity(m, t, cap_factor) // t
-    if sort_input and values is not None:
-        x_sorted, values, starts, lens = ops.sort_partition_kv(
-            x_sorted, values, interior)
-    elif sort_input:
-        x_sorted, starts, lens = ops.sort_partition(x_sorted, interior)
-    else:
-        starts, lens = partition_sorted(x_sorted, interior,
-                                        valid_len=valid_len)
+    with obs_trace.span("round3.pack"):
+        if sort_input and values is not None:
+            x_sorted, values, starts, lens = ops.sort_partition_kv(
+                x_sorted, values, interior)
+        elif sort_input:
+            x_sorted, starts, lens = ops.sort_partition(x_sorted, interior)
+        else:
+            starts, lens = partition_sorted(x_sorted, interior,
+                                            valid_len=valid_len)
+        if staged_shape is None:
+            rows = lens.shape[0]
+            me = tape.axis_index(rows, lens.device)
+            sent = m - lens[torch.arange(rows, device=lens.device),
+                            me]                                 # leaving
+            if backend == "static":
+                keys_buf, vals_buf, local_drop = build_send_buffer(
+                    x_sorted, starts, lens, cap_pair, values,
+                    valid_len=valid_len)
     if staged_shape is not None:
         return _staged_exchange(
             x_sorted, interior, starts, lens, t1=t1, t2=t2, m=m,
             cap_factor=cap_factor, values=values, valid_len=valid_len,
             overlap_chunks=overlap_chunks, tape=tape,
             phase_prefix=phase_prefix)
-    rows = lens.shape[0]
-    me = tape.axis_index(rows, lens.device)
-    sent = m - lens[torch.arange(rows, device=lens.device), me]   # leaving
     if backend == "ragged":
         if valid_len is not None:       # exact-size sends: no pad tail
             x_sorted = x_sorted[:, :m]
             values = None if values is None else values[:, :m]
-        recv, recv_v, count = ragged_exchange(
-            x_sorted, starts, lens, cap_pair * t, tape, values=values,
-            sent=sent)
+        with obs_trace.span("round3.all_to_all"):
+            recv, recv_v, count = ragged_exchange(
+                x_sorted, starts, lens, cap_pair * t, tape, values=values,
+                sent=sent)
         dropped = torch.zeros((), dtype=torch.int32, device=recv.device)
-        if recv_v is None:
-            return ExchangeResult(ops.sort(recv), None, count.to(torch.int32),
-                                  sent, dropped)
-        keys, vals = ops.sort_kv(recv, recv_v)
+        with obs_trace.span("round3.merge"):
+            if recv_v is None:
+                keys, vals = ops.sort(recv), None
+            else:
+                keys, vals = ops.sort_kv(recv, recv_v)
         return ExchangeResult(keys, vals, count.to(torch.int32), sent,
                               dropped)
-    keys_buf, vals_buf, local_drop = build_send_buffer(
-        x_sorted, starts, lens, cap_pair, values, valid_len=valid_len)
-    recv2d, recv_v2d = static_exchange(keys_buf, tape, sent,
-                                       vals_buf)            # (rows, t, C)
-    count = (recv2d.reshape(rows, -1) < PAD).sum(dim=1).to(torch.int32)
-    dropped = tape.psum(local_drop).to(torch.int32)
+    with obs_trace.span("round3.all_to_all"):
+        recv2d, recv_v2d = static_exchange(keys_buf, tape, sent,
+                                           vals_buf)        # (rows, t, C)
+        count = (recv2d.reshape(rows, -1) < PAD).sum(dim=1).to(torch.int32)
+        dropped = tape.psum(local_drop).to(torch.int32)
     # pads (= inf) land last
-    if recv_v2d is None:
-        return ExchangeResult(ops.merge_sorted_rows(recv2d), None, count,
-                              sent, dropped)
-    merged, merged_v = ops.merge_sorted_rows_kv(recv2d, recv_v2d)
+    with obs_trace.span("round3.merge"):
+        if recv_v2d is None:
+            merged, merged_v = ops.merge_sorted_rows(recv2d), None
+        else:
+            merged, merged_v = ops.merge_sorted_rows_kv(recv2d, recv_v2d)
     return ExchangeResult(merged, merged_v, count, sent, dropped)
 
 

@@ -18,7 +18,11 @@ a process group, where every rank computes Round 2 alike):
 
 The capacity-retry loop re-runs the body with a doubled factor while
 objects drop; it reads the dropped count back to the host once per
-attempt.  Guarantee (Thm 2): (3, 1 + 2/r + r t^3/n)-minimal for t^3 <= n.
+attempt.  Guarantee (Thm 2): (3, 1 + 2/r + r t^3/n)-minimal for
+t^3 <= n.  Under ``obs.trace`` the call is spanned where its work
+happens: each attempt, each round (the tape's phases), Round 3's
+pack, all-to-all and merge, the output's collection, the report, and
+every host read (``sync:<site>``).
 
 ``exchange="staged"`` runs Round 3 as the two-level staged exchange
 over the (t1, t2) factorization of t (``resolve_exchange_topology``):
@@ -37,12 +41,14 @@ from ..cluster.capacity import CapacityPolicy, run_with_capacity
 from ..cluster.collectives import CollectiveTape
 from ..cluster.substrate import Substrate, resolve_substrate
 from ..kernels import ops
+from ..obs import trace as obs_trace
 from .alpha_k import smms_workload_bound
 from .boundaries import boundaries, equidepth_samples
 from .exchange import exchange_sorted_segments
 
 __all__ = ["smms_shard", "smms_sort", "SortResult", "default_cap_factor",
-           "received_objects", "resolve_exchange_topology"]
+           "received_objects", "resolve_exchange_topology", "sort_report",
+           "tile_attrs"]
 
 
 def resolve_exchange_topology(substrate, t: int, exchange: str = "flat"):
@@ -103,10 +109,44 @@ class SortResult(NamedTuple):
 
 def received_objects(res: SortResult):
     """The sort's output: every machine's valid keys, machine 0's first,
-    and their values (or None)."""
+    and their values (or None).  Each boolean-mask gather reads its
+    length back to the host (a ``sync:collect.*`` span)."""
     valid = (torch.arange(res.keys.shape[1], device=res.keys.device)[None, :]
              < res.count[:, None].long())
-    return res.keys[valid], None if res.values is None else res.values[valid]
+    with obs_trace.sync("collect.keys", valid.is_cuda):
+        keys = res.keys[valid]
+    if res.values is None:
+        return keys, None
+    with obs_trace.sync("collect.values", valid.is_cuda):
+        return keys, res.values[valid]
+
+
+def tile_attrs(res: SortResult) -> None:
+    """Put the attempt's output tiles' slots and bytes (its keys and
+    values, over all t machines) on the open ``capacity.attempt``
+    span, if a trace is open."""
+    sp = obs_trace.current()
+    if sp is not None:
+        sp.attrs["tile_slots"] = res.keys.numel()
+        sp.attrs["tile_bytes"] = res.keys.nbytes + (
+            0 if res.values is None else res.values.nbytes)
+
+
+def sort_report(tape, res: SortResult, algorithm: str, t: int, n: int):
+    """The front door's report: the tape's phases, each machine's count
+    and the boundaries, each read back to the host under a ``sync:``
+    span."""
+    with obs_trace.sync("count", res.count.is_cuda):
+        workload = res.count.cpu().numpy()
+    report = tape.report(algorithm=algorithm, t=t, n_in=n, n_out=n,
+                         workload=workload)
+    # numpy has no bf16: bf16 boundaries (Terasort's samples) come out
+    # as float32, exactly
+    b = res.boundaries
+    with obs_trace.sync("boundaries", b.is_cuda):
+        report.boundaries = (b.float() if b.dtype == torch.bfloat16
+                             else b).cpu().numpy()
+    return report
 
 
 def default_cap_factor(n: int, t: int, r: int, slack: float = 1.05) -> float:
@@ -212,18 +252,22 @@ def smms_sort(x: torch.Tensor, r: int = 2, cap_factor: Optional[float] = None,
                               overlap_chunks=int(overlap_chunks),
                               backend=backend),
             *operands)
-        return (res, tape), int(res.dropped)    # the one host read per attempt
+        tile_attrs(res)
+        # the one host read an attempt
+        with obs_trace.sync("dropped", res.dropped.is_cuda):
+            return (res, tape), int(res.dropped)
 
     (res, tape), factor, attempts = run_with_capacity(attempt, policy)
-    flat, vals = received_objects(res)
-    report = tape.report(algorithm=f"SMMS(r={r})", t=t, n_in=n, n_out=n,
-                         workload=res.count.cpu().numpy())
+    with obs_trace.span("sort.collect"):
+        flat, vals = received_objects(res)
+    with obs_trace.span("sort.report"):
+        # the Algorithm-1 boundaries the run used ride on the report, so
+        # a caller can recount the workload (the reference keeps them in
+        # its SortResult only)
+        report = sort_report(tape, res, f"SMMS(r={r})", t, n)
     report.exchange_topology = "flat" if staged_shape is None else "staged"
     report.theoretical_workload_bound = smms_workload_bound(n, t, r)
     report.total_dropped = 0
     report.cap_factor = factor
     report.capacity_attempts = attempts
-    # the Algorithm-1 boundaries the run used, so a caller can recount
-    # the workload (the reference keeps them in its SortResult only)
-    report.boundaries = res.boundaries.cpu().numpy()
     return (flat, vals), report

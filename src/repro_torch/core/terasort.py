@@ -36,9 +36,11 @@ from ..cluster.collectives import CollectiveTape
 from ..kernels.bitonic import ftz
 from .alpha_k import terasort_workload_bound
 from ..numerics import float32_reciprocal
+from ..obs import trace as obs_trace
 from .exchange import exchange_sorted_segments
 from .sampling import algorithm_s, draw_uniforms, terasort_sample_count
-from .smms import SortResult, received_objects, resolve_exchange_topology
+from .smms import (SortResult, received_objects, resolve_exchange_topology,
+                   sort_report, tile_attrs)
 
 __all__ = ["boundary_index", "terasort_shard", "terasort_sort"]
 
@@ -157,20 +159,19 @@ def terasort_sort(x: torch.Tensor, seed: int = 0,
                               overlap_chunks=int(overlap_chunks),
                               backend=backend),
             *operands)
-        return (res, tape), int(res.dropped)    # the one host read per attempt
+        tile_attrs(res)
+        # the one host read an attempt
+        with obs_trace.sync("dropped", res.dropped.is_cuda):
+            return (res, tape), int(res.dropped)
 
     (res, tape), factor, attempts = run_with_capacity(attempt, policy)
-    flat, vals = received_objects(res)
-    report = tape.report(algorithm="Terasort+AlgS", t=t, n_in=n, n_out=n,
-                         workload=res.count.cpu().numpy())
+    with obs_trace.span("sort.collect"):
+        flat, vals = received_objects(res)
+    with obs_trace.span("sort.report"):
+        report = sort_report(tape, res, "Terasort+AlgS", t, n)
     report.exchange_topology = "flat" if staged_shape is None else "staged"
     report.theoretical_workload_bound = terasort_workload_bound(n, t)
     report.total_dropped = 0
     report.cap_factor = factor
     report.capacity_attempts = attempts
-    # numpy has no bf16: bf16 boundaries (the samples) come out as
-    # float32, exactly
-    b = res.boundaries
-    report.boundaries = (b.float() if b.dtype == torch.bfloat16
-                         else b).cpu().numpy()
     return (flat, vals), report

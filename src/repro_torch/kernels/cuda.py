@@ -17,8 +17,9 @@ that is not 0 and only then counts the call in :data:`LAUNCHES`.  Each
 entry point is looked up once, with its ``argtypes``, and called
 directly after that: a call costs the host one ctypes call.
 
-Nothing here runs at import time: this module is imported on machines
-with no ``nvcc`` and no card, where only the plain versions run.
+Nothing here builds or launches at import time: this module is
+imported on machines with no ``nvcc`` and no card, where only the
+plain versions run.
 """
 from __future__ import annotations
 
@@ -32,6 +33,8 @@ import subprocess
 import threading
 import time
 from typing import Dict, Iterable, NamedTuple, Optional
+
+from torch.autograd import _profiler_enabled
 
 __all__ = ["SOURCES", "Kernel", "KERNELS", "LAUNCHES", "BUILD_LOG",
            "reset_launches", "build_all", "library", "launch",
@@ -147,6 +150,8 @@ _ENTRIES: Dict[str, ctypes._CFuncPtr] = {}
 # torch's accessors of the current device and of a device's current
 # stream as a raw handle, resolved at the first launch
 _device = _raw_stream = None
+# device index -> the one-element tensor a profiled launch fills first
+_MARKERS: Dict[int, object] = {}
 
 
 def reset_launches() -> None:
@@ -263,15 +268,44 @@ def launch(name: str, fn: str, *args) -> None:
     point's arguments before the stream: tensors' ``data_ptr()``,
     Python ints, and None for a null pointer.  Raises if the launch
     reports a CUDA error; counts the call under ``name`` otherwise.
+
+    While torch.profiler records, the call runs inside a
+    ``repro:launch:<name>`` range, after a one-element fill on the same
+    stream (:func:`_profiled_call`).
     """
     func = _ENTRIES.get(fn) or _entry(name, fn)
-    rc = func(*args, _raw_stream(_device()))
+    if _profiler_enabled():
+        rc = _profiled_call(name, func, args)
+    else:
+        rc = func(*args, _raw_stream(_device()))
     if rc:
         lib = library(KERNELS[name].library)
         raise RuntimeError(f"{fn}: CUDA error {rc} "
                            f"({lib.error_string(rc).decode()})")
     with _COUNT_LOCK:
         LAUNCHES[name] += 1
+
+
+def _profiled_call(name: str, func, args) -> int:
+    """A C call while torch.profiler records.  The kernels, memsets and
+    copies it issues reach the profiler with no correlation to a host
+    event (``ctypes`` calls a cudart that the profiler does not trace).
+    So the call runs inside a ``repro:launch:<name>`` range, after a
+    one-element fill (a torch op, which the profiler correlates) on the
+    same stream: on the device, the events with no correlation that
+    follow the fill are this call's."""
+    import torch
+
+    from ..obs.trace import profiler_range
+
+    index = _device()
+    marker = _MARKERS.get(index)
+    if marker is None:
+        marker = _MARKERS[index] = torch.zeros(
+            1, dtype=torch.int32, device=torch.device("cuda", index))
+    with profiler_range("launch:" + name):
+        marker.fill_(1)
+        return func(*args, _raw_stream(index))
 
 
 def check_cuda_tensor(name: str, x, dtypes) -> None:

@@ -43,32 +43,19 @@ is t machines' rows, and every call handles all of them at once.
 
 Where the port's counts differ from the reference's: the reference's
 ``DISPATCH_COUNTS`` ticks once per *trace*, and a query served from its
-compiled-program cache ticks nothing; its opt-in
-``kernel_dispatch_execs_total{op, path}`` ticks per *execution*, through
-a host callback compiled into the program.  The port compiles nothing:
-every call dispatches and executes, so ``DISPATCH_COUNTS`` ticks per
-call, and with execution counting on (``REPRO_EXEC_COUNTS=1`` or
-:func:`enable_exec_counts`, off by default) ``_tick`` also increments
-``kernel_dispatch_execs_total`` -- the same count, under the
-reference's name (:func:`exec_dispatch_counts`).  A switch takes effect
-at the next call.
-
-With ``REPRO_OP_TIMING=1`` (``OP_TIMING_ENABLED``, off by default) the
-eight sort-side dispatchers the reference times (not flash attention)
-observe their call's host time in the registry histogram
-``kernel_op_seconds{op}``, ending in ``torch.cuda.synchronize()`` where
-the result lies on the card (ROADMAP C4).  Off, it costs one bool check
-a call.  Nested calls (the radix family's sort inside
-``sort_partition``) are timed each.
+compiled-program cache ticks nothing; its opt-in second counter
+ticks per *execution*.  The port compiles nothing: every call
+dispatches and executes, so ``DISPATCH_COUNTS`` and
+``kernel_dispatch_traces_total`` count executions too, and the port
+keeps no second counter.  Nor does it keep the reference's opt-in
+histogram of each op's host time: an op's device time is read from the
+profiler, under the ``obs.trace`` spans around it.
 """
 from __future__ import annotations
 
 import collections
 import contextlib
-import functools
-import os
 import threading
-import time
 from typing import Optional
 
 import torch
@@ -88,8 +75,7 @@ __all__ = [
     "reset_dispatch_counts", "DISPATCH_COUNTS", "MAX_KERNEL_LANES",
     "RANK_MERGE_BOUND_BLOCK", "MERGE_TILE_LANES", "RADIX_BITS",
     "RADIX_MIN_LANES", "RADIX_PASS_SUBSTAGES", "key_to_bits",
-    "bits_to_key", "EXEC_COUNTS_ENABLED", "OP_TIMING_ENABLED",
-    "enable_exec_counts", "exec_dispatch_counts",
+    "bits_to_key",
 ]
 
 # Which kernel runs, not what is admitted.  The reference's VMEM-sized
@@ -134,10 +120,9 @@ _FORCE_SORT_KERNEL: Optional[str] = None
 DISPATCH_COUNTS: collections.Counter = collections.Counter()
 _COUNTS_LOCK = threading.Lock()
 
-# The reference's two opt-in lenses (the module docstring): execution
-# counts in the registry, and per-op host timing.
-EXEC_COUNTS_ENABLED = os.environ.get("REPRO_EXEC_COUNTS", "0") == "1"
-OP_TIMING_ENABLED = os.environ.get("REPRO_OP_TIMING", "0") == "1"
+# (op, path) -> (the registry's generation, its counter): the registry
+# is looked up once a generation, not once a dispatch
+_TICKS: dict = {}
 
 _next_pow2 = bitonic._next_pow2
 
@@ -149,60 +134,19 @@ def reset_dispatch_counts() -> None:
         DISPATCH_COUNTS.clear()
 
 
-def enable_exec_counts(on: bool = True) -> None:
-    """Turn execution counting (``kernel_dispatch_execs_total``) on or
-    off from the next call."""
-    global EXEC_COUNTS_ENABLED
-    EXEC_COUNTS_ENABLED = bool(on)
-
-
-def exec_dispatch_counts() -> dict:
-    """{(op, path): executions} from the registry's exec counter."""
-    out = {}
-    for labels, v in REGISTRY.counters_matching(
-            "kernel_dispatch_execs_total").items():
-        d = dict(labels)
-        out[(d.get("op", "?"), d.get("path", "?"))] = int(v)
-    return out
-
-
 def _tick(op: str, x: torch.Tensor, family: str = "bitonic") -> None:
     path = "cuda" if x.is_cuda else "plain"
     if family == "radix":
         path = "radix-" + path
+    key = (op, path)
     with _COUNTS_LOCK:
-        DISPATCH_COUNTS[(op, path)] += 1
-    REGISTRY.counter("kernel_dispatch_traces_total", op=op, path=path).inc()
+        DISPATCH_COUNTS[key] += 1
+    hit = _TICKS.get(key)
+    if hit is None or hit[0] != REGISTRY.generation:
+        hit = _TICKS[key] = (REGISTRY.generation, REGISTRY.counter(
+            "kernel_dispatch_traces_total", op=op, path=path))
+    hit[1].inc()
     obs_trace.event("kernel_dispatch", op=op, path=path)
-    if EXEC_COUNTS_ENABLED:
-        REGISTRY.counter("kernel_dispatch_execs_total", op=op,
-                         path=path).inc()
-
-
-def _on_card(out) -> bool:
-    items = out if isinstance(out, tuple) else (out,)
-    return any(isinstance(a, torch.Tensor) and a.is_cuda for a in items)
-
-
-def _op_timing(fn):
-    """Observe a dispatcher call's host time in ``kernel_op_seconds{op}``
-    when ``OP_TIMING_ENABLED``: the call, then a synchronize where its
-    result lies on the card.  Off, one bool check."""
-    name = fn.__name__
-
-    @functools.wraps(fn)
-    def wrapper(*args, **kw):
-        if not OP_TIMING_ENABLED:
-            return fn(*args, **kw)
-        t0 = time.perf_counter()
-        out = fn(*args, **kw)
-        if _on_card(out):
-            torch.cuda.synchronize()
-        REGISTRY.histogram("kernel_op_seconds", op=name).observe(
-            time.perf_counter() - t0)
-        return out
-
-    return wrapper
 
 
 def _key_dtype_ok(x) -> bool:
@@ -334,7 +278,6 @@ def force_sort_kernel(kind: Optional[str]):
         _FORCE_SORT_KERNEL = prev
 
 
-@_op_timing
 def sort(x: torch.Tensor, *, prepadded: bool = False) -> torch.Tensor:
     """Ascending sort along the last axis.  x: (n,) or (rows, n).
 
@@ -372,7 +315,6 @@ def _take_rows(values: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
     return values[rows, idx]
 
 
-@_op_timing
 def sort_kv(keys: torch.Tensor, values: torch.Tensor, *,
             prepadded: bool = False):
     """Stable sort of (keys, values) by key: returns (sorted, permuted).
@@ -425,7 +367,6 @@ def _bf16_queries(queries: torch.Tensor, side: str) -> torch.Tensor:
     return bits.to(torch.int16).view(torch.bfloat16)
 
 
-@_op_timing
 def searchsorted(sorted_arr: torch.Tensor, queries: torch.Tensor, *,
                  side: str = "left",
                  valid_len: Optional[int] = None) -> torch.Tensor:
@@ -473,7 +414,6 @@ def _query_rows(x2: torch.Tensor, interior: torch.Tensor) -> torch.Tensor:
     return interior.expand(x2.shape[0], interior.shape[-1]).contiguous()
 
 
-@_op_timing
 def sort_partition(x: torch.Tensor, interior: torch.Tensor):
     """Fused local sort and contiguous-destination partition.
 
@@ -508,7 +448,6 @@ def sort_partition(x: torch.Tensor, interior: torch.Tensor):
     return xs, starts, lens
 
 
-@_op_timing
 def sort_partition_kv(keys: torch.Tensor, values: torch.Tensor,
                       interior: torch.Tensor):
     """Payload-carrying :func:`sort_partition`, stable.
@@ -570,7 +509,6 @@ def _rank_merge(keys: torch.Tensor, with_order: bool = False):
     return merged, (order if with_order else None)
 
 
-@_op_timing
 def merge_sorted_rows(x: torch.Tensor) -> torch.Tensor:
     """Merge already-sorted rows into one sorted vector.
 
@@ -589,7 +527,6 @@ def merge_sorted_rows(x: torch.Tensor) -> torch.Tensor:
     return merged[0] if x.dim() == 2 else merged
 
 
-@_op_timing
 def merge_sorted_rows_kv(keys: torch.Tensor, values: torch.Tensor):
     """Merge sorted rows carrying payload.
 
@@ -613,7 +550,6 @@ def merge_sorted_rows_kv(keys: torch.Tensor, values: torch.Tensor):
     return (merged[0], vs[0]) if keys.dim() == 2 else (merged, vs)
 
 
-@_op_timing
 def bucketize_histogram(keys: torch.Tensor, boundaries: torch.Tensor,
                         t: int):
     """Fused bucket-id + histogram.  keys: (n,); boundaries: (t-1,)

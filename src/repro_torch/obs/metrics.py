@@ -188,6 +188,9 @@ class MetricsRegistry:
         self._counters: Dict[Tuple[str, LabelKey], Counter] = {}
         self._gauges: Dict[Tuple[str, LabelKey], Gauge] = {}
         self._histograms: Dict[Tuple[str, LabelKey], Histogram] = {}
+        # bumped by reset(): a caller that keeps an instrument for speed
+        # (``ops._tick``) looks it up again in the next generation
+        self.generation = 0
 
     # ---- instrument access -------------------------------------------
     def counter(self, name: str, **labels) -> Counter:
@@ -240,6 +243,7 @@ class MetricsRegistry:
 
     def reset(self) -> None:
         with self._lock:
+            self.generation += 1
             self._counters.clear()
             self._gauges.clear()
             self._histograms.clear()

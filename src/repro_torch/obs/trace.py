@@ -1,24 +1,67 @@
-"""Hierarchical span tracer -- where a call's wall-clock went.
+"""Hierarchical span tracer -- where a call's time went, on the
+profiler's clock.
 
-A copy of ``src/repro/obs/trace.py`` (pure Python; the port imports
-nothing of the reference package).  A traced ``cluster.sort`` gives a
-tree of spans:
+Adapted from ``src/repro/obs/trace.py`` (the port imports nothing of
+the reference package).  One instrumentation call, :func:`span`, feeds
+two sinks:
+
+* the **Tracer tree**: when a trace is open (:meth:`Tracer.trace`) the
+  span is recorded as a child of the current one, as in the reference;
+* the **torch profiler**: when ``torch.profiler`` is recording, the span
+  also opens a ``record_function`` range named ``repro:<name>``, so
+  the profiler's trace holds the program's spans beside its torch ops
+  and device events (``portbench/spantrace.py`` reduces them to device
+  busy and idle time a span).
+
+Whether the profiler records is one flag read
+(``torch.autograd._profiler_enabled``), never an opened range.  With
+neither sink on, :func:`span` returns a shared ``nullcontext`` after one
+ContextVar read and that flag read.
+
+**The clock.**  Span and event stamps are seconds on the Unix epoch,
+the clock of the profiler's host events: ``time.perf_counter_ns()``
+plus one offset to ``time.time_ns()``, read once when a root opens and
+shared by its whole tree.  So a ``chrome_trace`` of a tree lines up
+with a kineto trace of the same window.
+
+A traced ``cluster.sort`` gives this tree:
 
     q                                  (the caller's root: Tracer.trace;
-                                        "query" under the query engine)
-    ├─ plan.sort                       (algorithm="auto": cache hit OR
-    │  ├─ planner.sketch                sketch + score)
-    │  │  └─ substrate.run             (the sketch body)
-    │  │     └─ phase:round0 sketch
-    │  └─ planner.score
-    └─ substrate.run                   (one per capacity attempt)
-       ├─ phase:round1->2 samples      (leaf: taped counts, no host time)
-       ├─ phase:round2 boundaries
-       └─ phase:round3 shuffle         (staged: "... s1" and "... s2")
+    │                                   "query" under the query engine)
+    └─ cluster.sort                    (the front door: algorithm, t, m,
+       │                                payload_bytes)
+       ├─ plan.sort                    (algorithm="auto": cache hit OR
+       │  ├─ planner.sketch             sketch + score)
+       │  │  └─ substrate.run
+       │  │     └─ phase:round0 sketch
+       │  └─ planner.score
+       ├─ capacity.attempt             (one an attempt: attempt,
+       │  │                             cap_factor, tile_slots, tile_bytes,
+       │  │                             dropped)
+       │  ├─ substrate.run
+       │  │  ├─ phase:round1->2 samples
+       │  │  ├─ phase:round2 boundaries
+       │  │  └─ phase:round3 shuffle   (staged: "... s1" and "... s2")
+       │  │     ├─ round3.pack         (the cut and the send tile)
+       │  │     ├─ round3.all_to_all
+       │  │     └─ round3.merge
+       │  └─ sync:dropped
+       ├─ sort.collect                 (the output rows)
+       └─ sort.report                  (the tape's counts, count,
+                                        boundaries)
 
-with ``kernel_dispatch`` events (``ops._tick``) on the span open when a
-kernel wrapper is called and ``capacity_retry`` events from the retry
-loop.
+``sync:<site>`` spans sit around every blocking device-to-host read on
+the path (their number is the call's host syncs); ``kernel_dispatch``
+events (``ops._tick``) land on the span open when a kernel wrapper is
+called and ``capacity_retry`` events on the front door's.  A phase
+span is opened live by ``CollectiveTape.phase``; after the run the
+tape's per-machine ``sent``/``received`` arrays -- the numbers the
+``AlphaKReport`` phases carry, bitwise -- are attached to it
+(``substrate._attach_phases``).  The port's ctypes kernels
+(``kernels/cuda.py:launch``) open a ``repro:launch:<kernel>`` profiler
+range (no Tracer span) and fill a one-element marker in it first, so
+their device events, which carry no correlation, can be put down to
+their launch by stream order.
 
 Threading contract
 ------------------
@@ -26,22 +69,14 @@ The trace context is an explicit object (:class:`Span`) carried in a
 ``contextvars.ContextVar``.  A *root* span is opened with
 :meth:`Tracer.trace`; every instrumented layer below calls the
 module-level :func:`span` / :func:`event`, which attach to the current
-span **in the same thread** and are no-ops (one ContextVar read + a
-None check) when no trace is active.  A span is only ever mutated by
-the thread that opened it; the query engine opens each request's root
-in the worker thread that runs it, so the whole tree lives there.
-
-Leaf **phase spans** are attached after the substrate run from the
-``CollectiveTape``: their per-machine ``sent``/``received`` arrays are
-the same numbers the ``AlphaKReport`` phases carry, so span counts
-reconcile bitwise with the report.  Phase time is not observed (the
-phases' work is queued on the device together), so phase spans are
-instants at the run's end carrying the traffic attributes.
+span **in the same thread**.  A span is only ever mutated by the
+thread that opened it; the query engine opens each request's root in
+the worker thread that runs it, so the whole tree lives there.
 
 Overhead contract: with no active trace (the default: the process-global
-tracer, :func:`get_tracer`, starts disabled) every instrumentation
-point short-circuits before allocating anything, and no device counter
-is read.
+tracer, :func:`get_tracer`, starts disabled) and no profiler recording,
+every instrumentation point short-circuits before allocating anything,
+and no device counter is read.
 """
 from __future__ import annotations
 
@@ -54,14 +89,27 @@ import time
 from collections import deque
 from typing import Any, Dict, Iterator, List, Optional
 
+from torch.autograd import _profiler_enabled
+from torch.autograd.profiler import record_function
+
 __all__ = ["Span", "SpanEvent", "Tracer", "get_tracer", "set_tracer",
-           "enable", "disable", "current", "span", "event"]
+           "enable", "disable", "current", "span", "event", "sync",
+           "profiler_range", "RANGE_PREFIX"]
+
+# the profiler ranges' names: RANGE_PREFIX + the span's name
+RANGE_PREFIX = "repro:"
 
 _IDS = itertools.count(1)
 
 
 def _next_id(prefix: str) -> str:
     return f"{prefix}{next(_IDS):x}"
+
+
+def _clock_offset_ns() -> int:
+    """``time.time_ns() - time.perf_counter_ns()``: what turns the
+    monotonic counter into the profiler's Unix-epoch clock."""
+    return time.time_ns() - time.perf_counter_ns()
 
 
 @dataclasses.dataclass
@@ -78,7 +126,9 @@ class Span:
 
     ``attrs`` values may be numpy arrays (the phase spans' taped
     counters keep their bound dtype so tests can compare bitwise); the
-    Chrome exporter converts them to lists on the way out.
+    Chrome exporter converts them to lists on the way out.  Stamps are
+    Unix-epoch seconds: ``perf_counter_ns`` plus ``clock_offset_ns``,
+    which a tree's spans share with its root.
     """
     name: str
     trace_id: str
@@ -89,24 +139,32 @@ class Span:
     attrs: Dict[str, Any] = dataclasses.field(default_factory=dict)
     events: List[SpanEvent] = dataclasses.field(default_factory=list)
     children: List["Span"] = dataclasses.field(default_factory=list)
+    clock_offset_ns: int = dataclasses.field(
+        default_factory=_clock_offset_ns, repr=False, compare=False)
 
     @property
     def duration_s(self) -> float:
         return max(0.0, self.end_s - self.start_s)
 
+    def now_s(self) -> float:
+        """The current time on this span's clock."""
+        return (time.perf_counter_ns() + self.clock_offset_ns) * 1e-9
+
     def add_event(self, name: str, **attrs) -> SpanEvent:
-        ev = SpanEvent(name=name, ts_s=time.perf_counter(), attrs=attrs)
+        ev = SpanEvent(name=name, ts_s=self.now_s(), attrs=attrs)
         self.events.append(ev)
         return ev
 
     def add_child(self, name: str, *, start_s: Optional[float] = None,
                   end_s: Optional[float] = None, **attrs) -> "Span":
-        """Attach a pre-timed child (the post-hoc phase spans use this)."""
-        now = time.perf_counter()
+        """Attach a pre-timed child (a phase with no live span: records
+        taped outside every declared phase)."""
+        now = self.now_s()
         child = Span(name=name, trace_id=self.trace_id,
                      span_id=_next_id("s"), parent_id=self.span_id,
                      start_s=now if start_s is None else start_s,
-                     end_s=now if end_s is None else end_s, attrs=attrs)
+                     end_s=now if end_s is None else end_s, attrs=attrs,
+                     clock_offset_ns=self.clock_offset_ns)
         self.children.append(child)
         return child
 
@@ -137,7 +195,7 @@ class Span:
 
 
 # The explicit trace context: the innermost open span of this thread's
-# active trace (None == tracing off for this code path).
+# active trace (None == no Tracer sink for this code path).
 _CURRENT: "contextvars.ContextVar[Optional[Span]]" = \
     contextvars.ContextVar("repro_torch_obs_current_span", default=None)
 
@@ -149,32 +207,89 @@ def current() -> Optional[Span]:
     return _CURRENT.get()
 
 
-@contextlib.contextmanager
-def _child_cm(name: str, parent: Span, attrs: Dict[str, Any]):
-    sp = Span(name=name, trace_id=parent.trace_id, span_id=_next_id("s"),
-              parent_id=parent.span_id, start_s=time.perf_counter(),
-              attrs=attrs)
-    parent.children.append(sp)
-    token = _CURRENT.set(sp)
-    try:
-        yield sp
-    finally:
-        sp.end_s = time.perf_counter()
-        _CURRENT.reset(token)
+class _Range:
+    """A ``repro:<name>`` profiler range alone (no trace open); yields
+    None, as a span with no Tracer sink does."""
+    __slots__ = ("_rf",)
+
+    def __init__(self, name: str):
+        self._rf = record_function(RANGE_PREFIX + name)
+
+    def __enter__(self):
+        self._rf.__enter__()
+        return None
+
+    def __exit__(self, *exc):
+        self._rf.__exit__(*exc)
+        return False
+
+
+class _ChildSpan:
+    """A Tracer child span and, when the profiler records, its range.
+    The profiler stamps a range at the end of its entry and of its exit
+    calls, so the span's stamps are taken just after each."""
+    __slots__ = ("_name", "_parent", "_attrs", "_rf", "_sp", "_token")
+
+    def __init__(self, name: str, parent: Span, attrs: Dict[str, Any]):
+        self._name, self._parent, self._attrs = name, parent, attrs
+
+    def __enter__(self) -> Span:
+        self._rf = None
+        if _profiler_enabled():
+            self._rf = record_function(RANGE_PREFIX + self._name)
+            self._rf.__enter__()
+        start_s = self._parent.now_s()
+        parent = self._parent
+        sp = Span(name=self._name, trace_id=parent.trace_id,
+                  span_id=_next_id("s"), parent_id=parent.span_id,
+                  start_s=start_s, attrs=self._attrs,
+                  clock_offset_ns=parent.clock_offset_ns)
+        parent.children.append(sp)
+        self._sp, self._token = sp, _CURRENT.set(sp)
+        return sp
+
+    def __exit__(self, *exc):
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+        self._sp.end_s = self._sp.now_s()
+        _CURRENT.reset(self._token)
+        return False
 
 
 def span(name: str, **attrs):
-    """Open a child span under the current one; no-op without a trace.
+    """Open a span under the current one, in whichever sinks are on.
 
     The instrumentation entry every layer uses::
 
         with obs_trace.span("substrate.run", body=label) as sp:
-            ...            # sp is None when tracing is off
+            ...            # sp is None when no trace is open
+
+    Under an open trace ``sp`` is the new :class:`Span`; with the torch
+    profiler recording a ``repro:<name>`` range spans the block too;
+    with neither, this is a no-op.
     """
     parent = _CURRENT.get()
-    if parent is None:
-        return _NULL
-    return _child_cm(name, parent, attrs)
+    if parent is not None:
+        return _ChildSpan(name, parent, attrs)
+    if _profiler_enabled():
+        return _Range(name)
+    return _NULL
+
+
+def sync(site: str, on_card: bool):
+    """A ``sync:<site>`` span around a read that blocks the host until
+    the card has caught up (``on_card``: the tensor read lies on the
+    card); a no-op for host tensors, whose reads block nothing."""
+    return span("sync:" + site) if on_card else _NULL
+
+
+def profiler_range(name: str):
+    """A ``repro:<name>`` profiler range while the profiler records, no
+    Tracer span: for points too frequent for the tree (kernel
+    launches).  A no-op otherwise."""
+    if _profiler_enabled():
+        return _Range(name)
+    return _NULL
 
 
 def event(name: str, **attrs) -> None:
@@ -207,13 +322,13 @@ class Tracer:
     @contextlib.contextmanager
     def _root_cm(self, name: str, attrs: Dict[str, Any]):
         root = Span(name=name, trace_id=_next_id("t"),
-                    span_id=_next_id("s"), start_s=time.perf_counter(),
-                    attrs=attrs)
+                    span_id=_next_id("s"), attrs=attrs)
+        root.start_s = root.now_s()
         token = _CURRENT.set(root)
         try:
             yield root
         finally:
-            root.end_s = time.perf_counter()
+            root.end_s = root.now_s()
             _CURRENT.reset(token)
             with self._lock:
                 self.traces.append(root)

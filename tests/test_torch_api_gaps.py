@@ -6,9 +6,7 @@ inputs made with numpy from a seed: the paper's k bounds of Theorems 4,
 (bitwise), ``join_size`` (exactly), the radix key bijection through
 ``ops``, the oracles ``bucketize_ref`` (exactly) and ``attention_ref``
 (within 1e-5 of the reference's and of the port's flash plain
-version), the reference's execution-count contract
-(``tests/test_obs.py``), ``kernel_op_seconds`` only when timing is on,
-``train_input_sharding`` for all ten configurations, and the entry
+version), ``train_input_sharding`` for all ten configurations, and the entry
 points whose device now defaults to the card.
 """
 import datetime
@@ -52,7 +50,6 @@ def _reset_port_state():
         planner.clear_plan_cache()
         cluster.reset_default_pool()
         ops.reset_dispatch_counts()
-        ops.enable_exec_counts(False)
         obs.reset_registry()
     reset()
     yield
@@ -217,57 +214,6 @@ def test_attention_ref_is_the_references_and_the_flash_plain(causal, window,
     plain = fa.flash_attention(tq, tk, tv, causal=causal, window=window)
     np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=1e-5,
                                atol=1e-5)
-
-
-def _sort_twice(x):
-    pool = cluster.SubstratePool()
-    cluster.sort(x, algorithm="smms", substrate=pool, device="cpu")
-    cold = dict(ops.DISPATCH_COUNTS)
-    execs_cold = ops.exec_dispatch_counts()
-    cluster.sort(x, algorithm="smms", substrate=pool, device="cpu")
-    return cold, execs_cold, dict(ops.DISPATCH_COUNTS), \
-        ops.exec_dispatch_counts()
-
-
-def test_exec_counts_tick_per_execution():
-    """The reference's contract (tests/test_obs.py): executions equal the
-    dispatch count cold and double on a second identical call.  The
-    port dispatches on every call, so its DISPATCH_COUNTS double too."""
-    x = np.random.default_rng(0).normal(size=(4, 64)).astype(np.float32)
-    ops.enable_exec_counts(True)
-    try:
-        cold, execs_cold, warm, execs_warm = _sort_twice(x)
-    finally:
-        ops.enable_exec_counts(False)
-    assert cold and execs_cold == cold
-    assert execs_warm == {k: 2 * v for k, v in cold.items()}
-    assert warm == execs_warm
-
-
-def test_exec_counts_stay_off_by_default():
-    x = np.random.default_rng(1).normal(size=(4, 64)).astype(np.float32)
-    cold, execs_cold, _, execs_warm = _sort_twice(x)
-    assert cold and execs_cold == {} and execs_warm == {}
-
-
-def _op_seconds():
-    return {dict(k)["op"]: h.count for k, h in
-            obs.REGISTRY.histograms_matching("kernel_op_seconds").items()}
-
-
-def test_op_seconds_observed_only_when_enabled(monkeypatch):
-    x = np.random.default_rng(2).normal(size=(4, 256)).astype(np.float32)
-    cluster.sort(x, algorithm="smms", device="cpu")
-    assert _op_seconds() == {}
-    ops.reset_dispatch_counts()
-    monkeypatch.setattr(ops, "OP_TIMING_ENABLED", True)
-    cluster.sort(x, algorithm="smms", device="cpu")
-    calls = {}
-    for (op, _), n in ops.DISPATCH_COUNTS.items():
-        calls[op] = calls.get(op, 0) + n
-    assert calls and _op_seconds() == calls
-    for h in obs.REGISTRY.histograms_matching("kernel_op_seconds").values():
-        assert h.min >= 0.0
 
 
 # ---------------------------------------------------------------------------

@@ -285,4 +285,4 @@ def test_example_defaults_to_the_card(name, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA device"):
         load(name).main([])
     assert not dist.is_initialized()
-    assert not ops.EXEC_COUNTS_ENABLED
+    assert not obs.get_tracer().enabled

@@ -4,17 +4,19 @@ Histograms, gauges and counters fed the same observations in both
 packages give the same quantiles, means and snapshots, and the same
 ``to_json`` and ``to_prometheus_text``; ``chrome_trace`` of the same
 span tree is the reference's document (the span ids too, when the
-trees carry the same ids; a traced sort's document equal apart from
-ids, times and the instant events, which in the reference name its
-JAX backends and compiles).  The process-global tracer is off
-by default, and a query engine opens a ``query`` root per executed
-request whose ``substrate.run`` holds the report's ``phase:*`` spans.
+trees carry the same ids; a traced sort's document, the port's own
+spans taken out, equal apart from ids, times and the instant events,
+which in the reference name its JAX backends and compiles).  The
+process-global tracer is off by default, and a query engine opens a
+``query`` root per executed request whose ``substrate.run`` holds the
+report's ``phase:*`` spans.
 """
 import json
 import math
 import subprocess
 import sys
 import textwrap
+import time
 
 import numpy as np
 import jax.numpy as jnp
@@ -32,6 +34,8 @@ from repro_torch.obs import (Gauge, Histogram, MetricsRegistry, Span,
                              write_chrome_trace)
 from repro_torch.serve import QueryEngine, sort_query
 from repro_torch.serve.query import reset_serve_counters
+
+from test_torch_obs import port_shape, reference_view
 
 WAIT = 60.0
 
@@ -177,31 +181,47 @@ def test_chrome_trace_equals_the_reference(tmp_path):
 def _without_ids(doc):
     """The spans' events as (ph, name, cat, args), ids and times left
     out.  Instant events on spans are not compared: the reference's
-    name JAX backends and its compiles."""
+    name JAX backends and its compiles.  A phase span's ``ph`` is not
+    compared either: the reference's phases are instants, the port's
+    are opened live and have a duration."""
     drop = {"span_id", "parent_id"}
     out = []
     for e in doc["traceEvents"]:
         if e.get("cat") != "span":
             continue
         args = {k: v for k, v in e["args"].items() if k not in drop}
-        out.append((e["ph"], e["name"], e.get("cat"), args))
+        ph = None if e["name"].startswith("phase:") else e["ph"]
+        out.append((ph, e["name"], e.get("cat"), args))
     return out
 
 
 def test_chrome_trace_of_a_traced_sort_equals_the_reference():
+    """The port's document, its own spans taken out, is the
+    reference's; the whole document holds the port's tree, each span a
+    complete event on the profiler's clock."""
     t, m = 4, 64
     x = np.random.default_rng(3).normal(size=(t, m)).astype(np.float32)
     tracer, jtracer = Tracer(enabled=True), jobs.Tracer(enabled=True)
+    before = time.time()
     with tracer.trace("q"):
         cluster.sort(x, device="cpu")
+    after = time.time()
     with jtracer.trace("q"):
         jcluster.sort(jnp.asarray(x), substrate=JSubstratePool())
-    ours, ref = chrome_trace(tracer.last()), jobs.chrome_trace(jtracer.last())
+    ours = chrome_trace(reference_view(tracer.last()))
+    ref = jobs.chrome_trace(jtracer.last())
     for doc in (ours, ref):
         for e in doc["traceEvents"]:
             if e["name"] == "substrate.run":
                 e["args"].pop("substrate"), e["args"].pop("body")
     assert _without_ids(ours) == _without_ids(ref)
+    whole = [e for e in chrome_trace(tracer.last())["traceEvents"]
+             if e.get("cat") == "span"]
+    assert [e["name"] for e in whole] == [
+        line.strip() for line in port_shape("smms", "flat")]
+    assert {e["ph"] for e in whole} == {"X"}
+    assert all(before * 1e6 <= e["ts"] <= e["ts"] + e["dur"] <= after * 1e6
+               for e in whole)
 
 
 def test_global_tracer_is_off_by_default():
@@ -237,8 +257,12 @@ def test_engine_query_spans_hold_the_runs_phases():
     assert obs.get_tracer().last() is root
     assert twin.coalesced and twin.trace is root
     assert hit.cached and hit.trace is None
-    assert [c.name for c in root.children] == ["plan.sort", "substrate.run"]
-    run = root.children[1]
+    assert [c.name for c in root.children] == ["cluster.sort"]
+    assert [c.name for c in root.children[0].children] == [
+        "plan.sort", "capacity.attempt", "sort.collect", "sort.report"]
+    view = reference_view(root)
+    assert [c.name for c in view.children] == ["plan.sort", "substrate.run"]
+    run = view.children[1]
     assert [c.name for c in run.children] == [
         f"phase:{p.name}" for p in first.report.phases]
     for c, p in zip(run.children, first.report.phases):
@@ -247,4 +271,4 @@ def test_engine_query_spans_hold_the_runs_phases():
     assert math.isfinite(root.duration_s) and root.duration_s > 0
     doc = chrome_trace(root)
     assert [e["name"] for e in doc["traceEvents"]
-            if e["ph"] == "X"][:2] == ["query", "plan.sort"]
+            if e["ph"] == "X"][:3] == ["query", "cluster.sort", "plan.sort"]

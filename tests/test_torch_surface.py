@@ -25,6 +25,10 @@ REFERENCE = ROOT / "repro"
 _NO_SWITCH = ("the port has no backend switch: the operand's device "
               "decides (ROADMAP ground rules, Dispatch)")
 
+_SAME_COUNT = ("the port dispatches on every call (it compiles nothing), "
+               "so its dispatch counter counts the executions")
+_TRACES = "repro_torch.kernels.ops.DISPATCH_COUNTS"
+
 # name -> (reason, the port's counterpart as a dotted path, or None)
 LEFT_OUT = {
     "BACKENDS": (_NO_SWITCH, None),
@@ -46,6 +50,15 @@ LEFT_OUT = {
                            None),
     "boundaries_jax": ("the reference's name for its jnp Algorithm 1",
                        "repro_torch.core.boundaries.boundaries"),
+    # the reference's opt-in lenses: a per-execution counter and per-op
+    # host time (a synchronize a call)
+    "EXEC_COUNTS_ENABLED": (_SAME_COUNT, _TRACES),
+    "enable_exec_counts": (_SAME_COUNT, _TRACES),
+    "exec_dispatch_counts": (_SAME_COUNT, _TRACES),
+    "OP_TIMING_ENABLED": ("host time with a synchronize a call, which "
+                          "changes what it times; an op's device time is "
+                          "read from the profiler under the obs.trace "
+                          "spans around it", "repro_torch.obs.trace.span"),
 }
 
 # The JAX-only keywords of the checked functions.
